@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds the hand-written CUDA kernel from ``chirpgp_tpu_torch/ops/csrc`` on
-first use and drives the batched IF-estimation path once at full width.
+first use and drives the batched IF-estimation path, the single-record
+MLE path and the fused batched filter+smoother once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
@@ -20,7 +21,16 @@ Phases, one line each:
    times of the kernel, of the plain filter (in turns: plain, kernel,
    kernel, plain) and of the whole estimate;
 4. accuracy gate: seed 0 of ``results/data/toydata_const.npz`` at the
-   reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32.
+   reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32;
+5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
+   float64) value and gradient on the card against the host CPU; the
+   float32 sqrt objective against the CUDA kernel's nll; ``fit_mle``
+   (SciPy L-BFGS-B, 5 iterations); ``estimate_if`` GHFS and EKFS gates;
+6. the fused batched filter+smoother: at B=512, T=256, float64, against
+   the separate filter and smoother, slim output bit-equal to the full
+   one, covariance form against square-root form; then the slim output at
+   the benchmark's B=4096, T=3141, float32, its GH-10 IF mean against
+   phase 3's.
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
 The line before the last is a JSON record of the kernels; the last line
@@ -28,6 +38,7 @@ is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
 """
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -53,6 +64,17 @@ FULL_BOUNDS = {"float64": (1e-9, 1e-9, 1e-12), "float32": (1e-4, 1e-4, 2e-5)}
 GATES = {"ckfs": ("cubature", 0.77619, 906.6107),
          "ghfs": ("gauss_hermite", 0.78564, 906.7245)}
 GATE_RMSE_ATOL, GATE_NELL_RTOL = 0.005, 1e-4
+# Phase 5: the float64 nll at the GHFS optimum through the float64 batched
+# path (906.72448), and the reference's seed-0 IF-RMSE x10 of GHFS and EKFS.
+MLE_NLL, MLE_NLL_RTOL = 906.72448, 1e-6
+MLE_GATES = {"ghfs": 0.7856412, "ekfs": 0.7327871}
+MLE_ITERS = 5
+# Phase 6d: the slim fused IF mean against estimate_if_batched's, both in
+# float32, as max deviation over (1 + max |IF|).  On the host CPU the two
+# plain versions differ by 9.3e-6 at B=32; the bound leaves room for the
+# lane maximum at B=4096 and the filter kernel's own float32 rounding.
+FUSED_IF_BOUND = 1e-4
+FUSED_SMALL_B, FUSED_SMALL_T, FUSED_F64_BOUND = 512, 256, 1e-9
 KERNEL_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_filter.cu"
 KERNEL_REPLACES = "chirpgp_tpu/experimental/pallas_filter.py:248"
 
@@ -102,10 +124,10 @@ def deviations(kern, plain):
         scale_mfs=float(mp.abs().max()), scale_LLT=float(Pp.abs().max()))
 
 
-def timed(fn, *args):
+def timed(fn, *args, **kwargs):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -214,7 +236,7 @@ def phase_slice(device):
           f"{[round(1e3 * t, 3) for t in times['plain']]} ms (order plain, "
           f"kernel, kernel, plain); whole estimate {1e3 * t_est:.3f} ms = "
           f"{B_FULL * T_FULL / t_est:.1f} steps/s")
-    return launches, ms_k, ms_p
+    return launches, ms_k, ms_p, est["if_mean"], t_est
 
 
 def phase_accuracy(device):
@@ -241,6 +263,200 @@ def phase_accuracy(device):
     print("phase 4 accuracy: " + "; ".join(parts))
 
 
+def scaled_dev(a, b):
+    """max |a - b| over (1 + max |b|)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / (1.0 + b.abs().max()))
+
+
+def value_and_grad(fn, theta, device):
+    """The objective's value and gradient at ``theta`` on ``device``, as
+    float64 host tensors, and the wall time of the call."""
+    th = theta.to(device).requires_grad_(True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = fn(th)
+    grad, = torch.autograd.grad(value, th)
+    value, grad = value.detach().cpu(), grad.cpu()
+    return float(value), grad, time.perf_counter() - t0
+
+
+def phase_mle(device):
+    from unittest import mock
+    import chirpgp_tpu_torch.apps.pipeline as pipeline
+    from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.models import g, g_inv
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    from chirpgp_tpu_torch.utils import rmse
+    data = np.load(ROOT / "results/data/toydata_const.npz")
+    y_host = torch.as_tensor(data["ys"][0], dtype=torch.float64)
+    ys = y_host.to(device)
+    tf = torch.as_tensor(data["true_freqs"], dtype=torch.float64, device=device)
+    ref = {name: np.load(ROOT / f"results/reference/{name}_const.npz")
+           for name in MLE_GATES}
+    theta_star = g_inv(params_from_jax(ref["ghfs"]["params"][0]))
+    theta0 = g_inv(torch.tensor(SMALL_PARAMS, dtype=torch.float64))
+    cfg = IFEstimationConfig()
+    cpu = torch.device("cpu")
+    parts = []
+    t_phase = time.perf_counter()
+
+    ghfs_chirp_filter.launches = 0
+    # a. float64 cov GHFS objective: card against host CPU, at theta* and
+    # theta0.  The gradient nearly vanishes at the optimum, so there its
+    # deviation is held to the gradient's scale at theta0.
+    card_nll = pipeline.make_nll_fn(cfg, ys)
+    host_nll = pipeline.make_nll_fn(cfg, y_host)
+    v_star, g_star, t_star = value_and_grad(card_nll, theta_star, device)
+    v0, g0, t0 = value_and_grad(card_nll, theta0, device)
+    v_host, g_host, t_host = value_and_grad(host_nll, theta_star, cpu)
+    v0_host, g0_host, _ = value_and_grad(host_nll, theta0, cpu)
+    check(abs(v_star - MLE_NLL) <= MLE_NLL_RTOL * MLE_NLL,
+          f"nll at theta* {v_star!r} not within {MLE_NLL_RTOL} of {MLE_NLL}")
+    scale = float(g0_host.abs().max())
+    devs = {}
+    for at, (vc, gc, vh, gh) in (("theta*", (v_star, g_star, v_host, g_host)),
+                                 ("theta0", (v0, g0, v0_host, g0_host))):
+        check(np.isfinite(vc) and abs(vc - vh) <= 1e-9 * abs(vh),
+              f"nll at {at}: card {vc!r} vs host {vh!r}")
+        devs[at] = float((gc - gh).abs().max()) / scale
+        check(devs[at] <= 1e-7, f"grad at {at}: card vs host {devs[at]} of "
+                                f"max|grad(theta0)|")
+    parts.append(
+        f"5a cov GHFS f64 T={ys.shape[0]}: nll(theta*) card {v_star!r}, "
+        f"host {v_host!r}; nll(theta0) card {v0!r}, host {v0_host!r}; max|d "
+        f"grad| card vs host over max|grad(theta0)| {devs['theta*']:.3g} at "
+        f"theta*, {devs['theta0']:.3g} at theta0; |grad(theta*)| "
+        f"{float(g_star.norm())!r}, |grad(theta0)| {float(g0.norm())!r}; "
+        f"value-and-grad card {t_star:.3f} s, {t0:.3f} s, host CPU "
+        f"{t_host:.3f} s")
+
+    # c. fit_mle from theta0, counting the objective's calls.
+    calls = []
+
+    def counted_make_nll_fn(_cfg, _ys):
+        def nll(theta):
+            calls.append(1)
+            return card_nll(theta)
+        return nll
+
+    with mock.patch.object(pipeline, "make_nll_fn", counted_make_nll_fn):
+        opt, t_fit = timed(pipeline.fit_mle,
+                           dataclasses.replace(cfg, max_iters=MLE_ITERS),
+                           ys, theta0)
+    f_fit = float(opt.fun_val)
+    check(np.isfinite(f_fit) and f_fit < v0,
+          f"fit_mle: final nll {f_fit!r} not finite and below {v0!r}")
+    parts.append(
+        f"5c fit_mle scipy {int(opt.num_iters)} iters, {len(calls)} "
+        f"objective calls, nll {v0!r} -> {f_fit!r}, success "
+        f"{bool(opt.success)}; {t_fit:.3f} s = {t_fit / len(calls):.3f} s "
+        f"per value-and-grad on the card (host CPU {t_host:.3f} s, once)")
+
+    # d. estimate_if gates, float64.
+    for name, want in MLE_GATES.items():
+        params = params_from_jax(ref[name]["params"][0], device=device)
+        est, t_est = timed(estimate_if, IFEstimationConfig(method=name),
+                           params, ys)
+        check(bool(torch.isfinite(est["if_mean"]).all()),
+              f"{name}: non-finite if_mean")
+        r10 = 10.0 * float(rmse(tf, est["if_mean"]))
+        check(abs(r10 - want) <= GATE_RMSE_ATOL,
+              f"{name}: IF-RMSE x10 {r10!r} not within {GATE_RMSE_ATOL} of {want}")
+        parts.append(f"5d estimate_if {name} f64 IF-RMSE x10 {r10!r} (ref "
+                     f"{want}), nell {float(est['nell'][-1])!r}, "
+                     f"{t_est:.3f} s")
+    path_launches = ghfs_chirp_filter.launches
+
+    # b. float32 sqrt objective at theta* against the kernel's nll[-1].
+    th32 = theta_star.to(device, torch.float32)
+    with torch.no_grad():
+        v32, t32 = timed(pipeline.make_nll_fn(IFEstimationConfig(form="sqrt"),
+                                              ys.float()), th32)
+        _, _, nll_k = ghfs_chirp_filter(g(th32), XI, DT, cfg.sigma_points(),
+                                        ys.float()[None])
+    check(v32.dtype == torch.float32, f"sqrt objective dtype {v32.dtype}")
+    rel = abs(float(v32) - float(nll_k[-1, 0])) / abs(float(nll_k[-1, 0]))
+    check(rel <= FULL_BOUNDS["float32"][2],
+          f"sqrt f32 objective {float(v32)!r} vs kernel nll "
+          f"{float(nll_k[-1, 0])!r}: rel {rel}")
+    parts.insert(1, f"5b sqrt GHFS f32 nll(theta*) {float(v32)!r} ({t32:.3f} "
+                    f"s) vs CUDA kernel {float(nll_k[-1, 0])!r}: rel {rel:.3g}")
+    print(f"phase 5 MLE path ({time.perf_counter() - t_phase:.3f} s; kernel "
+          f"launches in 5a/5c/5d: {path_launches}): " + "; ".join(parts))
+
+
+def phase_fused(device, if_ref, t_ref):
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.infer.batched import (
+        cov_sgp_filter_smoother_batched, gaussian_expectation_batched,
+        sqrt_sgp_filter_batched, sqrt_sgp_filter_smoother_batched,
+        sqrt_sgp_smoother_batched)
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    cfg = IFEstimationConfig()
+    rule = cfg.sigma_points()
+    parts = []
+    t_phase = time.perf_counter()
+
+    def args(dtype, yss):
+        pack = cfg.build(g(cfg.default_init_theta()).to(device, dtype))
+        return (pack.m_and_cov, rule, pack.H, XI, pack.m0, pack.P0, DT, yss)
+
+    ghfs_chirp_filter.launches = 0
+    yss = measurements(FUSED_SMALL_B, FUSED_SMALL_T, 7, torch.float64, device)
+    a = args(torch.float64, yss)
+    mfs, Lfs, nll = sqrt_sgp_filter_batched(*a)
+    mss, Lss = sqrt_sgp_smoother_batched(a[0], rule, mfs, Lfs, DT)
+    Pss = torch.einsum("tikb,tjkb->tijb", Lss, Lss)
+    ms_f, Ls_f, nll_f = sqrt_sgp_filter_smoother_batched(*a)
+    Ps_f = torch.einsum("tikb,tjkb->tijb", Ls_f, Ls_f)
+    ms_c, Ps_c, nll_c = sqrt_sgp_filter_smoother_batched(
+        *a, return_factors=False)
+    vm, vv, nll_s = sqrt_sgp_filter_smoother_batched(
+        *a, return_factors=False, out_index=2)
+    ms_k, Ps_k, nll_k = cov_sgp_filter_smoother_batched(*a)
+    devs = {"fused vs separate": (scaled_dev(ms_f, mss), scaled_dev(Ps_f, Pss),
+                                  scaled_dev(nll_f, nll)),
+            "cov form vs sqrt fused": (scaled_dev(ms_k, ms_c),
+                                       scaled_dev(Ps_k, Ps_c),
+                                       scaled_dev(nll_k, nll_c))}
+    for what, vals in devs.items():
+        for key, val in zip(("mss", "Pss", "nll"), vals):
+            check(val <= FUSED_F64_BOUND, f"6: {what} {key} {val} > "
+                                          f"{FUSED_F64_BOUND}")
+        parts.append(f"{what} (scaled mss, Pss, nll) "
+                     f"{', '.join(f'{v:.3g}' for v in vals)}")
+    slim_equal = (torch.equal(vm, ms_c[:, 2]) and torch.equal(vv, Ps_c[:, 2, 2])
+                  and torch.equal(nll_s, nll_c))
+    check(slim_equal, "6b: slim output is not bit-equal to the full slices")
+    parts.insert(0, f"6a-c B={FUSED_SMALL_B} T={FUSED_SMALL_T} f64; slim == "
+                    f"full slices: {slim_equal}")
+
+    yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
+    (vm, vv, nll), t_fused = timed(sqrt_sgp_filter_smoother_batched,
+                                   *args(torch.float32, yss),
+                                   return_factors=False, out_index=2)
+    for name, x in (("v_mean", vm), ("v_var", vv), ("nll", nll)):
+        check(bool(torch.isfinite(x).all()), f"6d: non-finite {name}")
+    if_mean = gaussian_expectation_batched(vm, vv.clamp_min(0.0).sqrt(),
+                                           order=cfg.expectation_order).T
+    dev = scaled_dev(if_mean, if_ref)
+    check(dev <= FUSED_IF_BOUND,
+          f"6d: fused IF mean vs estimate_if_batched {dev} > {FUSED_IF_BOUND}")
+    parts.append(
+        f"6d slim fused B={B_FULL} T={T_FULL} f32: {1e3 * t_fused:.3f} ms = "
+        f"{B_FULL * T_FULL / t_fused:.1f} steps/s (estimate_if_batched, "
+        f"phase 3: {1e3 * t_ref:.3f} ms = {B_FULL * T_FULL / t_ref:.1f} "
+        f"steps/s); GH-10 IF mean vs phase 3's: scaled {dev:.3g} (bound "
+        f"{FUSED_IF_BOUND})")
+    print(f"phase 6 fused filter+smoother ({time.perf_counter() - t_phase:.3f}"
+          f" s; kernel launches: {ghfs_chirp_filter.launches}): "
+          + "; ".join(parts))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -262,8 +478,10 @@ def main() -> int:
     torch.cuda.set_device(device)
     phase_environment(device)
     max_err = phase_kernel_vs_plain(device)
-    launches, ms_k, ms_p = phase_slice(device)
+    launches, ms_k, ms_p, if_ref, t_ref = phase_slice(device)
     phase_accuracy(device)
+    phase_mle(device)
+    phase_fused(device, if_ref, t_ref)
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

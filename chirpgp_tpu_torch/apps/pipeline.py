@@ -1,22 +1,33 @@
-"""IF estimation at fixed hyperparameters over a batch of Monte-Carlo
-records (counterpart of ``chirpgp_tpu.apps.pipeline``; the MLE half --
-``make_nll_fn``, ``fit_mle``, ``estimate_if``, ``run_pipeline`` -- is
-not ported yet).
+"""End-to-end IF estimation with one typed config (counterpart of
+``chirpgp_tpu.apps.pipeline``; the chirp model only, and the
+continuous-discrete methods and the in-graph L-BFGS are not ported yet).
+
+``make_nll_fn`` (theta -> filter NLL) -> :func:`fit_mle` ->
+:func:`estimate_if` (filter + smooth + Gaussian expectation of g(V)), and
+:func:`run_pipeline` for all three; :func:`estimate_if_batched` for a
+batch of Monte-Carlo records at fixed hyperparameters.
 """
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
+from chirpgp_tpu_torch.fit.mle import MLEResult, scipy_minimize
+from chirpgp_tpu_torch.infer import (
+    ekf, eks, sgp_filter, sgp_smoother,
+    sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother)
 from chirpgp_tpu_torch.infer.batched import (
     sqrt_sgp_smoother_batched, gaussian_expectation_batched)
-from chirpgp_tpu_torch.models.bijections import g_inv
+from chirpgp_tpu_torch.models.bijections import g, g_inv
 from chirpgp_tpu_torch.models.chirp import build_chirp_model
 from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
 from chirpgp_tpu_torch.quad.sigma_points import (
     SigmaPoints, cubature, gauss_hermite, unscented)
 
-__all__ = ["IFEstimationConfig", "estimate_if_batched"]
+__all__ = ["IFEstimationConfig", "make_nll_fn", "fit_mle", "estimate_if",
+           "run_pipeline", "estimate_if_batched"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,8 +35,10 @@ class IFEstimationConfig:
     """Experiment contract for one IF-estimation run; the fields of the
     JAX package's config.  Defaults reproduce the canonical toymodel setup:
     dt=1e-3, Xi=0.1, GH order 3, init theta = g^{-1}([0.1, 0.1, 0.1, 1, 1, 7]).
-    Only ``model="chirp"`` is ported; ``method``, ``form``, ``optimizer``
-    and the L-BFGS fields are carried for the MLE half, which is not.
+    Only ``model="chirp"``, the methods ``ghfs`` and ``ekfs`` and
+    ``optimizer="scipy"`` are ported; ``chunk_iters``, ``ftol_rel``,
+    ``stall_patience`` and ``scan_unroll`` are carried for the slices that
+    use them and have no effect here.
     """
 
     dt: float = 1e-3
@@ -75,6 +88,124 @@ class IFEstimationConfig:
         return g_inv(torch.tensor([0.1, 0.1, 0.1, 1.0, 1.0, 7.0]))
 
 
+def _filter_fns(cfg: IFEstimationConfig):
+    """(filter, smoother) closures ``(pack, ys) -> ...`` for the configured
+    method.  In sqrt form the second moment returned is a Cholesky factor,
+    not a covariance."""
+    if cfg.method in ("cd_ghfs", "cd_ekfs"):
+        raise NotImplementedError(
+            f"method={cfg.method!r} is not ported yet (the continuous-"
+            "discrete slice, later PR); the port runs ghfs and ekfs")
+    if cfg.method not in ("ghfs", "ekfs"):
+        raise ValueError(f"Unknown method {cfg.method!r}")
+    if cfg.form not in ("cov", "sqrt"):
+        raise ValueError(f"Unknown form {cfg.form!r}")
+    sgps = cfg.sigma_points() if cfg.method == "ghfs" else None
+
+    if cfg.form == "sqrt" and cfg.method == "ghfs":
+        def flt(pack, ys):
+            return sqrt_sgp_filter(pack.m_and_cov, sgps, pack.H, cfg.Xi,
+                                   pack.m0, pack.P0, cfg.dt, ys)
+
+        def smt(pack, mfs, Lfs):
+            return sqrt_sgp_smoother(pack.m_and_cov, sgps, mfs, Lfs, cfg.dt)
+    elif cfg.form == "sqrt":
+        def flt(pack, ys):
+            return sqrt_ekf(pack.m_and_cov, pack.H, cfg.Xi, pack.m0,
+                            pack.P0, cfg.dt, ys)
+
+        def smt(pack, mfs, Lfs):
+            return sqrt_eks(pack.m_and_cov, mfs, Lfs, cfg.dt)
+    elif cfg.method == "ghfs":
+        def flt(pack, ys):
+            return sgp_filter(pack.m_and_cov, sgps, pack.H, cfg.Xi,
+                              pack.m0, pack.P0, cfg.dt, ys)
+
+        def smt(pack, mfs, Pfs):
+            return sgp_smoother(pack.m_and_cov, sgps, mfs, Pfs, cfg.dt)
+    else:
+        def flt(pack, ys):
+            return ekf(pack.m_and_cov, pack.H, cfg.Xi, pack.m0, pack.P0,
+                       cfg.dt, ys)
+
+        def smt(pack, mfs, Pfs):
+            return eks(pack.m_and_cov, mfs, Pfs, cfg.dt)
+    return flt, smt
+
+
+def _on_data(x, ys: torch.Tensor) -> torch.Tensor:
+    """``x`` (theta or params) on the measurements' device, in the dtype
+    that ``x`` and ``ys`` promote to -- what the JAX package computes in
+    under x64: float64 parameters make a float64 filter over float32
+    data, and float32 ones over float32 data a float32 filter."""
+    x = torch.as_tensor(x)
+    dtype = torch.promote_types(x.dtype, ys.dtype)
+    return x.to(dtype=dtype, device=ys.device)
+
+
+def make_nll_fn(cfg: IFEstimationConfig, ys: torch.Tensor) -> Callable:
+    """The MLE objective: softplus-reparametrized params ``theta`` ->
+    final filter NLL, differentiable with ``torch.autograd``.  Runs on
+    ``ys``' device (theta is moved there)."""
+    flt, _ = _filter_fns(cfg)
+
+    def nll(theta):
+        theta = _on_data(theta, ys)
+        pack = cfg.build(g(theta))
+        return flt(pack, ys)[2][-1]
+
+    return nll
+
+
+def fit_mle(cfg: IFEstimationConfig, ys: torch.Tensor,
+            init_theta: Optional[torch.Tensor] = None) -> MLEResult:
+    """Maximize the filter-marginal likelihood with host SciPy L-BFGS-B,
+    each value-and-grad on ``ys``' device.  Returns the result in theta
+    (unconstrained) space, on the host."""
+    if cfg.optimizer == "lbfgs":
+        raise NotImplementedError(
+            "optimizer='lbfgs' (the in-graph L-BFGS) is not ported yet: it "
+            "comes with the Monte-Carlo sweeps slice (lbfgs_minimize, "
+            "lbfgs_minimize_stepped, apps/sweeps.py); use optimizer='scipy'")
+    if cfg.optimizer != "scipy":
+        raise ValueError(f"Unknown optimizer {cfg.optimizer!r}")
+    if init_theta is None:
+        init_theta = cfg.default_init_theta()
+    nll = make_nll_fn(cfg, ys)
+    return scipy_minimize(nll, torch.as_tensor(init_theta).to(ys.device),
+                          options={"maxiter": cfg.max_iters})
+
+
+def estimate_if(cfg: IFEstimationConfig, params, ys: torch.Tensor) -> dict:
+    """Filter + smooth one record at fixed (constrained) params and push the
+    V posterior through g.
+
+    Returns dict with the filtering/smoothing moments (covariances, also in
+    sqrt form), ``nell``, the IF posterior mean ``E[g(V_t)]`` (order
+    ``expectation_order`` GH) and the 95% band endpoints mapped through g.
+    """
+    flt, smt = _filter_fns(cfg)
+    pack = cfg.build(_on_data(params, ys))
+    mfs, Pfs, nell = flt(pack, ys)
+    mss, Pss = smt(pack, mfs, Pfs)
+    v_idx = 2
+    v_mean = mss[:, v_idx]
+    if cfg.form == "sqrt":
+        # Second moments are Cholesky factors: var = ||row_v(L)||^2.
+        v_std = torch.linalg.norm(Pss[:, v_idx, :], dim=-1)
+        Pfs = Pfs @ Pfs.transpose(-1, -2)
+        Pss = Pss @ Pss.transpose(-1, -2)
+    else:
+        v_std = torch.sqrt(Pss[:, v_idx, v_idx].clamp_min(0.0))
+    if_mean = gaussian_expectation_1d(v_mean, v_std,
+                                      order=cfg.expectation_order)
+    if_mean = if_mean * cfg.freq_scale
+    lo = g(v_mean - 1.96 * v_std) * cfg.freq_scale
+    hi = g(v_mean + 1.96 * v_std) * cfg.freq_scale
+    return dict(mfs=mfs, Pfs=Pfs, nell=nell, mss=mss, Pss=Pss,
+                if_mean=if_mean, if_lower=lo, if_upper=hi)
+
+
 def estimate_if_batched(cfg: IFEstimationConfig, params,
                         yss: torch.Tensor) -> dict:
     """Fixed-params IF estimation over a batch of sequences ``yss (B, T)``:
@@ -104,3 +235,15 @@ def estimate_if_batched(cfg: IFEstimationConfig, params,
     if_mean = gaussian_expectation_batched(
         v_mean, v_std, order=cfg.expectation_order) * cfg.freq_scale
     return dict(if_mean=if_mean.T, nell=nll[-1], mss=mss, Lss=Lss)
+
+
+def run_pipeline(cfg: IFEstimationConfig, ys: torch.Tensor,
+                 init_theta: Optional[torch.Tensor] = None):
+    """MLE then estimation; returns (opt_result, constrained params,
+    estimate dict).  A divergent optimization (success=False) still
+    returns the estimate at the last iterate (the reference records such
+    runs as NaN upstream)."""
+    opt = fit_mle(cfg, ys, init_theta)
+    params = g(opt.params)
+    est = estimate_if(cfg, params, ys)
+    return opt, params, est

@@ -1,0 +1,79 @@
+"""Sequential Gaussian filters (counterpart of
+``chirpgp_tpu.infer.filters``; ``ekf_for_kpt`` and the continuous-discrete
+``cd_*`` filters are not ported yet).
+
+Each filter is a Python loop over the measurement sequence that
+accumulates the negative filter-marginal log-likelihood, and returns
+``(mfs (T, d), Pfs (T, d, d), nll (T,) cumulative)``.  The loops compute
+in ``m0``'s dtype on ``m0``'s device and are differentiable with
+``torch.autograd``.
+"""
+
+from typing import Tuple
+
+import torch
+
+from chirpgp_tpu_torch.infer.common import (
+    _as_data, _linearization, _loop_constants, linear_predict,
+    linear_update, sgp_prediction)
+from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
+
+__all__ = ["kf", "ekf", "sgp_filter"]
+
+FilterResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _run_filter(predict, m0, P0, H, Xi, ys,
+                remat: bool = False, unroll: int = 1) -> FilterResult:
+    """Common loop: predict -> 1-D linear update -> accumulate NLL.
+
+    ``remat`` and ``unroll`` are the JAX scan's knobs (step checkpointing
+    for reverse mode, steps per loop iteration); they are accepted for the
+    same signature and have no effect on a Python loop.
+    """
+    ys = _as_data(ys, m0)
+    mf, Pf, n_ell = m0, P0, m0.new_zeros(())
+    mfs, Pfs, nlls = [], [], []
+    for y in ys:
+        mp, Pp = predict(mf, Pf)
+        mf, Pf, inc = linear_update(mp, Pp, H, Xi, y)
+        n_ell = n_ell + inc
+        mfs.append(mf)
+        Pfs.append(Pf)
+        nlls.append(n_ell)
+    return torch.stack(mfs), torch.stack(Pfs), torch.stack(nlls)
+
+
+def kf(F: torch.Tensor, Sigma: torch.Tensor, H: torch.Tensor, Xi,
+       m0: torch.Tensor, P0: torch.Tensor, ys: torch.Tensor) -> FilterResult:
+    """Kalman filter for LGSSMs with 1-D measurements."""
+    return _run_filter(lambda m, P: linear_predict(F, Sigma, m, P),
+                       m0, P0, H, Xi, ys)
+
+
+def ekf(cond_m_cov, H: torch.Tensor, Xi, m0: torch.Tensor, P0: torch.Tensor,
+        dt, ys: torch.Tensor) -> FilterResult:
+    """Extended Kalman filter: discretize-then-linearize, with the
+    Jacobian of the conditional mean from ``torch.func.jacfwd``."""
+    trans, _ = _loop_constants(cond_m_cov, None, dt, m0)
+    lin = _linearization(trans, dt)
+
+    def predict(mf, Pf):
+        F, mp = lin(mf)
+        Sigma = trans.cov_const(dt) if trans.const_cov else trans.cov(mf, dt)
+        return mp, F @ Pf @ F.T + Sigma
+
+    return _run_filter(predict, m0, P0, H, Xi, ys)
+
+
+def sgp_filter(cond_m_cov, sgps: SigmaPoints, H: torch.Tensor, Xi,
+               m0: torch.Tensor, P0: torch.Tensor, dt,
+               ys: torch.Tensor) -> FilterResult:
+    """Sigma-point Gaussian filter through a discretized SDE."""
+    trans, rule = _loop_constants(cond_m_cov, sgps, dt, m0)
+
+    def predict(mf, Pf):
+        mp, Pp, _, _ = sgp_prediction(rule, trans, dt, mf, Pf)
+        return mp, Pp
+
+    return _run_filter(predict, m0, P0, H, Xi, ys)

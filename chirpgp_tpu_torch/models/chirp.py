@@ -11,10 +11,10 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from chirpgp_tpu_torch.models.bijections import g
-from chirpgp_tpu_torch.models.matern import (
-    stationary_cov_m32, m32_solution, m32_transition_mean)
+from chirpgp_tpu_torch.models.matern import stationary_cov_m32, m32_solution
 from chirpgp_tpu_torch.models.transitions import Transition
 from chirpgp_tpu_torch.utils.numerics import as_real_tensor, ou_variance
 
@@ -69,6 +69,11 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
     (frequency frozen at the conditioning state's ``g(V)``) + exact
     Matern-3/2 step.  The covariance is state-independent:
     ``blockdiag(q, q, Sigma_m32)`` with ``q = b^2 (1 - e^{-2 lam dt}) / (2 lam)``.
+
+    The means keep their per-``dt`` constants after the first call.  Built
+    from parameters that require grad, those constants are part of the
+    graph, so one transition serves one backward pass; build a new one
+    (as ``make_nll_fn`` does per call) for the next.
     """
     lam, b, ell, sigma = map(as_real_tensor, (lam, b, ell, sigma))
     step_consts = {}
@@ -77,20 +82,26 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
         # exp(-lam dt) and the Matern-3/2 F entries, computed once per dt:
         # eager PyTorch would otherwise rebuild them at every filter step.
         key = float(dt)
-        if key not in step_consts:
-            F32, _ = m32_solution(ell, sigma, dt)
-            step_consts[key] = (torch.exp(-lam * dt), F32[0, 0], F32[0, 1],
-                                F32[1, 0], F32[1, 1])
-        return step_consts[key]
+        if key in step_consts:
+            return step_consts[key]
+        F32, _ = m32_solution(ell, sigma, dt)
+        consts = (torch.exp(-lam * dt), F32[0, 0], F32[0, 1], F32[1, 0],
+                  F32[1, 1])
+        # Constants first computed inside a torch.func transform (the
+        # jacfwd of an EKF step) are wrapped for that transform and must
+        # not outlive it, so they are not kept.
+        if not any(is_functorch_wrapped_tensor(c) for c in consts):
+            step_consts[key] = consts
+        return consts
 
     def mean(u, dt):
+        decay, F00, F01, F10, F11 = _step_consts(dt)
         w = _TWO_PI * g(u[..., 2])
-        decay = torch.exp(-lam * dt)
         c, s = torch.cos(dt * w) * decay, torch.sin(dt * w) * decay
         m0_, m1_ = _rotate_pair(u[..., 0], u[..., 1], c, s)
-        F32, _ = m32_solution(ell, sigma, dt)
-        m_v = m32_transition_mean(u[..., 2:], F32)
-        return torch.cat([torch.stack([m0_, m1_], dim=-1), m_v], dim=-1)
+        m2_ = F00 * u[..., 2] + F01 * u[..., 3]
+        m3_ = F10 * u[..., 2] + F11 * u[..., 3]
+        return torch.stack([m0_, m1_, m2_, m3_], dim=-1)
 
     def cov(_, dt):
         q = ou_variance(b, lam, dt)

@@ -57,11 +57,18 @@ class Transition:
 
 
 def as_transition(m_and_cov) -> Transition:
-    """Pass a :class:`Transition` through.  Wrapping a reference-style
-    ``m_and_cov(u, dt)`` closure (the JAX package's ``vmap`` fallback) is
-    not ported yet."""
+    """Pass a :class:`Transition` through, or wrap a reference-style
+    single-point ``m_and_cov(u, dt) -> (m, cov)`` closure into one whose
+    batched evaluation maps the closure over the leading axes with
+    ``torch.func.vmap``."""
     if isinstance(m_and_cov, Transition):
         return m_and_cov
-    raise NotImplementedError(
-        "as_transition: wrapping an m_and_cov closure is not ported yet "
-        "(later PR); pass a Transition")
+
+    def _mapped(u, dt, which):
+        f = lambda x: m_and_cov(x, dt)[which]  # noqa: E731
+        for _ in range(u.dim() - 1):
+            f = torch.func.vmap(f)
+        return f(u)
+
+    return Transition(mean=lambda u, dt: _mapped(u, dt, 0),
+                      cov=lambda u, dt: _mapped(u, dt, 1), const_cov=False)

@@ -1,6 +1,9 @@
-"""Sigma-point rules."""
+"""Sigma-point rules and batched Gaussian expectations."""
 
 from chirpgp_tpu_torch.quad.sigma_points import (
     SigmaPoints, cubature, gauss_hermite, unscented)
+from chirpgp_tpu_torch.quad.expectations import (
+    gaussian_expectation, gaussian_expectation_1d)
 
-__all__ = ["SigmaPoints", "cubature", "gauss_hermite", "unscented"]
+__all__ = ["SigmaPoints", "cubature", "gauss_hermite", "unscented",
+           "gaussian_expectation", "gaussian_expectation_1d"]

@@ -5,7 +5,7 @@ with ``L`` the lower Cholesky factor of ``P``.
 
 The rules are host NumPy arrays, identical to ``chirpgp_tpu.quad.sigma_points``;
 they become tensors (with the dtype and device of the data) at the point
-of use.
+of use, or once before a loop with :meth:`SigmaPoints.to`.
 """
 
 import math
@@ -53,6 +53,16 @@ class SigmaPoints(NamedTuple):
     def unscented(cls, d: int, alpha: float = 1.0, beta: float = 0.0,
                   kappa: Optional[float] = None) -> "SigmaPoints":
         return unscented(d, alpha, beta, kappa)
+
+    def to(self, like: torch.Tensor) -> "SigmaPoints":
+        """The rule with ``w``, ``wc`` and ``xi`` as tensors of ``like``'s
+        dtype and device, so that a filter loop converts them once and not
+        at every step."""
+        def conv(a):
+            return None if a is None else torch.as_tensor(
+                a, dtype=like.dtype, device=like.device)
+        return self._replace(w=conv(self.w), wc=conv(self.wc),
+                             xi=conv(self.xi))
 
     @property
     def w_cov(self) -> np.ndarray:

@@ -1,9 +1,10 @@
 """Numerical helpers shared across the port (counterpart of
-``chirpgp_tpu.utils.numerics``; the batched solvers are not ported yet)."""
+``chirpgp_tpu.utils.numerics``; the batched solvers ``solve_small`` and
+``psd_solve_batched`` are not ported yet)."""
 
 import torch
 
-__all__ = ["as_real_tensor", "phi1", "ou_variance", "psd_cholesky"]
+__all__ = ["as_real_tensor", "phi1", "ou_variance", "psd_cholesky", "psd_solve"]
 
 
 def as_real_tensor(x) -> torch.Tensor:
@@ -60,3 +61,37 @@ def psd_cholesky(P: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     return torch.stack(
         [torch.stack([rows[i][j] if j <= i else zero for j in range(d)],
                      dim=-1) for i in range(d)], dim=-2)
+
+
+def psd_solve(P: torch.Tensor, B: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Solve ``P X = B`` for PSD ``P`` that may be singular.
+
+    Factors ``P = L L^T`` with :func:`psd_cholesky` and runs forward/back
+    substitution that treats clamped (zero) pivots as zero contribution:
+    the pseudo-inverse on the degenerate subspace, exact on PD inputs.
+    ``P``: (d, d); ``B``: (d,) or (d, k).
+    """
+    L = psd_cholesky(P, eps)
+    d = P.shape[-1]
+    vec = B.dim() == 1
+    Bm = B[:, None] if vec else B
+    inv = []
+    for j in range(d):
+        ok = L[j, j] > 0
+        inv.append(torch.where(ok, 1.0 / torch.where(ok, L[j, j], 1.0), 0.0))
+    # forward: L Y = B
+    Y = [None] * d
+    for j in range(d):
+        acc = Bm[j]
+        for k in range(j):
+            acc = acc - L[j, k] * Y[k]
+        Y[j] = acc * inv[j]
+    # backward: L^T X = Y
+    X = [None] * d
+    for j in range(d - 1, -1, -1):
+        acc = Y[j]
+        for k in range(j + 1, d):
+            acc = acc - L[k, j] * X[k]
+        X[j] = acc * inv[j]
+    out = torch.stack(X, dim=0)
+    return out[:, 0] if vec else out

@@ -7,17 +7,24 @@ card and no JAX runs it on its own, without tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import numpy.testing as npt
 import pytest
 import torch
 
-from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if_batched
+from chirpgp_tpu_torch.apps import (
+    IFEstimationConfig, estimate_if_batched, make_nll_fn)
+from chirpgp_tpu_torch.infer import sqrt_sgp_filter_smoother_batched
+from chirpgp_tpu_torch.models import build_chirp_model, g_inv
 from chirpgp_tpu_torch.ops.chirp_filter import (
     ghfs_chirp_filter, ghfs_chirp_filter_reference)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 PARAMS = (0.1, 0.1, 0.1, 1.0, 1.0, 7.0)
 # atol on (mfs and nll, L L^T and Lfs): the levels of
@@ -96,3 +103,44 @@ def test_chirp_filter_rejects_too_many_sigma_points(cuda):
     ys = torch.zeros((4, 8), device=cuda)
     with pytest.raises(ValueError, match="sigma points"):
         ghfs_chirp_filter(PARAMS, 0.1, 1e-3, gauss_hermite(4, 4), ys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ghfs", "ekfs"])
+def test_nll_value_and_grad_on_card_match_cpu(cuda, method):
+    """The MLE objective (cov form, float64, T=200 of seed 0) and its
+    autograd gradient: card against host CPU, 1e-9 relative on the value
+    and 1e-7 relative to max |grad| on the gradient."""
+    ys = np.load(ROOT / "results/data/toydata_const.npz")["ys"][0, :200]
+    cfg = IFEstimationConfig(method=method)
+    out = {}
+    for device in ("cpu", cuda):
+        theta = g_inv(torch.tensor(PARAMS, dtype=torch.float64, device=device)
+                      ).requires_grad_(True)
+        value = make_nll_fn(cfg, torch.tensor(ys, dtype=torch.float64,
+                                              device=device))(theta)
+        assert value.device == theta.device
+        grad, = torch.autograd.grad(value, theta)
+        out[str(device)] = (float(value.detach()), _np(grad))
+    (v_cpu, g_cpu), (v_card, g_card) = out["cpu"], out[str(cuda)]
+    npt.assert_allclose(v_card, v_cpu, rtol=1e-9, atol=0)
+    npt.assert_allclose(g_card, g_cpu, rtol=0,
+                        atol=1e-7 * np.abs(g_cpu).max())
+
+
+@pytest.mark.cuda
+def test_fused_slim_output_bit_equal_on_card(cuda):
+    ys = torch.tensor(
+        0.1 * np.random.default_rng(2).standard_normal((256, 64)),
+        dtype=torch.float32, device=cuda)
+    pack = build_chirp_model(torch.tensor(PARAMS, dtype=torch.float32,
+                                          device=cuda))
+    args = (pack.m_and_cov, gauss_hermite(4, 3), pack.H, 0.1, pack.m0,
+            pack.P0, 1e-3, ys)
+    mss, Pss, nll = sqrt_sgp_filter_smoother_batched(*args,
+                                                     return_factors=False)
+    v_mean, v_var, nll2 = sqrt_sgp_filter_smoother_batched(
+        *args, return_factors=False, out_index=2)
+    assert v_mean.device == ys.device
+    assert torch.equal(v_mean, mss[:, 2]) and torch.equal(v_var, Pss[:, 2, 2])
+    assert torch.equal(nll2, nll)

@@ -156,8 +156,18 @@ def test_build_chirp_model(params):
 
 def test_transition_hooks():
     tt = tm.disc_chirp_lcd(0.1, 0.1, 1.0, 1.0)
-    with pytest.raises(NotImplementedError):
-        tm.as_transition(lambda u, dt: (u, None))
+    tj = jm.disc_chirp_lcd(0.1, 0.1, 1.0, 1.0)
+    # A reference-style single-point closure is mapped over leading axes.
+    wrapped_t = tm.as_transition(lambda u, dt: (tt.mean(u, dt), tt.cov(u, dt)))
+    wrapped_j = jm.as_transition(lambda u, dt: (tj.mean(u, dt), tj.cov(u, dt)))
+    pts = np.random.default_rng(4).standard_normal((3, 5, 4))
+    assert not wrapped_t.const_cov
+    npt.assert_allclose(_np(wrapped_t.mean(torch.tensor(pts), 1e-3)),
+                        np.asarray(wrapped_j.mean(jnp.asarray(pts), 1e-3)), **F64)
+    cov_t = wrapped_t.cov(torch.tensor(pts), 1e-3)
+    assert cov_t.shape == (3, 5, 4, 4)
+    npt.assert_allclose(_np(cov_t),
+                        np.asarray(wrapped_j.cov(jnp.asarray(pts), 1e-3)), **F64)
     assert tm.as_transition(tt) is tt
     u = torch.randn(3, 4, 5, dtype=torch.float64,
                     generator=torch.Generator().manual_seed(0))

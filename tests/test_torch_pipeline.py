@@ -1,6 +1,7 @@
-"""The batched IF-estimation slice of the PyTorch port against the JAX
-package, the seed-0 accuracy gates, the JAX-to-torch conversions, and the
-port's import and precision policies."""
+"""The IF-estimation entry points of the PyTorch port against the JAX
+package (``estimate_if`` for one record, ``estimate_if_batched``), the
+seed-0 accuracy gates, the JAX-to-torch conversions, and the port's import
+and precision policies."""
 
 import ast
 import dataclasses
@@ -57,6 +58,26 @@ def test_estimate_if_batched_matches_jax(dtype):
     gram = lambda L: np.einsum("tikb,tjkb->tijb", L, L)  # noqa: E731
     npt.assert_allclose(gram(_np(et["Lss"])), gram(np.asarray(ej["Lss"])),
                         atol=atol_P, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["cov", "sqrt"])
+@pytest.mark.parametrize("method", ["ghfs", "ekfs"])
+def test_estimate_if_matches_jax(method, form):
+    """One record, float64, T=100, at the default params: every output to
+    1e-10 (covariances also in sqrt form)."""
+    ys = np.load(ROOT / "results/data/toydata_const.npz")["ys"][0, :100] \
+        .astype(np.float64)
+    params = np.array(jm.g(jp.IFEstimationConfig().default_init_theta()),
+                      np.float64)
+    ej = jp.estimate_if(jp.IFEstimationConfig(method=method, form=form),
+                        jnp.asarray(params), jnp.asarray(ys))
+    et = tp.estimate_if(tp.IFEstimationConfig(method=method, form=form),
+                        params_from_jax(params), torch.tensor(ys))
+    assert et["if_mean"].shape == (100,) and et["Pss"].shape == (100, 4, 4)
+    for key in ("mfs", "Pfs", "nell", "mss", "Pss", "if_mean", "if_lower",
+                "if_upper"):
+        npt.assert_allclose(_np(et[key]), np.asarray(ej[key]), atol=1e-10,
+                            rtol=0, err_msg=key)
 
 
 @pytest.mark.parametrize("name,quadrature,ref_rmse10,ref_nell", [
