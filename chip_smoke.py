@@ -9,17 +9,23 @@ MLE path and the fused batched filter+smoother once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
-   versions, the kernel's nvcc build time and ptxas report;
+   versions, the kernel's nvcc build time and ptxas report (no register
+   spills allowed);
 2. kernel vs plain PyTorch version on the card: GH-3 and cubature at
    B=512, T=32 on 0.1 N(0, 1) measurements in float32 (atol 5e-5 on
-   mfs/nll, 1e-4 on L L^T and on Lfs) and float64 (atol 1e-9), then GH-3
-   at B=4096, T=3141 on the benchmark's data in float64 and float32
-   (scaled bounds below), and each float32 version against the float64
-   kernel, the on-card oracle;
+   mfs/nll, 1e-4 on L L^T and on Lfs) and float64 (atol 1e-9), at every
+   team size the kernel is built for, then GH-3 at B=4096, T=3141 on the
+   benchmark's data in float64 and float32 (scaled bounds below), and
+   each float32 version against the float64 kernel, the on-card oracle;
 3. ``estimate_if_batched`` at B=4096, T=3141, dt=1e-3, Xi=0.1, GH-3,
    float32: finite outputs, the kernel launched by the main path, wall
    times of the kernel, of the plain filter (in turns: plain, kernel,
    kernel, plain) and of the whole estimate;
+   3b. the kernel's CUDA-event time (the bare launch) at every team size:
+   GH-3 at B=4096, T=3141 (float32 and float64), GH-3 and cubature at the
+   Table-I width (the 100 records of ``toydata_const`` at the GHFS and
+   CKFS reference optima, float32), cubature at B=4096 (float32), beside
+   its flop and byte counts, its bound and its share of the bound;
 4. accuracy gate: seed 0 of ``results/data/toydata_const.npz`` at the
    reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32;
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
@@ -33,7 +39,9 @@ Phases, one line each:
    phase 3's.
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
-The line before the last is a JSON record of the kernels; the last line
+The line before the last is a JSON record of the kernels (``ms`` and
+``bound_ms`` at B=4096 float32, ``ms_b100`` at the Table-I width,
+``ms_f64`` and ``bound_ms_f64`` at B=4096 float64); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
 """
@@ -41,6 +49,7 @@ the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +86,13 @@ FUSED_IF_BOUND = 1e-4
 FUSED_SMALL_B, FUSED_SMALL_T, FUSED_F64_BOUND = 512, 256, 1e-9
 KERNEL_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_filter.cu"
 KERNEL_REPLACES = "chirpgp_tpu/experimental/pallas_filter.py:248"
+# Phase 3b: CUDA-event launches after one warm-up, and the H100 SXM's
+# published peaks (NVIDIA data sheet, dense, at 700 W): float32 and float64
+# outside the tensor cores, and HBM3.
+TIMING_REPS = 6
+SWEEP_B = (528, 1056, 2112)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -139,37 +155,56 @@ def phase_environment(device):
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
     built = load_kernel()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # ptxas -v: each kernel instance (dtype, team size, rows per member)
+    # with its registers, stack frame and spills.
+    ptxas = []
+    for ln in built.log.splitlines():
+        inst = re.search(r"entry function '\S*?kernelI([fd])Li(\d+)ELi(\d+)E",
+                         ln)
+        if inst:
+            ptxas.append(f"{dict(f='f32', d='f64')[inst[1]]} P={inst[2]} "
+                         f"rows={inst[3]}:")
+        elif "registers" in ln or "spill" in ln:
+            ptxas.append(ln.split("ptxas info    :")[-1].strip())
     print(f"phase 1 environment: device={torch.cuda.get_device_name(device)}"
           f" | nvidia-smi: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {nvcc[-1] if nvcc else 'nvcc ?'} | "
           f"kernel build {built.build_seconds:.2f} s | ptxas: "
-          f"{' / '.join(ptxas)}")
+          f"{' '.join(ptxas)}")
     print(smi)
+    spills = [ln for ln in ptxas if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(not spills, f"ptxas reports register spills: {spills}")
+    return smi
 
 
 def phase_kernel_vs_plain(device):
     from chirpgp_tpu_torch.ops.chirp_filter import (
-        ghfs_chirp_filter, ghfs_chirp_filter_reference)
+        TEAMS, ghfs_chirp_filter, ghfs_chirp_filter_kernel,
+        ghfs_chirp_filter_reference)
     from chirpgp_tpu_torch.quad import cubature, gauss_hermite
     rules = {"gh3": gauss_hermite(4, 3), "cubature": cubature(4)}
     parts = []
     # The small cases take tests/test_pallas_filter.py's inputs,
-    # 0.1 N(0, 1), at which its absolute tolerances were set.
+    # 0.1 N(0, 1), at which its absolute tolerances were set; every team
+    # size the kernel is built for is held to them.
     small = 0.1 * np.random.default_rng(0).standard_normal((SMALL_B, SMALL_T))
     for dtype, tols in ((torch.float32, (5e-5, 1e-4, 1e-4, 5e-5)),
                         (torch.float64, (1e-9,) * 4)):
         yss = torch.as_tensor(small, dtype=dtype, device=device)
         for name, rule in rules.items():
             args = (SMALL_PARAMS, XI, DT, rule, yss)
-            dev = deviations(ghfs_chirp_filter(*args),
-                             ghfs_chirp_filter_reference(*args))
-            tag = f"{name}/{str(dtype)[6:]}"
-            for key, tol in zip(("mfs", "LLT", "Lfs", "nll"), tols):
-                check(dev[key] <= tol, f"{tag}: max |d {key}| = {dev[key]} > {tol}")
-            parts.append(f"{tag} mfs {dev['mfs']:.3g} LLT {dev['LLT']:.3g} "
-                         f"Lfs {dev['Lfs']:.3g} nll {dev['nll']:.3g}")
+            plain = ghfs_chirp_filter_reference(*args)
+            for team in TEAMS:
+                dev = deviations(ghfs_chirp_filter_kernel(*args, team=team),
+                                 plain)
+                tag = f"{name}/{str(dtype)[6:]}/P={team}"
+                for key, tol in zip(("mfs", "LLT", "Lfs", "nll"), tols):
+                    check(dev[key] <= tol,
+                          f"{tag}: max |d {key}| = {dev[key]} > {tol}")
+                parts.append(f"{tag} mfs {dev['mfs']:.3g} LLT "
+                             f"{dev['LLT']:.3g} Lfs {dev['Lfs']:.3g} nll "
+                             f"{dev['nll']:.3g}")
 
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.models import g
@@ -228,7 +263,6 @@ def phase_slice(device):
         check(bool(torch.isfinite(est[key]).all()), f"non-finite {key}")
     check(tuple(est["if_mean"].shape) == (B_FULL, T_FULL), "if_mean shape")
     check(tuple(est["nell"].shape) == (B_FULL,), "nell shape")
-    ms_k = 1e3 * sum(times["kernel"]) / 2
     ms_p = 1e3 * sum(times["plain"]) / 2
     print(f"phase 3 slice: estimate_if_batched B={B_FULL} T={T_FULL} GH-3 "
           f"float32: finite, kernel launches {launches}; filter kernel "
@@ -236,7 +270,111 @@ def phase_slice(device):
           f"{[round(1e3 * t, 3) for t in times['plain']]} ms (order plain, "
           f"kernel, kernel, plain); whole estimate {1e3 * t_est:.3f} ms = "
           f"{B_FULL * T_FULL / t_est:.1f} steps/s")
-    return launches, ms_k, ms_p, est["if_mean"], t_est
+    return launches, ms_p, est["if_mean"], t_est
+
+
+def event_ms(fn, reps=TIMING_REPS):
+    """Mean CUDA-event time of ``fn()`` over ``reps`` calls after one
+    warm-up call, in ms."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(S, T, B, dtype):
+    """The least time the card could take for one filter call: the larger
+    of flop over the peak rate of ``dtype`` and bytes over the memory
+    rate.  Returns (flop, bytes, ms, what bounds it)."""
+    from chirpgp_tpu_torch.ops.chirp_filter import filter_cost
+    cost = filter_cost(S, T, B, dtype)
+    t_ops = cost.flop / PEAK_FLOPS[dtype]
+    t_bytes = cost.bytes / PEAK_BYTES
+    return (cost.flop, cost.bytes, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel_timing(device, smi):
+    """CUDA-event times of the bare kernel launch at every team size: GH-3
+    at the benchmark's B=4096 x T=3141 (float32 and float64), GH-3 and
+    cubature at the Table-I width (the 100 records of toydata_const at the
+    reference's GHFS and CKFS optima, float32), and cubature at B=4096
+    float32, beside the bound.  Each team's nll[-1] is held to the default
+    geometry's."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter import (
+        TEAMS, kernel_launcher, launch_geometry)
+    from chirpgp_tpu_torch.quad import cubature
+    cfg = IFEstimationConfig()
+    gh3, cub = cfg.sigma_points(), cubature(4)
+    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    bench = measurements(B_FULL, T_FULL, 999, torch.float64, device)
+    p_bench = g(cfg.default_init_theta())
+    y100 = torch.as_tensor(
+        np.load(ROOT / "results/data/toydata_const.npz")["ys"],
+        dtype=torch.float32, device=device)
+    opt = {name: params_from_jax(np.load(
+        ROOT / f"results/reference/{name}_const.npz")["params"][0])
+        for name in ("ghfs", "ckfs")}
+    cases = {
+        "gh3/B=4096/f32": (p_bench, gh3, bench.float()),
+        "gh3/B=4096/f64": (p_bench, gh3, bench),
+        "gh3/B=100/f32": (opt["ghfs"], gh3, y100),
+        "cubature/B=4096/f32": (p_bench, cub, bench.float()),
+        "cubature/B=100/f32": (opt["ckfs"], cub, y100),
+    }
+
+    def team_times(args):
+        """{team: (ms, nll[-1])} of the bare launch at each team size."""
+        out = {}
+        for team in TEAMS:
+            launch, (_, _, nll) = kernel_launcher(*args, team=team)
+            out[team] = (event_ms(launch), nll[-1].double())
+        return out
+
+    out, parts = {}, []
+    for tag, (params, rule, yss) in cases.items():
+        B, T = yss.shape
+        default = launch_geometry(B, rule.n_points, num_sms)
+        times = team_times((params.to(torch.float64).cpu(), XI, DT, rule,
+                            yss))
+        nll_ref = times[default.team][1]
+        rtol = FULL_BOUNDS[str(yss.dtype)[6:]][2]
+        for team, (_, nll) in times.items():
+            rel = float(((nll - nll_ref).abs() / nll_ref.abs()).max())
+            check(bool(torch.isfinite(nll).all()) and rel <= rtol,
+                  f"timing {tag} P={team}: rel d nll[-1] vs default {rel}")
+        flop, nbytes, bound, bound_by = bound_ms(rule.n_points, T, B,
+                                                 yss.dtype)
+        ms = times[default.team][0]
+        out[tag] = dict(ms=ms, bound_ms=bound, bound_by=bound_by,
+                        team=default.team)
+        parts.append(
+            f"{tag} T={T}: " + ", ".join(f"P={p} {t!r} ms" for p, (t, _) in
+                                         times.items())
+            + f"; default P={default.team} rows={default.rows} "
+            f"({default.lanes_per_block} lanes x {default.blocks} blocks) "
+            f"{ms!r} ms; {flop} flop, {nbytes} B, bound {bound!r} ms "
+            f"({bound_by}), share {bound / ms:.4f}")
+    # The widths between, on the benchmark's first B records: where the
+    # fastest team changes (launch_geometry's threshold).
+    for B in SWEEP_B:
+        times = team_times((p_bench, XI, DT, gh3, bench[:B].float()))
+        parts.append(f"gh3/B={B}/f32: " + ", ".join(
+            f"P={p} {t!r} ms" for p, (t, _) in times.items()) + f"; default "
+            f"P={launch_geometry(B, gh3.n_points, num_sms).team}")
+    print(f"phase 3b kernel timing (CUDA events around the bare launch, 1 "
+          f"warm-up + {TIMING_REPS} launches; {smi}; peaks 67/34 TFLOP/s "
+          f"f32/f64, 3.35 TB/s): " + "; ".join(parts))
+    return out
 
 
 def phase_accuracy(device):
@@ -476,16 +614,22 @@ def main() -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    phase_environment(device)
+    smi = phase_environment(device)
     max_err = phase_kernel_vs_plain(device)
-    launches, ms_k, ms_p, if_ref, t_ref = phase_slice(device)
+    launches, ms_p, if_ref, t_ref = phase_slice(device)
+    timing = phase_kernel_timing(device, smi)
     phase_accuracy(device)
     phase_mle(device)
     phase_fused(device, if_ref, t_ref)
+    full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p}]}))
+        "max_abs_err": max_err, "ms": full["ms"], "plain_ms": ms_p,
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "library_ms": None, "ms_b100": timing["gh3/B=100/f32"]["ms"],
+        "ms_f64": timing["gh3/B=4096/f64"]["ms"],
+        "bound_ms_f64": timing["gh3/B=4096/f64"]["bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,12 +7,14 @@ with its signature and output contract minus the TPU grid knobs
 (``chunk``, ``bblock``, ``interpret``).  :func:`ghfs_chirp_filter` runs
 the plain version for a tensor on the CPU and the kernel for a tensor on
 a CUDA device; there is no fallback from one to the other.  Neither has a
-gradient yet.
+gradient yet.  :func:`launch_geometry` chooses the kernel's team size,
+rows and blocks, and :func:`filter_cost` counts its work; both are plain
+Python.
 """
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,11 +26,95 @@ from chirpgp_tpu_torch.models.matern import m32_solution
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
 from chirpgp_tpu_torch.utils.numerics import psd_cholesky
 
-__all__ = ["ghfs_chirp_filter", "ghfs_chirp_filter_reference",
-           "load_kernel"]
+__all__ = ["LaunchGeometry", "filter_cost", "ghfs_chirp_filter",
+           "ghfs_chirp_filter_kernel", "ghfs_chirp_filter_reference",
+           "kernel_launcher", "launch_geometry", "load_kernel"]
 
 _D = 4
 _KERNEL = "ghfs_chirp_filter"
+# The kernel's limits (csrc/ghfs_chirp_filter.cu): the team sizes and, for
+# each, the pre-array rows per member it is built for (those of cubature
+# and GH-3 at d = 4, the rules of Table I); threads per block; sigma points.
+TEAMS = (8, 32)
+ROWS = {8: (2, 11), 32: (1, 3)}
+MAX_THREADS = 256
+MAX_POINTS = 81
+_WARP = 32
+# Resident blocks per SM on Hopper.
+_MAX_BLOCKS_PER_SM = 32
+
+
+class LaunchGeometry(NamedTuple):
+    team: int              # threads per Monte-Carlo lane
+    rows: int              # pre-array rows per team member
+    lanes_per_block: int
+    blocks: int
+
+
+def _default_team(B: int, num_sms: int) -> int:
+    """P = 32 up to 16 lanes per SM, where the step's latency bounds the
+    time (the Table-I width, B = 100); P = 8, which repeats less work per
+    lane, beyond (the benchmark's B = 4096).  Measured on an H100 with
+    GH-3 (PERF.md)."""
+    return 32 if B <= 16 * max(num_sms, 1) else 8
+
+
+def launch_geometry(B: int, S: int, num_sms: int = 132,
+                    team: Optional[int] = None) -> LaunchGeometry:
+    """The kernel's launch geometry for ``B`` lanes and ``S`` sigma points
+    on a card with ``num_sms`` SMs.
+
+    Up to one lane per SM, every lane gets a block of its own, so a small
+    batch spreads over the SMs.  Beyond that a block is one warp of lanes
+    (``32 // team``), grown only when the SMs could not hold all blocks at
+    once.  ``team`` defaults to :func:`_default_team`; the rows are the
+    fewest built for that team that hold the S + 4 rows of the pre-array.
+    """
+    team = _default_team(B, num_sms) if team is None else team
+    if team not in TEAMS:
+        raise ValueError(f"team must be one of {TEAMS}, got {team}")
+    if not 1 <= S <= MAX_POINTS:
+        raise ValueError(f"the kernel takes 1..{MAX_POINTS} sigma points, "
+                         f"got S={S}")
+    rows = min(r for r in ROWS[team] if team * r >= S + _D)
+    per_warp = _WARP // team
+    if B <= num_sms:
+        lanes = 1
+    else:
+        warps = -(-B // per_warp)
+        lanes = per_warp * -(-warps // (num_sms * _MAX_BLOCKS_PER_SM))
+        lanes = min(lanes, MAX_THREADS // team)
+    return LaunchGeometry(team, rows, lanes, -(-B // lanes))
+
+
+class FilterCost(NamedTuple):
+    flop: int    # floating-point operations of the whole call
+    bytes: int   # each input read once, each output written once
+
+
+def filter_cost(S: int, T: int, B: int, dtype=torch.float32) -> FilterCost:
+    """Work of one filter call on ``B`` lanes of ``T`` steps with ``S``
+    sigma points: the flop the step needs (an FMA is 2 flop; the 3
+    transcendentals per sigma point are not counted), not the kernel's
+    redundant work.  Per sigma point: chi = m + xi L with L lower, 10 FMA,
+    20; the chirp-LCD mean (softplus 2, angle 1, decay 2, rotation 6,
+    Matern step 6), 17; its weighted mean, 8, and deviation sqrt(w)(mu -
+    mp), 8.  Householder column j of the n = S + 4 row pre-array: the
+    Gram row, 2(n-j)(d-j); alpha, |v|^2, beta, M_jj - alpha, 6; w_k,
+    2(d-j); row j of R, 1 + 2(d-j); beta w_k and the rank-one update of
+    columns k > j of the rows below j, (d-j-1)(1 + 2(n-j-1)).  The 5 x 5
+    update: reflections over rows 0..2 and 1..2 of the trailing 4 and 3
+    columns, each m rows by c columns 2m + 5 + c(4m + 1), 99 (the
+    one-row reflections are negations); innovation, mean update and nll,
+    17.  Bytes: one y read and 4 + 16 + 1 words written per seed-step."""
+    d, n = _D, S + _D
+    householder = sum(2 * (n - j) * (d - j) + 6 + 2 * (d - j)
+                      + 1 + 2 * (d - j) + (d - j - 1) * (1 + 2 * (n - j - 1))
+                      for j in range(d))
+    per_step = (20 + 17 + 8 + 8) * S + householder + 99 + 17
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    words = 1 + d + d * d + 1
+    return FilterCost(per_step * T * B, itemsize * words * T * B)
 
 
 def _host_params(params) -> torch.Tensor:
@@ -82,12 +168,16 @@ def load_kernel():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ghfs_chirp_filter_f32, lib.ghfs_chirp_filter_f64):
         fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_double),
-                       i32, i32, i32, ptr, ptr, ptr, ptr]
+                       i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
         fn.restype = i32
     for fn in (lib.ghfs_chirp_filter_max_points,
-               lib.ghfs_chirp_filter_num_consts):
+               lib.ghfs_chirp_filter_num_consts,
+               lib.ghfs_chirp_filter_max_threads):
         fn.argtypes = []
         fn.restype = i32
+    if (lib.ghfs_chirp_filter_max_points() != MAX_POINTS
+            or lib.ghfs_chirp_filter_max_threads() != MAX_THREADS):
+        raise RuntimeError("the kernel's limits do not match the wrapper's")
     return built
 
 
@@ -116,6 +206,34 @@ def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor
     if yss.device.type != "cuda":
         raise ValueError(f"ghfs_chirp_filter runs on cpu or cuda tensors, "
                          f"got {yss.device}")
+    return ghfs_chirp_filter_kernel(params, Xi, dt, sgps, yss)
+
+
+def ghfs_chirp_filter_kernel(params, Xi, dt, sgps: SigmaPoints,
+                             yss: torch.Tensor, team: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The kernel alone, for a CUDA tensor ``yss``: :func:`ghfs_chirp_filter`
+    with the team size ``team`` (8 or 32; ``None`` lets
+    :func:`launch_geometry` choose it), and without its gradient check:
+    the outputs never carry one."""
+    launch, outputs = kernel_launcher(params, Xi, dt, sgps, yss, team)
+    launch()
+    return outputs
+
+
+def kernel_launcher(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor,
+                    team: Optional[int] = None):
+    """Check the inputs of :func:`ghfs_chirp_filter_kernel`, build the
+    kernel, its constants and its outputs, and return ``(launch,
+    (mfs, Lfs, nll))``: each ``launch()`` runs the kernel once on the
+    current stream, writes the outputs and counts the launch.  It does no
+    host work besides the ctypes call, so CUDA events around it time the
+    kernel alone."""
+    if yss.device.type != "cuda":
+        raise ValueError(f"the ghfs_chirp_filter kernel runs on cuda "
+                         f"tensors; a cpu tensor takes the plain version; "
+                         f"got {yss.device}")
     _require_nonneg_weights(sgps, "ghfs_chirp_filter")
     if sgps.d != _D:
         raise ValueError(f"the chirp kernel is d={_D} only, got a d={sgps.d} rule")
@@ -127,18 +245,16 @@ def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor
         suffix = "f64"
     else:
         raise ValueError(f"yss must be float32 or float64, got {yss.dtype}")
+    B, T = yss.shape
+    S = sgps.n_points
+    num_sms = torch.cuda.get_device_properties(yss.device).multi_processor_count
+    geo = launch_geometry(B, S, num_sms, team)
 
     lib = load_kernel().lib
-    S = sgps.n_points
-    if S > lib.ghfs_chirp_filter_max_points():
-        raise ValueError(f"the kernel takes at most "
-                         f"{lib.ghfs_chirp_filter_max_points()} sigma points, "
-                         f"got S={S}")
     consts = _chirp_constants(params, Xi, dt)
     if consts.size != lib.ghfs_chirp_filter_num_consts():
         raise RuntimeError("model constants do not match the kernel's layout")
 
-    B, T = yss.shape
     like = dict(dtype=yss.dtype, device=yss.device)
     ys_t = yss.T.contiguous()                               # (T, B)
     xi = torch.as_tensor(np.ascontiguousarray(sgps.xi), **like)
@@ -148,17 +264,21 @@ def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor
     lfs = torch.empty((T, _D * _D, B), **like)
     nll = torch.empty((T, B), **like)
     c_consts = (ctypes.c_double * consts.size)(*consts.tolist())
-    with torch.cuda.device(yss.device):
-        stream = torch.cuda.current_stream(yss.device).cuda_stream
-        rc = getattr(lib, f"ghfs_chirp_filter_{suffix}")(
-            ys_t.data_ptr(), xi.data_ptr(), w.data_ptr(), sw.data_ptr(),
-            c_consts, S, T, B, mfs.data_ptr(), lfs.data_ptr(),
-            nll.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"ghfs_chirp_filter kernel launch failed: CUDA "
-                           f"error {rc}")
-    ghfs_chirp_filter.launches += 1
-    return mfs, lfs.reshape(T, _D, _D, B), nll
+    entry = getattr(lib, f"ghfs_chirp_filter_{suffix}")
+    inputs, outputs = (ys_t, xi, w, sw), (mfs, lfs, nll)
+
+    def launch():
+        with torch.cuda.device(yss.device):
+            rc = entry(*[x.data_ptr() for x in inputs], c_consts, S, T, B,
+                       geo.team, geo.rows, geo.lanes_per_block,
+                       *[x.data_ptr() for x in outputs],
+                       torch.cuda.current_stream(yss.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ghfs_chirp_filter kernel launch failed: "
+                               f"CUDA error {rc}")
+        ghfs_chirp_filter.launches += 1
+
+    return launch, (mfs, lfs.reshape(T, _D, _D, B), nll)
 
 
 ghfs_chirp_filter.launches = 0

@@ -19,7 +19,8 @@ from chirpgp_tpu_torch.apps import (
 from chirpgp_tpu_torch.infer import sqrt_sgp_filter_smoother_batched
 from chirpgp_tpu_torch.models import build_chirp_model, g_inv
 from chirpgp_tpu_torch.ops.chirp_filter import (
-    ghfs_chirp_filter, ghfs_chirp_filter_reference)
+    TEAMS, ghfs_chirp_filter, ghfs_chirp_filter_kernel,
+    ghfs_chirp_filter_reference, launch_geometry)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
@@ -68,17 +69,54 @@ def test_chirp_filter_kernel_matches_plain(cuda, rule, dtype):
     npt.assert_allclose(_gram(got[1]), _gram(want[1]), atol=atol_P, rtol=0)
 
 
+RULES = {"cubature": lambda: cubature(4), "gh2": lambda: gauss_hermite(4, 2),
+         "gh3": lambda: gauss_hermite(4, 3)}
+
+
+def _check_every_team(cuda, rule, dtype, B, T, seed):
+    """Every team size and the default geometry against the plain
+    version, on 0.1 N(0, 1) measurements: mfs and nll within atol_m, Lfs
+    and L L^T within atol_P.  Returns the geometries launched."""
+    atol_m, atol_P = TOLS[dtype]
+    sgps = RULES[rule]()
+    ys = torch.tensor(0.1 * np.random.default_rng(seed).standard_normal((B, T)),
+                      dtype=getattr(torch, dtype), device=cuda)
+    want = [_np(x) for x in
+            ghfs_chirp_filter_reference(PARAMS, 0.1, 1e-3, sgps, ys)]
+    num_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    geos = []
+    for team in (None,) + TEAMS:
+        before = ghfs_chirp_filter.launches
+        got = [_np(x) for x in
+               ghfs_chirp_filter_kernel(PARAMS, 0.1, 1e-3, sgps, ys, team=team)]
+        assert ghfs_chirp_filter.launches == before + 1
+        for g, w, atol in zip(got, want, (atol_m, atol_P, atol_m)):
+            assert g.shape == w.shape
+            npt.assert_allclose(g, w, atol=atol, rtol=0)
+        npt.assert_allclose(_gram(got[1]), _gram(want[1]), atol=atol_P, rtol=0)
+        geos.append(launch_geometry(B, sgps.n_points, num_sms, team))
+    return geos
+
+
 @pytest.mark.cuda
-def test_chirp_filter_kernel_masks_ragged_batch(cuda):
-    """B not a multiple of the 128-lane block, and B < 128."""
-    for B in (1, 130):
-        ys = torch.tensor(
-            0.1 * np.random.default_rng(B).standard_normal((B, 16)),
-            dtype=torch.float64, device=cuda)
-        got = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, cubature(4), ys)
-        want = ghfs_chirp_filter_reference(PARAMS, 0.1, 1e-3, cubature(4), ys)
-        for a, b in zip(got, want):
-            npt.assert_allclose(_np(a), _np(b), atol=1e-9, rtol=0)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rule", list(RULES))
+@pytest.mark.parametrize("B", [1, 3, 100, 130, 4099])
+def test_chirp_filter_kernel_masks_ragged_batch(cuda, B, rule, dtype):
+    """Ragged batches, at every team size: B below one lane per SM, and
+    B = 4099, which no geometry's lanes per block divide."""
+    geos = _check_every_team(cuda, rule, dtype, B, 16, B)
+    if B == 4099:
+        assert all(B % g.lanes_per_block for g in geos
+                   if g.lanes_per_block > 1)
+        assert any(g.lanes_per_block > 1 for g in geos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_chirp_filter_kernel_single_step(cuda, rule, dtype):
+    _check_every_team(cuda, rule, dtype, 37, 1, 5)
 
 
 @pytest.mark.cuda
