@@ -5,7 +5,8 @@
 
 Builds the hand-written CUDA kernel from ``chirpgp_tpu_torch/ops/csrc`` on
 first use and drives the batched IF-estimation path, the single-record
-MLE path and the fused batched filter+smoother once at full width.
+MLE path, the fused batched filter+smoother and the Table-I Monte-Carlo
+sweep once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
@@ -31,12 +32,23 @@ Phases, one line each:
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
    float64) value and gradient on the card against the host CPU; the
    float32 sqrt objective against the CUDA kernel's nll; ``fit_mle``
-   (SciPy L-BFGS-B, 5 iterations); ``estimate_if`` GHFS and EKFS gates;
+   (SciPy L-BFGS-B, 2 iterations); ``estimate_if`` GHFS and EKFS gates;
 6. the fused batched filter+smoother: at B=512, T=256, float64, against
    the separate filter and smoother, slim output bit-equal to the full
    one, covariance form against square-root form; then the slim output at
    the benchmark's B=4096, T=3141, float32, its GH-10 IF mean against
-   phase 3's.
+   phase 3's;
+7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
+   magnitude of ``results/data`` (B=300): 7a one vmapped value-and-grad
+   of the objective at T=3141, timed, with its peak memory, lanes 0 and
+   299 against ``make_nll_fn`` on the lane alone (value 1e-5 relative,
+   gradient 1e-4 of max |grad|), and the profiler's launches per step and
+   device busy share; 7b two ``lbfgs_minimize_stepped`` iterations at
+   B=300 (T cut to fit, the cut printed): no lane above its initial NLL,
+   at least 90% below; 7c the whole ``mle_sweep_on_measurements`` (rescue,
+   float64 host polish, estimate, ``print_rmse_table``) at B=6 (seeds
+   0-1), T=60, 6 iterations: every lane finite with ``success``, the
+   polish never raising a lane's float64 NLL.
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
 The line before the last is a JSON record of the kernels (``ms`` and
@@ -77,7 +89,7 @@ GATE_RMSE_ATOL, GATE_NELL_RTOL = 0.005, 1e-4
 # path (906.72448), and the reference's seed-0 IF-RMSE x10 of GHFS and EKFS.
 MLE_NLL, MLE_NLL_RTOL = 906.72448, 1e-6
 MLE_GATES = {"ghfs": 0.7856412, "ekfs": 0.7327871}
-MLE_ITERS = 5
+MLE_ITERS = 2
 # Phase 6d: the slim fused IF mean against estimate_if_batched's, both in
 # float32, as max deviation over (1 + max |IF|).  On the host CPU the two
 # plain versions differ by 9.3e-6 at B=32; the bound leaves room for the
@@ -93,6 +105,21 @@ TIMING_REPS = 6
 SWEEP_B = (528, 1056, 2112)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
+# Phase 7, the Table-I sweep: seeds 0-99 of each magnitude of
+# results/data (B=300) at T=3141, sqrt GHFS, GH-3, float32.  7a holds
+# lanes 0 and 299 of the vmapped value-and-grad to make_nll_fn on the
+# lane alone (value 1e-5 relative, gradient 1e-4 of max |grad|); 7b runs
+# two stepped L-BFGS iterations at T cut so that SWEEP_7B_EVALS
+# value-and-grads take at most SWEEP_7B_BUDGET_S by 7a's time (and
+# always when 7a takes over SWEEP_VG_LIMIT_S); 7c the whole
+# mle_sweep_on_measurements on SWEEP_SMALL = (seeds per magnitude, T,
+# max_iters).  SWEEP_PROFILE_T: the steps of the profiled value-and-grad.
+MAGNITUDES = ("const", "damped", "random")
+SWEEP_SEEDS, SWEEP_T = 100, 3141
+SWEEP_VG_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
+SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 100.0, 8
+SWEEP_SMALL = (2, 60, 6)
+SWEEP_PROFILE_T = 30
 
 
 class SmokeFailure(RuntimeError):
@@ -595,6 +622,211 @@ def phase_fused(device, if_ref, t_ref):
           + "; ".join(parts))
 
 
+def profile_step(fn, T):
+    """Kernel launches per step and the device's busy share of the wall
+    time of ``fn()`` (a T-step call), from ``torch.profiler``; None where
+    the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    return len(kernels) / T, busy / wall
+
+
+def lane_alone(ys_lane, theta, device):
+    """Value, gradient and wall time of the sweep objective on one lane
+    alone (``make_nll_fn`` and ``torch.autograd``), float32 on ``device``
+    (on one thread on the host CPU).  Phase 7a runs it in child processes,
+    beside the vmapped call."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig, make_nll_fn
+    if device == "cpu":
+        torch.set_num_threads(1)
+    th = torch.tensor(theta, device=device).requires_grad_(True)
+    t0 = time.perf_counter()
+    value = make_nll_fn(IFEstimationConfig(method="ghfs", form="sqrt"),
+                        torch.tensor(ys_lane, device=device))(th)
+    grad, = torch.autograd.grad(value, th)
+    return float(value.detach()), grad.cpu().numpy(), time.perf_counter() - t0
+
+
+def sweep_data(device, seeds, T):
+    """Seeds ``seeds`` of each magnitude of results/data, (3 len(seeds),
+    T) float32 on ``device``, and the true IF (T,)."""
+    files = {m: np.load(ROOT / f"results/data/toydata_{m}.npz")
+             for m in MAGNITUDES}
+    ys = np.concatenate([files[m]["ys"][seeds, :T] for m in MAGNITUDES])
+    tf = files["const"]["true_freqs"][:T]
+    return (torch.as_tensor(ys, dtype=torch.float32, device=device),
+            torch.as_tensor(tf, dtype=torch.float32, device=device))
+
+
+def phase_sweep(device, smi):
+    """7a one vmapped value-and-grad of the sweep objective at the Table-I
+    width, 7b two stepped L-BFGS iterations at B=300, 7c the whole
+    mle_sweep_on_measurements at a smaller depth."""
+    import concurrent.futures
+    import multiprocessing
+    from unittest import mock
+    import chirpgp_tpu_torch.apps.sweeps as sweeps
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, make_nll_fn, mle_sweep_on_measurements,
+        print_rmse_table)
+    from chirpgp_tpu_torch.fit import (
+        batched_value_and_grad, lbfgs_minimize_stepped)
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    cfg = IFEstimationConfig(method="ghfs", form="sqrt")
+    ys, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)
+    B = ys.shape[0]
+    calls = [0]
+
+    def nll(theta, ys_i):
+        calls[0] += 1
+        return make_nll_fn(cfg, ys_i)(theta)
+
+    theta0 = cfg.default_init_theta(torch.float32).to(device).expand(
+        B, -1).clone()
+    parts = []
+    t_phase = time.perf_counter()
+    ghfs_chirp_filter.launches = 0
+
+    # 7a: one value-and-grad of all lanes, timed, with its peak memory;
+    # lanes 0 and B-1 alone meanwhile, each in a child process on the
+    # same card (host-bound, each on its own CPU core), and lane 0 on the
+    # host CPU, the per-record alternative to the batch.
+    lanes = (0, B - 1)
+    jobs = [(i, str(device)) for i in lanes] + [(0, "cpu")]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(jobs),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        alone = [pool.submit(lane_alone, ys[i].cpu().numpy(),
+                             theta0[i].cpu().numpy(), dev)
+                 for i, dev in jobs]
+        torch.cuda.reset_peak_memory_stats(device)
+        (values, grads), t_vg = timed(batched_value_and_grad(nll, (ys,)),
+                                      theta0)
+        peak = torch.cuda.max_memory_allocated(device)
+        alone = [f.result() for f in alone]
+    *alone, (v_host, _, t_host) = alone
+    check(bool(torch.isfinite(values).all() and torch.isfinite(grads).all()),
+          "7a: non-finite value or gradient")
+    devs = []
+    for lane, (v, gr, t_lane) in zip(lanes, alone):
+        dv = abs(v - float(values[lane])) / abs(v)
+        dg = float(np.abs(gr - grads[lane].cpu().numpy()).max()
+                   / np.abs(gr).max())
+        check(dv <= SWEEP_VG_TOL and dg <= SWEEP_GRAD_TOL,
+              f"7a lane {lane}: vmapped vs alone, value rel {dv}, grad {dg}")
+        devs.append(f"lane {lane}: value rel {dv:.3g}, grad {dg:.3g} "
+                    f"({t_lane:.3f} s alone, in a child process meanwhile)")
+    per_step, busy = profile_step(
+        lambda: batched_value_and_grad(nll, (ys[:, :SWEEP_PROFILE_T],))(
+            theta0), SWEEP_PROFILE_T)
+    prof = ("profiler: no device activity seen" if per_step is None else
+            f"profiler at T={SWEEP_PROFILE_T}: {per_step:.1f} kernel "
+            f"launches per step, device busy {100 * busy:.2f}%")
+    dv_host = abs(v_host - float(values[0])) / abs(v_host)
+    check(dv_host <= SWEEP_VG_TOL, f"7a lane 0 on the host CPU: value rel "
+                                   f"{dv_host}")
+    parts.append(
+        f"7a value-and-grad B={B} T={SWEEP_T} f32: {t_vg:.3f} s = "
+        f"{1e3 * t_vg / SWEEP_T:.3f} ms per step, {t_vg / B:.3f} s per "
+        f"record, peak memory {peak / 2 ** 30:.3f} GiB; {'; '.join(devs)}; "
+        f"lane 0 alone on the host CPU, one thread: {t_host:.3f} s, value "
+        f"rel {dv_host:.3g}; {prof}")
+
+    # 7b: two stepped L-BFGS iterations at B=300, T cut to fit the budget.
+    t_b = SWEEP_T
+    if t_vg > SWEEP_VG_LIMIT_S or SWEEP_7B_EVALS * t_vg > SWEEP_7B_BUDGET_S:
+        t_b = min(SWEEP_T, max(100, int(SWEEP_T * SWEEP_7B_BUDGET_S
+                                        / (SWEEP_7B_EVALS * t_vg))))
+    yb = ys[:, :t_b].contiguous()
+    with torch.no_grad():
+        f_init = torch.func.vmap(nll)(theta0, yb)
+    calls[0] = 0
+    opt, t_opt = timed(lbfgs_minimize_stepped, nll, theta0, (yb,),
+                       max_iters=2, ftol_rel=cfg.ftol_rel,
+                       patience=cfg.stall_patience, tail_iters=30)
+    evals = calls[0]
+    worse = int((opt.fun_val > f_init).sum())
+    below = float((opt.fun_val < f_init).float().mean())
+    check(worse == 0 and below >= 0.9,
+          f"7b: {worse} lanes above their initial NLL, {below:.3f} below")
+    cut = "" if t_b == SWEEP_T else (
+        f" (T cut from {SWEEP_T} to {t_b}: {SWEEP_7B_EVALS} value-and-grads"
+        f" at 7a's {t_vg:.1f} s would exceed {SWEEP_7B_BUDGET_S:.0f} s)")
+    parts.append(
+        f"7b lbfgs_minimize_stepped B={B} T={t_b}{cut}, 2 iterations: "
+        f"{t_opt:.3f} s = {t_opt / 2:.3f} s per iteration, {evals} "
+        f"objective evaluations ({evals / 2:.1f} per iteration, the first "
+        f"at the init); best NLL below the initial in {100 * below:.1f}% "
+        f"of lanes, above it in {worse}; median NLL "
+        f"{float(f_init.median()):.3f} -> {float(opt.fun_val.median()):.3f}")
+
+    # 7c: the whole sweep at a smaller depth, each stage timed.
+    n_seeds, t_c, iters = SWEEP_SMALL
+    ys_c, tf_c = sweep_data(device, slice(0, n_seeds), t_c)
+    stages = {}
+
+    def staged(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] = (time.perf_counter() - t0, args, out)
+            return out
+        return run
+
+    with mock.patch.object(sweeps, "lbfgs_minimize_stepped",
+                           staged("stepped", sweeps.lbfgs_minimize_stepped)), \
+            mock.patch.object(sweeps, "_rescue_stuck_lanes",
+                              staged("rescue", sweeps._rescue_stuck_lanes)), \
+            mock.patch.object(sweeps, "_polish_lanes_f64",
+                              staged("polish", sweeps._polish_lanes_f64)):
+        res, t_sweep = timed(mle_sweep_on_measurements,
+                             dataclasses.replace(cfg, max_iters=iters),
+                             tf_c, ys_c)
+    check(bool(np.all(np.isfinite(res["rmse"])) and np.all(res["success"])),
+          f"7c: lanes not finite with success: {res['success']}")
+    # The polish never worse: the float64 NLL on the host at its output
+    # against that at its input (within the float32 rounding of params).
+    _, polish_args, polished = stages["polish"]
+    incoming = polish_args[2]
+    cpu_cfg = dataclasses.replace(cfg, max_iters=iters)
+    gaps = []
+    with torch.no_grad():
+        for i in range(ys_c.shape[0]):
+            f = make_nll_fn(cpu_cfg, ys_c[i].cpu().double())
+            f_in = float(f(incoming.params[i].cpu().double()))
+            f_out = float(f(polished.params[i].cpu().double()))
+            gaps.append(f_out - f_in)
+            check(f_out <= f_in + 1e-6 * abs(f_in),
+                  f"7c: polish of lane {i} raised the f64 NLL {f_in} -> "
+                  f"{f_out}")
+    print_rmse_table({"ghfs (sqrt, f32)": {
+        m: {"rmse": res["rmse"][k * n_seeds:(k + 1) * n_seeds]}
+        for k, m in enumerate(MAGNITUDES)}})
+    stage_s = ", ".join(f"{k} {v[0]:.3f} s" for k, v in stages.items())
+    parts.append(
+        f"7c mle_sweep_on_measurements B={ys_c.shape[0]} T={t_c} "
+        f"max_iters={iters}: {t_sweep:.3f} s ({stage_s}, estimate the "
+        f"rest); all lanes finite with success; f64 NLL change by the "
+        f"polish {min(gaps):.4g} to {max(gaps):.4g}; rmse x10 "
+        f"{[round(10 * float(r), 4) for r in res['rmse']]}")
+    launches = ghfs_chirp_filter.launches
+    print(f"phase 7 sweep ({time.perf_counter() - t_phase:.3f} s; {smi}; "
+          f"filter kernel launches {launches}: not on the sweep path): "
+          + "; ".join(parts), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -621,6 +853,7 @@ def main() -> int:
     phase_accuracy(device)
     phase_mle(device)
     phase_fused(device, if_ref, t_ref)
+    phase_sweep(device, smi)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,

@@ -7,14 +7,22 @@ layouts (channels-first ``(..., d, B)``, outputs ``(T, rows, B)``), take
 their device and dtype from the input tensors, and hold no global device
 state.  The package never imports JAX.
 
-Subpackages (ported so far: the batched IF-estimation path)
+Entry points that take host data (NumPy) put it on the card unless the
+caller passes ``device="cpu"``.
+
+Subpackages (ported so far: the chirp model's batched IF estimation,
+single-record MLE and estimation, and the Table-I Monte-Carlo sweeps)
 -----------
-quad       sigma-point rules
+quad       sigma-point rules, Gaussian expectations
 models     chirp SDE prior, its LCD discretization, Matern-3/2, bijections
-infer      channels-first batched square-root filter and smoother
+infer      sequential and square-root filters and smoothers, and their
+           channels-first batched forms
 ops        hand-written CUDA kernels (``ops/csrc``) and their wrappers
-apps       ``IFEstimationConfig`` and ``estimate_if_batched``
-utils      numerics and metrics
+fit        batched L-BFGS with zoom line search, host SciPy L-BFGS-B
+apps       ``IFEstimationConfig``, the pipeline, ``estimate_if_batched``,
+           the sweeps (``mle_sweep_on_measurements``)
+toymodels  synthetic chirps and magnitude/IF families
+utils      numerics, metrics, SDE simulation
 """
 
 import torch as _torch

@@ -1,19 +1,24 @@
 """End-to-end IF estimation with one typed config (counterpart of
 ``chirpgp_tpu.apps.pipeline``; the chirp model only, and the
-continuous-discrete methods and the in-graph L-BFGS are not ported yet).
+continuous-discrete methods are not ported yet).
 
 ``make_nll_fn`` (theta -> filter NLL) -> :func:`fit_mle` ->
 :func:`estimate_if` (filter + smooth + Gaussian expectation of g(V)), and
 :func:`run_pipeline` for all three; :func:`estimate_if_batched` for a
 batch of Monte-Carlo records at fixed hyperparameters.
+
+Measurements given as tensors stay where they are; anything else (NumPy
+arrays, lists) becomes a tensor on ``device``, the card unless the caller
+passes ``device="cpu"``.
 """
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from chirpgp_tpu_torch.fit.mle import MLEResult, scipy_minimize
+from chirpgp_tpu_torch.fit.mle import MLEResult, lbfgs_minimize, scipy_minimize
 from chirpgp_tpu_torch.infer import (
     ekf, eks, sgp_filter, sgp_smoother,
     sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother)
@@ -35,10 +40,9 @@ class IFEstimationConfig:
     """Experiment contract for one IF-estimation run; the fields of the
     JAX package's config.  Defaults reproduce the canonical toymodel setup:
     dt=1e-3, Xi=0.1, GH order 3, init theta = g^{-1}([0.1, 0.1, 0.1, 1, 1, 7]).
-    Only ``model="chirp"``, the methods ``ghfs`` and ``ekfs`` and
-    ``optimizer="scipy"`` are ported; ``chunk_iters``, ``ftol_rel``,
-    ``stall_patience`` and ``scan_unroll`` are carried for the slices that
-    use them and have no effect here.
+    Only ``model="chirp"`` and the methods ``ghfs`` and ``ekfs`` are
+    ported; ``scan_unroll`` is carried for the JAX package's signature and
+    has no effect on a Python loop.
     """
 
     dt: float = 1e-3
@@ -80,12 +84,13 @@ class IFEstimationConfig:
                 "port runs model='chirp'")
         raise ValueError(f"Unknown model {self.model!r}")
 
-    def default_init_theta(self) -> torch.Tensor:
-        """``g_inv`` of the default constrained params, in torch's default
-        dtype (as the JAX package uses JAX's)."""
+    def default_init_theta(self, dtype=None) -> torch.Tensor:
+        """``g_inv`` of the default constrained params, in ``dtype`` or
+        else torch's default dtype (as the JAX package uses JAX's)."""
         if self.model == "lascala":
-            return g_inv(torch.tensor([0.1, 1.0, 1.0, 7.0]))
-        return g_inv(torch.tensor([0.1, 0.1, 0.1, 1.0, 1.0, 7.0]))
+            return g_inv(torch.tensor([0.1, 1.0, 1.0, 7.0], dtype=dtype))
+        return g_inv(torch.tensor([0.1, 0.1, 0.1, 1.0, 1.0, 7.0],
+                                  dtype=dtype))
 
 
 def _filter_fns(cfg: IFEstimationConfig):
@@ -133,6 +138,24 @@ def _filter_fns(cfg: IFEstimationConfig):
     return flt, smt
 
 
+def _measurements(ys, device) -> torch.Tensor:
+    """A tensor as it is; anything else as a tensor on ``device`` (NumPy
+    keeps its dtype, Python floats become float64)."""
+    if isinstance(ys, torch.Tensor):
+        return ys
+    return torch.as_tensor(np.asarray(ys), device=device)
+
+
+def _init_theta(cfg: IFEstimationConfig, init_theta, ys: torch.Tensor):
+    """The caller's theta, or else the default one computed in the dtype
+    it and the data promote to (float64 over float64 data, as the JAX
+    package's default under x64), on the data's device."""
+    if init_theta is None:
+        init_theta = cfg.default_init_theta(
+            torch.promote_types(torch.get_default_dtype(), ys.dtype))
+    return _on_data(init_theta, ys)
+
+
 def _on_data(x, ys: torch.Tensor) -> torch.Tensor:
     """``x`` (theta or params) on the measurements' device, in the dtype
     that ``x`` and ``ys`` promote to -- what the JAX package computes in
@@ -143,11 +166,12 @@ def _on_data(x, ys: torch.Tensor) -> torch.Tensor:
     return x.to(dtype=dtype, device=ys.device)
 
 
-def make_nll_fn(cfg: IFEstimationConfig, ys: torch.Tensor) -> Callable:
+def make_nll_fn(cfg: IFEstimationConfig, ys, device="cuda") -> Callable:
     """The MLE objective: softplus-reparametrized params ``theta`` ->
-    final filter NLL, differentiable with ``torch.autograd``.  Runs on
-    ``ys``' device (theta is moved there)."""
+    final filter NLL, differentiable with ``torch.autograd`` and
+    ``torch.func``.  Runs on ``ys``' device (theta is moved there)."""
     flt, _ = _filter_fns(cfg)
+    ys = _measurements(ys, device)
 
     def nll(theta):
         theta = _on_data(theta, ys)
@@ -157,26 +181,27 @@ def make_nll_fn(cfg: IFEstimationConfig, ys: torch.Tensor) -> Callable:
     return nll
 
 
-def fit_mle(cfg: IFEstimationConfig, ys: torch.Tensor,
-            init_theta: Optional[torch.Tensor] = None) -> MLEResult:
-    """Maximize the filter-marginal likelihood with host SciPy L-BFGS-B,
-    each value-and-grad on ``ys``' device.  Returns the result in theta
-    (unconstrained) space, on the host."""
-    if cfg.optimizer == "lbfgs":
-        raise NotImplementedError(
-            "optimizer='lbfgs' (the in-graph L-BFGS) is not ported yet: it "
-            "comes with the Monte-Carlo sweeps slice (lbfgs_minimize, "
-            "lbfgs_minimize_stepped, apps/sweeps.py); use optimizer='scipy'")
-    if cfg.optimizer != "scipy":
+def fit_mle(cfg: IFEstimationConfig, ys, init_theta=None,
+            device="cuda") -> MLEResult:
+    """Maximize the filter-marginal likelihood, each value-and-grad on
+    ``ys``' device.  ``optimizer="scipy"``: host SciPy L-BFGS-B in float64,
+    the result on the host.  ``optimizer="lbfgs"``: :func:`lbfgs_minimize`
+    (``chunk_iters`` if nonzero) in the dtype theta and the data promote
+    to, the result on ``ys``' device.  Returns the result in theta
+    (unconstrained) space."""
+    if cfg.optimizer not in ("scipy", "lbfgs"):
         raise ValueError(f"Unknown optimizer {cfg.optimizer!r}")
-    if init_theta is None:
-        init_theta = cfg.default_init_theta()
+    ys = _measurements(ys, device)
+    init_theta = _init_theta(cfg, init_theta, ys)
     nll = make_nll_fn(cfg, ys)
-    return scipy_minimize(nll, torch.as_tensor(init_theta).to(ys.device),
+    if cfg.optimizer == "lbfgs":
+        return lbfgs_minimize(nll, init_theta, max_iters=cfg.max_iters,
+                              chunk_iters=cfg.chunk_iters or None)
+    return scipy_minimize(nll, init_theta,
                           options={"maxiter": cfg.max_iters})
 
 
-def estimate_if(cfg: IFEstimationConfig, params, ys: torch.Tensor) -> dict:
+def estimate_if(cfg: IFEstimationConfig, params, ys, device="cuda") -> dict:
     """Filter + smooth one record at fixed (constrained) params and push the
     V posterior through g.
 
@@ -185,6 +210,7 @@ def estimate_if(cfg: IFEstimationConfig, params, ys: torch.Tensor) -> dict:
     ``expectation_order`` GH) and the 95% band endpoints mapped through g.
     """
     flt, smt = _filter_fns(cfg)
+    ys = _measurements(ys, device)
     pack = cfg.build(_on_data(params, ys))
     mfs, Pfs, nell = flt(pack, ys)
     mss, Pss = smt(pack, mfs, Pfs)
@@ -206,8 +232,8 @@ def estimate_if(cfg: IFEstimationConfig, params, ys: torch.Tensor) -> dict:
                 if_mean=if_mean, if_lower=lo, if_upper=hi)
 
 
-def estimate_if_batched(cfg: IFEstimationConfig, params,
-                        yss: torch.Tensor) -> dict:
+def estimate_if_batched(cfg: IFEstimationConfig, params, yss,
+                        device="cuda") -> dict:
     """Fixed-params IF estimation over a batch of sequences ``yss (B, T)``:
     the fused chirp filter (``ops.chirp_filter.ghfs_chirp_filter``: the
     CUDA kernel for a CUDA tensor, its plain version on the CPU), the
@@ -222,6 +248,7 @@ def estimate_if_batched(cfg: IFEstimationConfig, params,
         raise NotImplementedError(
             f"estimate_if_batched: model={cfg.model!r} is not ported yet "
             "(later PR); the fused filter kernel is d=4 chirp only")
+    yss = _measurements(yss, device)
     params = torch.as_tensor(params)
     pack = cfg.build(params)
     sgps = cfg.sigma_points()
@@ -237,12 +264,13 @@ def estimate_if_batched(cfg: IFEstimationConfig, params,
     return dict(if_mean=if_mean.T, nell=nll[-1], mss=mss, Lss=Lss)
 
 
-def run_pipeline(cfg: IFEstimationConfig, ys: torch.Tensor,
-                 init_theta: Optional[torch.Tensor] = None):
+def run_pipeline(cfg: IFEstimationConfig, ys,
+                 init_theta: Optional[torch.Tensor] = None, device="cuda"):
     """MLE then estimation; returns (opt_result, constrained params,
     estimate dict).  A divergent optimization (success=False) still
     returns the estimate at the last iterate (the reference records such
     runs as NaN upstream)."""
+    ys = _measurements(ys, device)
     opt = fit_mle(cfg, ys, init_theta)
     params = g(opt.params)
     est = estimate_if(cfg, params, ys)

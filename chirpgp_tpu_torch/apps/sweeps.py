@@ -1,0 +1,403 @@
+"""Monte-Carlo experiment sweeps: the Table-I RMSE jobs (counterpart of
+``chirpgp_tpu.apps.sweeps``; the KPT sweep waits for the KPT model, and
+the mesh for the scale-out slice).
+
+- **Pairing**: every method sees the same measurement realizations, from
+  the same per-seed keys (:func:`generate_rnd_keys`).  Torch cannot replay
+  JAX's threefry streams, so the port's own draws differ from the JAX
+  package's; parity with it runs on the committed data in
+  ``results/data/`` through :func:`mle_sweep_on_measurements`.
+- **Batched MLE**: all seeds step in lockstep through the batched L-BFGS
+  (:func:`~chirpgp_tpu_torch.fit.mle.lbfgs_minimize_stepped`), each value
+  and gradient one ``torch.func.vmap`` over the seeds on the measurements'
+  device; then a per-lane SciPy rescue of stuck lanes on that device, a
+  per-lane float64 polish on the host CPU, and the estimate stage, vmapped
+  over the seeds.
+- **NaN-on-divergence**: runs whose optimizer fails are recorded as NaN.
+- **Results** per (method, magnitude) as ``.npz`` with ``rmse``, learnt
+  params and ``success``, consumed by :func:`print_rmse_table`.
+
+Entry points that take host data put it on ``device``, the card unless
+the caller passes ``device="cpu"``.
+"""
+
+import concurrent.futures
+import math
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from chirpgp_tpu_torch.apps.pipeline import (
+    IFEstimationConfig, _filter_fns, _init_theta, _measurements, _on_data,
+    make_nll_fn)
+from chirpgp_tpu_torch.fit.mle import (
+    MLEResult, lbfgs_minimize, lbfgs_minimize_stepped)
+from chirpgp_tpu_torch.models.bijections import g
+from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
+from chirpgp_tpu_torch.toymodels import (
+    gen_chirp, gen_harmonic_chirp, constant_mag, damped_exp_mag,
+    random_ou_mag, meow_freq)
+from chirpgp_tpu_torch.utils.metrics import rmse
+
+__all__ = ["generate_rnd_keys", "toymodel_measurements", "mc_mle_sweep",
+           "mc_mle_sweep_stepped", "mc_kpt_sweep",
+           "mle_sweep_on_measurements", "save_results", "print_rmse_table",
+           "MAGNITUDES"]
+
+_SEED_BOUND = 2 ** 62
+
+
+def generate_rnd_keys(num: int = 1000, seed: int = 999) -> torch.Tensor:
+    """``num`` integer seeds drawn from ``torch.Generator().manual_seed(
+    seed)``: the port's counterpart of the reference's pregenerated keys
+    (``tetralith/generate_rndkeys.py``).  They pair the methods of one
+    sweep with each other; they are not JAX's ``PRNGKey(999)`` keys."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, _SEED_BOUND, (num,), generator=gen)
+
+
+# The three magnitude scenarios of the paper's Table I.
+MAGNITUDES = ("const", "damped", "random")
+
+
+def _magnitude(name: str, generator: torch.Generator):
+    if name == "const":
+        return constant_mag(1.0)
+    if name == "damped":
+        return damped_exp_mag(0.3)
+    if name == "random":
+        return random_ou_mag(1.0, 1.0, generator)
+    raise ValueError(f"Unknown magnitude {name!r}")
+
+
+def toymodel_measurements(key, mag_name: str, dt: float = 1e-3,
+                          T: int = 3141, Xi: float = 0.1,
+                          num_harmonics: int = 1, device="cuda"):
+    """One seed's toymodel data: (ts, true_freqs, ys).
+
+    Times ``dt..T*dt``, the meow IF with offset 8, chirp + N(0, Xi)
+    noise.  ``key`` is an integer seed or a host ``torch.Generator``; it is
+    split once, as the JAX package splits its key: first for the
+    measurement noise, second for the OU magnitude (when used).  The
+    record is made on the host in float64 and returned on ``device`` in
+    torch's default dtype (as the JAX package returns JAX's).
+    """
+    gen = key if isinstance(key, torch.Generator) \
+        else torch.Generator().manual_seed(int(key))
+    seed_noise, seed_mag = torch.randint(0, _SEED_BOUND, (2,),
+                                         generator=gen).tolist()
+    ts = torch.linspace(dt, dt * T, T, dtype=torch.float64)
+    freq_func, phase_func = meow_freq(offset=8.0)
+    mag = _magnitude(mag_name, torch.Generator().manual_seed(seed_mag))
+    if num_harmonics == 1:
+        chirp = gen_chirp(ts, mag, phase_func)
+    else:
+        # Every overtone gets the same magnitude function, as the
+        # reference's harmonic jobs do.
+        chirp = gen_harmonic_chirp(ts, [mag] * num_harmonics, phase_func)
+    noise = torch.randn(T, generator=torch.Generator().manual_seed(seed_noise),
+                        dtype=torch.float64)
+    ys = chirp + math.sqrt(Xi) * noise
+    like = dict(dtype=torch.get_default_dtype(), device=device)
+    return ts.to(**like), freq_func(ts).to(**like), ys.to(**like)
+
+
+def _measurement_batch(cfg, keys, mag_name, T, device):
+    nh = cfg.num_harmonics if cfg.model == "harmonic" else 1
+    recs = [toymodel_measurements(k, mag_name, dt=cfg.dt, T=T, Xi=cfg.Xi,
+                                  num_harmonics=nh, device=device)
+            for k in keys]
+    return (torch.stack([r[1] for r in recs]),
+            torch.stack([r[2] for r in recs]))
+
+
+def _estimate_lanes(cfg: IFEstimationConfig, theta, true_freqs, ys,
+                    success) -> Dict[str, np.ndarray]:
+    """Filter + smooth + GH IF estimate + RMSE of every lane at its learnt
+    theta, vmapped over the lanes; NaN rmse where ``success`` is False."""
+    flt, smt = _filter_fns(cfg)
+    v_idx = -2 if cfg.model == "harmonic" else 2
+
+    def estimate(theta_i, tf_i, ys_i, success_i):
+        params = g(theta_i)
+        pack = cfg.build(params)
+        mfs, Pfs, _ = flt(pack, ys_i)
+        mss, Pss = smt(pack, mfs, Pfs)
+        v_mean = mss[:, v_idx]
+        if cfg.form == "sqrt":
+            v_std = torch.linalg.norm(Pss[:, v_idx, :], dim=-1)
+        else:
+            v_std = torch.sqrt(Pss[:, v_idx, v_idx].clamp_min(0.0))
+        if_mean = gaussian_expectation_1d(
+            v_mean, v_std, order=cfg.expectation_order) * cfg.freq_scale
+        err = rmse(tf_i, if_mean)
+        return dict(rmse=torch.where(success_i, err, torch.nan),
+                    params=params, success=success_i)
+
+    with torch.no_grad():
+        out = torch.func.vmap(estimate)(_on_data(theta, ys), true_freqs, ys,
+                                        success)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def mc_mle_sweep(cfg: IFEstimationConfig, keys, mag_name: str,
+                 T: int = 3141, mesh=None, init_theta=None,
+                 device="cuda") -> Dict[str, np.ndarray]:
+    """MLE + filter + smooth + IF-RMSE for every seed in ``keys``, all
+    seeds in one batched :func:`lbfgs_minimize` (each stops on its own
+    gradient-norm rule).  Returns host arrays: rmses (N,), learnt params
+    (N, P), success flags (N,).  Divergent runs contribute NaN rmse."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mc_mle_sweep: mesh (the sharded sweep) is not ported yet; it "
+            "comes with the scale-out slice")
+    true_freqs, ys = _measurement_batch(cfg, keys, mag_name, T, device)
+    init_theta = _init_theta(cfg, init_theta, ys)
+
+    def nll(theta, ys_i):
+        return make_nll_fn(cfg, ys_i)(theta)
+
+    theta0 = init_theta.expand((ys.shape[0],) + init_theta.shape).clone()
+    opt = lbfgs_minimize(nll, theta0, max_iters=cfg.max_iters,
+                         batch_args=(ys,))
+    return _estimate_lanes(cfg, opt.params, true_freqs, ys, opt.success)
+
+
+def mc_mle_sweep_stepped(cfg: IFEstimationConfig, keys, mag_name: str,
+                         T: int = 3141, init_theta=None,
+                         verbose: bool = False,
+                         device="cuda") -> Dict[str, np.ndarray]:
+    """:func:`mc_mle_sweep` through :func:`mle_sweep_on_measurements`: the
+    stepped batched L-BFGS, the rescue, the float64 polish and the
+    estimate.  Same per-seed math and NaN-on-divergence semantics."""
+    true_freqs, ys = _measurement_batch(cfg, keys, mag_name, T, device)
+    return mle_sweep_on_measurements(cfg, true_freqs, ys,
+                                     init_theta=init_theta, verbose=verbose)
+
+
+def _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
+                        max_iters: int = 300, rescue_tol: float = 1e-3,
+                        outlier_z: float = 8.0, verbose: bool = False):
+    """Per-lane SciPy L-BFGS-B fallback, on the objective's device and in
+    its dtype, for lanes the lockstep batched L-BFGS never moved off the
+    init, or that landed far above the batch-typical optimum.
+
+    A lane is "stuck" when its final NLL is not at least
+    ``rescue_tol * max(1, |f_init|)`` below the init NLL, or went
+    non-finite; a lane whose NLL improvement ``f_final - f_init`` lies
+    more than ``outlier_z`` MAD-sigmas above the batch median is
+    re-optimized too.  The rescued lane keeps whichever result is better.
+    """
+    from scipy.optimize import minimize
+
+    with torch.no_grad():
+        f_init = torch.func.vmap(nll)(theta0, ys).cpu().numpy()
+    f_fin = opt.fun_val.cpu().numpy().astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        stuck = (~np.isfinite(f_fin)) | (
+            f_fin >= f_init - rescue_tol * np.maximum(1.0, np.abs(f_init)))
+        delta = f_fin - f_init
+        med = np.nanmedian(delta)
+        mad = np.nanmedian(np.abs(delta - med))
+        # mad == 0 (half the lanes share one improvement) would flag
+        # every other lane; the stuck rule covers no-progress lanes then.
+        if mad > 0:
+            sigma = 1.4826 * mad
+            stuck |= np.isfinite(delta) & (delta > med + outlier_z * sigma)
+    idx = np.nonzero(stuck)[0]
+    if idx.size == 0:
+        return opt
+    if verbose:
+        print(f"  scipy fallback: rescuing {idx.size} stuck lanes "
+              f"{idx.tolist()[:16]}{'...' if idx.size > 16 else ''}",
+              flush=True)
+    params_np = opt.params.cpu().numpy().copy()
+    succ_np = opt.success.cpu().numpy().copy()
+    iters_np = opt.num_iters.cpu().numpy().copy()
+    theta_init64 = np.asarray(torch.as_tensor(init_theta).cpu(),
+                              dtype=np.float64)
+    for i in idx:
+        ys_i = ys[i]
+
+        def f_np(x):
+            theta = torch.tensor(x, dtype=theta0.dtype, device=theta0.device,
+                                 requires_grad=True)
+            value = nll(theta, ys_i)
+            grad, = torch.autograd.grad(value, theta)
+            return float(value.detach()), grad.cpu().numpy().astype(np.float64)
+
+        res = minimize(f_np, theta_init64, method="L-BFGS-B", jac=True,
+                       options={"maxiter": max_iters})
+        if np.isfinite(res.fun) and (not np.isfinite(f_fin[i])
+                                     or res.fun < f_fin[i]):
+            params_np[i] = np.asarray(res.x, dtype=params_np.dtype)
+            succ_np[i] = bool(res.success)
+            f_fin[i] = res.fun
+            iters_np[i] = int(res.nit)
+            if verbose:
+                print(f"    lane {i}: rescued nll={res.fun:.3f} "
+                      f"({int(res.nit)} iters, success={res.success})",
+                      flush=True)
+    device = opt.params.device
+    return MLEResult(
+        torch.as_tensor(params_np, device=device),
+        torch.as_tensor(f_fin, dtype=opt.fun_val.dtype, device=device),
+        torch.as_tensor(iters_np, device=device),
+        torch.as_tensor(succ_np, device=device))
+
+
+def _polish_lanes_f64(nll, init_theta, opt, ys, max_iters: int = 200,
+                      verbose: bool = False):
+    """Per-lane float64 L-BFGS-B polish of the batched stage's solution, on
+    the host CPU, over a small thread pool -- as the JAX package pins
+    ``jax.devices("cpu")`` at x64 for it.
+
+    The float32 NLL of this model family sits at O(1e3) nats, so float32
+    resolves relative improvements only down to ~1e-4, and the stepped
+    optimizer stalls on a plateau the reference's float64 SciPy run
+    descends past.  Re-running the same objective in float64 from each
+    lane's best iterate restores the reference's optimizer semantics.
+    Lanes whose batched stage went non-finite are polished from the init
+    instead.  A polished value above the incoming one (beyond 1e-3
+    relative slack) is rejected; a lane without a finite incoming value
+    takes its polish only when SciPy reports convergence.
+    """
+    from scipy.optimize import minimize
+
+    params_np = opt.params.cpu().numpy().astype(np.float64)
+    f_fin = opt.fun_val.cpu().numpy().astype(np.float64)
+    succ_np = opt.success.cpu().numpy().copy()
+    iters_np = opt.num_iters.cpu().numpy().copy()
+    ys64 = ys.cpu().to(torch.float64)
+    init64 = np.asarray(torch.as_tensor(init_theta).cpu(), dtype=np.float64)
+
+    def polish_lane(i):
+        x0 = params_np[i]
+        if not np.all(np.isfinite(x0)):
+            x0 = init64
+        ys_i = ys64[i]
+
+        def f_np(x):
+            theta = torch.tensor(x, dtype=torch.float64, requires_grad=True)
+            value = nll(theta, ys_i)
+            grad, = torch.autograd.grad(value, theta)
+            return float(value.detach()), grad.numpy()
+
+        return i, minimize(f_np, x0, method="L-BFGS-B", jac=True,
+                           options={"maxiter": max_iters})
+
+    # The lanes are independent; results are applied on this thread, in
+    # lane order.
+    workers = max(2, min(4, os.cpu_count() or 2))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        for i, res in ex.map(polish_lane, range(params_np.shape[0])):
+            incoming_finite = np.isfinite(f_fin[i])
+            slack = 1e-3 * max(1.0, abs(f_fin[i])) if incoming_finite else 0.0
+            accept = np.isfinite(res.fun) and (
+                (incoming_finite and res.fun <= f_fin[i] + slack)
+                or (not incoming_finite and bool(res.success)))
+            if accept:
+                if verbose and (not incoming_finite
+                                or res.fun < f_fin[i] - 1e-3):
+                    print(f"    f64 polish lane {i}: {f_fin[i]:.3f} -> "
+                          f"{res.fun:.3f} ({int(res.nit)} iters)", flush=True)
+                params_np[i] = np.asarray(res.x)
+                f_fin[i] = res.fun
+                # NaN-on-DIVERGENCE: a finite polished optimum is a usable
+                # estimate even if SciPy stopped on maxiter.
+                succ_np[i] = True
+                iters_np[i] = iters_np[i] + int(res.nit)
+            elif verbose:
+                print(f"    f64 polish lane {i}: rejected (fun="
+                      f"{res.fun:.3f} vs incoming {f_fin[i]:.3f}, success="
+                      f"{res.success})", flush=True)
+
+    device = opt.params.device
+    return MLEResult(
+        torch.as_tensor(params_np, dtype=opt.params.dtype, device=device),
+        torch.as_tensor(f_fin, dtype=opt.fun_val.dtype, device=device),
+        torch.as_tensor(iters_np, device=device),
+        torch.as_tensor(succ_np, device=device))
+
+
+def mle_sweep_on_measurements(cfg: IFEstimationConfig, true_freqs, ys,
+                              init_theta=None, polish_f64: bool = True,
+                              checkpoint_path: Optional[str] = None,
+                              checkpoint_tag: str = "",
+                              verbose: bool = False,
+                              device="cuda") -> Dict[str, np.ndarray]:
+    """Host-stepped batched MLE sweep over measurement batches ``ys (B,
+    T)`` with their true IFs ``true_freqs`` ((B, T), or (T,) for all):
+    :func:`lbfgs_minimize_stepped` (``tail_iters=30``), the rescue of stuck
+    lanes, the float64 host polish (``polish_f64``), and the estimate,
+    vmapped over the lanes.  Lanes may mix scenarios (all three magnitude
+    cases in one batch).  ``checkpoint_path``/``checkpoint_tag`` go to the
+    stepped optimizer; the file is not deleted here.  Returns host arrays
+    ``rmse`` (B,), ``params`` (B, P) and ``success`` (B,)."""
+    ys = _measurements(ys, device)
+    true_freqs = _measurements(true_freqs, device)
+    if true_freqs.dim() == 1:
+        true_freqs = true_freqs.expand(ys.shape)
+    init_theta = _init_theta(cfg, init_theta, ys)
+
+    def nll(theta, ys_i):
+        return make_nll_fn(cfg, ys_i)(theta)
+
+    theta0 = init_theta.expand((ys.shape[0],) + init_theta.shape).clone()
+    opt = lbfgs_minimize_stepped(nll, theta0, batch_args=(ys,),
+                                 max_iters=cfg.max_iters,
+                                 ftol_rel=cfg.ftol_rel,
+                                 patience=cfg.stall_patience,
+                                 checkpoint_path=checkpoint_path,
+                                 checkpoint_tag=checkpoint_tag,
+                                 tail_iters=30, verbose=verbose)
+    opt = _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
+                              max_iters=cfg.max_iters, verbose=verbose)
+    if polish_f64:
+        opt = _polish_lanes_f64(nll, init_theta, opt, ys,
+                                max_iters=cfg.max_iters, verbose=verbose)
+    return _estimate_lanes(cfg, opt.params, true_freqs, ys, opt.success)
+
+
+def mc_kpt_sweep(*args, **kwargs):
+    """The KPT-baseline sweep waits for the KPT model (``models/kpt.py``,
+    ``apps/kpt.py``), which the port does not have yet."""
+    raise NotImplementedError(
+        "mc_kpt_sweep is not ported yet: it waits for the KPT model (a "
+        "later slice)")
+
+
+def save_results(results: Dict[str, np.ndarray], method: str,
+                 mag_name: str, out_dir: str = "./results") -> str:
+    """Write the reference-compatible result file ``{method}_{mag}.npz``."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{method}_{mag_name}.npz")
+    np.savez(path, **results)
+    return path
+
+
+def print_rmse_table(results_by_method: Dict[str, Dict[str, np.ndarray]],
+                     scale: float = 10.0) -> str:
+    """Aggregate per-method RMSE statistics like the reference table
+    printer: scaled mean +- std / median / min and the NaN (divergence)
+    count.  Prints the table and returns it."""
+    lines = [f"{'method':24s} {'mag':8s} {'mean+-std':>20s} "
+             f"{'median':>9s} {'min':>9s} {'#nan':>5s}"]
+    for method, by_mag in results_by_method.items():
+        for mag_name, res in by_mag.items():
+            r = np.asarray(res["rmse"]) * scale
+            nan_count = int(np.sum(np.isnan(r)))
+            ok = r[~np.isnan(r)]
+            if ok.size:
+                lines.append(
+                    f"{method:24s} {mag_name:8s} "
+                    f"{np.mean(ok):9.3f}+-{np.std(ok):8.3f} "
+                    f"{np.median(ok):9.3f} {np.min(ok):9.3f} {nan_count:5d}")
+            else:
+                lines.append(f"{method:24s} {mag_name:8s} {'all-NaN':>20s} "
+                             f"{'--':>9s} {'--':>9s} {nan_count:5d}")
+    table = "\n".join(lines)
+    print(table)
+    return table

@@ -20,7 +20,7 @@ import torch
 from chirpgp_tpu_torch.infer.sqrt import _require_nonneg_weights
 from chirpgp_tpu_torch.models.transitions import Transition, as_transition
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
-from chirpgp_tpu_torch.utils.numerics import psd_cholesky
+from chirpgp_tpu_torch.utils.numerics import cholesky_or_nan, psd_cholesky
 
 __all__ = ["tria_cf", "sqrt_sgp_filter_batched", "sqrt_sgp_smoother_batched",
            "sqrt_sgp_filter_smoother_batched", "cov_sgp_filter_smoother_batched",
@@ -136,7 +136,7 @@ def sqrt_sgp_filter_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
     Lq = psd_cholesky(trans.cov_const(dt)).to(**like)
     LqT = Lq.T[:, :, None].expand(d, d, B)
     m = m0.to(**like)[:, None].expand(d, B)
-    L = torch.linalg.cholesky(P0).to(**like)[:, :, None].expand(d, d, B)
+    L = cholesky_or_nan(P0).to(**like)[:, :, None].expand(d, d, B)
     nll = yss.new_zeros((B,))
 
     mfs, Lfs, nlls = [], [], []
@@ -255,7 +255,7 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
     LqT = Lq.T[:, :, None].expand(d, d, B)
     zeros_dd = yss.new_zeros((d, d, B))
     m = m0.to(**like)[:, None].expand(d, B)
-    L = torch.linalg.cholesky(P0).to(**like)[:, :, None].expand(d, d, B)
+    L = cholesky_or_nan(P0).to(**like)[:, :, None].expand(d, d, B)
     nll = yss.new_zeros((B,))
 
     # xiw = sqrt(w) xi has orthonormal columns (sum_s w xi xi^T = I for

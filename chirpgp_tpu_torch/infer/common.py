@@ -102,11 +102,15 @@ def _loop_constants(trans, sgps, dt, like: torch.Tensor):
 
 def _linearization(trans, dt):
     """An EKF step's ``lin(mf) -> (F, mp)``: the conditional mean at
-    ``mf`` and its Jacobian by ``torch.func.jacfwd``.  Inside jacfwd's
-    vmap, PyTorch promotes a 0-dim float32 tensor times a Python float to
-    float64, so ``F`` is cast back to ``mf``'s dtype."""
+    ``mf`` and its Jacobian, from the transition's closed form where it
+    has one, else by ``torch.func.jacfwd``.  Inside jacfwd's vmap, PyTorch
+    promotes a 0-dim float32 tensor times a Python float to float64, so
+    ``F`` is cast back to ``mf``'s dtype.  (The closed form also keeps
+    forward-mode AD, whose levels are process-wide, out of objectives that
+    run on several threads at once.)"""
     mean_fn = lambda u: trans.mean(u, dt)  # noqa: E731
-    jac = torch.func.jacfwd(mean_fn)
+    jac = (lambda u: trans.jac(u, dt)) if trans.jac is not None \
+        else torch.func.jacfwd(mean_fn)
     return lambda mf: (jac(mf).to(mf.dtype), mean_fn(mf))
 
 

@@ -25,7 +25,7 @@ from chirpgp_tpu_torch.infer.common import (
     _as_data, _linearization, _loop_constants, log_normal_pdf)
 from chirpgp_tpu_torch.infer.smoothers import _run_smoother
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
-from chirpgp_tpu_torch.utils.numerics import psd_cholesky
+from chirpgp_tpu_torch.utils.numerics import cholesky_or_nan, psd_cholesky
 
 __all__ = ["tria", "sqrt_sgp_filter", "sqrt_sgp_smoother", "sqrt_ekf",
            "sqrt_eks", "sqrt_kf"]
@@ -152,7 +152,7 @@ def _run_sqrt_filter(predict, H, Xi, m0, P0, ys, tria_method="hh"):
     then the 1-D sqrt update."""
     ys = _as_data(ys, m0)
     sqrt_Xi = torch.sqrt(torch.as_tensor(Xi, dtype=m0.dtype, device=m0.device))
-    mf, Lf, n_ell = m0, torch.linalg.cholesky(P0), m0.new_zeros(())
+    mf, Lf, n_ell = m0, cholesky_or_nan(P0), m0.new_zeros(())
     mfs, Lfs, nlls = [], [], []
     for y in ys:
         mp, Up = predict(mf, Lf)

@@ -103,6 +103,20 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
         m3_ = F10 * u[..., 2] + F11 * u[..., 3]
         return torch.stack([m0_, m1_, m2_, m3_], dim=-1)
 
+    def jac(u, dt):
+        # d/du of ``mean``: the rotation block, its derivative through
+        # w = 2 pi g(V) (g' = sigmoid), and the Matern-3/2 F.
+        decay, F00, F01, F10, F11 = _step_consts(dt)
+        w = _TWO_PI * g(u[..., 2])
+        c, s = torch.cos(dt * w) * decay, torch.sin(dt * w) * decay
+        dw = _TWO_PI * torch.sigmoid(u[..., 2]) * dt
+        zero = torch.zeros_like(c)
+        rows = [[c, -s, -s * dw * u[..., 0] - c * dw * u[..., 1], zero],
+                [s, c, c * dw * u[..., 0] - s * dw * u[..., 1], zero],
+                [zero, zero, zero + F00, zero + F01],
+                [zero, zero, zero + F10, zero + F11]]
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
     def cov(_, dt):
         q = ou_variance(b, lam, dt)
         _, S32 = m32_solution(ell, sigma, dt)
@@ -121,7 +135,8 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
         m3_ = F10 * u[..., 2, :] + F11 * u[..., 3, :]
         return torch.stack([m0_, m1_, m2_, m3_], dim=-2)
 
-    return Transition(mean=mean, cov=cov, const_cov=True, mean_cf=mean_cf)
+    return Transition(mean=mean, cov=cov, const_cov=True, mean_cf=mean_cf,
+                      jac=jac)
 
 
 class ChirpModelPack(NamedTuple):

@@ -4,7 +4,8 @@
 A :class:`Transition` is the discrete-time conditional law of an SDE over a
 step ``dt``: ``X_k | X_{k-1} = u ~ N(mean(u, dt), cov(u, dt))``.  ``mean``
 broadcasts over leading batch axes; ``mean_cf`` is the channels-first
-form ``(..., d, B)`` the batched filters use; ``const_cov`` marks a
+form ``(..., d, B)`` the batched filters use; ``jac`` is the mean's
+Jacobian in closed form, where the model gives one; ``const_cov`` marks a
 state-independent covariance.
 """
 
@@ -29,12 +30,16 @@ class Transition:
     mean_cf : callable ``(..., d, B), dt -> (..., d, B)`` or None
         Channels-first conditional mean; when None the batched filters
         transpose around ``mean``.
+    jac : callable ``(..., d), dt -> (..., d, d)`` or None
+        Jacobian of ``mean`` with respect to the state; when None the
+        extended filters and smoothers take it from ``torch.func.jacfwd``.
     """
 
     mean: Callable
     cov: Callable
     const_cov: bool = False
     mean_cf: Optional[Callable] = None
+    jac: Optional[Callable] = None
 
     def mean_channels_first(self, u_cf: torch.Tensor, dt) -> torch.Tensor:
         """The conditional mean in channels-first layout ``(..., d, B)``."""

@@ -2,7 +2,8 @@
 
 from chirpgp_tpu_torch.utils.metrics import rmse
 from chirpgp_tpu_torch.utils.numerics import (
-    as_real_tensor, phi1, ou_variance, psd_cholesky, psd_solve)
+    as_real_tensor, phi1, ou_variance, psd_cholesky, cholesky_or_nan,
+    psd_solve)
 
 __all__ = ["rmse", "as_real_tensor", "phi1", "ou_variance", "psd_cholesky",
-           "psd_solve"]
+           "cholesky_or_nan", "psd_solve"]

@@ -4,7 +4,8 @@
 
 import torch
 
-__all__ = ["as_real_tensor", "phi1", "ou_variance", "psd_cholesky", "psd_solve"]
+__all__ = ["as_real_tensor", "phi1", "ou_variance", "psd_cholesky",
+           "cholesky_or_nan", "psd_solve"]
 
 
 def as_real_tensor(x) -> torch.Tensor:
@@ -61,6 +62,17 @@ def psd_cholesky(P: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     return torch.stack(
         [torch.stack([rows[i][j] if j <= i else zero for j in range(d)],
                      dim=-1) for i in range(d)], dim=-2)
+
+
+def cholesky_or_nan(P: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``P`` (..., d, d), NaN where ``P`` is not
+    positive definite -- what JAX's Cholesky returns, where
+    ``torch.linalg.cholesky`` raises, for the whole batch of a
+    ``torch.func.vmap``.  A non-finite lane of a batched objective so
+    carries NaN and leaves the other lanes alone."""
+    L, info = torch.linalg.cholesky_ex(P)
+    ok = (info == 0)[..., None, None]
+    return torch.where(ok, L, torch.full_like(L, float("nan")))
 
 
 def psd_solve(P: torch.Tensor, B: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:

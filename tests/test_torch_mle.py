@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX package: the MLE objective ``make_nll_fn`` (value
 and gradient through the filter), its dtype rule, and ``fit_mle`` with host
-SciPy L-BFGS-B.  Tolerances: value and gradient 1e-8 relative (the
-gradient relative to max |grad|); fit_mle: the same ``success``, theta
-within 1e-5, NLL within 1e-8 relative."""
+SciPy L-BFGS-B and with the in-package L-BFGS.  Tolerances: value and
+gradient 1e-8 relative (the gradient relative to max |grad|); fit_mle: the
+same ``success``, theta within 1e-5, NLL within 1e-8 relative; with
+``optimizer="lbfgs"`` also the same iteration count."""
 
 from pathlib import Path
 
@@ -92,6 +93,22 @@ def test_fit_mle_matches_jax():
     assert int(ot.num_iters) > 0
 
 
+def test_fit_mle_lbfgs_matches_jax():
+    ys, theta = _ys(100), _theta0()
+    cfg = dict(optimizer="lbfgs", max_iters=20)
+    oj = jp.fit_mle(jp.IFEstimationConfig(**cfg), jnp.asarray(ys),
+                    jnp.asarray(theta))
+    ot = tp.fit_mle(tp.IFEstimationConfig(**cfg), torch.tensor(ys),
+                    torch.tensor(theta))
+    assert bool(ot.success) == bool(oj.success)
+    assert int(ot.num_iters) == int(oj.num_iters)
+    assert ot.params.shape == (6,) and ot.params.dtype == torch.float64
+    npt.assert_allclose(ot.params.numpy(), np.asarray(oj.params), atol=1e-5,
+                        rtol=0)
+    npt.assert_allclose(float(ot.fun_val), float(oj.fun_val), rtol=1e-8,
+                        atol=0)
+
+
 def test_scipy_minimize_records_divergence():
     """A NaN objective is reported as success=False (the reference records
     such Monte-Carlo runs as NaN), not raised."""
@@ -107,8 +124,13 @@ def test_scipy_minimize_records_divergence():
 
 def test_unported_options_raise():
     ys = torch.zeros(8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="sweeps"):
-        tp.fit_mle(tp.IFEstimationConfig(optimizer="lbfgs"), ys)
+    with pytest.raises(NotImplementedError, match="later PR"):
+        tp.fit_mle(tp.IFEstimationConfig(model="harmonic"), ys)
+    with pytest.raises(ValueError):
+        tp.fit_mle(tp.IFEstimationConfig(optimizer="adam"), ys)
+    from chirpgp_tpu_torch.apps import mc_kpt_sweep
+    with pytest.raises(NotImplementedError, match="KPT"):
+        mc_kpt_sweep(np.zeros((1, 2), np.uint32), "const")
     for method in ("cd_ghfs", "cd_ekfs"):
         with pytest.raises(NotImplementedError, match="continuous-discrete"):
             tp.make_nll_fn(tp.IFEstimationConfig(method=method), ys)

@@ -1,0 +1,300 @@
+"""PyTorch port vs the JAX package: the Table-I Monte-Carlo sweeps
+(``apps/sweeps.py``), the toy models and the SDE simulator, in float64 on
+the committed data of ``results/data/`` (torch cannot replay JAX's random
+keys).  Tolerances: the whole ``mle_sweep_on_measurements`` (stepped
+L-BFGS, rescue, float64 polish, estimate) the same ``success``, the learnt
+params within 1e-5 and the IF-RMSE within 1e-6 relative; the toy models
+and the simulator from JAX's own draws 1e-12; the vmapped objective
+against one lane alone 1e-12 relative."""
+
+from pathlib import Path
+
+import numpy as np
+import numpy.testing as npt
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import chirpgp_tpu.apps.pipeline as jp
+import chirpgp_tpu.apps.sweeps as js
+import chirpgp_tpu.toymodels as jt
+import chirpgp_tpu.utils.sim as jsim
+from chirpgp_tpu.fit.mle import MLEResult as JMLEResult
+import chirpgp_tpu_torch.apps.pipeline as tp
+import chirpgp_tpu_torch.apps.sweeps as ts
+import chirpgp_tpu_torch.toymodels as tt
+import chirpgp_tpu_torch.utils.sim as tsim
+from chirpgp_tpu_torch.fit import MLEResult, batched_value_and_grad
+from chirpgp_tpu_torch.models import g
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+F64 = dict(atol=1e-12, rtol=0)
+
+
+def _seed0(T):
+    """Seed 0 of each magnitude's Table-I data: (true_freqs (T,), ys (3, T))."""
+    ys = []
+    for mag in ts.MAGNITUDES:
+        data = np.load(ROOT / f"results/data/toydata_{mag}.npz")
+        ys.append(data["ys"][0, :T])
+    return data["true_freqs"][:T].astype(np.float64), \
+        np.stack(ys).astype(np.float64)
+
+
+@pytest.mark.parametrize("method", ["ekfs", "ghfs"])
+def test_sweep_on_measurements_matches_jax(method):
+    tf, ys = _seed0(60)
+    rj = js.mle_sweep_on_measurements(
+        jp.IFEstimationConfig(method=method, max_iters=15),
+        jnp.asarray(np.broadcast_to(tf, ys.shape)), jnp.asarray(ys))
+    rt = ts.mle_sweep_on_measurements(
+        tp.IFEstimationConfig(method=method, max_iters=15), tf, ys,
+        device="cpu")
+    assert rt["params"].shape == (3, 6) and rt["rmse"].shape == (3,)
+    npt.assert_array_equal(rt["success"], rj["success"])
+    npt.assert_allclose(rt["params"], rj["params"], atol=1e-5, rtol=0)
+    npt.assert_allclose(rt["rmse"], rj["rmse"], rtol=1e-6, atol=0)
+
+
+def _nll_pair(cfg_kw):
+    cj, ct = jp.IFEstimationConfig(**cfg_kw), tp.IFEstimationConfig(**cfg_kw)
+    return (lambda th, y: jp.make_nll_fn(cj, y)(th),
+            lambda th, y: tp.make_nll_fn(ct, y)(th))
+
+
+def test_rescue_of_a_stuck_lane_matches_jax():
+    """Lane 1 reports no progress from the init, so it alone is re-run by
+    the per-lane SciPy L-BFGS-B; the others pass through.  The reported
+    NLLs are float32, as from the float32 stepped stage on the card (the
+    JAX function writes into its float64 copy of them)."""
+    _, ys = _seed0(60)
+    nj, nt = _nll_pair(dict(method="ekfs"))
+    init = np.asarray(jp.IFEstimationConfig().default_init_theta(),
+                      np.float64)
+    theta0 = np.tile(init, (3, 1))
+    f0 = np.asarray(jax.vmap(nj)(jnp.asarray(theta0), jnp.asarray(ys)))
+    params = theta0 + np.array([[0.1], [0.0], [-0.1]])
+    fun = (f0 - np.array([100.0, 0.0, 100.0])).astype(np.float32)
+    iters, succ = np.array([7, 7, 7]), np.array([True, True, True])
+    oj = js._rescue_stuck_lanes(
+        nj, jnp.asarray(init), jnp.asarray(theta0), jnp.asarray(ys),
+        JMLEResult(jnp.asarray(params), jnp.asarray(fun), jnp.asarray(iters),
+                   jnp.asarray(succ)), max_iters=5)
+    ot = ts._rescue_stuck_lanes(
+        nt, torch.tensor(init), torch.tensor(theta0), torch.tensor(ys),
+        MLEResult(torch.tensor(params), torch.tensor(fun),
+                  torch.tensor(iters), torch.tensor(succ)), max_iters=5)
+    npt.assert_array_equal(ot.num_iters.numpy(), np.asarray(oj.num_iters))
+    assert int(ot.num_iters[1]) != 7
+    npt.assert_array_equal(ot.success.numpy(), np.asarray(oj.success))
+    npt.assert_allclose(ot.params.numpy(), np.asarray(oj.params), atol=1e-8,
+                        rtol=0)
+    assert ot.fun_val.dtype == torch.float32
+    npt.assert_allclose(ot.fun_val.numpy(), np.asarray(oj.fun_val),
+                        rtol=1e-6, atol=0)
+    npt.assert_array_equal(ot.params.numpy()[[0, 2]], params[[0, 2]])
+
+
+def test_f64_polish_never_worse():
+    """The polish is a warm-started float64 L-BFGS-B: it never returns a
+    lane above its incoming NLL, and two lanes on the same record from
+    nearby starts reach the same optimum."""
+    _, ys = _seed0(100)
+    cfg = tp.IFEstimationConfig(method="ekfs")
+    _, nt = _nll_pair(dict(method="ekfs"))
+    yss = torch.tensor(np.stack([ys[0], ys[0]]))
+    init = cfg.default_init_theta(torch.float64)
+    theta0 = torch.stack([init, init + 0.05])
+    with torch.no_grad():
+        v0 = torch.func.vmap(nt)(theta0, yss)
+    fake = MLEResult(theta0, v0, torch.zeros(2, dtype=torch.int64),
+                     torch.ones(2, dtype=torch.bool))
+    out = ts._polish_lanes_f64(nt, init, fake, yss, max_iters=40)
+    assert bool((out.fun_val <= v0 + 1e-3).all())
+    assert bool(out.success.all())
+    npt.assert_allclose(float(out.fun_val[0]), float(out.fun_val[1]),
+                        rtol=0.02)
+
+
+def test_print_rmse_table_matches_jax(capsys):
+    rng = np.random.default_rng(0)
+    r = rng.uniform(0.05, 0.2, 6)
+    r[2] = np.nan
+    results = {"ghfs": {"const": {"rmse": r[:3]}, "damped": {"rmse": r[3:]}},
+               "ekfs_harmonic_long_name": {
+                   "random": {"rmse": np.full(4, np.nan)}}}
+    tj = js.print_rmse_table(results)
+    tt_ = ts.print_rmse_table(results)
+    assert tt_ == tj
+    assert capsys.readouterr().out == tj + "\n" + tj + "\n"
+
+
+def test_toymodels_match_jax():
+    t = np.linspace(1e-3, 0.3, 300)
+    tj, tx = jnp.asarray(t), torch.tensor(t)
+    for fam in (lambda m: m.meow_freq(offset=8.0),
+                lambda m: m.affine_freq(2.0, 5.0),
+                lambda m: m.polynomial_freq([1.0, -2.0, 3.0])):
+        (fj, pj), (ft, pt) = fam(jt), fam(tt)
+        npt.assert_allclose(ft(tx).numpy(), np.asarray(fj(tj)), **F64)
+        npt.assert_allclose(pt(tx).numpy(), np.asarray(pj(tj)), **F64)
+    phase_j, phase_t = jt.meow_freq(offset=8.0)[1], tt.meow_freq(offset=8.0)[1]
+    mags = lambda m: [m.constant_mag(1.0), m.damped_exp_mag(0.3)]  # noqa: E731
+    npt.assert_allclose(
+        tt.gen_chirp(tx, tt.damped_exp_mag(0.3), phase_t, 0.2).numpy(),
+        np.asarray(jt.gen_chirp(tj, jt.damped_exp_mag(0.3), phase_j, 0.2)),
+        **F64)
+    npt.assert_allclose(
+        tt.gen_harmonic_chirp(tx, mags(tt), phase_t).numpy(),
+        np.asarray(jt.gen_harmonic_chirp(tj, mags(jt), phase_j)), **F64)
+    npt.assert_allclose(
+        tt.gen_chirp_envelope(tx, tt.constant_mag(2.0), phase_t).numpy(),
+        np.asarray(jt.gen_chirp_envelope(tj, jt.constant_mag(2.0), phase_j)),
+        **F64)
+
+
+def test_simulators_match_jax_from_its_draws():
+    """``random_ou_mag`` and ``simulate_sde_init`` from JAX's own normal
+    draws, in the key and split order of ``chirpgp_tpu.utils.sim``."""
+    T, dt = 200, 1e-3
+    key = jax.random.PRNGKey(3)
+    ts_ = jnp.linspace(dt, dt * T, T)
+    ou_j = jt.random_ou_mag(1.0, 1.0, key)(ts_)
+    z0 = jax.random.normal(key, (1,), dtype=jnp.float64)
+    dws = jax.random.normal(jax.random.split(key)[0], (T, 1),
+                            dtype=jnp.float64)
+    ou_t = tsim._simulate_from_noise(
+        tt._ou_transition(1.0, 1.0), torch.tensor(np.asarray(z0)),
+        torch.tensor(np.asarray(dws)), dt, const_diag_cov=True)[:, 0]
+    npt.assert_allclose(ou_t.numpy(), np.asarray(ou_j), **F64)
+
+    A = np.array([[0.9, 0.2], [-0.1, 0.8]])
+    Q = np.array([[0.5, 0.1], [0.1, 0.3]])
+    x0 = np.array([1.0, -0.5])
+    traj_j = jsim.simulate_sde_init(
+        lambda x, _dt: (jnp.asarray(A) @ x, jnp.asarray(Q)),
+        jnp.asarray(x0), dt, T, key)
+    dws = jax.random.normal(jax.random.split(key)[0], (T, 2),
+                            dtype=jnp.float64)
+    traj_t = tsim._simulate_from_noise(
+        lambda x, _dt: (torch.tensor(A) @ x, torch.tensor(Q)),
+        torch.tensor(x0), torch.tensor(np.asarray(dws)), dt)
+    npt.assert_allclose(traj_t.numpy(), np.asarray(traj_j), **F64)
+
+
+def test_port_draws_replay_and_split():
+    """The port's own draws: a magnitude realization replays, a seed makes
+    the same record twice, and the seed's first split drives the noise --
+    the const and random records of one seed share it, as in the JAX
+    package."""
+    ts_ = torch.linspace(1e-3, 0.5, 500, dtype=torch.float64)
+    ou = tt.random_ou_mag(1.0, 1.0, torch.Generator().manual_seed(5))
+    npt.assert_array_equal(ou(ts_).numpy(), ou(ts_).numpy())
+    keys = ts.generate_rnd_keys(3)
+    npt.assert_array_equal(keys.numpy(), ts.generate_rnd_keys(3).numpy())
+    kw = dict(T=300, device="cpu")
+    _, tf, yc = ts.toymodel_measurements(int(keys[0]), "const", **kw)
+    _, _, yc2 = ts.toymodel_measurements(int(keys[0]), "const", **kw)
+    _, _, yr = ts.toymodel_measurements(int(keys[0]), "random", **kw)
+    _, _, y1 = ts.toymodel_measurements(int(keys[1]), "const", **kw)
+    npt.assert_array_equal(yc.numpy(), yc2.numpy())
+    assert not np.allclose(yc.numpy(), y1.numpy())
+    t = torch.linspace(1e-3, 0.3, 300, dtype=torch.float64)
+    phase = tt.meow_freq(offset=8.0)[1]
+    gen = torch.Generator().manual_seed(int(keys[0]))
+    _, seed_mag = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
+    ou0 = tt.random_ou_mag(1.0, 1.0, torch.Generator().manual_seed(seed_mag))
+    # The records are float32 (torch's default dtype): 1e-6.
+    npt.assert_allclose((yr - tt.gen_chirp(t, ou0, phase)).numpy(),
+                        (yc - tt.gen_chirp(t, tt.constant_mag(1.0),
+                                           phase)).numpy(), atol=1e-6)
+    npt.assert_allclose(tf.numpy(), tt.meow_freq(offset=8.0)[0](t).numpy(),
+                        rtol=1e-6)
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(method="ghfs", form="sqrt"),
+                                    dict(method="ghfs"), dict(method="ekfs")],
+                         ids=["ghfs-sqrt", "ghfs-cov", "ekfs-cov"])
+def test_vmapped_objective_twice_matches_each_lane(cfg_kw):
+    """Two vmapped value-and-grads in a row at different theta: each lane
+    equals ``make_nll_fn`` on that lane alone (the LCD constants cached in
+    one call do not leak into the next).  In the second call lane 1's P0
+    is singular (delta = softplus(-800) = 0): the square-root filter's
+    Cholesky gives that lane NaN, as JAX's does, without raising for the
+    batch; the covariance form factors it like any other."""
+    _, ys = _seed0(30)
+    cfg = tp.IFEstimationConfig(**cfg_kw)
+    _, nt = _nll_pair(cfg_kw)
+    yss = torch.tensor(ys)
+    vg = batched_value_and_grad(nt, (yss,))
+    base = cfg.default_init_theta(torch.float64)
+    for shift in (0.0, 0.3):
+        theta = base + shift + 0.05 * torch.arange(3.0, dtype=torch.float64
+                                                   )[:, None]
+        if shift:
+            theta[1, 2] = -800.0
+        values, grads = vg(theta)
+        if shift and cfg.form == "sqrt":
+            assert torch.isnan(values[1])
+            assert bool(torch.isfinite(values[[0, 2]]).all())
+        for i in range(3):
+            th = theta[i].clone().requires_grad_(True)
+            v = tp.make_nll_fn(cfg, yss[i])(th)
+            if not torch.isfinite(v):
+                assert torch.isnan(values[i])
+                continue
+            gr, = torch.autograd.grad(v, th)
+            npt.assert_allclose(float(values[i]), float(v.detach()),
+                                rtol=1e-12)
+            npt.assert_allclose(grads[i].numpy(), gr.numpy(), rtol=0,
+                                atol=1e-12 * float(gr.abs().max()))
+
+
+def test_lcd_closed_form_jacobian_matches_jacfwd():
+    from chirpgp_tpu_torch.models import disc_chirp_lcd
+    trans = disc_chirp_lcd(*torch.tensor([0.3, 0.2, 1.5, 0.7],
+                                         dtype=torch.float64))
+    u = torch.tensor(np.random.default_rng(1).standard_normal((5, 4)))
+    auto = torch.func.vmap(torch.func.jacfwd(lambda x: trans.mean(x, 1e-3)))(u)
+    npt.assert_allclose(trans.jac(u, 1e-3).numpy(), auto.numpy(), **F64)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+def test_host_data_goes_to_the_card_unless_cpu_is_asked():
+    """NumPy data go to ``device``, the card by default: without one they
+    raise instead of running on the CPU; ``device="cpu"`` runs here."""
+    tf, ys = _seed0(20)
+    cfg = tp.IFEstimationConfig(max_iters=1)
+    params = np.asarray(g(cfg.default_init_theta(torch.float64)))
+    calls = [(tp.estimate_if, (cfg, params, ys[0])),
+             (tp.estimate_if_batched, (cfg, params, ys)),
+             (tp.fit_mle, (cfg, ys[0])),
+             (tp.run_pipeline, (cfg, ys[0])),
+             (ts.mle_sweep_on_measurements, (cfg, tf, ys))]
+    for fn, args in calls:
+        with pytest.raises((AssertionError, RuntimeError)):
+            fn(*args)
+    est = tp.estimate_if(cfg, params, ys[0], device="cpu")
+    assert est["if_mean"].device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="scale-out"):
+        ts.mc_mle_sweep(cfg, ts.generate_rnd_keys(1), "const", mesh=object(),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="KPT"):
+        ts.mc_kpt_sweep(ts.generate_rnd_keys(1), "const")
+
+
+def test_mc_sweeps_run_on_port_draws():
+    """The key-driven sweeps on the port's own draws: the batched
+    ``lbfgs_minimize`` sweep and the stepped one, finite and of the
+    documented shapes."""
+    cfg = tp.IFEstimationConfig(method="ekfs", max_iters=3)
+    keys = ts.generate_rnd_keys(2)
+    for sweep in (ts.mc_mle_sweep, ts.mc_mle_sweep_stepped):
+        res = sweep(cfg, keys, "random", T=40, device="cpu")
+        assert res["params"].shape == (2, 6) and res["rmse"].shape == (2,)
+        assert np.all(np.isfinite(res["params"]))
+        assert res["success"].dtype == bool
