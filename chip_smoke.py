@@ -32,7 +32,7 @@ Phases, one line each:
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
    float64) value and gradient on the card against the host CPU; the
    float32 sqrt objective against the CUDA kernel's nll; ``fit_mle``
-   (SciPy L-BFGS-B, 2 iterations); ``estimate_if`` GHFS and EKFS gates;
+   (SciPy L-BFGS-B, 1 iteration); ``estimate_if`` GHFS and EKFS gates;
 6. the fused batched filter+smoother: at B=512, T=256, float64, against
    the separate filter and smoother, slim output bit-equal to the full
    one, covariance form against square-root form; then the slim output at
@@ -40,20 +40,32 @@ Phases, one line each:
    phase 3's;
 7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
    magnitude of ``results/data`` (B=300): 7a one vmapped value-and-grad
-   of the objective at T=3141, timed, with its peak memory, lanes 0 and
+   of the objective at T=1571, timed, with its peak memory, lanes 0 and
    299 against ``make_nll_fn`` on the lane alone (value 1e-5 relative,
    gradient 1e-4 of max |grad|), and the profiler's launches per step and
    device busy share; 7b two ``lbfgs_minimize_stepped`` iterations at
    B=300 (T cut to fit, the cut printed): no lane above its initial NLL,
    at least 90% below; 7c the whole ``mle_sweep_on_measurements`` (rescue,
-   float64 host polish, estimate, ``print_rmse_table``) at B=6 (seeds
-   0-1), T=60, 6 iterations: every lane finite with ``success``, the
-   polish never raising a lane's float64 NLL.
+   float64 host polish, estimate, ``print_rmse_table``) at B=3 (seed
+   0), T=40, 6 iterations: every lane finite with ``success``, the
+   polish never raising a lane's float64 NLL;
+8. the model family: 8a the seed-0 gates of the harmonic CKFS/EKFS, La
+   Scala GHFS/EKFS and KPT/harmonic KPT columns through ``estimate_if`` /
+   ``kpt_if_estimate`` on the card at T=3141, float64 (and harmonic CKFS
+   in float32), in child processes beside 8b-8e; 8b La Scala through the
+   filter kernel (``estimate_if_batched`` on the 100 ``toydata_const``
+   records, float32 and float64: the kernel against its plain version and
+   its bare-launch time beside the bound); 8c/8d one vmapped
+   value-and-grad of the harmonic CKFS (d=8, cubature) and KPT (K=1, 3)
+   sweep objectives at B=300, T cut to a budget, lanes 0 and 299 against
+   each lane alone, launches per step and busy share; 8e the whole
+   harmonic-EKFS and KPT sweeps at B=3, T=40, 3 iterations.
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
 The line before the last is a JSON record of the kernels (``ms`` and
 ``bound_ms`` at B=4096 float32, ``ms_b100`` at the Table-I width,
-``ms_f64`` and ``bound_ms_f64`` at B=4096 float64); the last line
+``ms_f64`` and ``bound_ms_f64`` at B=4096 float64, and La Scala's path,
+phase 8b: its launches, ``ms_lascala_b100`` and its bound); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
 """
@@ -89,7 +101,8 @@ GATE_RMSE_ATOL, GATE_NELL_RTOL = 0.005, 1e-4
 # path (906.72448), and the reference's seed-0 IF-RMSE x10 of GHFS and EKFS.
 MLE_NLL, MLE_NLL_RTOL = 906.72448, 1e-6
 MLE_GATES = {"ghfs": 0.7856412, "ekfs": 0.7327871}
-MLE_ITERS = 2
+# fit_mle's iterations in 5c: cut from 2 to make room for phase 8.
+MLE_ITERS = 1
 # Phase 6d: the slim fused IF mean against estimate_if_batched's, both in
 # float32, as max deviation over (1 + max |IF|).  On the host CPU the two
 # plain versions differ by 9.3e-6 at B=32; the bound leaves room for the
@@ -106,7 +119,8 @@ SWEEP_B = (528, 1056, 2112)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 # Phase 7, the Table-I sweep: seeds 0-99 of each magnitude of
-# results/data (B=300) at T=3141, sqrt GHFS, GH-3, float32.  7a holds
+# results/data (B=300) at SWEEP_7A_T, sqrt GHFS, GH-3, float32 (half the
+# full T=3141, to make room for phase 8).  7a holds
 # lanes 0 and 299 of the vmapped value-and-grad to make_nll_fn on the
 # lane alone (value 1e-5 relative, gradient 1e-4 of max |grad|); 7b runs
 # two stepped L-BFGS iterations at T cut so that SWEEP_7B_EVALS
@@ -117,9 +131,41 @@ PEAK_BYTES = 3.35e12
 MAGNITUDES = ("const", "damped", "random")
 SWEEP_SEEDS, SWEEP_T = 100, 3141
 SWEEP_VG_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
-SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 100.0, 8
-SWEEP_SMALL = (2, 60, 6)
+SWEEP_7A_T = 1571
+# 7b's budget was 100 s, and 7c ran 2 seeds per magnitude at T=60, until
+# phase 8 needed the time.
+SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 30.0, 8
+SWEEP_SMALL = (1, 40, 6)
 SWEEP_PROFILE_T = 30
+# Phase 8, the model family.  8a: seed 0 of each column at its reference
+# optimum, T=3141, float64 on the card: (data prefix, config or KPT
+# harmonics, IF-RMSE x10, final NLL) of the JAX package's float64 run,
+# within FAMILY_RMSE_ATOL and FAMILY_NLL_RTOL; harmonic_ckfs in float32
+# within GATE_RMSE_ATOL.  8b: La Scala through the filter kernel on the
+# 100 toydata_const records.  8c/8d: one vmapped value-and-grad of the
+# harmonic CKFS and KPT sweep objectives at B=300, T cut so that it takes
+# at most FAMILY_VG_BUDGET_S by a first call at FAMILY_SHORT_T (the cut
+# printed).  8e: the whole harmonic-EKFS and KPT sweeps at FAMILY_SMALL =
+# (seeds per magnitude, T, max_iters).
+KPT_FS = 1000.0
+FAMILY_GATES = {
+    "harmonic_ckfs": ("h3_", dict(method="ghfs", model="harmonic",
+                                  num_harmonics=3, quadrature="cubature",
+                                  form="sqrt"), 0.3219522, 983.183553),
+    "harmonic_ekfs": ("h3_", dict(method="ekfs", model="harmonic",
+                                  num_harmonics=3, form="sqrt"),
+                      0.3624330, 983.090767),
+    "lascala_ghfs": ("", dict(method="ghfs", model="lascala", form="cov"),
+                     0.7856603, 906.724472),
+    "lascala_ekfs": ("", dict(method="ekfs", model="lascala", form="sqrt"),
+                     1.2892302, 1061.432102),
+    "kpt": ("", 1, 1.7120660, 928.032303),
+    "harmonic_kpt": ("h3_", 3, 1.5670211, 1063.913084),
+}
+FAMILY_RMSE_ATOL, FAMILY_NLL_RTOL = 1e-4, 1e-6
+FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 30.0
+FAMILY_PROFILE_T = 16
+FAMILY_SMALL = (1, 40, 3)
 
 
 class SmokeFailure(RuntimeError):
@@ -515,7 +561,8 @@ def phase_mle(device):
     check(np.isfinite(f_fit) and f_fit < v0,
           f"fit_mle: final nll {f_fit!r} not finite and below {v0!r}")
     parts.append(
-        f"5c fit_mle scipy {int(opt.num_iters)} iters, {len(calls)} "
+        f"5c fit_mle scipy {int(opt.num_iters)} iters (cut from 2 to make "
+        f"room for phase 8), {len(calls)} "
         f"objective calls, nll {v0!r} -> {f_fit!r}, success "
         f"{bool(opt.success)}; {t_fit:.3f} s = {t_fit / len(calls):.3f} s "
         f"per value-and-grad on the card (host CPU {t_host:.3f} s, once)")
@@ -658,10 +705,11 @@ def lane_alone(ys_lane, theta, device):
     return float(value.detach()), grad.cpu().numpy(), time.perf_counter() - t0
 
 
-def sweep_data(device, seeds, T):
-    """Seeds ``seeds`` of each magnitude of results/data, (3 len(seeds),
-    T) float32 on ``device``, and the true IF (T,)."""
-    files = {m: np.load(ROOT / f"results/data/toydata_{m}.npz")
+def sweep_data(device, seeds, T, prefix=""):
+    """Seeds ``seeds`` of each magnitude of results/data (of
+    ``toydata_h3_*`` with ``prefix="h3_"``), (3 len(seeds), T) float32 on
+    ``device``, and the true IF (T,)."""
+    files = {m: np.load(ROOT / f"results/data/toydata_{prefix}{m}.npz")
              for m in MAGNITUDES}
     ys = np.concatenate([files[m]["ys"][seeds, :T] for m in MAGNITUDES])
     tf = files["const"]["true_freqs"][:T]
@@ -684,7 +732,7 @@ def phase_sweep(device, smi):
         batched_value_and_grad, lbfgs_minimize_stepped)
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     cfg = IFEstimationConfig(method="ghfs", form="sqrt")
-    ys, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)
+    ys, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_7A_T)
     B = ys.shape[0]
     calls = [0]
 
@@ -737,16 +785,17 @@ def phase_sweep(device, smi):
     check(dv_host <= SWEEP_VG_TOL, f"7a lane 0 on the host CPU: value rel "
                                    f"{dv_host}")
     parts.append(
-        f"7a value-and-grad B={B} T={SWEEP_T} f32: {t_vg:.3f} s = "
-        f"{1e3 * t_vg / SWEEP_T:.3f} ms per step, {t_vg / B:.3f} s per "
+        f"7a value-and-grad B={B} T={SWEEP_7A_T} (cut from {SWEEP_T} to make "
+        f"room for phase 8) f32: {t_vg:.3f} s = "
+        f"{1e3 * t_vg / SWEEP_7A_T:.3f} ms per step, {t_vg / B:.3f} s per "
         f"record, peak memory {peak / 2 ** 30:.3f} GiB; {'; '.join(devs)}; "
         f"lane 0 alone on the host CPU, one thread: {t_host:.3f} s, value "
         f"rel {dv_host:.3g}; {prof}")
 
     # 7b: two stepped L-BFGS iterations at B=300, T cut to fit the budget.
-    t_b = SWEEP_T
+    t_b = SWEEP_7A_T
     if t_vg > SWEEP_VG_LIMIT_S or SWEEP_7B_EVALS * t_vg > SWEEP_7B_BUDGET_S:
-        t_b = min(SWEEP_T, max(100, int(SWEEP_T * SWEEP_7B_BUDGET_S
+        t_b = min(SWEEP_7A_T, max(100, int(SWEEP_7A_T * SWEEP_7B_BUDGET_S
                                         / (SWEEP_7B_EVALS * t_vg))))
     yb = ys[:, :t_b].contiguous()
     with torch.no_grad():
@@ -760,8 +809,8 @@ def phase_sweep(device, smi):
     below = float((opt.fun_val < f_init).float().mean())
     check(worse == 0 and below >= 0.9,
           f"7b: {worse} lanes above their initial NLL, {below:.3f} below")
-    cut = "" if t_b == SWEEP_T else (
-        f" (T cut from {SWEEP_T} to {t_b}: {SWEEP_7B_EVALS} value-and-grads"
+    cut = "" if t_b == SWEEP_7A_T else (
+        f" (T cut from {SWEEP_7A_T} to {t_b}: {SWEEP_7B_EVALS} value-and-grads"
         f" at 7a's {t_vg:.1f} s would exceed {SWEEP_7B_BUDGET_S:.0f} s)")
     parts.append(
         f"7b lbfgs_minimize_stepped B={B} T={t_b}{cut}, 2 iterations: "
@@ -827,6 +876,295 @@ def phase_sweep(device, smi):
           + "; ".join(parts), flush=True)
 
 
+def family_gate(name, dtype_name, device):
+    """Seed 0 of column ``name`` at its reference optimum, T=3141, in
+    ``dtype_name`` on ``device``, through ``estimate_if`` (the KPT columns
+    through ``kpt_if_estimate``): (IF-RMSE x10, final NLL, all finite,
+    seconds).  Phase 8a runs it in child processes."""
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, estimate_if, kpt_if_estimate)
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.utils import rmse
+    prefix, cfg, _, _ = FAMILY_GATES[name]
+    dtype = getattr(torch, dtype_name)
+    data = np.load(ROOT / f"results/data/toydata_{prefix}const.npz")
+    ys = torch.as_tensor(data["ys"][0], dtype=dtype, device=device)
+    tf = torch.as_tensor(data["true_freqs"], dtype=torch.float64,
+                         device=device)
+    params = params_from_jax(np.load(
+        ROOT / f"results/reference/{name}_const.npz")["params"][0], dtype,
+        device)
+    t0 = time.perf_counter()
+    if isinstance(cfg, dict):
+        est = estimate_if(IFEstimationConfig(**cfg), params, ys)
+        if_mean, nell = est["if_mean"], est["nell"]
+    else:
+        if_mean, nell = kpt_if_estimate(params, KPT_FS, XI, ys,
+                                        num_harmonics=cfg)
+    finite = bool(torch.isfinite(if_mean).all() and torch.isfinite(nell).all())
+    r10 = 10.0 * float(rmse(tf, if_mean.double()))
+    return r10, float(nell[-1]), finite, time.perf_counter() - t0
+
+
+def family_objective(kind):
+    """A family sweep's per-lane objective ``(theta, ys_i) -> NLL`` and its
+    float32 init theta: ``"harmonic_ckfs"`` (K=3, cubature, sqrt) or
+    ``"kpt1"``/``"kpt3"`` (the KPT EKF with K=1/3 harmonics)."""
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, KPT_INIT_PARAMS, kpt_filter, make_nll_fn)
+    from chirpgp_tpu_torch.models import g, g_inv
+    if kind == "harmonic_ckfs":
+        cfg = IFEstimationConfig(**FAMILY_GATES[kind][1])
+        return (lambda th, y: make_nll_fn(cfg, y)(th),
+                cfg.default_init_theta(torch.float32))
+    K = int(kind[-1])
+    return (lambda th, y: kpt_filter(g(th), KPT_FS, XI, y,
+                                     num_harmonics=K)[2][-1],
+            g_inv(torch.tensor(KPT_INIT_PARAMS, dtype=torch.float32)))
+
+
+def family_lane_alone(kind, ys_lane, theta, device):
+    """Value, gradient and wall time of a family sweep objective on one
+    lane alone, float32 on ``device``: what phases 8c and 8d hold each
+    vmapped lane to, in child processes."""
+    fn, _ = family_objective(kind)
+    th = torch.tensor(theta, device=device).requires_grad_(True)
+    t0 = time.perf_counter()
+    value = fn(th, torch.tensor(ys_lane, device=device))
+    grad, = torch.autograd.grad(value, th)
+    return float(value.detach()), grad.cpu().numpy(), time.perf_counter() - t0
+
+
+def family_value_and_grad(kind, ys, device, pool):
+    """8c/8d: one vmapped value-and-grad of a family sweep objective on all
+    lanes of ``ys`` (B, T_full), float32.  A first call at FAMILY_SHORT_T
+    prices a step; T is cut so that the call takes at most
+    FAMILY_VG_BUDGET_S.  Lanes 0 and B-1 run alone in ``pool`` meanwhile.
+    Returns the record of the call and the lanes' futures."""
+    from chirpgp_tpu_torch.fit import batched_value_and_grad
+    fn, theta = family_objective(kind)
+    B, t_full = ys.shape
+    theta0 = theta.to(device).expand(B, -1).clone()
+    _, t_short = timed(batched_value_and_grad(
+        fn, (ys[:, :FAMILY_SHORT_T].contiguous(),)), theta0)
+    T = min(t_full, max(FAMILY_SHORT_T, int(FAMILY_VG_BUDGET_S * FAMILY_SHORT_T
+                                            / t_short)))
+    yT = ys[:, :T].contiguous()
+    lanes = (0, B - 1)
+    alone = [pool.submit(family_lane_alone, kind, yT[i].cpu().numpy(),
+                         theta0[i].cpu().numpy(), str(device)) for i in lanes]
+    torch.cuda.reset_peak_memory_stats(device)
+    (values, grads), t_vg = timed(batched_value_and_grad(fn, (yT,)), theta0)
+    peak = torch.cuda.max_memory_allocated(device)
+    check(bool(torch.isfinite(values).all() and torch.isfinite(grads).all()),
+          f"8 {kind}: non-finite value or gradient")
+    per_step, busy = profile_step(
+        lambda: batched_value_and_grad(fn, (ys[:, :FAMILY_PROFILE_T],))(
+            theta0), FAMILY_PROFILE_T)
+    return dict(kind=kind, B=B, T=T, t_full=t_full, t_short=t_short, t=t_vg,
+                peak=peak, values=values, grads=grads, lanes=lanes,
+                per_step=per_step, busy=busy), alone
+
+
+def family_vg_report(rec, alone):
+    """Check the lanes alone against the vmapped call; its report line."""
+    devs = []
+    for lane, fut in zip(rec["lanes"], alone):
+        v, gr, t_lane = fut.result()
+        dv = abs(v - float(rec["values"][lane])) / abs(v)
+        dg = float(np.abs(gr - rec["grads"][lane].cpu().numpy()).max()
+                   / np.abs(gr).max())
+        check(dv <= SWEEP_VG_TOL and dg <= SWEEP_GRAD_TOL,
+              f"8 {rec['kind']} lane {lane}: vmapped vs alone, value rel "
+              f"{dv}, grad {dg}")
+        devs.append(f"lane {lane}: value rel {dv:.3g}, grad {dg:.3g} "
+                    f"({t_lane:.3f} s alone)")
+    cut = "" if rec["T"] == rec["t_full"] else (
+        f" (T cut from {rec['t_full']} to {rec['T']}: T={FAMILY_SHORT_T} "
+        f"took {rec['t_short']:.3f} s, budget {FAMILY_VG_BUDGET_S:.0f} s)")
+    prof = ("profiler: no device activity seen" if rec["per_step"] is None
+            else f"profiler at T={FAMILY_PROFILE_T}: {rec['per_step']:.1f} "
+                 f"kernel launches per step, device busy "
+                 f"{100 * rec['busy']:.2f}%")
+    return (f"{rec['kind']} value-and-grad B={rec['B']} T={rec['T']}{cut} "
+            f"f32: {rec['t']:.3f} s = {1e3 * rec['t'] / rec['T']:.3f} ms per "
+            f"step, peak memory {rec['peak'] / 2 ** 30:.3f} GiB; "
+            f"{'; '.join(devs)}; {prof}")
+
+
+def phase_family(device, smi):
+    """8a seed-0 gates of the six columns (child processes, beside the
+    rest), 8b La Scala through the filter kernel, 8c/8d the harmonic CKFS
+    and KPT sweep objectives at B=300, 8e the whole harmonic-EKFS and KPT
+    sweeps at a small depth."""
+    import concurrent.futures
+    import multiprocessing
+    from unittest import mock
+    import chirpgp_tpu_torch.apps.sweeps as sweeps
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, estimate_if_batched, make_nll_fn,
+        mle_sweep_on_measurements)
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.ops.chirp_filter import (
+        ghfs_chirp_filter, ghfs_chirp_filter_reference, kernel_launcher,
+        lascala_chirp_params)
+    from chirpgp_tpu_torch.utils import rmse
+    spawn = multiprocessing.get_context("spawn")
+    parts, out = [], {}
+    t_phase = time.perf_counter()
+
+    # 8b, first: the bare launch of La Scala's filter at the Table-I width
+    # while this process has the card to itself (the child processes'
+    # kernels would share its time).
+    cfg = IFEstimationConfig(model="lascala")
+    rule = cfg.sigma_points()
+    data = np.load(ROOT / "results/data/toydata_const.npz")
+    y64 = torch.as_tensor(data["ys"], dtype=torch.float64, device=device)
+    tf = torch.as_tensor(data["true_freqs"], dtype=torch.float64,
+                         device=device)
+    las = params_from_jax(np.load(
+        ROOT / "results/reference/lascala_ghfs_const.npz")["params"][0])
+    kern = {}
+    for yss in (y64.float(), y64):
+        tag = str(yss.dtype)[6:]
+        launch, kern[tag] = kernel_launcher(
+            lascala_chirp_params(las.to(yss.dtype)), XI, DT, rule, yss)
+        out[tag] = dict(ms=event_ms(launch))
+
+    gate_jobs = [(name, "float64") for name in FAMILY_GATES] + [
+        ("harmonic_ckfs", "float32")]
+    with concurrent.futures.ProcessPoolExecutor(3, mp_context=spawn) as gates, \
+            concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as lanes:
+        gate_futs = [gates.submit(family_gate, n, dt, str(device))
+                     for n, dt in gate_jobs]
+
+        # 8b: estimate_if_batched(lascala) launches the kernel; the kernel
+        # against its plain version.
+        _, _, want_r10, want_nll = FAMILY_GATES["lascala_ghfs"]
+        for yss in (y64.float(), y64):
+            tag = str(yss.dtype)[6:]
+            params = las.to(device, yss.dtype)
+            ghfs_chirp_filter.launches = 0
+            est, t_est = timed(estimate_if_batched, cfg, params, yss)
+            launches = ghfs_chirp_filter.launches
+            check(launches >= 1, f"8b {tag}: estimate_if_batched(lascala) "
+                                 f"did not launch the kernel")
+            for key in ("if_mean", "nell", "mss", "Lss"):
+                check(bool(torch.isfinite(est[key]).all()),
+                      f"8b {tag}: non-finite {key}")
+            r10 = 10.0 * float(rmse(tf, est["if_mean"][0].double()))
+            nll0 = float(est["nell"][0])
+            r_tol, n_tol = ((FAMILY_RMSE_ATOL, FAMILY_NLL_RTOL) if tag ==
+                            "float64" else (GATE_RMSE_ATOL, GATE_NELL_RTOL))
+            check(abs(r10 - want_r10) <= r_tol and
+                  abs(nll0 - want_nll) <= n_tol * want_nll,
+                  f"8b {tag}: record 0 IF-RMSE x10 {r10!r}, nll {nll0!r}")
+            chirp = lascala_chirp_params(params)
+            plain, t_plain = timed(ghfs_chirp_filter_reference, chirp, XI, DT,
+                                   rule, yss)
+            dev = deviations(kern[tag], plain)
+            scaled = (dev["mfs"] / (1.0 + dev["scale_mfs"]),
+                      dev["LLT"] / (1.0 + dev["scale_LLT"]),
+                      dev["nll_last_rel"])
+            for key, val, bound in zip(("mfs", "LLT", "nll[-1]"), scaled,
+                                       FULL_BOUNDS[tag]):
+                check(val <= bound, f"8b {tag}: kernel vs plain scaled |d "
+                                    f"{key}| {val} > {bound}")
+            B, T = yss.shape
+            flop, nbytes, bound, bound_by = bound_ms(rule.n_points, T, B,
+                                                     yss.dtype)
+            ms = out[tag]["ms"]
+            out[tag].update(launches=launches, bound_ms=bound,
+                            bound_by=bound_by, plain_ms=1e3 * t_plain)
+            parts.append(
+                f"8b lascala estimate_if_batched B={B} T={T} GH-3 {tag}: "
+                f"{t_est:.3f} s, kernel launches {launches}; record 0 IF-RMSE "
+                f"x10 {r10!r}, nll {nll0!r}; kernel vs plain: max|d mfs| "
+                f"{dev['mfs']!r}, max|d LLT| {dev['LLT']!r}, max rel|d "
+                f"nll[-1]| {dev['nll_last_rel']!r}; bare launch {ms!r} ms "
+                f"(CUDA events, before the child processes), plain filter "
+                f"{1e3 * t_plain:.3f} ms; {flop} flop, {nbytes} B, bound "
+                f"{bound!r} ms ({bound_by}), share {bound / ms:.4f}")
+        del kern
+
+        # 8c/8d: the harmonic CKFS and KPT sweep objectives at B=300.
+        ys_h3, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T, "h3_")
+        ys_1, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)
+        for tag, kind, ys in (("8c", "harmonic_ckfs", ys_h3),
+                              ("8d", "kpt1", ys_1), ("8d", "kpt3", ys_h3)):
+            rec, alone = family_value_and_grad(kind, ys, device, lanes)
+            parts.append(f"{tag} " + family_vg_report(rec, alone))
+        del ys_h3, ys_1
+
+        # 8e: the whole sweeps at a small depth, the polish on threads.
+        n, t_e, iters = FAMILY_SMALL
+        stages = {}
+        polish = sweeps._polish_lanes_f64
+
+        def captured(*args, **kwargs):
+            res = polish(*args, **kwargs)
+            stages["polish"] = (args, res)
+            return res
+
+        cfg_e = IFEstimationConfig(max_iters=iters,
+                                   **FAMILY_GATES["harmonic_ekfs"][1])
+        kpt_nll, _ = family_objective("kpt1")
+        runs = (("harmonic_ekfs", "h3_", lambda tf_, ys_: (
+                    mle_sweep_on_measurements(cfg_e, tf_, ys_)),
+                 lambda y: make_nll_fn(cfg_e, y)),
+                ("kpt", "", lambda tf_, ys_: sweeps._kpt_sweep_on_measurements(
+                    tf_, ys_, max_iters=iters),
+                 lambda y: (lambda th: kpt_nll(th, y))))
+        for name, prefix, run, host_nll in runs:
+            ys_e, tf_e = sweep_data(device, slice(0, n), t_e, prefix)
+            with mock.patch.object(sweeps, "_polish_lanes_f64", captured):
+                res, t_run = timed(run, tf_e, ys_e)
+            check(bool(np.all(np.isfinite(res["rmse"]))
+                       and np.all(res["success"])),
+                  f"8e {name}: lanes not finite with success: "
+                  f"{res['success']}")
+            (_, _, incoming, _), polished = stages["polish"][0], \
+                stages["polish"][1]
+            gaps = []
+            with torch.no_grad():
+                for i in range(ys_e.shape[0]):
+                    f = host_nll(ys_e[i].cpu().double())
+                    f_in = float(f(incoming.params[i].cpu().double()))
+                    f_out = float(f(polished.params[i].cpu().double()))
+                    gaps.append(f_out - f_in)
+                    check(f_out <= f_in + 1e-6 * abs(f_in),
+                          f"8e {name}: polish of lane {i} raised the f64 NLL "
+                          f"{f_in} -> {f_out}")
+            parts.append(
+                f"8e {name} sweep B={ys_e.shape[0]} T={t_e} max_iters={iters}:"
+                f" {t_run:.3f} s; all lanes finite with success; f64 NLL "
+                f"change by the polish {min(gaps):.4g} to {max(gaps):.4g}; "
+                f"rmse x10 {[round(10 * float(r), 4) for r in res['rmse']]}")
+
+        # 8a: the seed-0 gates, run in the child processes meanwhile.
+        gate_parts = []
+        for (name, dtype_name), fut in zip(gate_jobs, gate_futs):
+            r10, nll, finite, secs = fut.result()
+            _, _, want_r10, want_nll = FAMILY_GATES[name]
+            r_tol = FAMILY_RMSE_ATOL if dtype_name == "float64" \
+                else GATE_RMSE_ATOL
+            check(finite and abs(r10 - want_r10) <= r_tol,
+                  f"8a {name} {dtype_name}: IF-RMSE x10 {r10!r} not within "
+                  f"{r_tol} of {want_r10} (finite {finite})")
+            if dtype_name == "float64":
+                check(abs(nll - want_nll) <= FAMILY_NLL_RTOL * want_nll,
+                      f"8a {name}: nll {nll!r} not within {FAMILY_NLL_RTOL} "
+                      f"rel of {want_nll}")
+            gate_parts.append(f"{name} f{dtype_name[5:]} IF-RMSE x10 {r10!r} "
+                              f"(ref {want_r10}), nll {nll!r} (ref "
+                              f"{want_nll}), {secs:.3f} s")
+        parts.insert(0, f"8a seed-0 gates T={SWEEP_T} on the card: "
+                        + "; ".join(gate_parts))
+    print(f"phase 8 model family ({time.perf_counter() - t_phase:.3f} s; "
+          f"{smi}): " + "; ".join(parts), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -854,6 +1192,7 @@ def main() -> int:
     phase_mle(device)
     phase_fused(device, if_ref, t_ref)
     phase_sweep(device, smi)
+    family = phase_family(device, smi)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,
@@ -862,7 +1201,12 @@ def main() -> int:
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": None, "ms_b100": timing["gh3/B=100/f32"]["ms"],
         "ms_f64": timing["gh3/B=4096/f64"]["ms"],
-        "bound_ms_f64": timing["gh3/B=4096/f64"]["bound_ms"]}]}))
+        "bound_ms_f64": timing["gh3/B=4096/f64"]["bound_ms"],
+        "launches_lascala": family["float32"]["launches"],
+        "ms_lascala_b100": family["float32"]["ms"],
+        "bound_ms_lascala_b100": family["float32"]["bound_ms"],
+        "plain_ms_lascala_b100": family["float32"]["plain_ms"],
+        "ms_lascala_b100_f64": family["float64"]["ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,16 +10,19 @@ state.  The package never imports JAX.
 Entry points that take host data (NumPy) put it on the card unless the
 caller passes ``device="cpu"``.
 
-Subpackages (ported so far: the chirp model's batched IF estimation,
-single-record MLE and estimation, and the Table-I Monte-Carlo sweeps)
+Subpackages (ported so far: batched IF estimation, single-record MLE and
+estimation, and the Table-I Monte-Carlo sweeps, for the chirp, harmonic
+chirp and La Scala models and the KPT baseline)
 -----------
 quad       sigma-point rules, Gaussian expectations
-models     chirp SDE prior, its LCD discretization, Matern-3/2, bijections
+models     chirp, harmonic chirp and La Scala SDE priors, their LCD
+           discretizations, the KPT model, Matern-3/2, bijections
 infer      sequential and square-root filters and smoothers, and their
            channels-first batched forms
 ops        hand-written CUDA kernels (``ops/csrc``) and their wrappers
 fit        batched L-BFGS with zoom line search, host SciPy L-BFGS-B
 apps       ``IFEstimationConfig``, the pipeline, ``estimate_if_batched``,
+           the KPT baseline (``kpt_if_estimate``, ``kpt_mle``),
            the sweeps (``mle_sweep_on_measurements``)
 toymodels  synthetic chirps and magnitude/IF families
 utils      numerics, metrics, SDE simulation

@@ -1,6 +1,6 @@
 """End-to-end IF estimation with one typed config (counterpart of
-``chirpgp_tpu.apps.pipeline``; the chirp model only, and the
-continuous-discrete methods are not ported yet).
+``chirpgp_tpu.apps.pipeline``; the continuous-discrete methods are not
+ported yet).
 
 ``make_nll_fn`` (theta -> filter NLL) -> :func:`fit_mle` ->
 :func:`estimate_if` (filter + smooth + Gaussian expectation of g(V)), and
@@ -23,10 +23,13 @@ from chirpgp_tpu_torch.infer import (
     ekf, eks, sgp_filter, sgp_smoother,
     sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother)
 from chirpgp_tpu_torch.infer.batched import (
-    sqrt_sgp_smoother_batched, gaussian_expectation_batched)
+    sqrt_sgp_filter_batched, sqrt_sgp_smoother_batched,
+    gaussian_expectation_batched)
 from chirpgp_tpu_torch.models.bijections import g, g_inv
-from chirpgp_tpu_torch.models.chirp import build_chirp_model
-from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+from chirpgp_tpu_torch.models.chirp import (
+    build_chirp_model, build_harmonic_chirp_model, build_lascala_model)
+from chirpgp_tpu_torch.ops.chirp_filter import (
+    ghfs_chirp_filter, lascala_chirp_params)
 from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
 from chirpgp_tpu_torch.quad.sigma_points import (
     SigmaPoints, cubature, gauss_hermite, unscented)
@@ -40,9 +43,9 @@ class IFEstimationConfig:
     """Experiment contract for one IF-estimation run; the fields of the
     JAX package's config.  Defaults reproduce the canonical toymodel setup:
     dt=1e-3, Xi=0.1, GH order 3, init theta = g^{-1}([0.1, 0.1, 0.1, 1, 1, 7]).
-    Only ``model="chirp"`` and the methods ``ghfs`` and ``ekfs`` are
-    ported; ``scan_unroll`` is carried for the JAX package's signature and
-    has no effect on a Python loop.
+    The methods ``ghfs`` and ``ekfs`` are ported, for every model;
+    ``scan_unroll`` is carried for the JAX package's signature and has no
+    effect on a Python loop.
     """
 
     dt: float = 1e-3
@@ -78,11 +81,17 @@ class IFEstimationConfig:
     def build(self, params):
         if self.model == "chirp":
             return build_chirp_model(params)
-        if self.model in ("harmonic", "lascala"):
-            raise NotImplementedError(
-                f"model={self.model!r} is not ported yet (later PR); the "
-                "port runs model='chirp'")
+        if self.model == "harmonic":
+            return build_harmonic_chirp_model(
+                params, num_harmonics=self.num_harmonics,
+                freq_scale=self.freq_scale)
+        if self.model == "lascala":
+            return build_lascala_model(params)
         raise ValueError(f"Unknown model {self.model!r}")
+
+    def v_index(self) -> int:
+        """The state component of the latent frequency V."""
+        return self.state_dim() - 2 if self.model == "harmonic" else 2
 
     def default_init_theta(self, dtype=None) -> torch.Tensor:
         """``g_inv`` of the default constrained params, in ``dtype`` or
@@ -214,7 +223,7 @@ def estimate_if(cfg: IFEstimationConfig, params, ys, device="cuda") -> dict:
     pack = cfg.build(_on_data(params, ys))
     mfs, Pfs, nell = flt(pack, ys)
     mss, Pss = smt(pack, mfs, Pfs)
-    v_idx = 2
+    v_idx = cfg.v_index()
     v_mean = mss[:, v_idx]
     if cfg.form == "sqrt":
         # Second moments are Cholesky factors: var = ||row_v(L)||^2.
@@ -235,27 +244,36 @@ def estimate_if(cfg: IFEstimationConfig, params, ys, device="cuda") -> dict:
 def estimate_if_batched(cfg: IFEstimationConfig, params, yss,
                         device="cuda") -> dict:
     """Fixed-params IF estimation over a batch of sequences ``yss (B, T)``:
-    the fused chirp filter (``ops.chirp_filter.ghfs_chirp_filter``: the
-    CUDA kernel for a CUDA tensor, its plain version on the CPU), the
-    batched sqrt smoother, and the order-``expectation_order``
-    Gauss-Hermite expectation of ``g(V)``.
+    a batched sqrt sigma-point filter, the batched sqrt smoother, and the
+    order-``expectation_order`` Gauss-Hermite expectation of ``g(V)``.
 
-    ``params`` are the constrained ``[lam, b, delta, ell, sigma, m0_v]``.
-    Returns dict with ``if_mean`` (B, T), ``nell`` (B,), ``mss``
-    (T, d, B) and ``Lss`` (T, d, d, B).
+    The chirp and La Scala models filter with the fused chirp filter
+    (``ops.chirp_filter.ghfs_chirp_filter``: the CUDA kernel for a CUDA
+    tensor, its plain version on the CPU), La Scala through the chirp
+    params :func:`~chirpgp_tpu_torch.ops.chirp_filter.lascala_chirp_params`;
+    the harmonic model (d = 2K + 2, beyond the kernel's d = 4) with the
+    plain ``sqrt_sgp_filter_batched``, whose update takes a one-hot
+    measurement vector: K = 1 only, as in the JAX package (at K > 1 it
+    raises ``ValueError``).
+
+    ``params`` are the constrained params of ``cfg.model``.  Returns dict
+    with ``if_mean`` (B, T), ``nell`` (B,), ``mss`` (T, d, B) and ``Lss``
+    (T, d, d, B).
     """
-    if cfg.model != "chirp":
-        raise NotImplementedError(
-            f"estimate_if_batched: model={cfg.model!r} is not ported yet "
-            "(later PR); the fused filter kernel is d=4 chirp only")
     yss = _measurements(yss, device)
     params = torch.as_tensor(params)
     pack = cfg.build(params)
     sgps = cfg.sigma_points()
-    mfs, Lfs, nll = ghfs_chirp_filter(params, cfg.Xi, cfg.dt, sgps, yss)
+    if cfg.model == "harmonic":
+        mfs, Lfs, nll = sqrt_sgp_filter_batched(
+            pack.m_and_cov, sgps, pack.H, cfg.Xi, pack.m0, pack.P0, cfg.dt,
+            yss)
+    else:
+        chirp = params if cfg.model == "chirp" else lascala_chirp_params(params)
+        mfs, Lfs, nll = ghfs_chirp_filter(chirp, cfg.Xi, cfg.dt, sgps, yss)
     mss, Lss = sqrt_sgp_smoother_batched(pack.m_and_cov, sgps, mfs, Lfs,
                                          cfg.dt)
-    v_idx = 2
+    v_idx = cfg.v_index()
     v_mean = mss[:, v_idx, :]
     v_std = torch.sqrt(torch.einsum("tkb,tkb->tb", Lss[:, v_idx],
                                     Lss[:, v_idx]))

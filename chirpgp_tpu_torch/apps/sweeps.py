@@ -1,6 +1,5 @@
 """Monte-Carlo experiment sweeps: the Table-I RMSE jobs (counterpart of
-``chirpgp_tpu.apps.sweeps``; the KPT sweep waits for the KPT model, and
-the mesh for the scale-out slice).
+``chirpgp_tpu.apps.sweeps``; the mesh waits for the scale-out slice).
 
 - **Pairing**: every method sees the same measurement realizations, from
   the same per-seed keys (:func:`generate_rnd_keys`).  Torch cannot replay
@@ -29,6 +28,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from chirpgp_tpu_torch.apps.kpt import (
+    _kpt_init_theta, _kpt_nll, kpt_if_estimate)
 from chirpgp_tpu_torch.apps.pipeline import (
     IFEstimationConfig, _filter_fns, _init_theta, _measurements, _on_data,
     make_nll_fn)
@@ -104,13 +105,17 @@ def toymodel_measurements(key, mag_name: str, dt: float = 1e-3,
     return ts.to(**like), freq_func(ts).to(**like), ys.to(**like)
 
 
-def _measurement_batch(cfg, keys, mag_name, T, device):
-    nh = cfg.num_harmonics if cfg.model == "harmonic" else 1
-    recs = [toymodel_measurements(k, mag_name, dt=cfg.dt, T=T, Xi=cfg.Xi,
-                                  num_harmonics=nh, device=device)
+def _measurement_batch(keys, mag_name, T, dt, Xi, num_harmonics, device):
+    recs = [toymodel_measurements(k, mag_name, dt=dt, T=T, Xi=Xi,
+                                  num_harmonics=num_harmonics, device=device)
             for k in keys]
     return (torch.stack([r[1] for r in recs]),
             torch.stack([r[2] for r in recs]))
+
+
+def _config_batch(cfg: IFEstimationConfig, keys, mag_name, T, device):
+    nh = cfg.num_harmonics if cfg.model == "harmonic" else 1
+    return _measurement_batch(keys, mag_name, T, cfg.dt, cfg.Xi, nh, device)
 
 
 def _estimate_lanes(cfg: IFEstimationConfig, theta, true_freqs, ys,
@@ -118,7 +123,7 @@ def _estimate_lanes(cfg: IFEstimationConfig, theta, true_freqs, ys,
     """Filter + smooth + GH IF estimate + RMSE of every lane at its learnt
     theta, vmapped over the lanes; NaN rmse where ``success`` is False."""
     flt, smt = _filter_fns(cfg)
-    v_idx = -2 if cfg.model == "harmonic" else 2
+    v_idx = cfg.v_index()
 
     def estimate(theta_i, tf_i, ys_i, success_i):
         params = g(theta_i)
@@ -153,7 +158,7 @@ def mc_mle_sweep(cfg: IFEstimationConfig, keys, mag_name: str,
         raise NotImplementedError(
             "mc_mle_sweep: mesh (the sharded sweep) is not ported yet; it "
             "comes with the scale-out slice")
-    true_freqs, ys = _measurement_batch(cfg, keys, mag_name, T, device)
+    true_freqs, ys = _config_batch(cfg, keys, mag_name, T, device)
     init_theta = _init_theta(cfg, init_theta, ys)
 
     def nll(theta, ys_i):
@@ -172,7 +177,7 @@ def mc_mle_sweep_stepped(cfg: IFEstimationConfig, keys, mag_name: str,
     """:func:`mc_mle_sweep` through :func:`mle_sweep_on_measurements`: the
     stepped batched L-BFGS, the rescue, the float64 polish and the
     estimate.  Same per-seed math and NaN-on-divergence semantics."""
-    true_freqs, ys = _measurement_batch(cfg, keys, mag_name, T, device)
+    true_freqs, ys = _config_batch(cfg, keys, mag_name, T, device)
     return mle_sweep_on_measurements(cfg, true_freqs, ys,
                                      init_theta=init_theta, verbose=verbose)
 
@@ -361,12 +366,83 @@ def mle_sweep_on_measurements(cfg: IFEstimationConfig, true_freqs, ys,
     return _estimate_lanes(cfg, opt.params, true_freqs, ys, opt.success)
 
 
-def mc_kpt_sweep(*args, **kwargs):
-    """The KPT-baseline sweep waits for the KPT model (``models/kpt.py``,
-    ``apps/kpt.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "mc_kpt_sweep is not ported yet: it waits for the KPT model (a "
-        "later slice)")
+def _kpt_estimate_lanes(theta, true_freqs, yss, success, fs: float, Xi,
+                        num_harmonics: int) -> Dict[str, np.ndarray]:
+    """KPT IF estimate and RMSE of every lane at its learnt theta, vmapped
+    over the lanes; NaN rmse where ``success`` is False."""
+
+    def est(theta_i, tf_i, ys_i, success_i):
+        params = g(theta_i)
+        if_mean, _ = kpt_if_estimate(params, fs, Xi, ys_i,
+                                     num_harmonics=num_harmonics)
+        err = rmse(tf_i, if_mean)
+        return dict(rmse=torch.where(success_i, err, torch.nan),
+                    params=params, success=success_i)
+
+    with torch.no_grad():
+        out = torch.func.vmap(est)(_on_data(theta, yss), true_freqs, yss,
+                                   success)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _kpt_sweep_on_measurements(true_freqs, yss, Xi: float = 0.1,
+                               dt: float = 1e-3, num_harmonics: int = 1,
+                               max_iters: int = 100, verbose: bool = False,
+                               device="cuda") -> Dict[str, np.ndarray]:
+    """The stepped KPT sweep over measurement batches ``yss (B, T)`` with
+    their true IFs ``true_freqs`` ((B, T), or (T,) for all):
+    :func:`lbfgs_minimize_stepped` over all lanes (``ftol_rel=1e-9``,
+    ``patience=10``, ``tail_iters=30``), the rescue of stuck lanes, the
+    float64 host polish and the vmapped estimate.  Returns host arrays
+    ``rmse`` (B,), ``params`` (B, 5) and ``success`` (B,)."""
+    yss = _measurements(yss, device)
+    true_freqs = _measurements(true_freqs, device)
+    if true_freqs.dim() == 1:
+        true_freqs = true_freqs.expand(yss.shape)
+    fs = 1.0 / dt
+    nll = _kpt_nll(fs, Xi, num_harmonics)
+    init_theta = _kpt_init_theta(yss)
+    theta0 = init_theta.expand((yss.shape[0],) + init_theta.shape).clone()
+    opt = lbfgs_minimize_stepped(nll, theta0, batch_args=(yss,),
+                                 max_iters=max_iters, ftol_rel=1e-9,
+                                 patience=10, tail_iters=30, verbose=verbose)
+    opt = _rescue_stuck_lanes(nll, init_theta, theta0, yss, opt,
+                              max_iters=max_iters, verbose=verbose)
+    opt = _polish_lanes_f64(nll, init_theta, opt, yss, max_iters=max_iters,
+                            verbose=verbose)
+    return _kpt_estimate_lanes(opt.params, true_freqs, yss, opt.success, fs,
+                               Xi, num_harmonics)
+
+
+def mc_kpt_sweep(keys, mag_name: str, Xi: float = 0.1, dt: float = 1e-3,
+                 T: int = 3141, num_harmonics: int = 1, max_iters: int = 100,
+                 mesh=None, stepped: bool = True, verbose: bool = False,
+                 device="cuda") -> Dict[str, np.ndarray]:
+    """KPT-baseline Monte-Carlo sweep: per seed, learn ``[q1, q2, p0, f0,
+    a0]`` by EKF-marginal MLE, smooth with the linear RTS, estimate the
+    IF and record its RMSE (NaN on divergence).
+
+    ``stepped=True`` (default): :func:`_kpt_sweep_on_measurements`, the
+    stepped batched L-BFGS with the rescue and the float64 host polish.
+    ``stepped=False``: one batched :func:`lbfgs_minimize` in which each
+    seed stops on its own gradient-norm rule, then the estimate."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mc_kpt_sweep: mesh (the sharded sweep) is not ported yet; it "
+            "comes with the scale-out slice")
+    true_freqs, yss = _measurement_batch(keys, mag_name, T, dt, Xi,
+                                         num_harmonics, device)
+    if stepped:
+        return _kpt_sweep_on_measurements(
+            true_freqs, yss, Xi=Xi, dt=dt, num_harmonics=num_harmonics,
+            max_iters=max_iters, verbose=verbose)
+    fs = 1.0 / dt
+    init_theta = _kpt_init_theta(yss)
+    theta0 = init_theta.expand((yss.shape[0],) + init_theta.shape).clone()
+    opt = lbfgs_minimize(_kpt_nll(fs, Xi, num_harmonics), theta0,
+                         max_iters=max_iters, batch_args=(yss,))
+    return _kpt_estimate_lanes(opt.params, true_freqs, yss, opt.success, fs,
+                               Xi, num_harmonics)
 
 
 def save_results(results: Dict[str, np.ndarray], method: str,

@@ -11,10 +11,13 @@ __all__ = ["params_from_jax", "rule_from_jax"]
 
 
 def params_from_jax(params_np, dtype=torch.float64, device="cpu") -> torch.Tensor:
-    """Constrained params ``[lam, b, delta, ell, sigma, m0_v]`` -- a row of
-    ``results/reference/*.npz["params"]`` or ``g(theta)`` of the JAX
-    package, as any array-like -- as a tensor of ``dtype`` on ``device``.
-    The values pass through float64, so nothing is rounded twice."""
+    """Constrained params -- a row of ``results/reference/*.npz["params"]``
+    or ``g(theta)`` of the JAX package, as any array-like, of any length:
+    the 6 ``[lam, b, delta, ell, sigma, m0_v]`` of the chirp and harmonic
+    models, the 4 ``[delta, ell, sigma, m0_v]`` of La Scala's, the 5
+    ``[q1, q2, p0, f0, a0]`` of the KPT model -- as a tensor of ``dtype``
+    on ``device``.  The values pass through float64, so nothing is rounded
+    twice."""
     return torch.from_numpy(np.array(params_np, np.float64)).to(
         dtype=dtype, device=device)
 

@@ -1,7 +1,7 @@
 """Inference engine: sequential Gaussian filters and smoothers, their
 square-root forms, and the batched channels-first Monte-Carlo path."""
 
-from chirpgp_tpu_torch.infer.filters import kf, ekf, sgp_filter
+from chirpgp_tpu_torch.infer.filters import kf, ekf, ekf_for_kpt, sgp_filter
 from chirpgp_tpu_torch.infer.smoothers import rts, eks, sgp_smoother
 from chirpgp_tpu_torch.infer.sqrt import (
     sqrt_kf, sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother, tria)
@@ -11,7 +11,7 @@ from chirpgp_tpu_torch.infer.batched import (
     gaussian_expectation_batched)
 
 __all__ = [
-    "kf", "ekf", "sgp_filter", "rts", "eks", "sgp_smoother",
+    "kf", "ekf", "ekf_for_kpt", "sgp_filter", "rts", "eks", "sgp_smoother",
     "sqrt_kf", "sqrt_ekf", "sqrt_eks", "sqrt_sgp_filter",
     "sqrt_sgp_smoother", "tria",
     "tria_cf", "sqrt_sgp_filter_batched", "sqrt_sgp_smoother_batched",

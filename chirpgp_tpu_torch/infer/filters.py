@@ -1,6 +1,6 @@
 """Sequential Gaussian filters (counterpart of
-``chirpgp_tpu.infer.filters``; ``ekf_for_kpt`` and the continuous-discrete
-``cd_*`` filters are not ported yet).
+``chirpgp_tpu.infer.filters``; the continuous-discrete ``cd_*`` filters
+are not ported yet).
 
 Each filter is a Python loop over the measurement sequence that
 accumulates the negative filter-marginal log-likelihood, and returns
@@ -9,16 +9,16 @@ in ``m0``'s dtype on ``m0``'s device and are differentiable with
 ``torch.autograd``.
 """
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
 from chirpgp_tpu_torch.infer.common import (
     _as_data, _linearization, _loop_constants, linear_predict,
-    linear_update, sgp_prediction)
+    linear_update, log_normal_pdf, sgp_prediction)
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
 
-__all__ = ["kf", "ekf", "sgp_filter"]
+__all__ = ["kf", "ekf", "ekf_for_kpt", "sgp_filter"]
 
 FilterResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -64,6 +64,33 @@ def ekf(cond_m_cov, H: torch.Tensor, Xi, m0: torch.Tensor, P0: torch.Tensor,
         return mp, F @ Pf @ F.T + Sigma
 
     return _run_filter(predict, m0, P0, H, Xi, ys)
+
+
+def ekf_for_kpt(F: torch.Tensor, Sigma: torch.Tensor, h: Callable, Xi,
+                m0: torch.Tensor, P0: torch.Tensor, dt,
+                ys: torch.Tensor) -> FilterResult:
+    """EKF with linear dynamics and a nonlinear scalar measurement ``h``
+    (the KPT model): linear predict, then the update linearized at the
+    prediction.  The measurement's gradient is ``h.jac`` where ``h`` has
+    one, else ``torch.func.jacfwd(h)``.  ``dt`` is carried for the JAX
+    package's signature; the dynamics are already discrete."""
+    jac = getattr(h, "jac", None) or torch.func.jacfwd(h)
+    ys = _as_data(ys, m0)
+    mf, Pf, n_ell = m0, P0, m0.new_zeros(())
+    mfs, Pfs, nlls = [], [], []
+    for y in ys:
+        mp, Pp = linear_predict(F, Sigma, mf, Pf)
+        H = jac(mp).to(mp.dtype)
+        S = H @ Pp @ H + Xi
+        K = Pp @ H / S
+        pred = h(mp)
+        mf = mp + K * (y - pred)
+        Pf = Pp - torch.outer(K, K) * S
+        n_ell = n_ell - log_normal_pdf(y, pred, S)
+        mfs.append(mf)
+        Pfs.append(Pf)
+        nlls.append(n_ell)
+    return torch.stack(mfs), torch.stack(Pfs), torch.stack(nlls)
 
 
 def sgp_filter(cond_m_cov, sgps: SigmaPoints, H: torch.Tensor, Xi,

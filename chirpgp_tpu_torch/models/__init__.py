@@ -5,12 +5,18 @@ from chirpgp_tpu_torch.models.transitions import Transition, as_transition
 from chirpgp_tpu_torch.models.matern import (
     stationary_cov_m32, m32_solution, m32_transition_mean)
 from chirpgp_tpu_torch.models.chirp import (
-    StateSpaceModel, model_chirp, disc_chirp_lcd, ChirpModelPack,
-    build_chirp_model)
+    StateSpaceModel, model_chirp, model_harmonic_chirp, model_lascala,
+    disc_chirp_lcd, disc_harmonic_chirp_lcd, disc_model_lascala_lcd,
+    ChirpModelPack, build_chirp_model, build_harmonic_chirp_model,
+    build_lascala_model)
+from chirpgp_tpu_torch.models.kpt import KPTModel, build_kpt_chirp_model
 
 __all__ = [
     "g", "g_inv", "Transition", "as_transition",
     "stationary_cov_m32", "m32_solution", "m32_transition_mean",
-    "StateSpaceModel", "model_chirp", "disc_chirp_lcd", "ChirpModelPack",
-    "build_chirp_model",
+    "StateSpaceModel", "model_chirp", "model_harmonic_chirp",
+    "model_lascala", "disc_chirp_lcd", "disc_harmonic_chirp_lcd",
+    "disc_model_lascala_lcd", "ChirpModelPack", "build_chirp_model",
+    "build_harmonic_chirp_model", "build_lascala_model",
+    "KPTModel", "build_kpt_chirp_model",
 ]

@@ -1,10 +1,16 @@
-"""The chirp SDE prior and its locally conditional discretization (LCD)
-(counterpart of ``chirpgp_tpu.models.chirp``; the harmonic and La Scala
-models are not ported yet).
+"""Chirp / harmonic-chirp / La Scala SDE priors and their locally
+conditional discretizations (LCD) (counterpart of
+``chirpgp_tpu.models.chirp``; ``disc_chirp_lcd_cond_v`` is not ported
+yet).
 
 Model: a harmonic pair ``(X1, X2)`` rotating at angular rate ``2 pi g(V)``
 with damping ``lam`` and dispersion ``b``, coupled to a Matern-3/2 prior on
-the latent frequency state ``(V, dV)``.  The measurement reads ``X2``.
+the latent frequency state ``(V, dV)``.  The measurement reads ``X2``.  The
+harmonic model has K such pairs at rates ``k w``; La Scala's is the chirp
+model without damping and without noise on the pair.
+
+Every LCD transition has a closed-form ``jac``, so the extended filters
+need no forward-mode AD.
 """
 
 import math
@@ -18,8 +24,10 @@ from chirpgp_tpu_torch.models.matern import stationary_cov_m32, m32_solution
 from chirpgp_tpu_torch.models.transitions import Transition
 from chirpgp_tpu_torch.utils.numerics import as_real_tensor, ou_variance
 
-__all__ = ["StateSpaceModel", "model_chirp", "disc_chirp_lcd",
-           "ChirpModelPack", "build_chirp_model"]
+__all__ = ["StateSpaceModel", "model_chirp", "model_harmonic_chirp",
+           "model_lascala", "disc_chirp_lcd", "disc_harmonic_chirp_lcd",
+           "disc_model_lascala_lcd", "ChirpModelPack", "build_chirp_model",
+           "build_harmonic_chirp_model", "build_lascala_model"]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -64,6 +72,73 @@ def model_chirp(lam, b, ell, sigma, delta) -> StateSpaceModel:
     return StateSpaceModel(drift, dispersion, m0, P0, H)
 
 
+def model_harmonic_chirp(lam, b, ell, sigma, delta, num_harmonics: int = 1,
+                         freq_scale: float = 1.0) -> StateSpaceModel:
+    """Harmonic chirp prior, d = 2K + 2: K harmonic pairs at rates
+    ``k w`` with shared ``lam``/``b``/``delta``; frequency ``freq_scale *
+    g(V)``."""
+    lam, b, ell, sigma, delta = map(as_real_tensor, (lam, b, ell, sigma, delta))
+    K = num_harmonics
+    gamma = math.sqrt(3.0) / ell
+
+    def drift(u):
+        w = _TWO_PI * g(u[..., -2]) * freq_scale
+        pairs = u[..., : 2 * K].reshape(u.shape[:-1] + (K, 2))
+        wk = w[..., None] * torch.arange(1, K + 1, dtype=u.dtype,
+                                         device=u.device)
+        a_even = -lam * pairs[..., 0] - wk * pairs[..., 1]
+        a_odd = wk * pairs[..., 0] - lam * pairs[..., 1]
+        a_pairs = torch.stack([a_even, a_odd], dim=-1).reshape(
+            u.shape[:-1] + (2 * K,))
+        a_v = u[..., -1]
+        a_dv = -(gamma ** 2) * u[..., -2] - 2.0 * gamma * u[..., -1]
+        return torch.cat([a_pairs, torch.stack([a_v, a_dv], dim=-1)], dim=-1)
+
+    def dispersion(_):
+        return torch.diag(torch.stack(
+            [b, b] * K + [torch.zeros_like(b), 2.0 * sigma * gamma ** 1.5]))
+
+    like = dict(dtype=delta.dtype, device=delta.device)
+    m0 = torch.tensor([0.0, 1.0] * K + [0.0, 0.0], **like)
+    P0 = torch.block_diag(delta * torch.eye(2 * K, **like),
+                          stationary_cov_m32(ell, sigma))
+    H = torch.tensor([0.0, 1.0] * K + [0.0, 0.0], **like)
+    return StateSpaceModel(drift, dispersion, m0, P0, H)
+
+
+def model_lascala(ell, sigma, delta) -> StateSpaceModel:
+    """Snyder / La Scala baseline prior: the chirp prior with an undamped,
+    dispersion-free pair (``lam = b = 0``), d=4."""
+    delta = as_real_tensor(delta)
+    zero = torch.zeros_like(delta)
+    return model_chirp(zero, zero, ell, sigma, delta)
+
+
+def _step_constants(lam, ell, sigma):
+    """``consts(dt) -> (exp(-lam dt), F00, F01, F10, F11)`` of the
+    Matern-3/2 step, computed once per ``dt``: eager PyTorch would
+    otherwise rebuild them at every filter step.  Built from parameters
+    that require grad, the constants are part of the graph, so the
+    transition that holds them serves one backward pass."""
+    cache = {}
+
+    def consts(dt):
+        key = float(dt)
+        if key in cache:
+            return cache[key]
+        F32, _ = m32_solution(ell, sigma, dt)
+        out = (torch.exp(-lam * dt), F32[0, 0], F32[0, 1], F32[1, 0],
+               F32[1, 1])
+        # Constants first computed inside a torch.func transform (the
+        # jacfwd of an EKF step) are wrapped for that transform and must
+        # not outlive it, so they are not kept.
+        if not any(is_functorch_wrapped_tensor(c) for c in out):
+            cache[key] = out
+        return out
+
+    return consts
+
+
 def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
     """LCD of the chirp model: rotation-with-decay on the harmonic pair
     (frequency frozen at the conditioning state's ``g(V)``) + exact
@@ -76,23 +151,7 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
     (as ``make_nll_fn`` does per call) for the next.
     """
     lam, b, ell, sigma = map(as_real_tensor, (lam, b, ell, sigma))
-    step_consts = {}
-
-    def _step_consts(dt):
-        # exp(-lam dt) and the Matern-3/2 F entries, computed once per dt:
-        # eager PyTorch would otherwise rebuild them at every filter step.
-        key = float(dt)
-        if key in step_consts:
-            return step_consts[key]
-        F32, _ = m32_solution(ell, sigma, dt)
-        consts = (torch.exp(-lam * dt), F32[0, 0], F32[0, 1], F32[1, 0],
-                  F32[1, 1])
-        # Constants first computed inside a torch.func transform (the
-        # jacfwd of an EKF step) are wrapped for that transform and must
-        # not outlive it, so they are not kept.
-        if not any(is_functorch_wrapped_tensor(c) for c in consts):
-            step_consts[key] = consts
-        return consts
+    _step_consts = _step_constants(lam, ell, sigma)
 
     def mean(u, dt):
         decay, F00, F01, F10, F11 = _step_consts(dt)
@@ -139,6 +198,93 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
                       jac=jac)
 
 
+def disc_harmonic_chirp_lcd(lam, b, ell, sigma, num_harmonics: int = 1,
+                            freq_scale: float = 1.0) -> Transition:
+    """LCD of the harmonic chirp model: K rotation blocks at rates ``k w``,
+    ``w = 2 pi freq_scale g(V)``, + exact Matern-3/2 step on the last two
+    components; state-independent covariance ``blockdiag(q I_2K,
+    Sigma_m32)``.  The per-``dt`` constants are kept as in
+    :func:`disc_chirp_lcd`."""
+    lam, b, ell, sigma = map(as_real_tensor, (lam, b, ell, sigma))
+    K = num_harmonics
+    d = 2 * K + 2
+    _step_consts = _step_constants(lam, ell, sigma)
+
+    def mean(u, dt):
+        decay, F00, F01, F10, F11 = _step_consts(dt)
+        w = _TWO_PI * g(u[..., -2]) * freq_scale
+        ks = torch.arange(1, K + 1, dtype=u.dtype, device=u.device)
+        angles = (dt * w)[..., None] * ks                   # (..., K)
+        c, s = torch.cos(angles) * decay, torch.sin(angles) * decay
+        pairs = u[..., : 2 * K].reshape(u.shape[:-1] + (K, 2))
+        m_even, m_odd = _rotate_pair(pairs[..., 0], pairs[..., 1], c, s)
+        m_pairs = torch.stack([m_even, m_odd], dim=-1).reshape(
+            u.shape[:-1] + (2 * K,))
+        m_v = F00 * u[..., -2] + F01 * u[..., -1]
+        m_dv = F10 * u[..., -2] + F11 * u[..., -1]
+        return torch.cat([m_pairs, torch.stack([m_v, m_dv], dim=-1)], dim=-1)
+
+    def jac(u, dt):
+        # d/du of ``mean``: pair k is the rotation block at angle k dt w,
+        # differentiated through w = 2 pi freq_scale g(V) (g' = sigmoid)
+        # in column d-2; the Matern-3/2 F sits on the last two rows.
+        decay, F00, F01, F10, F11 = _step_consts(dt)
+        w = _TWO_PI * g(u[..., -2]) * freq_scale
+        dw = _TWO_PI * freq_scale * torch.sigmoid(u[..., -2]) * dt
+        zero = torch.zeros_like(w)
+        rows = []
+        for k in range(1, K + 1):
+            c = torch.cos(dt * w * k) * decay
+            s = torch.sin(dt * w * k) * decay
+            x0, x1 = u[..., 2 * k - 2], u[..., 2 * k - 1]
+            even, odd = [zero] * d, [zero] * d
+            even[2 * k - 2], even[2 * k - 1] = c, -s
+            odd[2 * k - 2], odd[2 * k - 1] = s, c
+            even[d - 2] = -(s * x0 + c * x1) * (k * dw)
+            odd[d - 2] = (c * x0 - s * x1) * (k * dw)
+            rows += [even, odd]
+        rows.append([zero] * (d - 2) + [zero + F00, zero + F01])
+        rows.append([zero] * (d - 2) + [zero + F10, zero + F11])
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    def cov(_, dt):
+        q = ou_variance(b, lam, dt)
+        _, S32 = m32_solution(ell, sigma, dt)
+        return torch.block_diag(q * torch.eye(2 * K, dtype=q.dtype,
+                                              device=q.device), S32)
+
+    def mean_cf(u, dt):
+        # Channels-first: u (..., d, B); the model scalars may live on the
+        # host while u is on the card, as in disc_chirp_lcd.
+        decay, F00, F01, F10, F11 = _step_consts(dt)
+        w = _TWO_PI * g(u[..., -2, :]) * freq_scale
+        outs = []
+        for k in range(1, K + 1):
+            ang = dt * k * w
+            c, sn = torch.cos(ang) * decay, torch.sin(ang) * decay
+            x0, x1 = u[..., 2 * k - 2, :], u[..., 2 * k - 1, :]
+            outs += [c * x0 - sn * x1, sn * x0 + c * x1]
+        outs.append(F00 * u[..., -2, :] + F01 * u[..., -1, :])
+        outs.append(F10 * u[..., -2, :] + F11 * u[..., -1, :])
+        return torch.stack(outs, dim=-2)
+
+    return Transition(mean=mean, cov=cov, const_cov=True, mean_cf=mean_cf,
+                      jac=jac)
+
+
+def disc_model_lascala_lcd(ell, sigma) -> Transition:
+    """LCD of the La Scala model: pure rotation (no damping, no noise on
+    the pair) + exact Matern-3/2 step.  This is :func:`disc_chirp_lcd` at
+    ``lam = b = 0`` exactly: the decay is ``exp(0) = 1`` and the pair's
+    variance ``ou_variance(0, 0, dt) = 0``, so the covariance is
+    ``blockdiag(0, 0, Sigma_m32)`` and ``jac`` the chirp Jacobian with
+    decay 1 -- which is why the chirp filter kernel runs this model with
+    params ``[0, 0, delta, ell, sigma, m0_v]``."""
+    ell = as_real_tensor(ell)
+    zero = torch.zeros_like(ell)
+    return disc_chirp_lcd(zero, zero, ell, sigma)
+
+
 class ChirpModelPack(NamedTuple):
     """Everything a filter/smoother needs; iterable for reference-style
     unpacking ``drift, dispersion, m_and_cov, m0, P0, H = pack``."""
@@ -158,4 +304,31 @@ def build_chirp_model(params) -> ChirpModelPack:
     drift, dispersion, _, P0, H = model_chirp(lam, b, ell, sigma, delta)
     m0 = torch.stack([0.0 * m0_v, 0.0 * m0_v, m0_v, 0.0 * m0_v])
     m_and_cov = disc_chirp_lcd(lam, b, ell, sigma)
+    return ChirpModelPack(drift, dispersion, m_and_cov, m0, P0, H)
+
+
+def build_harmonic_chirp_model(params, num_harmonics: int = 1,
+                               freq_scale: float = 1.0) -> ChirpModelPack:
+    """Harmonic chirp model, d = 2K + 2, from packed params ``[lam, b,
+    delta, ell, sigma, m0_v]``; dtypes and devices as
+    :func:`build_chirp_model`."""
+    lam, b, delta, ell, sigma, m0_v = as_real_tensor(params).unbind()
+    drift, dispersion, _, P0, H = model_harmonic_chirp(
+        lam, b, ell, sigma, delta, num_harmonics=num_harmonics,
+        freq_scale=freq_scale)
+    zero = 0.0 * m0_v
+    one = zero + 1.0
+    m0 = torch.stack([zero, one] * num_harmonics + [m0_v, zero])
+    m_and_cov = disc_harmonic_chirp_lcd(
+        lam, b, ell, sigma, num_harmonics=num_harmonics, freq_scale=freq_scale)
+    return ChirpModelPack(drift, dispersion, m_and_cov, m0, P0, H)
+
+
+def build_lascala_model(params) -> ChirpModelPack:
+    """La Scala model from packed params ``[delta, ell, sigma, m0_v]``;
+    dtypes and devices as :func:`build_chirp_model`."""
+    delta, ell, sigma, m0_v = as_real_tensor(params).unbind()
+    drift, dispersion, _, P0, H = model_lascala(ell, sigma, delta)
+    m0 = torch.stack([0.0 * m0_v, 0.0 * m0_v, m0_v, 0.0 * m0_v])
+    m_and_cov = disc_model_lascala_lcd(ell, sigma)
     return ChirpModelPack(drift, dispersion, m_and_cov, m0, P0, H)

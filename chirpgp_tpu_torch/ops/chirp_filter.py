@@ -9,7 +9,9 @@ the plain version for a tensor on the CPU and the kernel for a tensor on
 a CUDA device; there is no fallback from one to the other.  Neither has a
 gradient yet.  :func:`launch_geometry` chooses the kernel's team size,
 rows and blocks, and :func:`filter_cost` counts its work; both are plain
-Python.
+Python.  The La Scala model is the chirp model at ``lam = b = 0``
+(``models.chirp.disc_model_lascala_lcd``), so the same kernel filters it
+with :func:`lascala_chirp_params`.
 """
 
 import ctypes
@@ -28,7 +30,8 @@ from chirpgp_tpu_torch.utils.numerics import psd_cholesky
 
 __all__ = ["LaunchGeometry", "filter_cost", "ghfs_chirp_filter",
            "ghfs_chirp_filter_kernel", "ghfs_chirp_filter_reference",
-           "kernel_launcher", "launch_geometry", "load_kernel"]
+           "kernel_launcher", "lascala_chirp_params", "launch_geometry",
+           "load_kernel"]
 
 _D = 4
 _KERNEL = "ghfs_chirp_filter"
@@ -115,6 +118,19 @@ def filter_cost(S: int, T: int, B: int, dtype=torch.float32) -> FilterCost:
     itemsize = torch.empty((), dtype=dtype).element_size()
     words = 1 + d + d * d + 1
     return FilterCost(per_step * T * B, itemsize * words * T * B)
+
+
+def lascala_chirp_params(params) -> torch.Tensor:
+    """The chirp params ``[0, 0, delta, ell, sigma, m0_v]`` of La Scala's
+    ``[delta, ell, sigma, m0_v]``: no damping and no noise on the pair,
+    which is the La Scala model exactly (decay ``exp(0) = 1``, pair
+    variance ``ou_variance(0, 0, dt) = 0``, same ``m0``, ``P0`` and
+    ``H``).  Keeps the dtype and device of a tensor."""
+    p = torch.as_tensor(params)
+    if p.shape != (4,):
+        raise ValueError(f"La Scala params must hold 4 values, got shape "
+                         f"{tuple(p.shape)}")
+    return torch.cat([p.new_zeros(2), p])
 
 
 def _host_params(params) -> torch.Tensor:

@@ -20,7 +20,7 @@ from chirpgp_tpu_torch.infer import sqrt_sgp_filter_smoother_batched
 from chirpgp_tpu_torch.models import build_chirp_model, g_inv
 from chirpgp_tpu_torch.ops.chirp_filter import (
     TEAMS, ghfs_chirp_filter, ghfs_chirp_filter_kernel,
-    ghfs_chirp_filter_reference, launch_geometry)
+    ghfs_chirp_filter_reference, lascala_chirp_params, launch_geometry)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
@@ -225,3 +225,89 @@ def test_sweep_on_measurements_runs_on_card(cuda):
         IFEstimationConfig(form="sqrt", max_iters=8), tf, ys)
     assert res["params"].shape == (3, 6)
     assert np.all(np.isfinite(res["rmse"])) and np.all(res["success"])
+
+
+LASCALA = np.load(ROOT / "results/reference/lascala_ghfs_const.npz")["params"][0]
+
+
+# Kernel against plain at the Table-I data's scale: max |d mfs| and max
+# |d L L^T| over (1 + the plain version's largest), and the relative
+# deviation of nll[-1] -- chip_smoke.py's FULL_BOUNDS.
+SCALED_BOUNDS = {"float64": (1e-9, 1e-9, 1e-12),
+                 "float32": (1e-4, 1e-4, 2e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["gh3", "cubature"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lascala_through_the_kernel_matches_plain(cuda, rule, dtype):
+    """La Scala (zero noise on the pair: zero pivots in the kernel's Lq)
+    through the kernel at every team size, on 64 records of
+    ``toydata_const`` (T=200) at the column's reference optimum, against
+    the plain version, within ``SCALED_BOUNDS``."""
+    sgps = RULES[rule]()
+    data = np.load(ROOT / "results/data/toydata_const.npz")["ys"][:64, :200]
+    ys = torch.tensor(data, dtype=getattr(torch, dtype), device=cuda)
+    params = lascala_chirp_params(torch.tensor(LASCALA))
+    mp, lp, np_ = [x.double() for x in
+                   ghfs_chirp_filter_reference(params, 0.1, 1e-3, sgps, ys)]
+    Pp = torch.einsum("tikb,tjkb->tijb", lp, lp)
+    for team in (None,) + TEAMS:
+        mk, lk, nk = [x.double() for x in ghfs_chirp_filter_kernel(
+            params, 0.1, 1e-3, sgps, ys, team=team)]
+        assert bool(torch.isfinite(mk).all() and torch.isfinite(lk).all())
+        Pk = torch.einsum("tikb,tjkb->tijb", lk, lk)
+        got = (float((mk - mp).abs().max() / (1 + mp.abs().max())),
+               float((Pk - Pp).abs().max() / (1 + Pp.abs().max())),
+               float(((nk[-1] - np_[-1]).abs() / np_[-1].abs()).max()))
+        for val, bound in zip(got, SCALED_BOUNDS[dtype]):
+            assert val <= bound, (team, got)
+
+
+@pytest.mark.cuda
+def test_lascala_estimate_if_batched_on_card_matches_cpu(cuda):
+    """``estimate_if_batched(model="lascala")`` launches the kernel on the
+    card and matches the plain version on the host (float64, B=8, T=128)."""
+    ys = np.load(ROOT / "results/data/toydata_const.npz")["ys"][:8, :128] \
+        .astype(np.float64)
+    cfg = IFEstimationConfig(model="lascala")
+    params = torch.tensor(LASCALA)
+    before = ghfs_chirp_filter.launches
+    on_card = estimate_if_batched(cfg, params.to(cuda),
+                                  torch.tensor(ys, device=cuda))
+    assert ghfs_chirp_filter.launches == before + 1
+    on_cpu = estimate_if_batched(cfg, params, torch.tensor(ys))
+    for key in ("if_mean", "nell", "mss", "Lss"):
+        npt.assert_allclose(_np(on_card[key]), _np(on_cpu[key]), atol=1e-9,
+                            rtol=0)
+
+
+@pytest.mark.cuda
+def test_family_objectives_on_card_match_cpu(cuda):
+    """The harmonic CKFS sweep objective and the KPT objective (float64,
+    T=100 of seed 0): value and gradient on the card against the host
+    CPU, 1e-9 relative and 1e-7 of max |grad|."""
+    from chirpgp_tpu_torch.apps import kpt_filter
+    from chirpgp_tpu_torch.models import g
+    h3 = np.load(ROOT / "results/data/toydata_h3_const.npz")["ys"][0, :100] \
+        .astype(np.float64)
+    cfg = IFEstimationConfig(method="ghfs", model="harmonic", num_harmonics=3,
+                             quadrature="cubature", form="sqrt")
+    objectives = {
+        "harmonic_ckfs": (lambda th, y: make_nll_fn(cfg, y)(th),
+                          cfg.default_init_theta(torch.float64)),
+        "harmonic_kpt": (lambda th, y: kpt_filter(g(th), 1000.0, 0.1, y,
+                                                  num_harmonics=3)[2][-1],
+                         g_inv(torch.tensor([0.02, 1e-5, 1e-5, 8.0, 1.0],
+                                            dtype=torch.float64)))}
+    for name, (fn, theta0) in objectives.items():
+        out = {}
+        for device in ("cpu", cuda):
+            th = theta0.to(device).requires_grad_(True)
+            value = fn(th, torch.tensor(h3, device=device))
+            grad, = torch.autograd.grad(value, th)
+            out[str(device)] = (float(value.detach()), _np(grad))
+        (v_cpu, g_cpu), (v_card, g_card) = out["cpu"], out[str(cuda)]
+        npt.assert_allclose(v_card, v_cpu, rtol=1e-9, atol=0, err_msg=name)
+        npt.assert_allclose(g_card, g_cpu, rtol=0,
+                            atol=1e-7 * np.abs(g_cpu).max(), err_msg=name)

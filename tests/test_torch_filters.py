@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the unbatched filters and smoothers
-(covariance and square-root forms), ``tria``, ``psd_solve``, the Gaussian
-expectations, and the EKF's ``torch.func.jacfwd`` linearization.
+(covariance and square-root forms) on the chirp, harmonic and La Scala
+models, ``tria``, ``psd_solve``, the Gaussian expectations, and the EKF's
+``torch.func.jacfwd`` linearization.
 
 The same NumPy inputs go to both packages.  Tolerances: float64 atol
 1e-10 on means, nll and covariances; float32 (square-root forms) atol 5e-5
@@ -41,10 +42,23 @@ def _ys(dtype="float64"):
         .astype(dtype)
 
 
-def _packs(dtype):
-    return (jm.build_chirp_model(jnp.asarray(PARAMS, getattr(jnp, dtype))),
-            tm.build_chirp_model(torch.tensor(PARAMS,
-                                              dtype=getattr(torch, dtype))))
+# (JAX builder, port builder, params, sigma-point rule) of each model; the
+# harmonic model at K=2 (d=6).
+MODELS = {
+    "chirp": (jm.build_chirp_model, tm.build_chirp_model, PARAMS,
+              lambda q: q.gauss_hermite(4, 3)),
+    "harmonic": (lambda p: jm.build_harmonic_chirp_model(p, num_harmonics=2),
+                 lambda p: tm.build_harmonic_chirp_model(p, num_harmonics=2),
+                 PARAMS, lambda q: q.cubature(6)),
+    "lascala": (jm.build_lascala_model, tm.build_lascala_model,
+                [0.1, 1.0, 1.0, 7.0], lambda q: q.gauss_hermite(4, 3)),
+}
+
+
+def _packs(dtype, model="chirp"):
+    bj, bt, params, _ = MODELS[model]
+    return (bj(jnp.asarray(params, getattr(jnp, dtype))),
+            bt(torch.tensor(params, dtype=getattr(torch, dtype))))
 
 
 def _gram(L):
@@ -52,11 +66,12 @@ def _gram(L):
     return L @ np.swapaxes(L, -1, -2)
 
 
-def _run(method, dtype):
+def _run(method, dtype, model="chirp"):
     """(filter out, smoother out) of one method in both packages."""
-    pj, pt = _packs(dtype)
+    pj, pt = _packs(dtype, model)
     yj, yt = jnp.asarray(_ys(dtype)), torch.tensor(_ys(dtype))
-    rj, rt = jq.gauss_hermite(4, 3), tq.gauss_hermite(4, 3)
+    rule = MODELS[model][3]
+    rj, rt = rule(jq), rule(tq)
     # x64 is on: the JAX model's constant arrays (P0's eye) are float64.
     cj = (pj.H.astype(dtype), XI, pj.m0.astype(dtype), pj.P0.astype(dtype),
           DT, yj)
@@ -96,6 +111,23 @@ def test_filter_and_smoother_match_jax_float64(method):
     npt.assert_allclose(second(_np(Pt)), second(Pj), **F64)
     npt.assert_allclose(_np(mst), np.asarray(msj), **F64)
     npt.assert_allclose(second(_np(Pst)), second(Psj), **F64)
+
+
+@pytest.mark.parametrize("method", ["sgp", "ekf", "sqrt_sgp", "sqrt_ekf"])
+@pytest.mark.parametrize("model", ["harmonic", "lascala"])
+def test_family_filter_and_smoother_match_jax_float64(model, method):
+    """The harmonic (K=2, d=6, cubature) and La Scala (its zero
+    process-noise block) models through each filter and smoother; the
+    extended ones take the closed-form Jacobians."""
+    ((mj, Pj, nj), (msj, Psj)), ((mt, Pt, nt), (mst, Pst)) = \
+        _run(method, "float64", model)
+    d = 6 if model == "harmonic" else 4
+    assert mt.shape == (T, d) and Pst.shape == (T, d, d)
+    second = _gram if method.startswith("sqrt") else np.asarray
+    for a, b in ((mt, mj), (nt, nj), (mst, msj)):
+        npt.assert_allclose(_np(a), np.asarray(b), **F64)
+    for a, b in ((Pt, Pj), (Pst, Psj)):
+        npt.assert_allclose(second(_np(a)), second(b), **F64)
 
 
 @pytest.mark.parametrize("method", ["sqrt_sgp", "sqrt_ekf"])

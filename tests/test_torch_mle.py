@@ -124,13 +124,13 @@ def test_scipy_minimize_records_divergence():
 
 def test_unported_options_raise():
     ys = torch.zeros(8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="later PR"):
-        tp.fit_mle(tp.IFEstimationConfig(model="harmonic"), ys)
+    with pytest.raises(ValueError, match="Unknown model"):
+        tp.fit_mle(tp.IFEstimationConfig(model="tme"), ys)
     with pytest.raises(ValueError):
         tp.fit_mle(tp.IFEstimationConfig(optimizer="adam"), ys)
     from chirpgp_tpu_torch.apps import mc_kpt_sweep
-    with pytest.raises(NotImplementedError, match="KPT"):
-        mc_kpt_sweep(np.zeros((1, 2), np.uint32), "const")
+    with pytest.raises(NotImplementedError, match="scale-out"):
+        mc_kpt_sweep(np.zeros((1, 2), np.uint32), "const", mesh=object())
     for method in ("cd_ghfs", "cd_ekfs"):
         with pytest.raises(NotImplementedError, match="continuous-discrete"):
             tp.make_nll_fn(tp.IFEstimationConfig(method=method), ys)
@@ -138,5 +138,6 @@ def test_unported_options_raise():
         tp.make_nll_fn(tp.IFEstimationConfig(method="pf"), ys)
     with pytest.raises(ValueError):
         tp.estimate_if(tp.IFEstimationConfig(form="info"), [0.1] * 6, ys)
-    with pytest.raises(NotImplementedError, match="later PR"):
-        tp.estimate_if(tp.IFEstimationConfig(model="lascala"), [0.1] * 4, ys)
+    with pytest.raises(NotImplementedError, match="continuous-discrete"):
+        tp.estimate_if(tp.IFEstimationConfig(model="lascala",
+                                             method="cd_ekfs"), [0.1] * 4, ys)

@@ -1,12 +1,14 @@
 """PyTorch port vs the JAX package: the Table-I Monte-Carlo sweeps
-(``apps/sweeps.py``), the toy models and the SDE simulator, in float64 on
-the committed data of ``results/data/`` (torch cannot replay JAX's random
+(``apps/sweeps.py``: the chirp, harmonic and La Scala columns and the KPT
+baseline), the toy models and the SDE simulator, in float64 on the
+committed data of ``results/data/`` (torch cannot replay JAX's random
 keys).  Tolerances: the whole ``mle_sweep_on_measurements`` (stepped
-L-BFGS, rescue, float64 polish, estimate) the same ``success``, the learnt
-params within 1e-5 and the IF-RMSE within 1e-6 relative; the toy models
-and the simulator from JAX's own draws 1e-12; the vmapped objective
-against one lane alone 1e-12 relative."""
+L-BFGS, rescue, float64 polish, estimate) and the KPT sweep the same
+``success``, the learnt params within 1e-5 and the IF-RMSE within 1e-6
+relative; the toy models and the simulator from JAX's own draws 1e-12;
+the vmapped objective against one lane alone 1e-12 relative."""
 
+import concurrent.futures
 from pathlib import Path
 
 import numpy as np
@@ -16,11 +18,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chirpgp_tpu.apps.kpt as jk
 import chirpgp_tpu.apps.pipeline as jp
 import chirpgp_tpu.apps.sweeps as js
 import chirpgp_tpu.toymodels as jt
 import chirpgp_tpu.utils.sim as jsim
 from chirpgp_tpu.fit.mle import MLEResult as JMLEResult
+from chirpgp_tpu.models import g as jm_g, g_inv as jm_g_inv
+import chirpgp_tpu_torch.apps.kpt as tk
 import chirpgp_tpu_torch.apps.pipeline as tp
 import chirpgp_tpu_torch.apps.sweeps as ts
 import chirpgp_tpu_torch.toymodels as tt
@@ -35,11 +40,12 @@ ROOT = Path(__file__).resolve().parents[1]
 F64 = dict(atol=1e-12, rtol=0)
 
 
-def _seed0(T):
-    """Seed 0 of each magnitude's Table-I data: (true_freqs (T,), ys (3, T))."""
+def _seed0(T, prefix=""):
+    """Seed 0 of each magnitude's Table-I data (``toydata_h3_*`` with
+    ``prefix="h3_"``): (true_freqs (T,), ys (3, T))."""
     ys = []
     for mag in ts.MAGNITUDES:
-        data = np.load(ROOT / f"results/data/toydata_{mag}.npz")
+        data = np.load(ROOT / f"results/data/toydata_{prefix}{mag}.npz")
         ys.append(data["ys"][0, :T])
     return data["true_freqs"][:T].astype(np.float64), \
         np.stack(ys).astype(np.float64)
@@ -58,6 +64,87 @@ def test_sweep_on_measurements_matches_jax(method):
     npt.assert_array_equal(rt["success"], rj["success"])
     npt.assert_allclose(rt["params"], rj["params"], atol=1e-5, rtol=0)
     npt.assert_allclose(rt["rmse"], rj["rmse"], rtol=1e-6, atol=0)
+
+
+def _jax_kpt_sweep(tf, ys, K, max_iters):
+    """The stepped body of ``chirpgp_tpu.apps.sweeps.mc_kpt_sweep`` on
+    given measurements (the JAX package has no such entry point; this is
+    its code with the data passed in)."""
+    fs, Xi = 1000.0, 0.1
+
+    def nll(theta, ys_i):
+        return jk.kpt_filter(jm_g(theta), fs, Xi, ys_i,
+                             num_harmonics=K)[2][-1]
+
+    init_theta = jm_g_inv(jnp.asarray(jk.KPT_INIT_PARAMS))
+    theta0 = jnp.broadcast_to(init_theta, (ys.shape[0],) + init_theta.shape)
+    opt = js.lbfgs_minimize_stepped(nll, theta0, batch_args=(ys,),
+                                    max_iters=max_iters, ftol_rel=1e-9,
+                                    patience=10, tail_iters=30)
+    opt = js._rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
+                                 max_iters=max_iters)
+    opt = js._polish_lanes_f64(nll, init_theta, opt, ys, max_iters=max_iters)
+
+    def est(theta, tf_i, ys_i, success):
+        params = jm_g(theta)
+        if_mean, _ = jk.kpt_if_estimate(params, fs, Xi, ys_i, num_harmonics=K)
+        err = jnp.sqrt(jnp.mean((tf_i - if_mean) ** 2))
+        return dict(rmse=jnp.where(success, err, jnp.nan), params=params,
+                    success=success)
+
+    out = jax.jit(jax.vmap(est))(opt.params, tf, ys, opt.success)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("K,T", [(1, 60), (3, 40)])
+def test_kpt_sweep_on_measurements_matches_jax(K, T):
+    """The stepped KPT sweep (stepped L-BFGS, rescue, float64 polish,
+    estimate) on seed 0 of each magnitude, 5 iterations.  The K=3
+    objective is ill-conditioned near the init: from inputs equal to
+    1e-15 the 5-iteration polish drifts apart beyond T=40 (1e-3 in params
+    at T=60, with the objective and its gradient equal to 1e-15 at its
+    start), so the comparison runs at T=40."""
+    tf, ys = _seed0(T, "h3_" if K == 3 else "")
+    rj = _jax_kpt_sweep(jnp.asarray(np.broadcast_to(tf, ys.shape)),
+                        jnp.asarray(ys), K, 5)
+    rt = ts._kpt_sweep_on_measurements(tf, ys, num_harmonics=K, max_iters=5,
+                                       device="cpu")
+    assert rt["params"].shape == (3, 5)
+    npt.assert_array_equal(rt["success"], rj["success"])
+    npt.assert_allclose(rt["params"], rj["params"], atol=1e-5, rtol=0)
+    npt.assert_allclose(rt["rmse"], rj["rmse"], rtol=1e-6, atol=0)
+
+
+def test_objectives_on_two_threads():
+    """The float64 polish evaluates lanes on host threads: the harmonic
+    EKF's and the KPT EKF's objectives, value and gradient, on two threads
+    at once equal each alone.  Forward-mode AD (``torch.func.jacfwd``) is
+    process-wide and fails here; the closed-form Jacobians do not."""
+    tf, ys = _seed0(60, "h3_")
+    ekf_cfg = tp.IFEstimationConfig(method="ekfs", model="harmonic",
+                                    num_harmonics=3, form="sqrt")
+    theta_ekf = ekf_cfg.default_init_theta(torch.float64)
+    theta_kpt = tk._kpt_init_theta(torch.tensor(ys))
+    kpt_nll = tk._kpt_nll(1000.0, 0.1, 3)
+
+    def vg(which, i):
+        if which == "ekf":
+            th = theta_ekf.clone().requires_grad_(True)
+            value = tp.make_nll_fn(ekf_cfg, torch.tensor(ys[i]))(th)
+        else:
+            th = theta_kpt.clone().requires_grad_(True)
+            value = kpt_nll(th, torch.tensor(ys[i]))
+        grad, = torch.autograd.grad(value, th)
+        return float(value.detach()), grad.numpy()
+
+    jobs = [("ekf", i) for i in range(3)] + [("kpt", i) for i in range(3)]
+    alone = [vg(*job) for job in jobs]
+    order = [j for pair in zip(jobs[:3], jobs[3:]) for j in pair]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+        together = dict(zip(order, ex.map(lambda j: vg(*j), order)))
+    for job, (v, gr) in zip(jobs, alone):
+        assert together[job][0] == v
+        npt.assert_array_equal(together[job][1], gr)
 
 
 def _nll_pair(cfg_kw):
@@ -186,6 +273,76 @@ def test_simulators_match_jax_from_its_draws():
     npt.assert_allclose(traj_t.numpy(), np.asarray(traj_j), **F64)
 
 
+def test_lgssm_and_conditioned_simulators_match_jax_from_its_draws():
+    """``simulate_lgssm`` and ``simulate_function_parametrised_sde`` from
+    JAX's own normal draws, in the key and split order of
+    ``chirpgp_tpu.utils.sim``; the port's seeded draws replay."""
+    T, dt = 50, 1e-2
+    key = jax.random.PRNGKey(7)
+    A = np.array([[0.9, 0.2], [-0.1, 0.8]])
+    Q = np.array([[0.5, 0.1], [0.1, 0.3]])
+    x0 = np.array([1.0, -0.5])
+    traj_j = jsim.simulate_lgssm(jnp.asarray(A), jnp.asarray(Q),
+                                 jnp.asarray(x0), T, key)
+    rnds = jax.random.normal(key, (T, 2), dtype=jnp.float64)
+    traj_t = tsim._lgssm_from_noise(torch.tensor(A), torch.tensor(Q),
+                                    torch.tensor(x0),
+                                    torch.tensor(np.asarray(rnds)))
+    npt.assert_allclose(traj_t.numpy(), np.asarray(traj_j), **F64)
+    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    npt.assert_array_equal(
+        tsim.simulate_lgssm(torch.tensor(A), torch.tensor(Q),
+                            torch.tensor(x0), T, gen()).numpy(),
+        tsim.simulate_lgssm(torch.tensor(A), torch.tensor(Q),
+                            torch.tensor(x0), T, gen()).numpy())
+
+    vs = np.linspace(-1.0, 2.0, T)
+    P0 = np.diag([0.2, 0.1])
+
+    def mc_j(x, v, dt_):
+        return jnp.asarray(A) @ x * jnp.cos(v), dt_ * jnp.asarray(Q)
+
+    def mc_t(x, v, dt_):
+        return torch.tensor(A) @ x * torch.cos(v), dt_ * torch.tensor(Q)
+
+    traj_j = jsim.simulate_function_parametrised_sde(
+        mc_j, jnp.asarray(vs), jnp.asarray(x0), jnp.asarray(P0), dt, T, key)
+    z0 = jax.random.normal(key, (2,), dtype=jnp.float64)
+    dws = jax.random.normal(jax.random.split(key)[0], (T, 2),
+                            dtype=jnp.float64)
+    start = torch.tensor(x0) + torch.linalg.cholesky(torch.tensor(P0)) \
+        @ torch.tensor(np.asarray(z0))
+    traj_t = tsim._conditioned_from_noise(mc_t, torch.tensor(vs), start,
+                                          torch.tensor(np.asarray(dws)), dt)
+    npt.assert_allclose(traj_t.numpy(), np.asarray(traj_j), **F64)
+    assert tsim.simulate_function_parametrised_sde(
+        mc_t, torch.tensor(vs), torch.tensor(x0), torch.tensor(P0), dt, T,
+        gen()).shape == (T, 2)
+
+
+def test_metric_helpers_match_jax():
+    import chirpgp_tpu.utils.metrics as jmet
+    import chirpgp_tpu_torch.utils.metrics as tmet
+    from chirpgp_tpu.models import g_inv as j_ginv
+    from chirpgp_tpu_torch.models import g_inv as t_ginv
+    ys = np.linspace(0.1, 4.0, 9)
+    pdf_j = jmet.fwd_transformed_pdf(
+        lambda x: jnp.exp(-0.5 * x ** 2) / np.sqrt(2 * np.pi), j_ginv)
+    pdf_t = tmet.fwd_transformed_pdf(
+        lambda x: torch.exp(-0.5 * x ** 2) / np.sqrt(2 * np.pi), t_ginv)
+    npt.assert_allclose(pdf_t(torch.tensor(ys)).numpy(),
+                        np.asarray(pdf_j(jnp.asarray(ys))), **F64)
+    M = np.random.default_rng(4).standard_normal((3, 3))
+    a = np.zeros((5, 5))
+    a[:2, :2] = np.diag([0.5, 2.0])
+    a[2:, 2:] = M @ M.T + np.eye(3)
+    for kw in ({}, {"lower": True}):
+        npt.assert_allclose(
+            tmet.chol_partial_const_diag(torch.tensor(a), 2, **kw).numpy(),
+            np.asarray(jmet.chol_partial_const_diag(jnp.asarray(a), 2, **kw)),
+            **F64)
+
+
 def test_port_draws_replay_and_split():
     """The port's own draws: a magnitude realization replays, a seed makes
     the same record twice, and the seed's first split drives the noise --
@@ -274,7 +431,10 @@ def test_host_data_goes_to_the_card_unless_cpu_is_asked():
              (tp.estimate_if_batched, (cfg, params, ys)),
              (tp.fit_mle, (cfg, ys[0])),
              (tp.run_pipeline, (cfg, ys[0])),
-             (ts.mle_sweep_on_measurements, (cfg, tf, ys))]
+             (ts.mle_sweep_on_measurements, (cfg, tf, ys)),
+             (tk.kpt_if_estimate, (tk.KPT_INIT_PARAMS, 1000.0, 0.1, ys[0])),
+             (tk.kpt_mle, (1000.0, 0.1, ys[0])),
+             (ts._kpt_sweep_on_measurements, (tf, ys))]
     for fn, args in calls:
         with pytest.raises((AssertionError, RuntimeError)):
             fn(*args)
@@ -283,8 +443,9 @@ def test_host_data_goes_to_the_card_unless_cpu_is_asked():
     with pytest.raises(NotImplementedError, match="scale-out"):
         ts.mc_mle_sweep(cfg, ts.generate_rnd_keys(1), "const", mesh=object(),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="KPT"):
-        ts.mc_kpt_sweep(ts.generate_rnd_keys(1), "const")
+    with pytest.raises(NotImplementedError, match="scale-out"):
+        ts.mc_kpt_sweep(ts.generate_rnd_keys(1), "const", mesh=object(),
+                        device="cpu")
 
 
 def test_mc_sweeps_run_on_port_draws():
@@ -298,3 +459,21 @@ def test_mc_sweeps_run_on_port_draws():
         assert res["params"].shape == (2, 6) and res["rmse"].shape == (2,)
         assert np.all(np.isfinite(res["params"]))
         assert res["success"].dtype == bool
+
+
+@pytest.mark.parametrize("stepped", [True, False], ids=["stepped", "batched"])
+def test_mc_kpt_sweep_runs_on_port_draws(stepped):
+    """``mc_kpt_sweep`` on the port's own draws, K=3: finite, of the
+    documented shapes; the batched form's lanes equal ``kpt_mle`` on each
+    record alone (each lane stops on its own rule)."""
+    keys = ts.generate_rnd_keys(2)
+    res = ts.mc_kpt_sweep(keys, "damped", T=40, num_harmonics=3, max_iters=3,
+                          stepped=stepped, device="cpu")
+    assert res["params"].shape == (2, 5) and res["rmse"].shape == (2,)
+    assert np.all(np.isfinite(res["params"])) and res["success"].dtype == bool
+    if not stepped:
+        _, _, y0 = ts.toymodel_measurements(int(keys[0]), "damped", T=40,
+                                            num_harmonics=3, device="cpu")
+        alone = tk.kpt_mle(1000.0, 0.1, y0, num_harmonics=3, max_iters=3)
+        npt.assert_allclose(res["params"][0], g(alone.params).numpy(),
+                            rtol=1e-6)
