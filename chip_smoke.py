@@ -5,8 +5,8 @@
 
 Builds the hand-written CUDA kernel from ``chirpgp_tpu_torch/ops/csrc`` on
 first use and drives the batched IF-estimation path, the single-record
-MLE path, the fused batched filter+smoother and the Table-I Monte-Carlo
-sweep once at full width.
+MLE path, the fused batched filter+smoother, the Table-I Monte-Carlo
+sweep and every other column of Table I once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
@@ -40,7 +40,7 @@ Phases, one line each:
    phase 3's;
 7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
    magnitude of ``results/data`` (B=300): 7a one vmapped value-and-grad
-   of the objective at T=1571, timed, with its peak memory, lanes 0 and
+   of the objective at T=1047, timed, with its peak memory, lanes 0 and
    299 against ``make_nll_fn`` on the lane alone (value 1e-5 relative,
    gradient 1e-4 of max |grad|), and the profiler's launches per step and
    device busy share; 7b two ``lbfgs_minimize_stepped`` iterations at
@@ -59,7 +59,20 @@ Phases, one line each:
    value-and-grad of the harmonic CKFS (d=8, cubature) and KPT (K=1, 3)
    sweep objectives at B=300, T cut to a budget, lanes 0 and 299 against
    each lane alone, launches per step and busy share; 8e the whole
-   harmonic-EKFS and KPT sweeps at B=3, T=40, 3 iterations.
+   harmonic-EKFS and KPT sweeps at B=3, T=40, 3 iterations;
+9. Table I's last columns: 9a the seed-0 gates of the continuous-discrete
+   ``cd_ghfs`` and ``cd_ekfs`` through ``estimate_if`` on the card at
+   T=3141, float64, in child processes beside 9b-9d, against the JAX
+   package's values and the reference's; 9b one vmapped value-and-grad
+   of each cd sweep objective at B=300, float32 (T cut to a budget),
+   lanes 0 and 299 against each lane alone, its peak memory reckoned to
+   T=3141, launches per step and busy share; 9c the whole cd_ekfs sweep at
+   B=3, T=40, 3 iterations; 9d the four classical columns (Hilbert,
+   spectrogram, polynomial LM, ANF) on 300 records at T=3141, float64,
+   timed, each against the same call on the host CPU in a child process,
+   and on the reference's 100 const records (remade from toydata's keys
+   by a NumPy copy of JAX's Threefry) per seed against the reference's
+   and the JAX package's columns.
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
 The line before the last is a JSON record of the kernels (``ms`` and
@@ -119,8 +132,8 @@ SWEEP_B = (528, 1056, 2112)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 # Phase 7, the Table-I sweep: seeds 0-99 of each magnitude of
-# results/data (B=300) at SWEEP_7A_T, sqrt GHFS, GH-3, float32 (half the
-# full T=3141, to make room for phase 8).  7a holds
+# results/data (B=300) at SWEEP_7A_T, sqrt GHFS, GH-3, float32 (a third of
+# the full T=3141, to make room for phases 8 and 9).  7a holds
 # lanes 0 and 299 of the vmapped value-and-grad to make_nll_fn on the
 # lane alone (value 1e-5 relative, gradient 1e-4 of max |grad|); 7b runs
 # two stepped L-BFGS iterations at T cut so that SWEEP_7B_EVALS
@@ -131,10 +144,10 @@ PEAK_BYTES = 3.35e12
 MAGNITUDES = ("const", "damped", "random")
 SWEEP_SEEDS, SWEEP_T = 100, 3141
 SWEEP_VG_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
-SWEEP_7A_T = 1571
-# 7b's budget was 100 s, and 7c ran 2 seeds per magnitude at T=60, until
-# phase 8 needed the time.
-SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 30.0, 8
+SWEEP_7A_T = 1047
+# 7a ran T=1571, 7b's budget was 100 s and then 30 s, and 7c ran 2 seeds per
+# magnitude at T=60, until phases 8 and 9 needed the time.
+SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 20.0, 8
 SWEEP_SMALL = (1, 40, 6)
 SWEEP_PROFILE_T = 30
 # Phase 8, the model family.  8a: seed 0 of each column at its reference
@@ -163,7 +176,43 @@ FAMILY_GATES = {
     "harmonic_kpt": ("h3_", 3, 1.5670211, 1063.913084),
 }
 FAMILY_RMSE_ATOL, FAMILY_NLL_RTOL = 1e-4, 1e-6
-FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 30.0
+# Phase 9a: seed 0 of toydata_const at each cd column's reference optimum,
+# T=3141, float64: (IF-RMSE x10, final NLL) of the JAX package's float64
+# run on the host CPU (pinned by tests/test_torch_cd.py::
+# test_chip_smoke_cd_gates_are_the_jax_package_values), and the
+# reference's IF-RMSE x10.  The card is held within CD_RMSE_ATOL of the
+# first, CD_REF_ATOL of the last, and CD_NLL_RTOL of the NLL.
+CD_GATES = {"cd_ghfs": (0.8357478849699029, 906.7019433239651, 0.835748),
+            "cd_ekfs": (2.6312863662172266, 904.313261515979, 2.631286)}
+CD_RMSE_ATOL, CD_REF_ATOL, CD_NLL_RTOL = 1e-7, 0.005, 1e-6
+# 9b: one vmapped value-and-grad of each cd sweep objective at B=300, T cut
+# to CD_VG_BUDGET_S by a first call at FAMILY_SHORT_T.  9c: the whole
+# cd_ekfs sweep at CD_SMALL = (seeds per magnitude, T, max_iters).
+CD_VG_BUDGET_S = 20.0
+CD_SMALL = (1, 40, 3)
+# 9d: the classical columns, float64.  The card against the host CPU on the
+# same inputs, per-record IF-RMSE relative: 1e-9, but the polynomial LM's
+# 2e-4 (its degree-11 least squares is ill-conditioned: the card's QR
+# against the host's moved a seed by 7.6e-5 on an H100, and the port and
+# the JAX package on one host CPU differ by up to 5.1e-5 per seed).
+# The reference's 100 const records, per seed, relative, against
+# results/reference/ (the reference) and results/ (the JAX package's
+# column), with the largest deviation measured on the host CPU: Hilbert
+# 2.3e-6 and the ANF 2.1e-14 from the reference; the spectrogram 1.5e-7
+# from the JAX package's column and 2.0% from the reference's own
+# spectrogram (paired median ratio 0.994); the polynomial LM 5.1e-5 from
+# the JAX package's column (the reference's departs: ROADMAP Queue 3).
+POLY_ITERS = 100
+CLASSICAL_ENV_SEED, CLASSICAL_HOST_THREADS = 9, 4
+CLASSICAL_HOST_RTOL = {"hilbert": 1e-9, "spectrogram": 1e-9, "poly": 2e-4,
+                       "anf": 1e-9}
+CLASSICAL_REF_RTOL = (("hilbert", "reference", 1e-5),
+                      ("spectrogram", "reference", 0.025),
+                      ("spectrogram", "JAX package", 1e-6),
+                      ("poly", "JAX package", 1e-4),
+                      ("anf", "reference", 1e-9))
+# (FAMILY_VG_BUDGET_S was 75 s, then 45 s and 30 s, before phase 9.)
+FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 20.0
 FAMILY_PROFILE_T = 16
 FAMILY_SMALL = (1, 40, 3)
 
@@ -196,6 +245,48 @@ def measurements(B, T, seed, dtype, device):
     noise = np.random.default_rng(seed).standard_normal((B, T))
     return base[None] + math.sqrt(XI) * torch.as_tensor(
         noise, dtype=dtype, device=device)
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key, x1, x2):
+    """JAX's Threefry-2x32 hash (20 rounds) of the counter words (x1, x2)
+    under ``key`` (two uint32 words), in NumPy uint32 arithmetic."""
+    k1, k2 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x = [np.asarray(x1, np.uint32) + ks[0], np.asarray(x2, np.uint32) + ks[1]]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+            x[1] = x[0] ^ x[1]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x
+
+
+def jax_split(key):
+    """``jax.random.split(key)`` (partitionable Threefry): two keys."""
+    b1, b2 = threefry2x32(key, np.zeros(2, np.uint32),
+                          np.arange(2, dtype=np.uint32))
+    return np.stack([b1, b2], axis=-1)
+
+
+def jax_normal_f64(key, n):
+    """``jax.random.normal(key, (n,))`` at float64 (partitionable
+    Threefry, 64-bit draws): the uniform on (-1, 1) from the top 52 bits,
+    then sqrt(2) erfinv.  SciPy's erfinv is not XLA's; the draws agree to
+    ~1e-11 (tests/test_torch_classical.py)."""
+    import scipy.special
+    b1, b2 = threefry2x32(key, np.zeros(n, np.uint32),
+                          np.arange(n, dtype=np.uint32))
+    bits = (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
+    u = ((bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)) \
+        .view(np.float64) - 1.0
+    lo = np.nextafter(-1.0, 0.0)
+    u = np.maximum(lo, u * (1.0 - lo) + lo)
+    return np.sqrt(2.0) * scipy.special.erfinv(u)
 
 
 def deviations(kern, plain):
@@ -786,7 +877,7 @@ def phase_sweep(device, smi):
                                    f"{dv_host}")
     parts.append(
         f"7a value-and-grad B={B} T={SWEEP_7A_T} (cut from {SWEEP_T} to make "
-        f"room for phase 8) f32: {t_vg:.3f} s = "
+        f"room for phases 8 and 9) f32: {t_vg:.3f} s = "
         f"{1e3 * t_vg / SWEEP_7A_T:.3f} ms per step, {t_vg / B:.3f} s per "
         f"record, peak memory {peak / 2 ** 30:.3f} GiB; {'; '.join(devs)}; "
         f"lane 0 alone on the host CPU, one thread: {t_host:.3f} s, value "
@@ -908,13 +999,15 @@ def family_gate(name, dtype_name, device):
 
 def family_objective(kind):
     """A family sweep's per-lane objective ``(theta, ys_i) -> NLL`` and its
-    float32 init theta: ``"harmonic_ckfs"`` (K=3, cubature, sqrt) or
-    ``"kpt1"``/``"kpt3"`` (the KPT EKF with K=1/3 harmonics)."""
+    float32 init theta: ``"harmonic_ckfs"`` (K=3, cubature, sqrt),
+    ``"kpt1"``/``"kpt3"`` (the KPT EKF with K=1/3 harmonics), or
+    ``"cd_ghfs"``/``"cd_ekfs"`` (the chirp model, cov form, GH-3)."""
     from chirpgp_tpu_torch.apps import (
         IFEstimationConfig, KPT_INIT_PARAMS, kpt_filter, make_nll_fn)
     from chirpgp_tpu_torch.models import g, g_inv
-    if kind == "harmonic_ckfs":
-        cfg = IFEstimationConfig(**FAMILY_GATES[kind][1])
+    if kind in ("harmonic_ckfs", "cd_ghfs", "cd_ekfs"):
+        cfg = IFEstimationConfig(**FAMILY_GATES[kind][1]) \
+            if kind == "harmonic_ckfs" else IFEstimationConfig(method=kind)
         return (lambda th, y: make_nll_fn(cfg, y)(th),
                 cfg.default_init_theta(torch.float32))
     K = int(kind[-1])
@@ -935,19 +1028,20 @@ def family_lane_alone(kind, ys_lane, theta, device):
     return float(value.detach()), grad.cpu().numpy(), time.perf_counter() - t0
 
 
-def family_value_and_grad(kind, ys, device, pool):
-    """8c/8d: one vmapped value-and-grad of a family sweep objective on all
+def family_value_and_grad(kind, ys, device, pool,
+                          budget_s=FAMILY_VG_BUDGET_S):
+    """8c/8d/9b: one vmapped value-and-grad of a sweep objective on all
     lanes of ``ys`` (B, T_full), float32.  A first call at FAMILY_SHORT_T
-    prices a step; T is cut so that the call takes at most
-    FAMILY_VG_BUDGET_S.  Lanes 0 and B-1 run alone in ``pool`` meanwhile.
-    Returns the record of the call and the lanes' futures."""
+    prices a step; T is cut so that the call takes at most ``budget_s``.
+    Lanes 0 and B-1 run alone in ``pool`` meanwhile.  Returns the record
+    of the call and the lanes' futures."""
     from chirpgp_tpu_torch.fit import batched_value_and_grad
     fn, theta = family_objective(kind)
     B, t_full = ys.shape
     theta0 = theta.to(device).expand(B, -1).clone()
     _, t_short = timed(batched_value_and_grad(
         fn, (ys[:, :FAMILY_SHORT_T].contiguous(),)), theta0)
-    T = min(t_full, max(FAMILY_SHORT_T, int(FAMILY_VG_BUDGET_S * FAMILY_SHORT_T
+    T = min(t_full, max(FAMILY_SHORT_T, int(budget_s * FAMILY_SHORT_T
                                             / t_short)))
     yT = ys[:, :T].contiguous()
     lanes = (0, B - 1)
@@ -963,7 +1057,7 @@ def family_value_and_grad(kind, ys, device, pool):
             theta0), FAMILY_PROFILE_T)
     return dict(kind=kind, B=B, T=T, t_full=t_full, t_short=t_short, t=t_vg,
                 peak=peak, values=values, grads=grads, lanes=lanes,
-                per_step=per_step, busy=busy), alone
+                per_step=per_step, busy=busy, budget=budget_s), alone
 
 
 def family_vg_report(rec, alone):
@@ -981,15 +1075,16 @@ def family_vg_report(rec, alone):
                     f"({t_lane:.3f} s alone)")
     cut = "" if rec["T"] == rec["t_full"] else (
         f" (T cut from {rec['t_full']} to {rec['T']}: T={FAMILY_SHORT_T} "
-        f"took {rec['t_short']:.3f} s, budget {FAMILY_VG_BUDGET_S:.0f} s)")
+        f"took {rec['t_short']:.3f} s, budget {rec['budget']:.0f} s)")
     prof = ("profiler: no device activity seen" if rec["per_step"] is None
             else f"profiler at T={FAMILY_PROFILE_T}: {rec['per_step']:.1f} "
                  f"kernel launches per step, device busy "
                  f"{100 * rec['busy']:.2f}%")
     return (f"{rec['kind']} value-and-grad B={rec['B']} T={rec['T']}{cut} "
             f"f32: {rec['t']:.3f} s = {1e3 * rec['t'] / rec['T']:.3f} ms per "
-            f"step, peak memory {rec['peak'] / 2 ** 30:.3f} GiB; "
-            f"{'; '.join(devs)}; {prof}")
+            f"step, peak memory {rec['peak'] / 2 ** 30:.3f} GiB (x "
+            f"{rec['t_full']}/{rec['T']}: {rec['peak'] * rec['t_full'] / rec['T'] / 2 ** 30:.2f} "
+            f"GiB at T={rec['t_full']}); {'; '.join(devs)}; {prof}")
 
 
 def phase_family(device, smi):
@@ -1165,6 +1260,245 @@ def phase_family(device, smi):
     return out
 
 
+def cd_gate(method, device):
+    """Seed 0 of toydata_const at the cd column's reference optimum, T=3141,
+    float64, through ``estimate_if`` on ``device``: (IF-RMSE x10, final
+    NLL, all finite, seconds).  Phase 9a runs it in child processes."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.utils import rmse
+    data = np.load(ROOT / "results/data/toydata_const.npz")
+    ys = torch.as_tensor(data["ys"][0], dtype=torch.float64, device=device)
+    tf = torch.as_tensor(data["true_freqs"], dtype=torch.float64,
+                         device=device)
+    params = params_from_jax(np.load(
+        ROOT / f"results/reference/{method}_const.npz")["params"][0],
+        device=device)
+    t0 = time.perf_counter()
+    est = estimate_if(IFEstimationConfig(method=method), params, ys)
+    finite = bool(torch.isfinite(est["if_mean"]).all()
+                  and torch.isfinite(est["nell"]).all())
+    r10 = 10.0 * float(rmse(tf, est["if_mean"]))
+    return r10, float(est["nell"][-1]), finite, time.perf_counter() - t0
+
+
+def classical_inputs(seeds, T):
+    """Phase 9d's float64 host inputs: the times and true IF; the 300
+    records of toydata_* and 300 complex envelopes made with NumPy (the
+    Table-I width); the 100 const records and envelopes of the reference's
+    classical columns, remade from toydata_const's keys (float64 draws,
+    where toydata holds float32 draws of the same keys); the polynomial
+    init, numpy's degree-11 fit of the true IF."""
+    from chirpgp_tpu_torch.toymodels import (
+        constant_mag, gen_chirp, gen_chirp_envelope, meow_freq)
+    ts = torch.linspace(DT, DT * T, T, dtype=torch.float64)
+    freq, phase = meow_freq(offset=8.0)
+    tf = freq(ts)
+    ys = np.concatenate([np.load(ROOT / f"results/data/toydata_{m}.npz")["ys"]
+                         [:seeds, :T] for m in MAGNITUDES]).astype(np.float64)
+    env = gen_chirp_envelope(ts, constant_mag(1.0), phase)
+    noise = np.random.default_rng(CLASSICAL_ENV_SEED).standard_normal(
+        (3 * seeds, T))
+    env300 = (env + math.sqrt(XI) * torch.as_tensor(noise)).numpy()
+    keys = np.load(ROOT / "results/data/toydata_const.npz")["keys"][:seeds]
+    noise = torch.as_tensor(np.stack([jax_normal_f64(jax_split(k)[0], T)
+                                      for k in keys]))
+    ys_ref = gen_chirp(ts, constant_mag(1.0), phase) + math.sqrt(XI) * noise
+    env_ref = env + math.sqrt(XI) * noise
+    fit = np.polynomial.Polynomial.fit(ts.numpy(), tf.numpy(), 11)
+    init = np.concatenate([[1.0], fit.convert().coef])
+    return dict(ts=ts.numpy(), tf=tf.numpy(), ys=ys, env=env300,
+                ys_ref=ys_ref.numpy(), env_ref=env_ref.numpy(), init=init)
+
+
+def classical_columns(ts, tf, ys, env, init, device, iters, threads=0):
+    """The four classical columns on ``device`` (records ``ys`` (B, T) and
+    envelopes ``env`` (B, T), NumPy float64), 100 records per call, as the
+    JAX package's Table-I driver runs them (the polynomial LM for at most
+    ``iters`` iterations): per-record IF-RMSE of each method and its
+    seconds.  Phase 9d runs it on the card and, in a child
+    process with ``threads`` threads, on the host CPU."""
+    from chirpgp_tpu_torch.baselines import (
+        adaptive_notch_filter, butter_lowpass, hilbert_method,
+        mean_power_spectrum, mle_polynomial_batched)
+    from chirpgp_tpu_torch.toymodels import meow_freq
+    if threads:
+        torch.set_num_threads(threads)
+    device = torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    freq, _ = meow_freq(offset=8.0)
+    ts, tf = (torch.as_tensor(x, device=device) for x in (ts, tf))
+    mu = 0.015
+    anf_args = (0.0, float(freq(ts[:1])[0]), 1.0 + 0.0j, mu, mu ** 3 / 8,
+                mu ** 2 / 2)
+    powers = ts[:, None] ** torch.arange(len(init) - 1, dtype=ts.dtype,
+                                         device=device)
+
+    def rmse_rows(est, truth):
+        return torch.sqrt(((est - truth) ** 2).mean(-1))
+
+    def hilbert(y):
+        return rmse_rows(hilbert_method(ts, butter_lowpass(y, 18.0, 1e3)),
+                         tf[1:])
+
+    def spectrogram(y):
+        new_ts, est = mean_power_spectrum(ts, butter_lowpass(y, 18.0, 1e3),
+                                          nperseg=450, noverlap=449,
+                                          window="cosine")
+        return rmse_rows(est, freq(new_ts))
+
+    def poly(y):
+        res = mle_polynomial_batched(
+            ts, y, XI, torch.as_tensor(init, device=device).expand(
+                y.shape[0], -1), max_iters=iters)
+        return rmse_rows(res.params[:, 1:] @ powers.T, tf)
+
+    def anf(e):
+        return rmse_rows(adaptive_notch_filter(ts, e, *anf_args)[0], tf)
+
+    out, secs = {}, {}
+    for name, fn, data in (("hilbert", hilbert, ys),
+                           ("spectrogram", spectrogram, ys),
+                           ("poly", poly, ys), ("anf", anf, env)):
+        sync()
+        t0 = time.perf_counter()
+        rows = [fn(torch.as_tensor(data[i:i + 100], device=device))
+                for i in range(0, data.shape[0], 100)]
+        sync()
+        secs[name] = time.perf_counter() - t0
+        out[name] = torch.cat(rows).cpu().numpy()
+    return out, secs
+
+
+def phase_table_one(device, smi):
+    """9a the cd seed-0 gates (child processes, beside the rest), 9b the cd
+    sweep objectives at B=300, 9c the whole cd_ekfs sweep at a small
+    depth, 9d the four classical columns at the Table-I width."""
+    import concurrent.futures
+    import multiprocessing
+    from unittest import mock
+    import chirpgp_tpu_torch.apps.sweeps as sweeps
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, make_nll_fn, mle_sweep_on_measurements)
+    spawn = multiprocessing.get_context("spawn")
+    parts = []
+    t_phase = time.perf_counter()
+    inputs = classical_inputs(SWEEP_SEEDS, SWEEP_T)
+    cols = ("ts", "tf", "ys", "env", "init")
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=spawn) as gates, \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=spawn) as lanes, \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=spawn) as host:
+        gate_futs = {m: gates.submit(cd_gate, m, str(device))
+                     for m in CD_GATES}
+        host_fut = host.submit(classical_columns,
+                               *(inputs[k] for k in cols), "cpu",
+                               POLY_ITERS, CLASSICAL_HOST_THREADS)
+
+        # 9b: the cd sweep objectives at B=300, float32.
+        ys_1, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)
+        for kind in CD_GATES:
+            rec, alone = family_value_and_grad(kind, ys_1, device, lanes,
+                                               CD_VG_BUDGET_S)
+            parts.append("9b " + family_vg_report(rec, alone))
+        del ys_1
+
+        # 9c: the whole cd_ekfs sweep at a small depth, the polish on
+        # threads.
+        n, t_c, iters = CD_SMALL
+        captured = {}
+        polish = sweeps._polish_lanes_f64
+
+        def capture(*args, **kwargs):
+            captured["args"] = args
+            captured["res"] = polish(*args, **kwargs)
+            return captured["res"]
+
+        cfg_c = IFEstimationConfig(method="cd_ekfs", max_iters=iters)
+        ys_c, tf_c = sweep_data(device, slice(0, n), t_c)
+        with mock.patch.object(sweeps, "_polish_lanes_f64", capture):
+            res, t_run = timed(mle_sweep_on_measurements, cfg_c, tf_c, ys_c)
+        check(bool(np.all(np.isfinite(res["rmse"])) and np.all(res["success"])),
+              f"9c cd_ekfs: lanes not finite with success: {res['success']}")
+        incoming, polished = captured["args"][2], captured["res"]
+        gaps = []
+        with torch.no_grad():
+            for i in range(ys_c.shape[0]):
+                f = make_nll_fn(cfg_c, ys_c[i].cpu().double())
+                f_in = float(f(incoming.params[i].cpu().double()))
+                f_out = float(f(polished.params[i].cpu().double()))
+                gaps.append(f_out - f_in)
+                check(f_out <= f_in + 1e-6 * abs(f_in),
+                      f"9c cd_ekfs: polish of lane {i} raised the f64 NLL "
+                      f"{f_in} -> {f_out}")
+        parts.append(
+            f"9c cd_ekfs sweep B={ys_c.shape[0]} T={t_c} max_iters={iters}: "
+            f"{t_run:.3f} s; all lanes finite with success; f64 NLL change "
+            f"by the polish {min(gaps):.4g} to {max(gaps):.4g}; rmse x10 "
+            f"{[round(10 * float(r), 4) for r in res['rmse']]}")
+
+        # 9d: the classical columns on the card; the same inputs on the
+        # host CPU in the child process; the reference's const records.
+        card, card_s = classical_columns(*(inputs[k] for k in cols), device,
+                                         POLY_ITERS)
+        ref, _ = classical_columns(inputs["ts"], inputs["tf"],
+                                   inputs["ys_ref"], inputs["env_ref"],
+                                   inputs["init"], device, POLY_ITERS)
+        host_rmse, host_s = host_fut.result()
+        col = []
+        for name in card:
+            c, h = card[name], host_rmse[name]
+            check(bool(np.all(np.isfinite(c))), f"9d {name}: non-finite")
+            rel = float(np.max(np.abs(c - h) / np.abs(h)))
+            tol = CLASSICAL_HOST_RTOL[name]
+            check(rel <= tol, f"9d {name}: card vs host CPU rel {rel} > {tol}")
+            col.append(f"{name} card {card_s[name]:.3f} s, host CPU "
+                       f"({CLASSICAL_HOST_THREADS} threads) {host_s[name]:.3f}"
+                       f" s, max rel |card - host| {rel:.3g}, median rmse x10 "
+                       f"{10 * float(np.median(c)):.4f}")
+        parts.append(f"9d classical columns B={inputs['ys'].shape[0]} "
+                     f"T={SWEEP_T} f64 (toydata_* records, NumPy envelopes): "
+                     + "; ".join(col))
+        held = []
+        for name, which, rtol in CLASSICAL_REF_RTOL:
+            want = np.load(ROOT / (f"results/reference/{name}_const.npz"
+                                   if which == "reference" else
+                                   f"results/{name}_const.npz"))["rmse"][
+                                       :SWEEP_SEEDS]
+            rel = float(np.max(np.abs(ref[name] - want) / want))
+            check(rel <= rtol, f"9d {name}: per-seed rmse vs the {which} "
+                               f"column rel {rel} > {rtol}")
+            held.append(f"{name} vs the {which} column: seed 0 "
+                        f"{float(ref[name][0])!r} ({float(want[0])!r}), max "
+                        f"rel {rel:.3g} (bound {rtol})")
+        parts.append(f"9d the {SWEEP_SEEDS} const records of the reference "
+                     f"(float64 draws of toydata's keys), per seed: "
+                     + "; ".join(held))
+
+        # 9a: the seed-0 gates, run in the child processes meanwhile.
+        gate_parts = []
+        for method, fut in gate_futs.items():
+            r10, nll, finite, secs = fut.result()
+            want_r10, want_nll, ref_r10 = CD_GATES[method]
+            check(finite and abs(r10 - want_r10) <= CD_RMSE_ATOL
+                  and abs(r10 - ref_r10) <= CD_REF_ATOL,
+                  f"9a {method}: IF-RMSE x10 {r10!r} not within "
+                  f"{CD_RMSE_ATOL} of {want_r10} and {CD_REF_ATOL} of "
+                  f"{ref_r10} (finite {finite})")
+            check(abs(nll - want_nll) <= CD_NLL_RTOL * abs(want_nll),
+                  f"9a {method}: nll {nll!r} not within {CD_NLL_RTOL} rel "
+                  f"of {want_nll}")
+            gate_parts.append(f"{method} f64 IF-RMSE x10 {r10!r} (JAX "
+                              f"{want_r10}, ref {ref_r10}), nll {nll!r} "
+                              f"(JAX {want_nll}), {secs:.3f} s")
+        parts.insert(0, f"9a seed-0 gates T={T_FULL} on the card, in child "
+                        f"processes: " + "; ".join(gate_parts))
+    print(f"phase 9 Table I's last columns ({time.perf_counter() - t_phase:.3f}"
+          f" s; {smi}): " + "; ".join(parts), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1193,6 +1527,7 @@ def main() -> int:
     phase_fused(device, if_ref, t_ref)
     phase_sweep(device, smi)
     family = phase_family(device, smi)
+    phase_table_one(device, smi)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,

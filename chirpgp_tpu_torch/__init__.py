@@ -12,15 +12,18 @@ caller passes ``device="cpu"``.
 
 Subpackages (ported so far: batched IF estimation, single-record MLE and
 estimation, and the Table-I Monte-Carlo sweeps, for the chirp, harmonic
-chirp and La Scala models and the KPT baseline)
+chirp and La Scala models, discrete and continuous-discrete, the KPT
+baseline and the classical baselines: every column of Table I)
 -----------
-quad       sigma-point rules, Gaussian expectations
+quad       sigma-point rules, Gaussian expectations, RK4 moment steps
 models     chirp, harmonic chirp and La Scala SDE priors, their LCD
            discretizations, the KPT model, Matern-3/2, bijections
-infer      sequential and square-root filters and smoothers, and their
-           channels-first batched forms
+infer      sequential, continuous-discrete and square-root filters and
+           smoothers, and their channels-first batched forms
 ops        hand-written CUDA kernels (``ops/csrc``) and their wrappers
-fit        batched L-BFGS with zoom line search, host SciPy L-BFGS-B
+fit        batched L-BFGS with zoom line search, host SciPy L-BFGS-B,
+           Gauss-Newton / Levenberg-Marquardt
+baselines  Hilbert, spectrogram, polynomial-IF MLE, adaptive notch filter
 apps       ``IFEstimationConfig``, the pipeline, ``estimate_if_batched``,
            the KPT baseline (``kpt_if_estimate``, ``kpt_mle``),
            the sweeps (``mle_sweep_on_measurements``)

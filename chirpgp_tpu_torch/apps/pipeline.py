@@ -1,6 +1,5 @@
 """End-to-end IF estimation with one typed config (counterpart of
-``chirpgp_tpu.apps.pipeline``; the continuous-discrete methods are not
-ported yet).
+``chirpgp_tpu.apps.pipeline``).
 
 ``make_nll_fn`` (theta -> filter NLL) -> :func:`fit_mle` ->
 :func:`estimate_if` (filter + smooth + Gaussian expectation of g(V)), and
@@ -20,8 +19,8 @@ import torch
 
 from chirpgp_tpu_torch.fit.mle import MLEResult, lbfgs_minimize, scipy_minimize
 from chirpgp_tpu_torch.infer import (
-    ekf, eks, sgp_filter, sgp_smoother,
-    sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother)
+    ekf, eks, sgp_filter, sgp_smoother, cd_ekf, cd_eks, cd_sgp_filter,
+    cd_sgp_smoother, sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother)
 from chirpgp_tpu_torch.infer.batched import (
     sqrt_sgp_filter_batched, sqrt_sgp_smoother_batched,
     gaussian_expectation_batched)
@@ -43,9 +42,10 @@ class IFEstimationConfig:
     """Experiment contract for one IF-estimation run; the fields of the
     JAX package's config.  Defaults reproduce the canonical toymodel setup:
     dt=1e-3, Xi=0.1, GH order 3, init theta = g^{-1}([0.1, 0.1, 0.1, 1, 1, 7]).
-    The methods ``ghfs`` and ``ekfs`` are ported, for every model;
-    ``scan_unroll`` is carried for the JAX package's signature and has no
-    effect on a Python loop.
+    Every method runs for every model; the continuous-discrete ones
+    (``cd_ghfs``, ``cd_ekfs``) in the covariance form only, as in the JAX
+    package.  ``scan_unroll`` is carried for the JAX package's signature
+    and has no effect on a Python loop.
     """
 
     dt: float = 1e-3
@@ -106,15 +106,14 @@ def _filter_fns(cfg: IFEstimationConfig):
     """(filter, smoother) closures ``(pack, ys) -> ...`` for the configured
     method.  In sqrt form the second moment returned is a Cholesky factor,
     not a covariance."""
-    if cfg.method in ("cd_ghfs", "cd_ekfs"):
-        raise NotImplementedError(
-            f"method={cfg.method!r} is not ported yet (the continuous-"
-            "discrete slice, later PR); the port runs ghfs and ekfs")
-    if cfg.method not in ("ghfs", "ekfs"):
+    if cfg.method not in ("ghfs", "ekfs", "cd_ghfs", "cd_ekfs"):
         raise ValueError(f"Unknown method {cfg.method!r}")
     if cfg.form not in ("cov", "sqrt"):
         raise ValueError(f"Unknown form {cfg.form!r}")
-    sgps = cfg.sigma_points() if cfg.method == "ghfs" else None
+    if cfg.form == "sqrt" and cfg.method not in ("ghfs", "ekfs"):
+        raise ValueError(
+            f"form='sqrt' supports methods ghfs/ekfs, got {cfg.method!r}")
+    sgps = cfg.sigma_points() if cfg.method in ("ghfs", "cd_ghfs") else None
 
     if cfg.form == "sqrt" and cfg.method == "ghfs":
         def flt(pack, ys):
@@ -137,13 +136,36 @@ def _filter_fns(cfg: IFEstimationConfig):
 
         def smt(pack, mfs, Pfs):
             return sgp_smoother(pack.m_and_cov, sgps, mfs, Pfs, cfg.dt)
-    else:
+    elif cfg.method == "ekfs":
         def flt(pack, ys):
             return ekf(pack.m_and_cov, pack.H, cfg.Xi, pack.m0, pack.P0,
                        cfg.dt, ys)
 
         def smt(pack, mfs, Pfs):
             return eks(pack.m_and_cov, mfs, Pfs, cfg.dt)
+    elif cfg.method == "cd_ghfs":
+        # remat=True as in the JAX package (its reverse mode needs the step
+        # checkpointing); a Python loop keeps every step's graph either way.
+        def flt(pack, ys):
+            return cd_sgp_filter(pack.drift, pack.dispersion(pack.m0), sgps,
+                                 pack.H, cfg.Xi, pack.m0, pack.P0, cfg.dt,
+                                 ys, remat=True, unroll=cfg.scan_unroll)
+
+        def smt(pack, mfs, Pfs):
+            return cd_sgp_smoother(pack.drift, pack.dispersion(pack.m0), sgps,
+                                   mfs, Pfs, cfg.dt)
+    else:
+        # The chirp family's dispersion does not depend on the state, so it
+        # is built once and not at every RK4 stage (the same values).
+        def flt(pack, ys):
+            B = pack.dispersion(pack.m0)
+            return cd_ekf(pack.drift, lambda _m: B, pack.H, cfg.Xi, pack.m0,
+                          pack.P0, cfg.dt, ys, remat=True,
+                          unroll=cfg.scan_unroll)
+
+        def smt(pack, mfs, Pfs):
+            B = pack.dispersion(pack.m0)
+            return cd_eks(pack.drift, lambda _m: B, mfs, Pfs, cfg.dt)
     return flt, smt
 
 

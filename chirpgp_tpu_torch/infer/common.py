@@ -1,10 +1,10 @@
 """Shared building blocks of the Gaussian filters and smoothers
-(counterpart of ``chirpgp_tpu.infer.common``; ``cd_sgp_moment_odes``
-waits for the continuous-discrete variants).
+(counterpart of ``chirpgp_tpu.infer.common``).
 
 Linear predict/update with the accumulated Gaussian NLL, the RTS-type
-smoother step, and the sigma-point prediction through a
-:class:`~chirpgp_tpu_torch.models.transitions.Transition`.
+smoother step, the sigma-point prediction through a
+:class:`~chirpgp_tpu_torch.models.transitions.Transition`, and the
+continuous-time sigma-point moment ODEs.
 """
 
 import dataclasses
@@ -18,7 +18,8 @@ from chirpgp_tpu_torch.utils.numerics import psd_cholesky, psd_solve
 
 __all__ = [
     "log_normal_pdf", "linear_predict", "linear_update",
-    "gaussian_smoother_step", "sgp_prediction", "stack_smoothing_results",
+    "gaussian_smoother_step", "sgp_prediction", "cd_sgp_moment_odes",
+    "stack_smoothing_results",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -82,6 +83,22 @@ def sgp_prediction(sgps: SigmaPoints, trans, dt,
     return mp, Pp, chi, evals
 
 
+def cd_sgp_moment_odes(sgps: SigmaPoints, drift, dispersion_const,
+                       m: torch.Tensor, P: torch.Tensor):
+    """Right-hand side of the continuous-time sigma-point moment ODEs
+    ``dm/dt = E[a]``, ``dP/dt = E[(x-m)a^T] + sym + BB^T``, with the drift
+    evaluated once over all sigma points (the port's drifts take leading
+    batch dims).  ``sgps``' arrays may be host NumPy or tensors."""
+    chol_P = psd_cholesky(P)
+    chi = sgps.gen_sigma_points(m, chol_P)              # (S, d)
+    evals = drift(chi)                                  # (S, d)
+    w = sgps._weights(evals)
+    mp = torch.einsum("s,sd->d", w, evals)
+    cross = torch.einsum("s,si,sj->ij", w, chi - m, evals)
+    Pp = cross + cross.T + dispersion_const @ dispersion_const.T
+    return mp, Pp
+
+
 def stack_smoothing_results(mfs, Pfs, mss, Pss):
     """Append the final filtering moments to the backward-smoothed stack."""
     return torch.cat([mss, mfs[-1][None]]), torch.cat([Pss, Pfs[-1][None]])
@@ -112,6 +129,16 @@ def _linearization(trans, dt):
     jac = (lambda u: trans.jac(u, dt)) if trans.jac is not None \
         else torch.func.jacfwd(mean_fn)
     return lambda mf: (jac(mf).to(mf.dtype), mean_fn(mf))
+
+
+def _drift_jacobian(a):
+    """``J(m)``, the Jacobian of the drift ``a`` at ``m``: ``a.jac``, the
+    closed form the port's priors attach, else ``torch.func.jacfwd(a)``
+    (cast back to ``m``'s dtype, as in :func:`_linearization`).  The
+    closed form keeps forward-mode AD out of objectives that run on
+    several threads at once."""
+    jac = getattr(a, "jac", None) or torch.func.jacfwd(a)
+    return lambda m: jac(m).to(m.dtype)
 
 
 def _as_data(ys: torch.Tensor, m0: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,5 @@
-"""Sequential Gaussian filters (counterpart of
-``chirpgp_tpu.infer.filters``; the continuous-discrete ``cd_*`` filters
-are not ported yet).
+"""Sequential Gaussian filters, discrete-time and continuous-discrete
+(counterpart of ``chirpgp_tpu.infer.filters``).
 
 Each filter is a Python loop over the measurement sequence that
 accumulates the negative filter-marginal log-likelihood, and returns
@@ -14,11 +13,14 @@ from typing import Callable, Tuple
 import torch
 
 from chirpgp_tpu_torch.infer.common import (
-    _as_data, _linearization, _loop_constants, linear_predict,
-    linear_update, log_normal_pdf, sgp_prediction)
+    _as_data, _drift_jacobian, _linearization, _loop_constants,
+    cd_sgp_moment_odes, linear_predict, linear_update, log_normal_pdf,
+    sgp_prediction)
+from chirpgp_tpu_torch.quad.integrators import rk4_m_cov
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
 
-__all__ = ["kf", "ekf", "ekf_for_kpt", "sgp_filter"]
+__all__ = ["kf", "ekf", "ekf_for_kpt", "sgp_filter", "cd_ekf",
+           "cd_sgp_filter"]
 
 FilterResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -104,3 +106,36 @@ def sgp_filter(cond_m_cov, sgps: SigmaPoints, H: torch.Tensor, Xi,
         return mp, Pp
 
     return _run_filter(predict, m0, P0, H, Xi, ys)
+
+
+def cd_ekf(a: Callable, b: Callable, H: torch.Tensor, Xi, m0: torch.Tensor,
+           P0: torch.Tensor, dt, ys: torch.Tensor, remat: bool = False,
+           unroll: int = 1) -> FilterResult:
+    """Continuous-discrete EKF: one RK4 step per interval of the linearized
+    moment ODEs ``m' = a(m)``, ``P' = P J^T + J P + b(m) b(m)^T``, with
+    ``J = a.jac(m)`` where the drift has one, else ``torch.func.jacfwd``."""
+    jac = _drift_jacobian(a)
+
+    def odes(m, P):
+        J = jac(m)
+        B = b(m)
+        return a(m), P @ J.T + J @ P + B @ B.T
+
+    return _run_filter(lambda m, P: rk4_m_cov(odes, m, P, dt),
+                       m0, P0, H, Xi, ys, remat=remat, unroll=unroll)
+
+
+def cd_sgp_filter(a: Callable, b: torch.Tensor, sgps: SigmaPoints,
+                  H: torch.Tensor, Xi, m0: torch.Tensor, P0: torch.Tensor,
+                  dt, ys: torch.Tensor, remat: bool = False,
+                  unroll: int = 1) -> FilterResult:
+    """Continuous-discrete sigma-point filter: one RK4 step per interval of
+    the sigma-point moment ODEs with the constant dispersion matrix ``b``;
+    the drift ``a`` is evaluated over all sigma points at once."""
+    rule = sgps.to(m0)
+
+    def odes(m, P):
+        return cd_sgp_moment_odes(rule, a, b, m, P)
+
+    return _run_filter(lambda m, P: rk4_m_cov(odes, m, P, dt),
+                       m0, P0, H, Xi, ys, remat=remat, unroll=unroll)

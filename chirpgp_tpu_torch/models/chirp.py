@@ -9,8 +9,9 @@ the latent frequency state ``(V, dV)``.  The measurement reads ``X2``.  The
 harmonic model has K such pairs at rates ``k w``; La Scala's is the chirp
 model without damping and without noise on the pair.
 
-Every LCD transition has a closed-form ``jac``, so the extended filters
-need no forward-mode AD.
+Every LCD transition has a closed-form ``jac``, and every prior's drift
+its Jacobian as ``drift.jac``, so the extended filters, discrete and
+continuous-discrete, need no forward-mode AD.
 """
 
 import math
@@ -60,6 +61,20 @@ def model_chirp(lam, b, ell, sigma, delta) -> StateSpaceModel:
         a3 = -(gamma ** 2) * u[..., 2] - 2.0 * gamma * u[..., 3]
         return torch.stack([a0, a1, a2, a3], dim=-1)
 
+    def jac(u):
+        # d drift / du: the rotation-with-decay block, its column through
+        # w = 2 pi g(V) (g' = sigmoid), and the Matern-3/2 block.
+        w = _TWO_PI * g(u[..., 2])
+        dw = _TWO_PI * torch.sigmoid(u[..., 2])
+        zero = torch.zeros_like(w)
+        rows = [[zero - lam, -w, -dw * u[..., 1], zero],
+                [w, zero - lam, dw * u[..., 0], zero],
+                [zero, zero, zero, zero + 1.0],
+                [zero, zero, zero - gamma ** 2, zero - 2.0 * gamma]]
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    drift.jac = jac
+
     def dispersion(_):
         return torch.diag(torch.stack(
             [b, b, torch.zeros_like(b), 2.0 * sigma * gamma ** 1.5]))
@@ -93,6 +108,30 @@ def model_harmonic_chirp(lam, b, ell, sigma, delta, num_harmonics: int = 1,
         a_v = u[..., -1]
         a_dv = -(gamma ** 2) * u[..., -2] - 2.0 * gamma * u[..., -1]
         return torch.cat([a_pairs, torch.stack([a_v, a_dv], dim=-1)], dim=-1)
+
+    def jac(u):
+        # d drift / du: pair k is the rotation-with-decay block at rate
+        # k w, differentiated through w = 2 pi freq_scale g(V) (g' =
+        # sigmoid) in column d-2; the Matern-3/2 block on the last two rows.
+        d = 2 * K + 2
+        w = _TWO_PI * g(u[..., -2]) * freq_scale
+        dw = _TWO_PI * freq_scale * torch.sigmoid(u[..., -2])
+        zero = torch.zeros_like(w)
+        rows = []
+        for k in range(1, K + 1):
+            x0, x1 = u[..., 2 * k - 2], u[..., 2 * k - 1]
+            even, odd = [zero] * d, [zero] * d
+            even[2 * k - 2], even[2 * k - 1] = zero - lam, -k * w
+            odd[2 * k - 2], odd[2 * k - 1] = k * w, zero - lam
+            even[d - 2] = -(k * dw) * x1
+            odd[d - 2] = (k * dw) * x0
+            rows += [even, odd]
+        rows.append([zero] * (d - 1) + [zero + 1.0])
+        rows.append([zero] * (d - 2) + [zero - gamma ** 2,
+                                        zero - 2.0 * gamma])
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    drift.jac = jac
 
     def dispersion(_):
         return torch.diag(torch.stack(

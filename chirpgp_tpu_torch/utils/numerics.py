@@ -5,7 +5,7 @@
 import torch
 
 __all__ = ["as_real_tensor", "phi1", "ou_variance", "psd_cholesky",
-           "cholesky_or_nan", "psd_solve"]
+           "cholesky_or_nan", "psd_solve", "psd_solve_factored"]
 
 
 def as_real_tensor(x) -> torch.Tensor:
@@ -83,8 +83,15 @@ def psd_solve(P: torch.Tensor, B: torch.Tensor, eps: float = 1e-30) -> torch.Ten
     the pseudo-inverse on the degenerate subspace, exact on PD inputs.
     ``P``: (d, d); ``B``: (d,) or (d, k).
     """
-    L = psd_cholesky(P, eps)
-    d = P.shape[-1]
+    return psd_solve_factored(psd_cholesky(P, eps), B)
+
+
+def psd_solve_factored(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """:func:`psd_solve` from the factor ``L = psd_cholesky(P)``: forward
+    and back substitution with zero pivots contributing zero.  For several
+    solves against one ``P`` (the continuous-discrete smoothers' four RK4
+    stages), the same values as :func:`psd_solve` at one factorization."""
+    d = L.shape[-1]
     vec = B.dim() == 1
     Bm = B[:, None] if vec else B
     inv = []

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the PyTorch port against their plain
-PyTorch versions, on an NVIDIA GPU.  Every test here skips without one.
+PyTorch versions, and the port's other paths on the card against the host
+CPU, on an NVIDIA GPU.  Every test here skips without one.
 
 This file imports neither JAX nor the JAX package, so a machine with a
 card and no JAX runs it on its own, without tests/conftest.py:
@@ -311,3 +312,78 @@ def test_family_objectives_on_card_match_cpu(cuda):
         npt.assert_allclose(v_card, v_cpu, rtol=1e-9, atol=0, err_msg=name)
         npt.assert_allclose(g_card, g_cpu, rtol=0,
                             atol=1e-7 * np.abs(g_cpu).max(), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cd_ghfs", "cd_ekfs"])
+def test_cd_objective_and_estimate_on_card_match_cpu(cuda, method):
+    """The continuous-discrete objective (float64, T=60 of seed 0, value
+    and gradient: 1e-9 relative, 1e-7 of max |grad|) and its
+    ``estimate_if`` IF mean (1e-9) on the card against the host CPU."""
+    ys = np.load(ROOT / "results/data/toydata_const.npz")["ys"][0, :60] \
+        .astype(np.float64)
+    params = np.load(ROOT / f"results/reference/{method}_const.npz")[
+        "params"][0]
+    cfg = IFEstimationConfig(method=method)
+    from chirpgp_tpu_torch.apps import estimate_if
+    out = {}
+    for device in ("cpu", cuda):
+        th = g_inv(torch.tensor(params)).to(device).requires_grad_(True)
+        value = make_nll_fn(cfg, torch.tensor(ys, device=device))(th)
+        grad, = torch.autograd.grad(value, th)
+        est = estimate_if(cfg, torch.tensor(params, device=device),
+                          torch.tensor(ys, device=device))
+        out[str(device)] = (float(value.detach()), _np(grad),
+                            _np(est["if_mean"]))
+    (v_cpu, g_cpu, if_cpu), (v_card, g_card, if_card) = \
+        out["cpu"], out[str(cuda)]
+    npt.assert_allclose(v_card, v_cpu, rtol=1e-9, atol=0)
+    npt.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-7 * np.abs(g_cpu).max())
+    npt.assert_allclose(if_card, if_cpu, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_classical_methods_on_card_match_cpu(cuda):
+    """Hilbert, the spectrogram, the ANF and the batched polynomial LM on
+    three float64 records (T=1000) on the card against the host CPU:
+    1e-9 relative on each IF; the LM's params 1e-6 relative (its
+    ill-conditioned degree-5 steps amplify the QR's rounding)."""
+    from chirpgp_tpu_torch.baselines import (
+        adaptive_notch_filter, butter_lowpass, hilbert_method,
+        mean_power_spectrum, mle_polynomial_batched)
+    from chirpgp_tpu_torch.toymodels import (
+        constant_mag, gen_chirp, gen_chirp_envelope, meow_freq)
+    T = 1000
+    freq, phase = meow_freq(offset=8.0)
+    noise = np.random.default_rng(3).standard_normal((3, T))
+    fit = np.polynomial.Polynomial.fit(1e-3 * np.arange(1, T + 1),
+                                       freq(torch.linspace(1e-3, 1.0, T,
+                                            dtype=torch.float64)).numpy(), 5)
+    init = np.concatenate([[1.0], fit.convert().coef])
+    out = {}
+    for device in ("cpu", cuda):
+        ts = torch.linspace(1e-3, 1e-3 * T, T, dtype=torch.float64,
+                            device=device)
+        nz = 0.1 ** 0.5 * torch.tensor(noise, device=device)
+        ys = gen_chirp(ts, constant_mag(1.0), phase) + nz
+        env = gen_chirp_envelope(ts, constant_mag(1.0), phase) + nz
+        yf = butter_lowpass(ys, 18.0, 1000.0)
+        assert yf.device == ts.device
+        mu = 0.015
+        res = mle_polynomial_batched(
+            ts, ys, 0.1, torch.tensor(init, device=device).expand(3, -1),
+            max_iters=20)
+        out[str(device)] = dict(
+            hilbert=hilbert_method(ts, yf),
+            spectrogram=mean_power_spectrum(ts, yf, nperseg=450,
+                                            noverlap=449,
+                                            window="cosine")[1],
+            anf=adaptive_notch_filter(ts, env, 0.0, 8.0, 1.0 + 0.0j, mu,
+                                      mu ** 3 / 8, mu ** 2 / 2)[0],
+            poly=res.params)
+    for key, x in out["cpu"].items():
+        y = out[str(cuda)][key]
+        assert y.is_cuda, key
+        rtol = 1e-6 if key == "poly" else 1e-9
+        npt.assert_allclose(_np(y), _np(x), rtol=rtol,
+                            atol=rtol * float(x.abs().max()), err_msg=key)

@@ -132,12 +132,14 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="scale-out"):
         mc_kpt_sweep(np.zeros((1, 2), np.uint32), "const", mesh=object())
     for method in ("cd_ghfs", "cd_ekfs"):
-        with pytest.raises(NotImplementedError, match="continuous-discrete"):
-            tp.make_nll_fn(tp.IFEstimationConfig(method=method), ys)
+        with pytest.raises(ValueError, match="form='sqrt' supports"):
+            tp.make_nll_fn(tp.IFEstimationConfig(method=method, form="sqrt"),
+                           ys)
     with pytest.raises(ValueError):
         tp.make_nll_fn(tp.IFEstimationConfig(method="pf"), ys)
     with pytest.raises(ValueError):
         tp.estimate_if(tp.IFEstimationConfig(form="info"), [0.1] * 6, ys)
-    with pytest.raises(NotImplementedError, match="continuous-discrete"):
+    with pytest.raises(ValueError, match="form='sqrt' supports"):
         tp.estimate_if(tp.IFEstimationConfig(model="lascala",
-                                             method="cd_ekfs"), [0.1] * 4, ys)
+                                             method="cd_ekfs", form="sqrt"),
+                       [0.1] * 4, ys)

@@ -117,12 +117,16 @@ def test_kpt_sweep_on_measurements_matches_jax(K, T):
 
 def test_objectives_on_two_threads():
     """The float64 polish evaluates lanes on host threads: the harmonic
-    EKF's and the KPT EKF's objectives, value and gradient, on two threads
-    at once equal each alone.  Forward-mode AD (``torch.func.jacfwd``) is
-    process-wide and fails here; the closed-form Jacobians do not."""
+    EKF's, the continuous-discrete EKF's and the KPT EKF's objectives,
+    value and gradient, on two threads at once equal each alone.
+    Forward-mode AD (``torch.func.jacfwd``) is process-wide and fails
+    here; the closed-form Jacobians (``jac`` of the LCD, ``drift.jac``,
+    ``h.jac``) do not."""
     tf, ys = _seed0(60, "h3_")
+    _, ys1 = _seed0(40)
     ekf_cfg = tp.IFEstimationConfig(method="ekfs", model="harmonic",
                                     num_harmonics=3, form="sqrt")
+    cd_cfg = tp.IFEstimationConfig(method="cd_ekfs")
     theta_ekf = ekf_cfg.default_init_theta(torch.float64)
     theta_kpt = tk._kpt_init_theta(torch.tensor(ys))
     kpt_nll = tk._kpt_nll(1000.0, 0.1, 3)
@@ -131,15 +135,19 @@ def test_objectives_on_two_threads():
         if which == "ekf":
             th = theta_ekf.clone().requires_grad_(True)
             value = tp.make_nll_fn(ekf_cfg, torch.tensor(ys[i]))(th)
+        elif which == "cd":
+            th = theta_ekf.clone().requires_grad_(True)
+            value = tp.make_nll_fn(cd_cfg, torch.tensor(ys1[i]))(th)
         else:
             th = theta_kpt.clone().requires_grad_(True)
             value = kpt_nll(th, torch.tensor(ys[i]))
         grad, = torch.autograd.grad(value, th)
         return float(value.detach()), grad.numpy()
 
-    jobs = [("ekf", i) for i in range(3)] + [("kpt", i) for i in range(3)]
+    jobs = [(w, i) for w in ("ekf", "cd", "kpt") for i in range(3)]
     alone = [vg(*job) for job in jobs]
-    order = [j for pair in zip(jobs[:3], jobs[3:]) for j in pair]
+    # Two lanes of one objective start together on the two threads.
+    order = [j for j in jobs if j[1] < 2] + [j for j in jobs if j[1] == 2]
     with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
         together = dict(zip(order, ex.map(lambda j: vg(*j), order)))
     for job, (v, gr) in zip(jobs, alone):
