@@ -13,22 +13,30 @@ caller passes ``device="cpu"``.
 Subpackages (ported so far: batched IF estimation, single-record MLE and
 estimation, and the Table-I Monte-Carlo sweeps, for the chirp, harmonic
 chirp and La Scala models, discrete and continuous-discrete, the KPT
-baseline and the classical baselines: every column of Table I)
+baseline, the classical, FHC and fastF0NLS baselines: every column of
+Table I; the filter-error Monte Carlo and PCRLB of Fig. 5, the
+covariance functions, TME and LTI discretizations, and the real-data
+pipelines)
 -----------
 quad       sigma-point rules, Gaussian expectations, RK4 moment steps
 models     chirp, harmonic chirp and La Scala SDE priors, their LCD
-           discretizations, the KPT model, Matern-3/2, bijections
+           and TME discretizations, the KPT model, Matern-3/2, bijections,
+           the PCRLB recursion, covariance functions
 infer      sequential, continuous-discrete and square-root filters and
            smoothers, and their channels-first batched forms
-ops        hand-written CUDA kernels (``ops/csrc``) and their wrappers
+ops        hand-written CUDA kernels (``ops/csrc``) and their wrappers;
+           the host C++ fast-NLS library (``ops/native``)
 fit        batched L-BFGS with zoom line search, host SciPy L-BFGS-B,
            Gauss-Newton / Levenberg-Marquardt
-baselines  Hilbert, spectrogram, polynomial-IF MLE, adaptive notch filter
+baselines  Hilbert, spectrogram, polynomial-IF MLE, adaptive notch
+           filter, FHC grid NLS, fastF0NLS
 apps       ``IFEstimationConfig``, the pipeline, ``estimate_if_batched``,
            the KPT baseline (``kpt_if_estimate``, ``kpt_mle``),
-           the sweeps (``mle_sweep_on_measurements``)
+           the sweeps (``mle_sweep_on_measurements``), the filter-error
+           Monte Carlo and PCRLB (``apps.crlb``), the real-data
+           pipelines (``apps.realdata``)
 toymodels  synthetic chirps and magnitude/IF families
-utils      numerics, metrics, SDE simulation
+utils      numerics, metrics, SDE simulation, LTI discretization
 """
 
 import torch as _torch

@@ -1,7 +1,6 @@
 """Chirp / harmonic-chirp / La Scala SDE priors and their locally
 conditional discretizations (LCD) (counterpart of
-``chirpgp_tpu.models.chirp``; ``disc_chirp_lcd_cond_v`` is not ported
-yet).
+``chirpgp_tpu.models.chirp``).
 
 Model: a harmonic pair ``(X1, X2)`` rotating at angular rate ``2 pi g(V)``
 with damping ``lam`` and dispersion ``b``, coupled to a Matern-3/2 prior on
@@ -26,8 +25,9 @@ from chirpgp_tpu_torch.models.transitions import Transition
 from chirpgp_tpu_torch.utils.numerics import as_real_tensor, ou_variance
 
 __all__ = ["StateSpaceModel", "model_chirp", "model_harmonic_chirp",
-           "model_lascala", "disc_chirp_lcd", "disc_harmonic_chirp_lcd",
-           "disc_model_lascala_lcd", "ChirpModelPack", "build_chirp_model",
+           "model_lascala", "disc_chirp_lcd", "disc_chirp_lcd_cond_v",
+           "disc_harmonic_chirp_lcd", "disc_model_lascala_lcd",
+           "disc_chirp_euler_maruyama", "ChirpModelPack", "build_chirp_model",
            "build_harmonic_chirp_model", "build_lascala_model"]
 
 _TWO_PI = 2.0 * math.pi
@@ -237,6 +237,23 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
                       jac=jac)
 
 
+def disc_chirp_lcd_cond_v(lam, b):
+    """LCD of the chirp pair conditioned on an exogenous ``V`` value:
+    ``m_and_cov(u, v, dt) -> (mean (..., 2), cov (2, 2))``."""
+    lam, b = as_real_tensor(lam), as_real_tensor(b)
+
+    def m_and_cov(u, v, dt):
+        w = _TWO_PI * g(as_real_tensor(v))
+        decay = torch.exp(-lam * dt)
+        c, s = torch.cos(dt * w) * decay, torch.sin(dt * w) * decay
+        m0_, m1_ = _rotate_pair(u[..., 0], u[..., 1], c, s)
+        q = ou_variance(b, lam, dt)
+        return (torch.stack([m0_, m1_], dim=-1),
+                q * torch.eye(2, dtype=q.dtype, device=q.device))
+
+    return m_and_cov
+
+
 def disc_harmonic_chirp_lcd(lam, b, ell, sigma, num_harmonics: int = 1,
                             freq_scale: float = 1.0) -> Transition:
     """LCD of the harmonic chirp model: K rotation blocks at rates ``k w``,
@@ -322,6 +339,12 @@ def disc_model_lascala_lcd(ell, sigma) -> Transition:
     ell = as_real_tensor(ell)
     zero = torch.zeros_like(ell)
     return disc_chirp_lcd(zero, zero, ell, sigma)
+
+
+def disc_chirp_euler_maruyama():
+    """Euler--Maruyama is not recommended for this stiff model; kept for
+    the JAX package's API."""
+    return NotImplemented
 
 
 class ChirpModelPack(NamedTuple):

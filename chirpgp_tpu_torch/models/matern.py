@@ -11,9 +11,11 @@ from typing import Tuple
 
 import torch
 
+from chirpgp_tpu_torch.models.transitions import Transition
 from chirpgp_tpu_torch.utils.numerics import as_real_tensor
 
-__all__ = ["stationary_cov_m32", "m32_solution", "m32_transition_mean"]
+__all__ = ["stationary_cov_m32", "m32_solution", "m32_transition_mean",
+           "disc_m32"]
 
 
 def stationary_cov_m32(ell, sigma) -> torch.Tensor:
@@ -67,3 +69,29 @@ def m32_solution(ell, sigma, dt) -> Tuple[torch.Tensor, torch.Tensor]:
 def m32_transition_mean(u: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     """Apply the 2x2 Matern transition to states ``u`` of shape (..., 2)."""
     return torch.einsum("ij,...j->...i", F.to(dtype=u.dtype, device=u.device), u)
+
+
+def disc_m32(ell, sigma) -> Transition:
+    """Exact discretization of the Matern-3/2 SDE as a :class:`Transition`
+    on the state ``(V, dV)``."""
+    ell, sigma = as_real_tensor(ell), as_real_tensor(sigma)
+
+    def mean(u, dt):
+        F, _ = m32_solution(ell, sigma, dt)
+        return m32_transition_mean(u, F)
+
+    def cov(_, dt):
+        return m32_solution(ell, sigma, dt)[1]
+
+    def mean_cf(u, dt):
+        F, _ = m32_solution(ell, sigma, dt)
+        return torch.einsum("ij,...jb->...ib",
+                            F.to(dtype=u.dtype, device=u.device), u)
+
+    def jac(u, dt):
+        F, _ = m32_solution(ell, sigma, dt)
+        return F.to(dtype=u.dtype, device=u.device).expand(
+            u.shape[:-1] + (2, 2))
+
+    return Transition(mean=mean, cov=cov, const_cov=True, mean_cf=mean_cf,
+                      jac=jac)

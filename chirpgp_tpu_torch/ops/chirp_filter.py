@@ -11,7 +11,9 @@ gradient yet.  :func:`launch_geometry` chooses the kernel's team size,
 rows and blocks, and :func:`filter_cost` counts its work; both are plain
 Python.  The La Scala model is the chirp model at ``lam = b = 0``
 (``models.chirp.disc_model_lascala_lcd``), so the same kernel filters it
-with :func:`lascala_chirp_params`.
+with :func:`lascala_chirp_params`.  The optional ``m0`` replaces the
+packed model's prior mean ``[0, 0, m0_v, 0]``: the filter-error Monte
+Carlo (``apps/crlb.py``) starts from ``model_chirp``'s ``[0, 1, 0, 0]``.
 """
 
 import ctypes
@@ -148,12 +150,31 @@ def _host_params(params) -> torch.Tensor:
     return p
 
 
-def _chirp_constants(params, Xi, dt) -> np.ndarray:
+def _host_m0(m0) -> Optional[torch.Tensor]:
+    """The 4 values of a prior mean ``m0`` as a float64 host tensor, or
+    ``None``."""
+    if m0 is None:
+        return None
+    m = torch.as_tensor(m0).detach().to("cpu", torch.float64)
+    if m.shape != (_D,):
+        raise ValueError(f"m0 must hold {_D} values, got shape {tuple(m.shape)}")
+    return m
+
+
+def _chirp_pack(params, m0):
+    """``build_chirp_model`` of ``params`` in float64 on the host, with its
+    prior mean replaced by ``m0`` unless that is ``None``."""
+    pack = build_chirp_model(_host_params(params))
+    m0 = _host_m0(m0)
+    return pack if m0 is None else pack._replace(m0=m0)
+
+
+def _chirp_constants(params, Xi, dt, m0=None) -> np.ndarray:
     """The kernel's model constants, in float64 on the host and in the
     order the kernel reads them: F32 (2x2), Lq^T (4x4), L0 (4x4), m0 (4),
     exp(-lam dt), sqrt(Xi), dt."""
     p = _host_params(params)
-    pack = build_chirp_model(p)
+    pack = _chirp_pack(p, m0)
     F32, _ = m32_solution(p[3], p[4], float(dt))
     Lq = psd_cholesky(pack.m_and_cov.cov_const(float(dt)))
     L0 = torch.linalg.cholesky(pack.P0)
@@ -164,13 +185,13 @@ def _chirp_constants(params, Xi, dt) -> np.ndarray:
 
 
 def ghfs_chirp_filter_reference(params, Xi, dt, sgps: SigmaPoints,
-                                yss: torch.Tensor
+                                yss: torch.Tensor, m0=None
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """The plain version: the chirp model built from ``params`` in float64
     on the host, run through ``sqrt_sgp_filter_batched``, which casts its
     constants to ``yss.dtype``.  Same contract as :func:`ghfs_chirp_filter`."""
-    pack = build_chirp_model(_host_params(params))
+    pack = _chirp_pack(params, m0)
     return sqrt_sgp_filter_batched(pack.m_and_cov, sgps, pack.H, float(Xi),
                                    pack.m0, pack.P0, float(dt), yss)
 
@@ -197,7 +218,8 @@ def load_kernel():
     return built
 
 
-def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor
+def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor,
+                      m0=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused sqrt GHFS filter for the chirp model (d=4, H = e_1).
 
@@ -207,6 +229,8 @@ def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor
     Xi, dt : floats.
     sgps : sigma-point rule for d=4 with nonnegative weights.
     yss : (B, T) float32 or float64 measurements.
+    m0 : optional 4 values that replace the prior mean ``[0, 0, m0_v, 0]``
+        of ``build_chirp_model(params)``; ``P0`` stays the model's.
 
     Returns ``(mfs (T, 4, B), Lfs (T, 4, 4, B) lower, nll (T, B)
     cumulative)`` in ``yss.dtype`` on ``yss.device`` -- the contract of
@@ -218,28 +242,29 @@ def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor
         raise ValueError("ghfs_chirp_filter has no gradient yet; pass yss "
                          "that does not require grad")
     if yss.device.type == "cpu":
-        return ghfs_chirp_filter_reference(params, Xi, dt, sgps, yss)
+        return ghfs_chirp_filter_reference(params, Xi, dt, sgps, yss, m0)
     if yss.device.type != "cuda":
         raise ValueError(f"ghfs_chirp_filter runs on cpu or cuda tensors, "
                          f"got {yss.device}")
-    return ghfs_chirp_filter_kernel(params, Xi, dt, sgps, yss)
+    return ghfs_chirp_filter_kernel(params, Xi, dt, sgps, yss, m0=m0)
 
 
 def ghfs_chirp_filter_kernel(params, Xi, dt, sgps: SigmaPoints,
-                             yss: torch.Tensor, team: Optional[int] = None
+                             yss: torch.Tensor, team: Optional[int] = None,
+                             m0=None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The kernel alone, for a CUDA tensor ``yss``: :func:`ghfs_chirp_filter`
     with the team size ``team`` (8 or 32; ``None`` lets
     :func:`launch_geometry` choose it), and without its gradient check:
     the outputs never carry one."""
-    launch, outputs = kernel_launcher(params, Xi, dt, sgps, yss, team)
+    launch, outputs = kernel_launcher(params, Xi, dt, sgps, yss, team, m0)
     launch()
     return outputs
 
 
 def kernel_launcher(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor,
-                    team: Optional[int] = None):
+                    team: Optional[int] = None, m0=None):
     """Check the inputs of :func:`ghfs_chirp_filter_kernel`, build the
     kernel, its constants and its outputs, and return ``(launch,
     (mfs, Lfs, nll))``: each ``launch()`` runs the kernel once on the
@@ -267,7 +292,7 @@ def kernel_launcher(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor,
     geo = launch_geometry(B, S, num_sms, team)
 
     lib = load_kernel().lib
-    consts = _chirp_constants(params, Xi, dt)
+    consts = _chirp_constants(params, Xi, dt, m0)
     if consts.size != lib.ghfs_chirp_filter_num_consts():
         raise RuntimeError("model constants do not match the kernel's layout")
 

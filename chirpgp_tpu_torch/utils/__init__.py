@@ -1,11 +1,12 @@
-"""Shared numerical utilities and metrics."""
+"""Shared numerical utilities, metrics and the LTI discretization."""
 
 from chirpgp_tpu_torch.utils.metrics import (
     rmse, fwd_transformed_pdf, chol_partial_const_diag)
 from chirpgp_tpu_torch.utils.numerics import (
     as_real_tensor, phi1, ou_variance, psd_cholesky, cholesky_or_nan,
     psd_solve)
+from chirpgp_tpu_torch.utils.lti import lti_sde_to_disc
 
 __all__ = ["rmse", "fwd_transformed_pdf", "chol_partial_const_diag",
            "as_real_tensor", "phi1", "ou_variance", "psd_cholesky",
-           "cholesky_or_nan", "psd_solve"]
+           "cholesky_or_nan", "psd_solve", "lti_sde_to_disc"]

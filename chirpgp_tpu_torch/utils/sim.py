@@ -39,6 +39,20 @@ def _simulate_from_noise(m_and_cov: Callable, x0: torch.Tensor,
     return torch.stack(traj)
 
 
+def _simulate_batch_from_noise(m_and_cov: Callable, x0: torch.Tensor,
+                               dws: torch.Tensor, dt,
+                               const_diag_cov: bool = False) -> torch.Tensor:
+    """:func:`_simulate_from_noise` for a batch of trajectories: ``x0``
+    (N, dim), increments ``dws`` (N, T, dim); returns (N, T, dim).
+    ``m_and_cov`` must take a batch of states."""
+    x, traj = x0, []
+    for k in range(dws.shape[1]):
+        m, cov = m_and_cov(x, dt)
+        x = m + (_chol_of(cov, const_diag_cov) @ dws[:, k, :, None])[..., 0]
+        traj.append(x)
+    return torch.stack(traj, dim=1)
+
+
 def _lgssm_from_noise(F: torch.Tensor, Sigma: torch.Tensor,
                       x0: torch.Tensor, rnds: torch.Tensor) -> torch.Tensor:
     """``x_k = F x_{k-1} + chol(Sigma) eps_k`` for the given ``rnds``
@@ -91,6 +105,21 @@ def _conditioned_from_noise(m_and_cov: Callable, vs: torch.Tensor,
         x = m + _chol_of(cov, const_diag_cov) @ dw
         traj.append(x)
     return torch.stack(traj)
+
+
+def _conditioned_batch_from_noise(m_and_cov: Callable, vs: torch.Tensor,
+                                  x0: torch.Tensor, dws: torch.Tensor, dt,
+                                  const_diag_cov: bool = False
+                                  ) -> torch.Tensor:
+    """:func:`_conditioned_from_noise` for a batch of trajectories along
+    one path ``vs`` (T, ...): ``x0`` (N, dim), ``dws`` (N, T, dim);
+    returns (N, T, dim)."""
+    x, traj = x0, []
+    for k in range(dws.shape[1]):
+        m, cov = m_and_cov(x, vs[k], dt)
+        x = m + (_chol_of(cov, const_diag_cov) @ dws[:, k, :, None])[..., 0]
+        traj.append(x)
+    return torch.stack(traj, dim=1)
 
 
 def simulate_function_parametrised_sde(m_and_cov: Callable, vs: torch.Tensor,

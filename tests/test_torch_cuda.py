@@ -387,3 +387,64 @@ def test_classical_methods_on_card_match_cpu(cuda):
         rtol = 1e-6 if key == "poly" else 1e-9
         npt.assert_allclose(_np(y), _np(x), rtol=rtol,
                             atol=rtol * float(x.abs().max()), err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_crlb_chunks_launch_the_kernel_once_each(cuda, dtype):
+    """``filter_error_mc_chunked(backend="cf")`` on the card filters each
+    chunk with one launch of the CUDA kernel (at model_chirp's prior mean)
+    and agrees with the plain version on the host on the same normals:
+    round-off in float64, 1e-3 of the largest statistic in float32."""
+    from chirpgp_tpu_torch.apps import filter_error_mc_chunked
+    T, n, chunk = 40, 100, 32
+    gen = torch.Generator().manual_seed(5)
+    z = {i: tuple(torch.randn(s, generator=gen, dtype=torch.float64)
+                  for s in ((m, 4), (m, T, 4), (m, T)))
+         for i, m in enumerate((32, 32, 32, 4))}
+    args = (0.1, 0.1, 0.1, 1.0, 1.0, 0.1, n)
+    kw = dict(T=T, chunk=chunk, dtype=getattr(torch, dtype),
+              draws=lambda i, m: z[i])
+    ghfs_chirp_filter.launches = 0
+    card = filter_error_mc_chunked(*args, device=cuda, **kw)
+    assert ghfs_chirp_filter.launches == 4
+    host = filter_error_mc_chunked(*args, device="cpu", **kw)
+    assert ghfs_chirp_filter.launches == 4
+    tol = 1e-9 if dtype == "float64" else 1e-3
+    for key, want in host.items():
+        npt.assert_allclose(card[key], want, rtol=0,
+                            atol=tol * np.abs(want).max(), err_msg=key)
+
+
+@pytest.mark.cuda
+def test_analysis_and_baselines_on_card_match_cpu(cuda):
+    """The PCRLB, the FHC tracker and the Myotis bat pipeline on the card
+    against the host CPU, float64: 1e-9 relative on the bound and the bat
+    IF (a 12-sample call: the configuration amplifies round-off before the
+    filter locks on), 1e-6 Hz on the FHC track."""
+    from chirpgp_tpu_torch.apps import MYOTIS, analyze_bat_call, pcrlb_chirp_mc
+    from chirpgp_tpu_torch.baselines import fhc_pitch_track_batch
+    T = 30
+    gen = torch.Generator().manual_seed(6)
+    z = tuple(torch.randn(s, generator=gen, dtype=torch.float64)
+              for s in ((200, 4), (200, T, 4), (200, T)))
+    ys = np.load(ROOT / "results/data/toydata_h3_const.npz")["ys"][:2, :340]
+    n = np.arange(1, 13) / 250e3
+    call = np.sin(2 * np.pi * (80e3 * n - 2e8 * n ** 2)) \
+        + 0.01 * np.random.default_rng(0).standard_normal(12)
+    out = {}
+    for device in ("cpu", cuda):
+        pc = pcrlb_chirp_mc(0.1, 0.1, 0.1, 1.0, 1.0, 0.1, num_mcs=200, T=T,
+                            dtype=torch.float64, device=device,
+                            draws=lambda _i, _n: z)
+        _, f0 = fhc_pitch_track_batch(ys.astype(np.float64), 1000.0, 3,
+                                      device=device)
+        bat, _ = analyze_bat_call(call, 250e3, MYOTIS, device=device)
+        out[str(device)] = (pc["pcrlb_x2"], pc["pcrlb_v"], f0,
+                            _np(bat["if_mean"]))
+    for name, a, b, rtol, atol in zip(
+            ("pcrlb_x2", "pcrlb_v", "fhc", "bat"), out["cpu"],
+            out[str(cuda)], (1e-9, 1e-9, 0, 0), (0, 0, 1e-6, None)):
+        if atol is None:
+            atol = 1e-9 * np.abs(a).max()
+        npt.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=name)

@@ -305,7 +305,12 @@ def test_port_never_imports_jax():
     assert {PORT / "models/kpt.py", PORT / "apps/kpt.py",
             PORT / "ops/chirp_filter.py", PORT / "quad/integrators.py",
             PORT / "fit/gauss_newton.py", PORT / "baselines/classical.py",
-            PORT / "baselines/__init__.py",
+            PORT / "baselines/__init__.py", PORT / "utils/lti.py",
+            PORT / "models/tme.py", PORT / "models/crlb.py",
+            PORT / "models/cov_funcs.py", PORT / "models/matern.py",
+            PORT / "apps/crlb.py", PORT / "apps/realdata.py",
+            PORT / "baselines/fhc.py", PORT / "baselines/fastnls.py",
+            PORT / "ops/native/__init__.py",
             ROOT / "chip_smoke.py"} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
