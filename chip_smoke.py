@@ -6,8 +6,9 @@
 Builds the hand-written CUDA kernel from ``chirpgp_tpu_torch/ops/csrc`` on
 first use and drives the batched IF-estimation path, the single-record
 MLE path, the fused batched filter+smoother, the Table-I Monte-Carlo
-sweep, every other column of Table I, and the paper's analysis and
-real-data pipelines once at full width.
+sweep, every other column of Table I, the paper's analysis and
+real-data pipelines, and the parallel-in-time and posterior-inference
+paths once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
@@ -90,7 +91,29 @@ Phases, one line each:
     subset of seeds; 10g the LIGO pipeline on run_ligo.py's synthetic
     record (the IF mean at its committed params, and ``analyze_ligo``
     with the MLE capped) and the Myotis bat analog cut to a crop.  Each
-    sub-phase prints its line and seconds as it ends.
+    sub-phase prints its line and seconds as it ends;
+11. parallel-in-time filtering and posterior inference (no Pallas kernel
+    on these paths): 11a the associative-scan KF/RTS on the M32 model at
+    bench.py's configuration (the f32 bytes of
+    ``results/data/parallel_kf_ref.npz``, T=3141 and T=25000): the
+    sequential ``kf`` + ``rts`` (T=3141), the flat scan and blocked 128 and
+    512, each timed with its launches and device busy share and held to
+    the float64 truth within 1% of its scale, a float64 flat scan within
+    1e-8; 11b the iterated parallel sigma-point smoother on the chirp
+    model (GH-3, seed 0 of ``toydata_const``, T=3141, f32): one iteration
+    flat and blocked 128 against the sequential filter + smoother, ten
+    iterations held to the JAX package's accuracy gate, float64 on the
+    card against the host CPU; 11c the
+    bootstrap particle filter against the exact KF on an M32 LGSSM, and
+    ``smc_nll`` on the chirp record in both dtypes; 11d NUTS on a
+    correlated 2-D Gaussian with 64 chains on the leading axis (pooled
+    moments), and ``sample_hyperposterior`` (sqrt GHFS f32, 8 chains, T
+    cut to a budget): every point it evaluates finite, lane 0 against
+    the log posterior alone.
+
+A device busy share is the kernel time of a call under ``torch.profiler``
+(the card's activity alone) over the wall time of the same call
+unprofiled (``utils/timing.py::profile_device``).
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
 The line before the last is a JSON record of the kernels (``ms`` and
@@ -302,6 +325,53 @@ NLS_SEEDS, NLS_RTOL = 3, 2e-6
 # locks on an H100 (1.81 Hz).
 LIGO_IF_RTOL, LIGO_MLE_ITERS = 1e-9, 2
 MYOTIS_FULL, MYOTIS_CROP, MYOTIS_RMS_HZ = 25334, (4000, 8000), 50.0
+# Phase 11, parallel-in-time filtering and posterior inference (no Pallas
+# kernel on these paths: batched PyTorch).  11a: the M32 KF/RTS (ell =
+# sigma = 1, dt=1e-3, Xi=0.1, float32) on the float32 measurement bytes of
+# results/data/parallel_kf_ref.npz at each T of PKF_T, sequential (the
+# first T only), flat associative scan and blocked PKF_BLOCKS; smoothed
+# means within PKF_TOL of max |truth| of the float64 truth (bench.py:485-
+# 503), a float64 flat scan within PKF_F64_ATOL.  11b: the iterated
+# parallel sigma-point smoother on the chirp model, GH-3, SMALL_PARAMS,
+# seed 0 of toydata_const at T=3141, float32: one iteration flat and
+# blocked PSGP_BLOCK against the sequential sgp_filter + sgp_smoother
+# (17-28 s on an H100); PSGP_ITERS iterations held to
+# tests/test_parallel_sgp.py:109-139 (IF RMSE below 1.5 x the sequential
+# one + 0.2, V means within 0.3); a
+# float64 call (PSGP_F64_ITERS iterations) on the card equal to the host
+# CPU's within PSGP_F64_RTOL of scale.  11c: the bootstrap particle filter
+# on the M32 LGSSM of tests/test_nuts_smc.py:95-115 (ell = sigma = 1,
+# dt=0.01, T=100, Xi=0.1) at SMC_LGSSM_N particles: log-ML within 2% of
+# -kf's NLL, mean filter error below 0.05, ESS above 1; smc_nll on the
+# chirp model at seed 0, T=3141, SMC_CHIRP_N particles, float32 and
+# float64, finite.  11d: NUTS on tests/test_nuts_smc.py:22-37's Gaussian
+# with NUTS_CHAINS chains at depth NUTS_DEPTH (pooled moments: mean atol
+# 0.15, cov atol 0.35, accept above 0.6, no divergence); then
+# sample_hyperposterior, sqrt GHFS float32, HYPER_CHAINS chains at depth
+# HYPER_DEPTH, HYPER_TRANSITIONS (warmup, samples), T cut to
+# HYPER_BUDGET_S (not below HYPER_MIN_T) by a first call at HYPER_SHORT_T
+# (one batched value-and-grad of 8 chains took 27 ms per step on an
+# H100, so the cut leaves T of a few tens): every point evaluated, warmup
+# included, with a finite log density and gradient, finite samples, mean
+# accept above 0, lane 0's log density = make_logposterior on the lane
+# alone (HYPER_LANE_RTOL).
+PKF_T, PKF_BLOCKS, PKF_TOL, PKF_F64_ATOL = (3141, 25000), (128, 512), \
+    0.01, 1e-8
+PKF_PROFILE_T = 300
+PSGP_BLOCK, PSGP_ITERS, PSGP_F64_ITERS, PSGP_F64_RTOL = 128, 10, 2, 1e-9
+SMC_LGSSM_N, SMC_CHIRP_N = 4000, 4096
+NUTS_CHAINS, NUTS_DEPTH, NUTS_TRANSITIONS = 64, 6, (100, 100)
+NUTS_COV = ((1.0, 0.7), (0.7, 2.0))
+HYPER_CHAINS, HYPER_DEPTH, HYPER_TRANSITIONS = 8, 3, (2, 2)
+# The initial step size of the hyperposterior chains.  From nuts_sample's
+# 0.1, dual averaging's first step is ~1.4, and a trajectory reached a
+# point where the float32 objective is not finite; a NaN log density is
+# no divergence in either package, so the accept statistic went NaN on an
+# H100 (ROADMAP Queue 3).  The gate on every evaluated point still fails
+# the run if the smaller step meets one.
+HYPER_STEP = 0.01
+HYPER_SHORT_T, HYPER_MIN_T, HYPER_BUDGET_S = 32, 16, 30.0
+HYPER_LANE_RTOL = 1e-5
 
 class SmokeFailure(RuntimeError):
     pass
@@ -388,14 +458,6 @@ def deviations(kern, plain):
         Lfs=float((lk - lp).abs().max()), nll=float((nk - np_).abs().max()),
         nll_last_rel=float(((nk[-1] - np_[-1]).abs() / np_[-1].abs()).max()),
         scale_mfs=float(mp.abs().max()), scale_LLT=float(Pp.abs().max()))
-
-
-def timed(fn, *args, **kwargs):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
 
 
 def phase_environment(device):
@@ -491,6 +553,7 @@ def phase_kernel_vs_plain(device):
 
 
 def phase_slice(device):
+    from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if_batched
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import (
@@ -671,6 +734,7 @@ def value_and_grad(fn, theta, device):
 
 
 def phase_mle(device):
+    from chirpgp_tpu_torch.utils.timing import timed
     from unittest import mock
     import chirpgp_tpu_torch.apps.pipeline as pipeline
     from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if
@@ -778,6 +842,7 @@ def phase_mle(device):
 
 
 def phase_fused(device, if_ref, t_ref):
+    from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.infer.batched import (
         cov_sgp_filter_smoother_batched, gaussian_expectation_batched,
@@ -846,26 +911,6 @@ def phase_fused(device, if_ref, t_ref):
           + "; ".join(parts))
 
 
-def profile_step(fn, T):
-    """Kernel launches per step and the device's busy share of the wall
-    time of ``fn()`` (a T-step call), from ``torch.profiler``; None where
-    the profiler sees no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return None, None
-    busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
-    return len(kernels) / T, busy / wall
-
-
 def lane_alone(ys_lane, theta, device):
     """Value, gradient and wall time of the sweep objective on one lane
     alone (``make_nll_fn`` and ``torch.autograd``), float32 on ``device``
@@ -898,6 +943,7 @@ def phase_sweep(device, smi):
     """7a one vmapped value-and-grad of the sweep objective at the Table-I
     width, 7b two stepped L-BFGS iterations at B=300, 7c the whole
     mle_sweep_on_measurements at a smaller depth."""
+    from chirpgp_tpu_torch.utils.timing import profile_device, timed
     import concurrent.futures
     import multiprocessing
     from unittest import mock
@@ -952,12 +998,13 @@ def phase_sweep(device, smi):
               f"7a lane {lane}: vmapped vs alone, value rel {dv}, grad {dg}")
         devs.append(f"lane {lane}: value rel {dv:.3g}, grad {dg:.3g} "
                     f"({t_lane:.3f} s alone, in a child process meanwhile)")
-    per_step, busy = profile_step(
+    prof = profile_device(
         lambda: batched_value_and_grad(nll, (ys[:, :SWEEP_PROFILE_T],))(
-            theta0), SWEEP_PROFILE_T)
-    prof = ("profiler: no device activity seen" if per_step is None else
-            f"profiler at T={SWEEP_PROFILE_T}: {per_step:.1f} kernel "
-            f"launches per step, device busy {100 * busy:.2f}%")
+            theta0))
+    prof = (f"profiler at T={SWEEP_PROFILE_T}: "
+            f"{prof.launches / SWEEP_PROFILE_T:.1f} kernel launches per "
+            f"step, device busy {100 * prof.busy:.2f}% of {prof.wall_s:.3f} "
+            f"s (profiled: {prof.profiled_wall_s:.3f} s)")
     dv_host = abs(v_host - float(values[0])) / abs(v_host)
     check(dv_host <= SWEEP_VG_TOL, f"7a lane 0 on the host CPU: value rel "
                                    f"{dv_host}")
@@ -1121,6 +1168,7 @@ def family_value_and_grad(kind, ys, device, pool,
     prices a step; T is cut so that the call takes at most ``budget_s``.
     Lanes 0 and B-1 run alone in ``pool`` meanwhile.  Returns the record
     of the call and the lanes' futures."""
+    from chirpgp_tpu_torch.utils.timing import profile_device, timed
     from chirpgp_tpu_torch.fit import batched_value_and_grad
     fn, theta = family_objective(kind)
     B, t_full = ys.shape
@@ -1138,12 +1186,13 @@ def family_value_and_grad(kind, ys, device, pool,
     peak = torch.cuda.max_memory_allocated(device)
     check(bool(torch.isfinite(values).all() and torch.isfinite(grads).all()),
           f"8 {kind}: non-finite value or gradient")
-    per_step, busy = profile_step(
+    prof = profile_device(
         lambda: batched_value_and_grad(fn, (ys[:, :FAMILY_PROFILE_T],))(
-            theta0), FAMILY_PROFILE_T)
+            theta0))
     return dict(kind=kind, B=B, T=T, t_full=t_full, t_short=t_short, t=t_vg,
                 peak=peak, values=values, grads=grads, lanes=lanes,
-                per_step=per_step, busy=busy, budget=budget_s), alone
+                per_step=prof.launches / FAMILY_PROFILE_T, prof=prof,
+                budget=budget_s), alone
 
 
 def family_vg_report(rec, alone):
@@ -1162,10 +1211,10 @@ def family_vg_report(rec, alone):
     cut = "" if rec["T"] == rec["t_full"] else (
         f" (T cut from {rec['t_full']} to {rec['T']}: T={FAMILY_SHORT_T} "
         f"took {rec['t_short']:.3f} s, budget {rec['budget']:.0f} s)")
-    prof = ("profiler: no device activity seen" if rec["per_step"] is None
-            else f"profiler at T={FAMILY_PROFILE_T}: {rec['per_step']:.1f} "
-                 f"kernel launches per step, device busy "
-                 f"{100 * rec['busy']:.2f}%")
+    prof = rec["prof"]
+    prof = (f"profiler at T={FAMILY_PROFILE_T}: {rec['per_step']:.1f} "
+            f"kernel launches per step, device busy {100 * prof.busy:.2f}% "
+            f"of {prof.wall_s:.3f} s (profiled: {prof.profiled_wall_s:.3f} s)")
     return (f"{rec['kind']} value-and-grad B={rec['B']} T={rec['T']}{cut} "
             f"f32: {rec['t']:.3f} s = {1e3 * rec['t'] / rec['T']:.3f} ms per "
             f"step, peak memory {rec['peak'] / 2 ** 30:.3f} GiB (x "
@@ -1178,6 +1227,7 @@ def phase_family(device, smi):
     rest), 8b La Scala through the filter kernel, 8c/8d the harmonic CKFS
     and KPT sweep objectives at B=300, 8e the whole harmonic-EKFS and KPT
     sweeps at a small depth."""
+    from chirpgp_tpu_torch.utils.timing import timed
     import concurrent.futures
     import multiprocessing
     from unittest import mock
@@ -1460,6 +1510,7 @@ def phase_table_one(device, smi):
     """9a the cd seed-0 gates (child processes, beside the rest), 9b the cd
     sweep objectives at B=300, 9c the whole cd_ekfs sweep at a small
     depth, 9d the four classical columns at the Table-I width."""
+    from chirpgp_tpu_torch.utils.timing import timed
     import concurrent.futures
     import multiprocessing
     from unittest import mock
@@ -1685,6 +1736,7 @@ def ligo_check(device):
     H_synth_params on run_ligo.py's synthetic H record, float64, against
     the committed IF mean, then ``analyze_ligo`` with ``fit_mle`` capped.
     Returns the sub-phase's text; raises SmokeFailure on a failed gate."""
+    from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import (
         analyze_ligo, estimate_if, ligo_config, standardize)
     device = torch.device(device)
@@ -1720,6 +1772,7 @@ def myotis_check(device):
     through ``analyze_bat_call`` (cov, cubature, d=10, float32) on the
     card, its IF RMS in the envelope core and its time per step.  Returns
     the sub-phase's text; raises SmokeFailure on a failed gate."""
+    from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import MYOTIS, analyze_bat_call
     device = torch.device(device)
     fs, ys, freq, env = myotis_analog()
@@ -1750,6 +1803,7 @@ def phase_analysis(device, smi):
     EKF's, 10d the PCRLB, 10e the FHC columns, 10f the fastF0NLS columns
     (host, child process), 10g the real-data pipelines on synthetic
     records (two child processes on the card, from the end of 10a)."""
+    from chirpgp_tpu_torch.utils.timing import timed
     import concurrent.futures
     import multiprocessing
     from chirpgp_tpu_torch.apps import (
@@ -2012,6 +2066,284 @@ def phase_analysis(device, smi):
     return out
 
 
+def chirp_record(dtype, device):
+    """Phase 11b's model and record: the chirp model at SMALL_PARAMS and
+    seed 0 of toydata_const at T=3141, in ``dtype`` on ``device``."""
+    from chirpgp_tpu_torch.models import build_chirp_model
+    pack = build_chirp_model(torch.tensor(SMALL_PARAMS, dtype=dtype,
+                                          device=device))
+    ys = np.load(ROOT / "results/data/toydata_const.npz")["ys"][0, :T_FULL]
+    return pack, torch.as_tensor(ys, dtype=dtype, device=device)
+
+
+def phase_parallel_posterior(device, smi):
+    """11a the associative-scan KF/RTS, 11b the iterated parallel
+    sigma-point smoother, 11c the bootstrap particle filter, 11d NUTS and
+    the hyperparameter posterior."""
+    from unittest import mock
+    import chirpgp_tpu_torch.infer.nuts as nuts_module
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, make_logposterior, sample_hyperposterior, smc_nll)
+    from chirpgp_tpu_torch.fit import batched_value_and_grad
+    from chirpgp_tpu_torch.infer import (
+        bootstrap_filter, kf, kf_rts_parallel, nuts_sample,
+        psgp_filter_smoother, rts, sgp_filter, sgp_smoother)
+    from chirpgp_tpu_torch.models import (
+        disc_m32, g, m32_solution, stationary_cov_m32)
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    from chirpgp_tpu_torch.quad import gauss_hermite
+    from chirpgp_tpu_torch.utils import rmse
+    from chirpgp_tpu_torch.utils.timing import profile_device, timed
+    t_phase = t_sub = time.perf_counter()
+    ghfs_chirp_filter.launches = 0
+
+    def say(line):
+        nonlocal t_sub
+        now = time.perf_counter()
+        print(f"phase {line} ({now - t_sub:.3f} s; {smi})", flush=True)
+        t_sub = now
+
+    def m32(dt, dtype):
+        F, Sigma = m32_solution(1.0, 1.0, dt)
+        return [torch.as_tensor(x, dtype=dtype, device=device) for x in (
+            F, Sigma, [1.0, 0.0], [0.0, 0.0], stationary_cov_m32(1.0, 1.0))]
+
+    def profiled(fn, T):
+        """Launches per call and the device's busy share, two more calls."""
+        prof = profile_device(fn)
+        return (f"{prof.launches} launches ({prof.launches / T:.2f} per "
+                f"step), device busy {100 * prof.busy:.1f}% of "
+                f"{1e3 * prof.wall_s:.1f} ms (profiled: "
+                f"{1e3 * prof.profiled_wall_s:.1f} ms)")
+
+    # 11a: the parallel KF/RTS at bench.py's configuration.
+    ref = np.load(ROOT / "results/data/parallel_kf_ref.npz")
+    F, Sigma, H, m0, P0 = m32(DT, torch.float32)
+    parts = []
+    for T in PKF_T:
+        ys = torch.as_tensor(ref[f"ys_T{T}"], device=device)
+        truth = ref[f"mss_T{T}"]
+        scale = float(np.abs(truth).max())
+        paths = {"flat": None, **{f"blocked{b}": b for b in PKF_BLOCKS}}
+        if T == PKF_T[0]:
+            def seq(ys_):
+                mfs, Pfs, _ = kf(F, Sigma, H, XI, m0, P0, ys_)
+                return rts(F, Sigma, mfs, Pfs)
+            mss, t_seq = timed(seq, ys)
+            err = float(np.abs(mss[0].double().cpu().numpy() - truth).max())
+            check(err <= PKF_TOL * scale,
+                  f"11a seq T={T}: max |mss - truth| {err} > {PKF_TOL} x "
+                  f"{scale}")
+            prof = profiled(lambda: seq(ys[:PKF_PROFILE_T]), PKF_PROFILE_T)
+            parts.append(f"T={T} sequential kf+rts {t_seq:.3f} s = "
+                         f"{T / t_seq:.1f} steps/s, err {err:.3g} ({prof} "
+                         f"at T={PKF_PROFILE_T})")
+        for name, bs in paths.items():
+            def par(ys_, bs=bs):
+                return kf_rts_parallel(F, Sigma, H, XI, m0, P0, ys_,
+                                       block_size=bs)
+            par(ys)
+            out, t_par = timed(par, ys)
+            err = float(np.abs(out[3].double().cpu().numpy() - truth).max())
+            check(bool(all(torch.isfinite(x).all() for x in out))
+                  and err <= PKF_TOL * scale,
+                  f"11a {name} T={T}: max |mss - truth| {err} > {PKF_TOL} x "
+                  f"{scale}")
+            parts.append(f"T={T} {name} {1e3 * t_par:.3f} ms = "
+                         f"{T / t_par:.1f} steps/s, err {err:.3g} "
+                         f"({profiled(lambda: par(ys), T)})")
+    ys = torch.as_tensor(ref["ys_T3141"], dtype=torch.float64, device=device)
+    out64, t64 = timed(kf_rts_parallel, *m32(DT, torch.float64)[:3], XI,
+                       *m32(DT, torch.float64)[3:], ys)
+    err64 = float(np.abs(out64[3].cpu().numpy() - ref["mss_T3141"]).max())
+    check(err64 <= PKF_F64_ATOL, f"11a flat float64: max |mss - truth| "
+                                 f"{err64} > {PKF_F64_ATOL}")
+    say(f"11a parallel KF/RTS, M32 f32, max |truth| {scale:.4g} at "
+        f"T={PKF_T[-1]} (gate {PKF_TOL} x scale): " + "; ".join(parts)
+        + f"; flat float64 T=3141 {1e3 * t64:.3f} ms, err {err64:.3g} "
+        f"(gate {PKF_F64_ATOL})")
+
+    # 11b: the iterated parallel sigma-point smoother on the chirp model.
+    data = np.load(ROOT / "results/data/toydata_const.npz")
+    tf = torch.as_tensor(data["true_freqs"][:T_FULL], dtype=torch.float64)
+    rule = gauss_hermite(4, 3)
+    pack, ys = chirp_record(torch.float32, device)
+
+    def psgp(iters, bs=None, pack=pack, ys=ys):
+        return psgp_filter_smoother(pack.m_and_cov, rule, pack.H, XI, pack.m0,
+                                    pack.P0, DT, ys, num_iters=iters,
+                                    block_size=bs)
+
+    psgp(1)
+    _, t_flat = timed(psgp, 1)
+    _, t_blk = timed(psgp, 1, PSGP_BLOCK)
+    out, t_it = timed(psgp, PSGP_ITERS)
+    v_par = out[3][:, 2].double().cpu()
+
+    def seq():
+        mfs, Pfs, nll = sgp_filter(pack.m_and_cov, rule, pack.H, XI, pack.m0,
+                                   pack.P0, DT, ys)
+        return sgp_smoother(pack.m_and_cov, rule, mfs, Pfs, DT)[0], nll
+
+    (mss_seq, nll_seq), t_seq = timed(seq)
+    v_seq, nll_seq = mss_seq[:, 2].double().cpu(), float(nll_seq[-1])
+    err_seq = float(rmse(tf, g(v_seq)))
+    err_par = float(rmse(tf, g(v_par)))
+    dv = float((v_par - v_seq).abs().max())
+    check(np.isfinite(err_par) and err_par < 1.5 * err_seq + 0.2 and dv <= 0.3,
+          f"11b psgp x{PSGP_ITERS}: IF RMSE {err_par} vs sequential "
+          f"{err_seq}, max |dV| {dv}")
+    prof = profiled(lambda: psgp(1), T_FULL)
+    pack64, ys64 = chirp_record(torch.float64, device)
+    card, t64 = timed(psgp, PSGP_F64_ITERS, None, pack64, ys64)
+    host = psgp(PSGP_F64_ITERS, None, *chirp_record(torch.float64, "cpu"))
+    dev64 = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(card, host))
+    check(dev64 <= PSGP_F64_RTOL, f"11b psgp float64 card vs host CPU: "
+                                  f"{dev64} of scale > {PSGP_F64_RTOL}")
+    say(f"11b iterated parallel sigma-point smoother, chirp GH-3 f32, seed "
+        f"0, T={T_FULL}: sequential sgp_filter + sgp_smoother {t_seq:.3f} s "
+        f"= {T_FULL / t_seq:.1f} steps/s; "
+        f"one iteration flat {1e3 * t_flat:.3f} ms ({T_FULL / t_flat:.1f} "
+        f"steps/s; {prof}), "
+        f"blocked {PSGP_BLOCK} {1e3 * t_blk:.3f} ms; {PSGP_ITERS} "
+        f"iterations {t_it:.3f} s: IF RMSE {err_par:.5f} vs sequential "
+        f"{err_seq:.5f} (gate < 1.5 x + 0.2), max |dV| {dv:.4f} (gate 0.3); "
+        f"float64 x{PSGP_F64_ITERS} on the card {t64:.3f} s vs the host CPU "
+        f"{dev64:.3g} of scale (gate {PSGP_F64_RTOL})")
+
+    # 11c: the bootstrap particle filter.
+    T = 100
+    F64, Sig64, H64, m064, P064 = m32(0.01, torch.float64)
+    rng = np.random.default_rng(7)
+    Lq = np.linalg.cholesky(Sig64.cpu().numpy())
+    x, xs = np.zeros(2), []
+    for _ in range(T):
+        x = F64.cpu().numpy() @ x + Lq @ rng.standard_normal(2)
+        xs.append(x[0])
+    ys = torch.as_tensor(np.array(xs) + math.sqrt(XI)
+                         * rng.standard_normal(T), device=device)
+    mfs, _, nll = kf(F64, Sig64, H64, XI, m064, P064, ys)
+    gen = torch.Generator(device=device).manual_seed(8)
+    res, t_lg = timed(bootstrap_filter, disc_m32(1.0, 1.0), H64, XI, m064,
+                      P064, 0.01, ys, gen, num_particles=SMC_LGSSM_N)
+    dml = abs(float(res.log_ml[-1]) + float(nll[-1])) / abs(float(nll[-1]))
+    merr = float((res.means[:, 0] - mfs[:, 0]).abs().mean())
+    ess = float(res.ess.min())
+    check(dml <= 0.02 and merr < 0.05 and ess > 1.0,
+          f"11c LGSSM: log-ML rel {dml}, mean error {merr}, min ESS {ess}")
+    chirp_parts = []
+    cfg = IFEstimationConfig()
+    for dtype in (torch.float32, torch.float64):
+        _, ys_c = chirp_record(dtype, device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        (snll, sres), t_c = timed(smc_nll, cfg, torch.tensor(
+            SMALL_PARAMS, dtype=dtype, device=device), ys_c, gen,
+            num_particles=SMC_CHIRP_N)
+        check(bool(torch.isfinite(snll)) and bool(
+            torch.isfinite(sres.means).all()),
+            f"11c smc_nll {dtype}: {float(snll)}")
+        chirp_parts.append(f"{str(dtype)[6:]} {float(snll):.4f} in "
+                           f"{t_c:.3f} s (min ESS {float(sres.ess.min()):.1f})")
+    ys_p = chirp_record(torch.float32, device)[1][:PKF_PROFILE_T]
+    prof = profiled(lambda: smc_nll(
+        cfg, torch.tensor(SMALL_PARAMS, dtype=torch.float32, device=device),
+        ys_p, torch.Generator(device=device).manual_seed(1),
+        num_particles=SMC_CHIRP_N), PKF_PROFILE_T)
+    say(f"11c bootstrap particle filter: M32 LGSSM T={T}, N={SMC_LGSSM_N}, "
+        f"f64 {t_lg:.3f} s: log-ML {float(res.log_ml[-1]):.4f} vs -kf NLL "
+        f"{-float(nll[-1]):.4f} (rel {dml:.3g}, gate 0.02), mean error "
+        f"{merr:.4f} (gate 0.05), min ESS {ess:.1f}; smc_nll chirp seed 0 "
+        f"T={T_FULL} N={SMC_CHIRP_N}: {', '.join(chirp_parts)}; the cov "
+        f"GHFS f32 NLL at the same params {nll_seq:.4f} (11b); "
+        f"{prof} at T={PKF_PROFILE_T}")
+
+    # 11d: NUTS on the correlated Gaussian, then the hyperposterior.
+    cov = torch.tensor(NUTS_COV, dtype=torch.float64, device=device)
+    prec = torch.linalg.inv(cov)
+    n_w, n_s = NUTS_TRANSITIONS
+    gen = torch.Generator(device=device).manual_seed(0)
+    res, t_g = timed(nuts_sample, lambda q: -0.5 * q @ prec @ q,
+                     torch.zeros(NUTS_CHAINS, 2, dtype=torch.float64,
+                                 device=device), gen, num_samples=n_s,
+                     num_warmup=n_w, step_size=0.5, max_tree_depth=NUTS_DEPTH)
+    pooled = res.samples.reshape(-1, 2).cpu().numpy()
+    dmean = float(np.abs(pooled.mean(0)).max())
+    dcov = float(np.abs(np.cov(pooled.T) - np.array(NUTS_COV)).max())
+    acc = float(res.accept_prob.mean())
+    ndiv = int(res.num_divergent.sum())
+    check(dmean <= 0.15 and dcov <= 0.35 and acc > 0.6 and ndiv == 0,
+          f"11d Gaussian: mean {dmean}, cov {dcov}, accept {acc}, "
+          f"divergences {ndiv}")
+    gauss = (f"Gaussian, {NUTS_CHAINS} chains, depth {NUTS_DEPTH}, {n_w} + "
+             f"{n_s} transitions: {t_g:.3f} s = "
+             f"{1e3 * t_g / (n_w + n_s):.2f} ms per transition of all "
+             f"chains; pooled mean {dmean:.4f} (gate 0.15), cov {dcov:.4f} "
+             f"(0.35), accept {acc:.3f} (0.6), {ndiv} divergences")
+
+    hcfg = IFEstimationConfig(method="ghfs", form="sqrt")
+    ys_all = torch.as_tensor(data["ys"][0], dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    init = hcfg.default_init_theta(torch.float32).to(device) \
+        + 0.1 * torch.randn(HYPER_CHAINS, 6, generator=gen, device=device)
+    vg = batched_value_and_grad(
+        make_logposterior(hcfg, ys_all[:HYPER_SHORT_T]))
+    vg(init)
+    _, t_short = timed(vg, init)
+    n_w, n_s = HYPER_TRANSITIONS
+    evals = 1 + (n_w + n_s) * (2 ** HYPER_DEPTH - 1)
+    T_h = int(min(T_FULL, max(HYPER_MIN_T, HYPER_SHORT_T * HYPER_BUDGET_S
+                              / (evals * t_short))))
+    ys_h = ys_all[:T_h]
+    seen = []
+
+    def watched(logdensity):
+        """nuts_sample's batched value-and-grad, keeping every point it
+        evaluates (warmup included) with its value and gradient."""
+        vg_ = batched_value_and_grad(logdensity)
+
+        def run(q):
+            logp, grad = vg_(q)
+            seen.append((q, logp, grad))
+            return logp, grad
+        return run
+
+    with mock.patch.object(nuts_module, "batched_value_and_grad", watched):
+        res, t_h = timed(sample_hyperposterior, hcfg, ys_h, gen,
+                         init_theta=init, num_samples=n_s, num_warmup=n_w,
+                         step_size=HYPER_STEP, max_tree_depth=HYPER_DEPTH)
+    qs, logps, grads = (torch.cat(x) for x in zip(*seen))
+    bad = ~(torch.isfinite(logps) & torch.isfinite(grads).all(-1))
+    check(not bool(bad.any()),
+          f"11d hyperposterior: {int(bad.sum())} of {len(logps)} evaluated "
+          f"points have a non-finite log density or gradient, the first at "
+          f"theta {qs[bad][:1].tolist()}")
+    acc = float(res.accept_prob.mean())
+    finite = bool(torch.isfinite(res.samples).all())
+    check(finite and acc > 0.0,
+          f"11d hyperposterior: finite {finite}, accept "
+          f"{res.accept_prob.tolist()}, step sizes {res.step_size.tolist()}")
+    logpost = make_logposterior(hcfg, ys_h)
+    lane = max(abs(float(logpost(res.samples[0, k])) - float(
+        res.log_densities[0, k])) / abs(float(res.log_densities[0, k]))
+        for k in range(n_s))
+    check(lane <= HYPER_LANE_RTOL, f"11d lane 0 vs make_logposterior alone: "
+                                   f"{lane} > {HYPER_LANE_RTOL}")
+    say(f"11d NUTS: {gauss}; sample_hyperposterior sqrt GHFS f32, "
+        f"{HYPER_CHAINS} chains, depth {HYPER_DEPTH}, {n_w} + {n_s} "
+        f"transitions, T={T_h} (cut from {T_FULL} to fit {HYPER_BUDGET_S:.0f}"
+        f" s: one batched value-and-grad at T={HYPER_SHORT_T} took "
+        f"{1e3 * t_short:.1f} ms, at most {evals} per run): {t_h:.3f} s, "
+        f"{len(logps)} points evaluated, all finite, "
+        f"accept {acc:.3f}, step sizes "
+        f"{[round(float(e), 4) for e in res.step_size]}, lane 0 vs alone "
+        f"{lane:.3g} (gate {HYPER_LANE_RTOL})")
+    print(f"phase 11 parallel-in-time filtering and posterior inference: "
+          f"{time.perf_counter() - t_phase:.3f} s; filter kernel launches "
+          f"{ghfs_chirp_filter.launches} (no Pallas kernel on these paths); "
+          f"{smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2042,6 +2374,7 @@ def main() -> int:
     family = phase_family(device, smi)
     phase_table_one(device, smi)
     analysis = phase_analysis(device, smi)
+    phase_parallel_posterior(device, smi)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,

@@ -15,15 +15,18 @@ estimation, and the Table-I Monte-Carlo sweeps, for the chirp, harmonic
 chirp and La Scala models, discrete and continuous-discrete, the KPT
 baseline, the classical, FHC and fastF0NLS baselines: every column of
 Table I; the filter-error Monte Carlo and PCRLB of Fig. 5, the
-covariance functions, TME and LTI discretizations, and the real-data
-pipelines)
+covariance functions, TME and LTI discretizations, the real-data
+pipelines, the parallel-in-time filters and smoothers, the bootstrap
+particle filter and NUTS; not yet the multi-device scale-out)
 -----------
 quad       sigma-point rules, Gaussian expectations, RK4 moment steps
 models     chirp, harmonic chirp and La Scala SDE priors, their LCD
            and TME discretizations, the KPT model, Matern-3/2, bijections,
            the PCRLB recursion, covariance functions
 infer      sequential, continuous-discrete and square-root filters and
-           smoothers, and their channels-first batched forms
+           smoothers, their channels-first batched forms, the
+           associative-scan KF/RTS and iterated parallel sigma-point
+           smoother, the bootstrap particle filter, NUTS
 ops        hand-written CUDA kernels (``ops/csrc``) and their wrappers;
            the host C++ fast-NLS library (``ops/native``)
 fit        batched L-BFGS with zoom line search, host SciPy L-BFGS-B,
@@ -34,9 +37,10 @@ apps       ``IFEstimationConfig``, the pipeline, ``estimate_if_batched``,
            the KPT baseline (``kpt_if_estimate``, ``kpt_mle``),
            the sweeps (``mle_sweep_on_measurements``), the filter-error
            Monte Carlo and PCRLB (``apps.crlb``), the real-data
-           pipelines (``apps.realdata``)
+           pipelines (``apps.realdata``), hyperparameter posteriors
+           (``apps.posterior``)
 toymodels  synthetic chirps and magnitude/IF families
-utils      numerics, metrics, SDE simulation, LTI discretization
+utils      numerics, metrics, SDE simulation, LTI discretization, timing
 """
 
 import torch as _torch

@@ -1,7 +1,8 @@
 """End-to-end applications: the single-record pipeline (MLE, then IF
 estimation), batched IF estimation, the KPT baseline, the Table-I
 Monte-Carlo sweeps, the filter-error Monte Carlo and PCRLB of paper
-Fig. 5, and the real-data pipelines (bat calls, LIGO)."""
+Fig. 5, the real-data pipelines (bat calls, LIGO), and the Bayesian
+hyperparameter posteriors (NUTS, SMC)."""
 
 from chirpgp_tpu_torch.apps.pipeline import (
     IFEstimationConfig, make_nll_fn, fit_mle, estimate_if, run_pipeline,
@@ -17,6 +18,8 @@ from chirpgp_tpu_torch.apps.crlb import (
 from chirpgp_tpu_torch.apps.realdata import (
     BatCallConfig, EPTESICUS, MYOTIS, analyze_bat_call, ligo_config,
     analyze_ligo, standardize, load_wav, load_ligo_strain)
+from chirpgp_tpu_torch.apps.posterior import (
+    make_logposterior, sample_hyperposterior, smc_nll)
 
 __all__ = ["IFEstimationConfig", "make_nll_fn", "fit_mle", "estimate_if",
            "run_pipeline", "estimate_if_batched", "KPT_INIT_PARAMS",
@@ -28,4 +31,5 @@ __all__ = ["IFEstimationConfig", "make_nll_fn", "fit_mle", "estimate_if",
            "filter_error_mc", "filter_error_mc_chunked", "pcrlb_chirp_mc",
            "BatCallConfig", "EPTESICUS", "MYOTIS", "analyze_bat_call",
            "ligo_config", "analyze_ligo", "standardize", "load_wav",
-           "load_ligo_strain"]
+           "load_ligo_strain", "make_logposterior", "sample_hyperposterior",
+           "smc_nll"]

@@ -1,11 +1,11 @@
 """Numerical helpers shared across the port (counterpart of
-``chirpgp_tpu.utils.numerics``; the batched solvers ``solve_small`` and
-``psd_solve_batched`` are not ported yet)."""
+``chirpgp_tpu.utils.numerics``)."""
 
 import torch
 
 __all__ = ["as_real_tensor", "phi1", "ou_variance", "psd_cholesky",
-           "cholesky_or_nan", "psd_solve", "psd_solve_factored"]
+           "cholesky_or_nan", "psd_solve", "psd_solve_factored",
+           "solve_small", "psd_solve_batched"]
 
 
 def as_real_tensor(x) -> torch.Tensor:
@@ -114,3 +114,77 @@ def psd_solve_factored(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         X[j] = acc * inv[j]
     out = torch.stack(X, dim=0)
     return out[:, 0] if vec else out
+
+
+def solve_small(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched solve ``A X = B`` for small ``d`` by unrolled Gaussian
+    elimination WITHOUT pivoting, as the JAX package does it (a closed-form
+    adjugate at d = 2).  ``A``: (..., d, d); ``B``: (..., d, k).
+
+    The JAX package wrote it because a pivoted LU on tiny batched systems
+    was slow on the TPU; the port keeps the same arithmetic so that the
+    parallel-scan combines agree with it to round-off.  Without pivoting it
+    is meant for the combines' ``I + C J`` with ``C``, ``J`` PSD and for
+    SPD systems, whose leading principal minors stay positive; at d >= 3 a
+    zero leading minor gives Inf/NaN where a pivoted solve would not
+    (kept as in the reference).
+    """
+    d = A.shape[-1]
+    k = B.shape[-1]
+    if d == 2:
+        a, b = A[..., 0, 0], A[..., 0, 1]
+        c, e = A[..., 1, 0], A[..., 1, 1]
+        inv_det = 1.0 / (a * e - b * c)
+        r0 = e[..., None] * B[..., 0, :] - b[..., None] * B[..., 1, :]
+        r1 = -c[..., None] * B[..., 0, :] + a[..., None] * B[..., 1, :]
+        return torch.stack([r0, r1], dim=-2) * inv_det[..., None, None]
+    M = [[A[..., i, j] for j in range(d)] for i in range(d)]
+    X = [[B[..., i, j] for j in range(k)] for i in range(d)]
+    for i in range(d):
+        inv = 1.0 / M[i][i]
+        for j in range(i + 1, d):
+            M[i][j] = M[i][j] * inv
+        for j in range(k):
+            X[i][j] = X[i][j] * inv
+        for r in range(i + 1, d):
+            f = M[r][i]
+            for j in range(i + 1, d):
+                M[r][j] = M[r][j] - f * M[i][j]
+            for j in range(k):
+                X[r][j] = X[r][j] - f * X[i][j]
+    for i in range(d - 2, -1, -1):
+        for r in range(i + 1, d):
+            f = M[i][r]
+            for j in range(k):
+                X[i][j] = X[i][j] - f * X[r][j]
+    return torch.stack([torch.stack(row, dim=-1) for row in X], dim=-2)
+
+
+def psd_solve_batched(P: torch.Tensor, B: torch.Tensor,
+                      eps: float = 1e-30) -> torch.Tensor:
+    """Batched solve ``P X = B`` for SPD/PSD ``P`` with small ``d``:
+    :func:`psd_cholesky` (degenerate-safe) and unrolled substitutions in
+    which a zero pivot contributes zero.  ``P``: (..., d, d); ``B``:
+    (..., d, k)."""
+    L = psd_cholesky(P, eps)
+    d = P.shape[-1]
+    k = B.shape[-1]
+    inv = []
+    for j in range(d):
+        Ljj = L[..., j, j]
+        ok = Ljj > 0
+        inv.append(torch.where(ok, 1.0 / torch.where(ok, Ljj, 1.0), 0.0))
+    Bl = [[B[..., i, j] for j in range(k)] for i in range(d)]
+    Y = [None] * d
+    for j in range(d):
+        acc = Bl[j]
+        for kk in range(j):
+            acc = [a - L[..., j, kk] * y for a, y in zip(acc, Y[kk])]
+        Y[j] = [a * inv[j] for a in acc]
+    X = [None] * d
+    for j in range(d - 1, -1, -1):
+        acc = Y[j]
+        for kk in range(j + 1, d):
+            acc = [a - L[..., kk, j] * x for a, x in zip(acc, X[kk])]
+        X[j] = [a * inv[j] for a in acc]
+    return torch.stack([torch.stack(row, dim=-1) for row in X], dim=-2)

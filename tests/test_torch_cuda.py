@@ -448,3 +448,69 @@ def test_analysis_and_baselines_on_card_match_cpu(cuda):
         if atol is None:
             atol = 1e-9 * np.abs(a).max()
         npt.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=name)
+
+
+def _m32_inputs(device, dtype, T):
+    from chirpgp_tpu_torch.models import m32_solution, stationary_cov_m32
+    F, Sigma = m32_solution(1.0, 1.0, 1e-3)
+    ys = np.load(ROOT / "results/data/parallel_kf_ref.npz")["ys_T3141"][:T]
+    return [torch.as_tensor(x, dtype=dtype, device=device) for x in (
+        F, Sigma, [1.0, 0.0], 0.1, [0.0, 0.0], stationary_cov_m32(1.0, 1.0),
+        ys)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [None, 128])
+def test_parallel_kf_rts_on_card_matches_cpu(cuda, block_size):
+    """The flat and blocked associative-scan KF/RTS on the card against the
+    same call on the host CPU: float64 to 1e-10 of scale, float32 to 1e-3
+    of scale (float32 is 2e-5 of scale from float64 on the host CPU; the
+    two devices round the scans' sums differently)."""
+    from chirpgp_tpu_torch.infer import kf_rts_parallel
+    for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-3)):
+        outs = [kf_rts_parallel(*_m32_inputs(dev, dtype, 3141),
+                                block_size=block_size)
+                for dev in ("cpu", cuda)]
+        for a, b in zip(*outs):
+            assert b.device.type == "cuda" and b.dtype == dtype
+            a = _np(a)
+            npt.assert_allclose(_np(b), a, rtol=0,
+                                atol=rtol * np.abs(a).max())
+
+
+@pytest.mark.cuda
+def test_smc_and_nuts_on_a_cuda_generator_run_finite(cuda):
+    from chirpgp_tpu_torch.apps import IFEstimationConfig, smc_nll
+    from chirpgp_tpu_torch.infer import nuts_sample
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ys = torch.as_tensor(np.load(ROOT / "results/data/toydata_const.npz")
+                         ["ys"][0, :200], device=cuda)
+    nll, res = smc_nll(IFEstimationConfig(), torch.tensor(PARAMS), ys, gen,
+                       num_particles=512)
+    assert res.means.device.type == "cuda"
+    assert bool(torch.isfinite(nll)) and bool(torch.isfinite(res.means).all())
+    prec = torch.tensor([[2.0, -0.5], [-0.5, 1.0]], device=cuda)
+    out = nuts_sample(lambda q: -0.5 * q @ prec @ q,
+                      torch.zeros(8, 2, device=cuda), gen, num_samples=20,
+                      num_warmup=20, max_tree_depth=5)
+    assert out.samples.shape == (8, 20, 2) and out.samples.device.type == "cuda"
+    assert bool(torch.isfinite(out.samples).all())
+    assert bool((out.accept_prob.mean() > 0.0))
+
+
+@pytest.mark.cuda
+def test_profile_device_counts_the_card_kernels(cuda):
+    from chirpgp_tpu_torch.utils.timing import profile_device
+    x = torch.ones(4, device=cuda)
+
+    def fn():
+        y = x
+        for _ in range(50):
+            y = y + 1.0
+        return y
+
+    fn()
+    prof = profile_device(fn)
+    assert prof.launches == 50 and prof.kernel_s > 0.0
+    assert prof.wall_s > 0.0 and prof.profiled_wall_s > 0.0
+    assert 0.0 < prof.busy

@@ -311,6 +311,10 @@ def test_port_never_imports_jax():
             PORT / "apps/crlb.py", PORT / "apps/realdata.py",
             PORT / "baselines/fhc.py", PORT / "baselines/fastnls.py",
             PORT / "ops/native/__init__.py",
+            PORT / "infer/parallel_kf.py", PORT / "infer/parallel_sgp.py",
+            PORT / "infer/smc.py", PORT / "infer/nuts.py",
+            PORT / "apps/posterior.py", PORT / "utils/timing.py",
+            PORT / "utils/numerics.py",
             ROOT / "chip_smoke.py"} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
