@@ -7,8 +7,8 @@ Builds the hand-written CUDA kernel from ``chirpgp_tpu_torch/ops/csrc`` on
 first use and drives the batched IF-estimation path, the single-record
 MLE path, the fused batched filter+smoother, the Table-I Monte-Carlo
 sweep, every other column of Table I, the paper's analysis and
-real-data pipelines, and the parallel-in-time and posterior-inference
-paths once at full width.
+real-data pipelines, the parallel-in-time and posterior-inference
+paths, and the scale-out layer once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
@@ -109,7 +109,18 @@ Phases, one line each:
     correlated 2-D Gaussian with 64 chains on the leading axis (pooled
     moments), and ``sample_hyperposterior`` (sqrt GHFS f32, 8 chains, T
     cut to a budget): every point it evaluates finite, lane 0 against
-    the log posterior alone.
+    the log posterior alone;
+12. the scale-out layer (``torch.distributed``; no Pallas kernel on the
+    collectives): 12a one NCCL rank in this process, every sharded entry
+    point on its one-rank mesh against its unsharded function (the sharded
+    seed sweep of ``estimate_if_batched`` bit for bit); 12b four ``gloo``
+    ranks spawned on the one card (NCCL refuses two ranks on a device):
+    the sharded seed sweep of ``estimate_if_batched`` at B=4096, T=3141,
+    f32, one kernel launch per rank, the gathered IF mean against phase
+    3's; the time-sharded KF/RTS at T=25000; the particle-sharded SMC, the
+    chain-sharded NUTS and hyperposterior; the ``mesh`` arguments of
+    ``mc_mle_sweep``, ``mc_kpt_sweep`` and ``filter_error_mc`` against
+    ``mesh=None``.  A rank's failure or hang fails the run.
 
 A device busy share is the kernel time of a call under ``torch.profiler``
 (the card's activity alone) over the wall time of the same call
@@ -121,7 +132,9 @@ The line before the last is a JSON record of the kernels (``ms`` and
 ``ms_f64`` and ``bound_ms_f64`` at B=4096 float64, La Scala's path,
 phase 8b: its launches, ``ms_lascala_b100`` and its bound, and the CRLB
 path, phase 10: ``launches_crlb``, ``ms_crlb_chunk`` and
-``bound_ms_crlb_chunk``); the last line is ``{"ok": true, "device":
+``bound_ms_crlb_chunk``, and the sharded path, phase 12b:
+``launches_sharded``, ``ms_sharded_b1024`` and its bound); the last
+line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
 """
@@ -157,8 +170,9 @@ GATE_RMSE_ATOL, GATE_NELL_RTOL = 0.005, 1e-4
 # path (906.72448), and the reference's seed-0 IF-RMSE x10 of GHFS and EKFS.
 MLE_NLL, MLE_NLL_RTOL = 906.72448, 1e-6
 MLE_GATES = {"ghfs": 0.7856412, "ekfs": 0.7327871}
-# fit_mle's iterations in 5c: cut from 2 to make room for phase 8.
-MLE_ITERS = 1
+# fit_mle's iterations in 5c: cut from 2 to make room for phase 8; and its
+# record cut to MLE_FIT_T samples (from T=3141) to make room for phase 12.
+MLE_ITERS, MLE_FIT_T = 1, 785
 # Phase 6d: the slim fused IF mean against estimate_if_batched's, both in
 # float32, as max deviation over (1 + max |IF|).  On the host CPU the two
 # plain versions differ by 9.3e-6 at B=32; the bound leaves room for the
@@ -231,8 +245,8 @@ CD_RMSE_ATOL, CD_REF_ATOL, CD_NLL_RTOL = 1e-7, 0.005, 1e-6
 # 9b: one vmapped value-and-grad of each cd sweep objective at B=300, T cut
 # to CD_VG_BUDGET_S by a first call at FAMILY_SHORT_T.  9c: the whole
 # cd_ekfs sweep at CD_SMALL = (seeds per magnitude, T, max_iters).  (The
-# budget was 20 s before phase 10.)
-CD_VG_BUDGET_S = 15.0
+# budget was 20 s before phase 10, and 15 s before phase 12.)
+CD_VG_BUDGET_S = 10.0
 CD_SMALL = (1, 40, 3)
 # 9d: the classical columns, float64.  The card against the host CPU on the
 # same inputs, per-record IF-RMSE relative: 1e-9, but the polynomial LM's
@@ -256,8 +270,8 @@ CLASSICAL_REF_RTOL = (("hilbert", "reference", 1e-5),
                       ("poly", "JAX package", 1e-4),
                       ("anf", "reference", 1e-9))
 # (FAMILY_VG_BUDGET_S was 75 s, then 45 s and 30 s, before phase 9, and 20 s
-# before phase 10.)
-FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 15.0
+# before phase 10, and 15 s before phase 12.)
+FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 10.0
 FAMILY_PROFILE_T = 16
 FAMILY_SMALL = (1, 40, 3)
 # Phase 10, the paper's analysis and the last baselines.  The Fig. 5
@@ -370,8 +384,50 @@ HYPER_CHAINS, HYPER_DEPTH, HYPER_TRANSITIONS = 8, 3, (2, 2)
 # H100 (ROADMAP Queue 3).  The gate on every evaluated point still fails
 # the run if the smaller step meets one.
 HYPER_STEP = 0.01
-HYPER_SHORT_T, HYPER_MIN_T, HYPER_BUDGET_S = 32, 16, 30.0
+# (HYPER_BUDGET_S was 30 s before phase 12.)
+HYPER_SHORT_T, HYPER_MIN_T, HYPER_BUDGET_S = 32, 16, 15.0
 HYPER_LANE_RTOL = 1e-5
+# Phase 12, the scale-out layer (torch.distributed; the exchanges are
+# collectives, no Pallas kernel): 12a one NCCL rank in this process at
+# SHARD_ONE_RANK's sizes, each sharded entry point against its unsharded
+# function; 12b SHARD_RANKS gloo ranks on the one card (NCCL refuses two
+# ranks on one device), spawned, at SHARD_RANKS_SIZES: the sharded seed
+# sweep of estimate_if_batched at the benchmark's B=4096, T=3141, f32 on
+# phase 3's data (B / SHARD_RANKS lanes and one kernel launch per rank),
+# the gathered IF mean within SHARD_IF_BOUND of phase 3's as max |d| over
+# (1 + max |IF|) (phase 2's float32 bound on the means: launch_geometry
+# may pick another team at the smaller B); the time-sharded KF/RTS on 11a's
+# M32 configuration, flat and blocked PKF_BLOCKS[0], within PKF_TOL of the
+# float64 truth, a float64 flat call within SHARD_KF_F64_RTOL of scale of
+# the unsharded flat scan; bootstrap_filter_sharded on 11c's LGSSM, log-ML
+# within 2% of -kf's NLL, and in float64 on the unsharded run's draws
+# within SHARD_SMC_F64_RTOL of bootstrap_filter's; nuts_sample_sharded on
+# 11d's Gaussian (11d's bounds, one step size; 60 + 60 transitions, a cut
+# of 11d's 100 + 100), and a float64 run on equal draws
+# (SHARD_NUTS_EQUAL: chains, transitions, depth) within
+# SHARD_NUTS_F64_RTOL of a one-rank mesh; sample_hyperposterior_sharded,
+# sqrt GHFS f32, at T=SHARD_HYPER_T, SHARD_HYPER_TRANSITIONS, every
+# evaluated point finite; mc_mle_sweep (EKFS) and mc_kpt_sweep
+# (stepped=False) at the sizes' sweep (B, T, max_iters) against
+# mesh=None (rtol 1e-6, atol 1e-8: the JAX package's shard-invariance
+# tolerance); filter_error_mc (GHF, f64) at the crlb point with N
+# trajectories against mesh=None on equal draws within SHARD_CRLB_RTOL
+# of scale.  The ranks are joined within SHARD_JOIN_S; a rank's failure
+# or hang fails the run.
+SHARD_RANKS, SHARD_JOIN_S, SHARD_PG_TIMEOUT_S = 4, 600, 300
+SHARD_IF_BOUND = FULL_BOUNDS["float32"][0]
+SHARD_KF_F64_RTOL, SHARD_SMC_F64_RTOL = 1e-10, 1e-9
+SHARD_NUTS_F64_RTOL, SHARD_CRLB_RTOL = 1e-9, 1e-10
+SHARD_NUTS_EQUAL = (8, (10, 10), 4)
+SHARD_HYPER_T, SHARD_HYPER_TRANSITIONS = HYPER_MIN_T, (1, 1)
+SHARD_SWEEP_RTOL, SHARD_SWEEP_ATOL = 1e-6, 1e-8
+SHARD_RANKS_SIZES = dict(B=B_FULL, T=T_FULL, kf_T=PKF_T[-1],
+                         smc_N=SMC_LGSSM_N, nuts=(NUTS_CHAINS, (60, 60)),
+                         hyper_chains=HYPER_CHAINS, sweep=(8, 40, 2),
+                         crlb_N=65536)
+SHARD_ONE_RANK = dict(B=256, T=500, kf_T=PKF_T[0], smc_N=1000,
+                      nuts=(16, (30, 30)), hyper_chains=2, sweep=(2, 40, 2),
+                      crlb_N=4096)
 
 class SmokeFailure(RuntimeError):
     pass
@@ -785,26 +841,32 @@ def phase_mle(device):
         f"value-and-grad card {t_star:.3f} s, {t0:.3f} s, host CPU "
         f"{t_host:.3f} s")
 
-    # c. fit_mle from theta0, counting the objective's calls.
+    # c. fit_mle from theta0 on the record's first MLE_FIT_T samples,
+    # counting the objective's calls and keeping their values.
     calls = []
+    make_nll = pipeline.make_nll_fn
 
     def counted_make_nll_fn(_cfg, _ys):
+        fn = make_nll(_cfg, _ys)
+
         def nll(theta):
-            calls.append(1)
-            return card_nll(theta)
+            out = fn(theta)
+            calls.append(float(out.detach()))
+            return out
         return nll
 
     with mock.patch.object(pipeline, "make_nll_fn", counted_make_nll_fn):
         opt, t_fit = timed(pipeline.fit_mle,
                            dataclasses.replace(cfg, max_iters=MLE_ITERS),
-                           ys, theta0)
+                           ys[:MLE_FIT_T], theta0)
     f_fit = float(opt.fun_val)
-    check(np.isfinite(f_fit) and f_fit < v0,
-          f"fit_mle: final nll {f_fit!r} not finite and below {v0!r}")
+    check(np.isfinite(f_fit) and f_fit < calls[0],
+          f"fit_mle: final nll {f_fit!r} not finite and below {calls[0]!r}")
     parts.append(
         f"5c fit_mle scipy {int(opt.num_iters)} iters (cut from 2 to make "
-        f"room for phase 8), {len(calls)} "
-        f"objective calls, nll {v0!r} -> {f_fit!r}, success "
+        f"room for phase 8) at T={MLE_FIT_T} (cut from {T_FULL} for phase "
+        f"12), {len(calls)} "
+        f"objective calls, nll {calls[0]!r} -> {f_fit!r}, success "
         f"{bool(opt.success)}; {t_fit:.3f} s = {t_fit / len(calls):.3f} s "
         f"per value-and-grad on the card (host CPU {t_host:.3f} s, once)")
 
@@ -2076,10 +2138,55 @@ def chirp_record(dtype, device):
     return pack, torch.as_tensor(ys, dtype=dtype, device=device)
 
 
+def m32_model(dt, dtype, device):
+    """The M32 model of phases 11 and 12 (ell = sigma = 1): F, Sigma, H,
+    m0, P0 in ``dtype`` on ``device``."""
+    from chirpgp_tpu_torch.models import m32_solution, stationary_cov_m32
+    F, Sigma = m32_solution(1.0, 1.0, dt)
+    return [torch.as_tensor(x, dtype=dtype, device=device) for x in (
+        F, Sigma, [1.0, 0.0], [0.0, 0.0], stationary_cov_m32(1.0, 1.0))]
+
+
+def lgssm_record(device, T=100):
+    """11c's LGSSM: the M32 model at dt=0.01, float64, and T measurements
+    (Xi=0.1) of a path simulated from ``default_rng(7)``."""
+    F, Sigma, H, m0, P0 = m32_model(0.01, torch.float64, device)
+    rng = np.random.default_rng(7)
+    Lq = np.linalg.cholesky(Sigma.cpu().numpy())
+    x, xs = np.zeros(2), []
+    for _ in range(T):
+        x = F.cpu().numpy() @ x + Lq @ rng.standard_normal(2)
+        xs.append(x[0])
+    ys = torch.as_tensor(np.array(xs) + math.sqrt(XI)
+                         * rng.standard_normal(T), device=device)
+    return (F, Sigma, H, m0, P0), ys
+
+
+def sequential_chirp_smoother(device):
+    """11b's baseline, the sequential sgp_filter + sgp_smoother on the chirp
+    record (f32, GH-3) on ``device``, for a child process: the smoothed V
+    means (host NumPy), the final NLL and the seconds."""
+    from chirpgp_tpu_torch.infer import sgp_filter, sgp_smoother
+    from chirpgp_tpu_torch.quad import gauss_hermite
+    from chirpgp_tpu_torch.utils.timing import timed
+    rule = gauss_hermite(4, 3)
+    pack, ys = chirp_record(torch.float32, torch.device(device))
+
+    def seq():
+        mfs, Pfs, nll = sgp_filter(pack.m_and_cov, rule, pack.H, XI, pack.m0,
+                                   pack.P0, DT, ys)
+        return sgp_smoother(pack.m_and_cov, rule, mfs, Pfs, DT)[0], nll
+
+    (mss, nll), t_seq = timed(seq)
+    return mss[:, 2].double().cpu().numpy(), float(nll[-1]), t_seq
+
+
 def phase_parallel_posterior(device, smi):
     """11a the associative-scan KF/RTS, 11b the iterated parallel
     sigma-point smoother, 11c the bootstrap particle filter, 11d NUTS and
     the hyperparameter posterior."""
+    import concurrent.futures
+    import multiprocessing
     from unittest import mock
     import chirpgp_tpu_torch.infer.nuts as nuts_module
     from chirpgp_tpu_torch.apps import (
@@ -2087,15 +2194,19 @@ def phase_parallel_posterior(device, smi):
     from chirpgp_tpu_torch.fit import batched_value_and_grad
     from chirpgp_tpu_torch.infer import (
         bootstrap_filter, kf, kf_rts_parallel, nuts_sample,
-        psgp_filter_smoother, rts, sgp_filter, sgp_smoother)
-    from chirpgp_tpu_torch.models import (
-        disc_m32, g, m32_solution, stationary_cov_m32)
+        psgp_filter_smoother, rts)
+    from chirpgp_tpu_torch.models import disc_m32, g
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     from chirpgp_tpu_torch.quad import gauss_hermite
     from chirpgp_tpu_torch.utils import rmse
     from chirpgp_tpu_torch.utils.timing import profile_device, timed
     t_phase = t_sub = time.perf_counter()
     ghfs_chirp_filter.launches = 0
+    # 11b's sequential baseline runs in a child process on the same card
+    # beside 11a (inline it took 16-29 s; cut for phase 12).
+    baseline = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    seq_future = baseline.submit(sequential_chirp_smoother, str(device))
 
     def say(line):
         nonlocal t_sub
@@ -2104,9 +2215,7 @@ def phase_parallel_posterior(device, smi):
         t_sub = now
 
     def m32(dt, dtype):
-        F, Sigma = m32_solution(1.0, 1.0, dt)
-        return [torch.as_tensor(x, dtype=dtype, device=device) for x in (
-            F, Sigma, [1.0, 0.0], [0.0, 0.0], stationary_cov_m32(1.0, 1.0))]
+        return m32_model(dt, dtype, device)
 
     def profiled(fn, T):
         """Launches per call and the device's busy share, two more calls."""
@@ -2180,13 +2289,9 @@ def phase_parallel_posterior(device, smi):
     out, t_it = timed(psgp, PSGP_ITERS)
     v_par = out[3][:, 2].double().cpu()
 
-    def seq():
-        mfs, Pfs, nll = sgp_filter(pack.m_and_cov, rule, pack.H, XI, pack.m0,
-                                   pack.P0, DT, ys)
-        return sgp_smoother(pack.m_and_cov, rule, mfs, Pfs, DT)[0], nll
-
-    (mss_seq, nll_seq), t_seq = timed(seq)
-    v_seq, nll_seq = mss_seq[:, 2].double().cpu(), float(nll_seq[-1])
+    v_seq, nll_seq, t_seq = seq_future.result()
+    baseline.shutdown()
+    v_seq = torch.as_tensor(v_seq)
     err_seq = float(rmse(tf, g(v_seq)))
     err_par = float(rmse(tf, g(v_par)))
     dv = float((v_par - v_seq).abs().max())
@@ -2203,7 +2308,7 @@ def phase_parallel_posterior(device, smi):
                                   f"{dev64} of scale > {PSGP_F64_RTOL}")
     say(f"11b iterated parallel sigma-point smoother, chirp GH-3 f32, seed "
         f"0, T={T_FULL}: sequential sgp_filter + sgp_smoother {t_seq:.3f} s "
-        f"= {T_FULL / t_seq:.1f} steps/s; "
+        f"= {T_FULL / t_seq:.1f} steps/s (in a child process beside 11a); "
         f"one iteration flat {1e3 * t_flat:.3f} ms ({T_FULL / t_flat:.1f} "
         f"steps/s; {prof}), "
         f"blocked {PSGP_BLOCK} {1e3 * t_blk:.3f} ms; {PSGP_ITERS} "
@@ -2213,16 +2318,8 @@ def phase_parallel_posterior(device, smi):
         f"{dev64:.3g} of scale (gate {PSGP_F64_RTOL})")
 
     # 11c: the bootstrap particle filter.
-    T = 100
-    F64, Sig64, H64, m064, P064 = m32(0.01, torch.float64)
-    rng = np.random.default_rng(7)
-    Lq = np.linalg.cholesky(Sig64.cpu().numpy())
-    x, xs = np.zeros(2), []
-    for _ in range(T):
-        x = F64.cpu().numpy() @ x + Lq @ rng.standard_normal(2)
-        xs.append(x[0])
-    ys = torch.as_tensor(np.array(xs) + math.sqrt(XI)
-                         * rng.standard_normal(T), device=device)
+    (F64, Sig64, H64, m064, P064), ys = lgssm_record(device)
+    T = ys.shape[0]
     mfs, _, nll = kf(F64, Sig64, H64, XI, m064, P064, ys)
     gen = torch.Generator(device=device).manual_seed(8)
     res, t_lg = timed(bootstrap_filter, disc_m32(1.0, 1.0), H64, XI, m064,
@@ -2343,6 +2440,389 @@ def phase_parallel_posterior(device, smi):
           f"{ghfs_chirp_filter.launches} (no Pallas kernel on these paths); "
           f"{smi}", flush=True)
 
+def shard_checks(mesh, sizes, smi, say):
+    """Phase 12's checks on ``mesh`` (every rank runs them; the unsharded
+    references run on rank 0).  Returns rank 0's report (and the gathered
+    IF mean) with every rank's kernel launches of the sharded sweep."""
+    from unittest import mock
+    import chirpgp_tpu_torch.infer.nuts as nuts_module
+    from chirpgp_tpu_torch.apps import (
+        IFEstimationConfig, estimate_if_batched, filter_error_mc,
+        generate_rnd_keys, mc_kpt_sweep, mc_mle_sweep,
+        sample_hyperposterior_sharded)
+    from chirpgp_tpu_torch.fit import batched_value_and_grad
+    from chirpgp_tpu_torch.infer import (
+        bootstrap_filter, bootstrap_filter_sharded, kf, kf_rts_parallel,
+        kf_parallel_time_sharded, nuts_sample_sharded,
+        rts_parallel_time_sharded)
+    from chirpgp_tpu_torch.infer.nuts import NUTSDraws, nuts_draws
+    from chirpgp_tpu_torch.infer.smc import SMCDraws, smc_draws
+    from chirpgp_tpu_torch.models import disc_m32, g
+    from chirpgp_tpu_torch.ops.chirp_filter import (
+        ghfs_chirp_filter, kernel_launcher)
+    from chirpgp_tpu_torch.parallel.mesh import Mesh, all_reduce
+    from chirpgp_tpu_torch.parallel import sharded_seed_sweep
+    from chirpgp_tpu_torch.utils.timing import timed
+    dev, lead = mesh.device, mesh.rank == 0
+    rep = {}
+
+    def rows(x, axis=0):
+        n = x.shape[axis] // mesh.size
+        return x.narrow(axis, mesh.rank * n, n)
+
+    def barrier():
+        all_reduce(torch.zeros(1, device=dev), mesh)
+
+    def rel(a, b):
+        a, b = (torch.as_tensor(x).double().cpu() for x in (a, b))
+        return float((a - b).abs().max() / b.abs().max())
+
+    # The sharded seed sweep of estimate_if_batched: the main path.
+    cfg = IFEstimationConfig()
+    params = g(cfg.default_init_theta()).to(torch.float32).to(dev)
+    B, T = sizes["B"], sizes["T"]
+    yss = measurements(B, T, 999, torch.float32, dev)
+    ghfs_chirp_filter.launches = 0
+    est, t_est = timed(sharded_seed_sweep, lambda y: {
+        "if_mean": estimate_if_batched(cfg, params, y)["if_mean"]}, yss, mesh)
+    launches = ghfs_chirp_filter.launches
+    if_mean = est["if_mean"]
+    check(launches == 1, f"12 sharded sweep: rank {mesh.rank} launched the "
+                         f"kernel {launches} times, not once")
+    check(tuple(if_mean.shape) == (B, T)
+          and bool(torch.isfinite(if_mean).all()),
+          f"12 sharded sweep: IF mean {tuple(if_mean.shape)}, not finite")
+    rep["launches"] = all_reduce(torch.tensor([launches]), mesh).tolist()[0]
+    barrier()
+    if lead:
+        local = rows(yss)
+        launch, _ = kernel_launcher(params.double().cpu(), XI, DT,
+                                    cfg.sigma_points(), local)
+        rep["ms"] = event_ms(launch)
+        rep["bound_ms"], rep["bound_by"] = bound_ms(
+            cfg.sigma_points().n_points, T, local.shape[0],
+            torch.float32)[2:]
+        rep["if_mean"] = if_mean.cpu().numpy()
+    barrier()
+    say(f"sharded seed sweep of estimate_if_batched, B={B} "
+        f"({B // mesh.size} lanes per rank), T={T}, GH-3 f32: "
+        f"{t_est:.3f} s, kernel launches {rep['launches']} (one per rank)")
+
+    # The time-sharded KF/RTS on 11a's configuration.
+    ref = np.load(ROOT / "results/data/parallel_kf_ref.npz")
+    T = sizes["kf_T"]
+    F, Sigma, H, m0, P0 = m32_model(DT, torch.float32, dev)
+    ys = torch.as_tensor(ref[f"ys_T{T}"], device=dev)
+    truth = ref[f"mss_T{T}"]
+    scale = float(np.abs(truth).max())
+    parts = []
+    for name, bs in (("flat", None), (f"blocked{PKF_BLOCKS[0]}",
+                                      PKF_BLOCKS[0])):
+        def run(bs=bs):
+            mfs, Pfs, _ = kf_parallel_time_sharded(
+                F, Sigma, H, XI, m0, P0, ys, mesh, block_size=bs)
+            return rts_parallel_time_sharded(F, Sigma, mfs, Pfs, mesh,
+                                             block_size=bs)
+        (mss, _), t_kf = timed(run)
+        err = float(np.abs(mss.double().cpu().numpy() - truth).max())
+        check(err <= PKF_TOL * scale, f"12 time-sharded {name} T={T}: "
+                                      f"max |mss - truth| {err} > {PKF_TOL}"
+                                      f" x {scale}")
+        parts.append(f"{name} {1e3 * t_kf:.3f} ms, err {err:.3g}")
+    m64 = m32_model(DT, torch.float64, dev)
+    y64 = ys.double()
+    mfs, Pfs, nll = kf_parallel_time_sharded(*m64[:3], XI, *m64[3:], y64,
+                                             mesh)
+    got = (mfs, Pfs, nll) + rts_parallel_time_sharded(m64[0], m64[1], mfs,
+                                                      Pfs, mesh)
+    want = kf_rts_parallel(*m64[:3], XI, *m64[3:], y64)
+    dev64 = max(rel(a, b) for a, b in zip(got, want))
+    check(dev64 <= SHARD_KF_F64_RTOL, f"12 time-sharded f64 vs unsharded: "
+                                      f"{dev64} > {SHARD_KF_F64_RTOL}")
+    say(f"time-sharded KF/RTS, M32 f32, T={T} ({T // mesh.size} steps per "
+        f"rank; gate {PKF_TOL} x {scale:.4g}): " + "; ".join(parts)
+        + f"; float64 flat vs unsharded {dev64:.3g} of scale (gate "
+          f"{SHARD_KF_F64_RTOL})")
+
+    # The particle-sharded bootstrap filter on 11c's LGSSM.
+    (F, Sigma, H, m0, P0), ys = lgssm_record(dev)
+    _, _, nll = kf(F, Sigma, H, XI, m0, P0, ys)
+    N = sizes["smc_N"]
+    args = (disc_m32(1.0, 1.0), H, XI, m0, P0, 0.01, ys)
+    res, t_smc = timed(bootstrap_filter_sharded, *args,
+                       torch.Generator(device=dev).manual_seed(8), mesh,
+                       num_particles=N)
+    dml = abs(float(res.log_ml[-1]) + float(nll[-1])) / abs(float(nll[-1]))
+    check(dml <= 0.02 and bool(torch.isfinite(res.means).all()),
+          f"12 bootstrap_filter_sharded: log-ML rel {dml}")
+    full = smc_draws(torch.Generator(device=dev).manual_seed(9),
+                     ys.shape[0], N, 2)
+    mine = SMCDraws(rows(full.z0), rows(full.z, 1), full.u)
+    res = bootstrap_filter_sharded(*args, None, mesh, num_particles=N,
+                                   draws=mine)
+    smc_dev = 0.0
+    if lead:
+        want = bootstrap_filter(*args, num_particles=N, draws=full)
+        smc_dev = rel(res.log_ml, want.log_ml)
+        check(smc_dev <= SHARD_SMC_F64_RTOL and bool(
+            (want.ess < 0.5 * N).any()),
+            f"12 bootstrap_filter_sharded on equal draws: log-ML "
+            f"{smc_dev} > {SHARD_SMC_F64_RTOL} (or no resampling)")
+    say(f"bootstrap_filter_sharded, LGSSM T={ys.shape[0]}, N={N} "
+        f"({N // mesh.size} per rank), f64: {t_smc:.3f} s, log-ML rel "
+        f"{dml:.3g} of -kf's (gate 0.02); on bootstrap_filter's draws "
+        f"{smc_dev:.3g} (gate {SHARD_SMC_F64_RTOL})")
+
+    # Chain-sharded NUTS on 11d's Gaussian.
+    prec = torch.linalg.inv(torch.tensor(NUTS_COV, dtype=torch.float64,
+                                         device=dev))
+
+    def gauss(q):
+        return -0.5 * q @ prec @ q
+
+    C, (n_w, n_s) = sizes["nuts"]
+    res, t_nuts = timed(nuts_sample_sharded, gauss,
+                        torch.zeros(C, 2, dtype=torch.float64, device=dev),
+                        torch.Generator(device=dev).manual_seed(0), mesh,
+                        num_samples=n_s, num_warmup=n_w, step_size=0.5,
+                        max_tree_depth=NUTS_DEPTH)
+    pooled = res.samples.reshape(-1, 2).cpu().numpy()
+    dmean = float(np.abs(pooled.mean(0)).max())
+    dcov = float(np.abs(np.cov(pooled.T) - np.array(NUTS_COV)).max())
+    acc = float(res.accept_prob.mean())
+    ndiv = int(res.num_divergent.sum())
+    one_eps = bool((res.step_size == res.step_size[0]).all())
+    check(dmean <= 0.15 and dcov <= 0.35 and acc > 0.6 and ndiv == 0
+          and one_eps and tuple(res.samples.shape) == (C, n_s, 2),
+          f"12 nuts_sample_sharded: mean {dmean}, cov {dcov}, accept {acc},"
+          f" divergences {ndiv}, one step size {one_eps}")
+    c_eq, (w_eq, s_eq), depth = SHARD_NUTS_EQUAL
+    inits = torch.linspace(-1.0, 1.0, 2 * c_eq, dtype=torch.float64,
+                           device=dev).reshape(c_eq, 2)
+    full = nuts_draws(torch.Generator(device=dev).manual_seed(1),
+                      (w_eq + s_eq, c_eq), 2, depth)
+    kw = dict(num_samples=s_eq, num_warmup=w_eq, step_size=0.5,
+              max_tree_depth=depth)
+    got = nuts_sample_sharded(gauss, inits, None, mesh, **kw,
+                              draws=NUTSDraws(*(rows(x, 1) for x in full)))
+    nuts_dev = 0.0
+    if lead:
+        want = nuts_sample_sharded(gauss, inits, None, Mesh("seeds", 1, 0,
+                                                            dev),
+                                   **kw, draws=full)
+        nuts_dev = max(rel(a, b) for a, b in zip(
+            (got.samples, got.step_size), (want.samples, want.step_size)))
+        check(nuts_dev <= SHARD_NUTS_F64_RTOL,
+              f"12 nuts_sample_sharded vs one rank: {nuts_dev} > "
+              f"{SHARD_NUTS_F64_RTOL}")
+    say(f"nuts_sample_sharded, Gaussian, {C} chains ({C // mesh.size} per "
+        f"rank), depth {NUTS_DEPTH}, {n_w} + {n_s} transitions: "
+        f"{t_nuts:.3f} s; pooled mean {dmean:.4f} (gate 0.15), cov "
+        f"{dcov:.4f} (0.35), accept {acc:.3f} (0.6), {ndiv} divergences, "
+        f"one step size {float(res.step_size[0]):.4f}; f64 {c_eq} chains "
+        f"on equal draws vs a one-rank mesh {nuts_dev:.3g} (gate "
+        f"{SHARD_NUTS_F64_RTOL})")
+
+    # The chain-sharded hyperposterior.
+    chains, T_h = sizes["hyper_chains"], SHARD_HYPER_T
+    h_w, h_s = SHARD_HYPER_TRANSITIONS
+    hcfg = IFEstimationConfig(method="ghfs", form="sqrt")
+    ys_h = torch.as_tensor(np.load(ROOT / "results/data/toydata_const.npz")
+                           ["ys"][0, :T_h], dtype=torch.float32, device=dev)
+    seen = []
+
+    def watched(logdensity):
+        vg_ = batched_value_and_grad(logdensity)
+
+        def run(q):
+            logp, grad = vg_(q)
+            seen.append((logp, grad))
+            return logp, grad
+        return run
+
+    with mock.patch.object(nuts_module, "batched_value_and_grad", watched):
+        res, t_h = timed(sample_hyperposterior_sharded, hcfg, ys_h,
+                         torch.Generator(device=dev).manual_seed(3), mesh,
+                         chains, num_samples=h_s, num_warmup=h_w,
+                         step_size=HYPER_STEP, max_tree_depth=HYPER_DEPTH)
+    logps, grads = (torch.cat(x) for x in zip(*seen))
+    bad = int((~(torch.isfinite(logps) & torch.isfinite(grads).all(-1)))
+              .sum())
+    check(bad == 0 and bool(torch.isfinite(res.samples).all())
+          and tuple(res.samples.shape) == (chains, h_s, 6),
+          f"12 sample_hyperposterior_sharded: {bad} of {len(logps)} "
+          f"evaluated points not finite")
+    say(f"sample_hyperposterior_sharded, sqrt GHFS f32, {chains} chains, "
+        f"T={T_h} (cut from {T_FULL}), depth {HYPER_DEPTH}, {h_w} + {h_s} "
+        f"transitions: {t_h:.3f} s, {len(logps)} points evaluated on this "
+        f"rank, all finite")
+
+    # The mesh arguments of the sweeps and of the filter-error Monte Carlo.
+    b_sw, t_sw, it_sw = sizes["sweep"]
+    keys = generate_rnd_keys(b_sw)
+    scfg = IFEstimationConfig(method="ekfs", max_iters=it_sw)
+    calls = {
+        "mc_mle_sweep": lambda m, d: mc_mle_sweep(
+            scfg, keys, "random", T=t_sw, mesh=m, device=d),
+        "mc_kpt_sweep": lambda m, d: mc_kpt_sweep(
+            keys, "damped", T=t_sw, max_iters=it_sw, mesh=m, stepped=False,
+            device=d)}
+    parts = []
+    for name, call in calls.items():
+        got, t_sh = timed(call, mesh, dev)
+        if lead:
+            want, t_un = timed(call, None, dev)
+            ok = bool((got["success"] == want["success"]).all()) and all(
+                np.allclose(got[k], want[k], rtol=SHARD_SWEEP_RTOL,
+                            atol=SHARD_SWEEP_ATOL, equal_nan=True)
+                for k in ("rmse", "params"))
+            check(ok, f"12 {name}(mesh) vs mesh=None: {got} vs {want}")
+            parts.append(f"{name} {t_sh:.3f} s sharded, {t_un:.3f} s "
+                         f"unsharded, equal")
+    N = sizes["crlb_N"]
+    crlb = dict(method="ghf", dt=CRLB_DT, T=CRLB_T)
+    got, t_sh = timed(filter_error_mc, *CRLB_ARGS, N, mesh=mesh, **crlb)
+    if lead:
+        want, t_un = timed(filter_error_mc, *CRLB_ARGS, N, device=dev,
+                           **crlb)
+        crlb_dev = max(rel(got[k], want[k]) for k in want)
+        check(crlb_dev <= SHARD_CRLB_RTOL,
+              f"12 filter_error_mc(mesh) vs mesh=None: {crlb_dev} > "
+              f"{SHARD_CRLB_RTOL}")
+        parts.append(f"filter_error_mc GHF f64 N={N}, T={CRLB_T}: "
+                     f"{t_sh:.3f} s sharded, {t_un:.3f} s unsharded, "
+                     f"{crlb_dev:.3g} of scale (gate {SHARD_CRLB_RTOL})")
+    barrier()
+    say(f"mesh arguments, B={b_sw}, T={t_sw}, {it_sw} iterations "
+        f"(rtol {SHARD_SWEEP_RTOL}, atol {SHARD_SWEEP_ATOL}): "
+        + "; ".join(parts))
+    return rep
+
+
+def _shard_rank(rank, port, device, sizes, smi, queue):
+    """One spawned rank of 12b: the gloo process group, phase 12's checks
+    on the mesh of all ranks, rank 0's report to ``queue``."""
+    import datetime
+    import torch.distributed as dist
+    from chirpgp_tpu_torch.parallel import make_mesh
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}",
+        world_size=SHARD_RANKS, rank=rank,
+        timeout=datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S))
+    try:
+        mesh = make_mesh(SHARD_RANKS, device=device)
+        t_sub = time.perf_counter()
+
+        def say(line):
+            nonlocal t_sub
+            now = time.perf_counter()
+            if rank == 0:
+                print(f"phase 12b {line} ({now - t_sub:.3f} s; {smi})",
+                      flush=True)
+            t_sub = now
+
+        queue.put((rank, shard_checks(mesh, sizes, smi, say)))
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(device, smi, if_ref, backend="nccl"):
+    """12a the sharded entry points on one ``backend`` rank in this
+    process, 12b on SHARD_RANKS spawned gloo ranks sharing ``device``."""
+    import datetime
+    import multiprocessing
+    import queue as queue_module
+    import torch.distributed as dist
+    from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if_batched
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.parallel import make_mesh
+    t_phase = t_sub = time.perf_counter()
+
+    def say(line):
+        nonlocal t_sub
+        now = time.perf_counter()
+        print(f"phase 12a {line} ({now - t_sub:.3f} s; {smi})", flush=True)
+        t_sub = now
+
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S))
+    try:
+        mesh = make_mesh(device=device)
+        check(mesh.group is not None and mesh.size == 1,
+              f"12a: {mesh} has no {backend} group")
+        one = shard_checks(mesh, SHARD_ONE_RANK, smi, say)
+        cfg = IFEstimationConfig()
+        want = estimate_if_batched(
+            cfg, g(cfg.default_init_theta()).to(torch.float32).to(device),
+            measurements(SHARD_ONE_RANK["B"], SHARD_ONE_RANK["T"], 999,
+                         torch.float32, device))["if_mean"]
+        dev = float(np.abs(one["if_mean"] - want.cpu().numpy()).max())
+        check(dev == 0.0, f"12a one-rank sweep vs estimate_if_batched: {dev}")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 12a one {backend} rank: {time.perf_counter() - t_phase:.3f}"
+          f" s, the one-rank sweep equal to estimate_if_batched bit for bit",
+          flush=True)
+
+    t_b = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_shard_rank, args=(
+        r, port, str(device), SHARD_RANKS_SIZES, smi, queue))
+        for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    reports = {}
+    deadline = time.monotonic() + SHARD_JOIN_S
+    try:
+        while len(reports) < SHARD_RANKS and time.monotonic() < deadline:
+            try:
+                rank, rep = queue.get(timeout=5.0)
+                reports[rank] = rep
+            except queue_module.Empty:
+                failed = [p.exitcode for p in procs
+                          if p.exitcode not in (None, 0)]
+                check(not failed, f"12b: a rank exited with {failed}")
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        alive = [i for i, p in enumerate(procs) if p.is_alive()]
+        for i in alive:
+            procs[i].kill()
+    check(not alive, f"12b: ranks {alive} hung past {SHARD_JOIN_S} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * SHARD_RANKS and len(reports) == SHARD_RANKS,
+          f"12b: exit codes {codes}, {len(reports)} reports")
+    rep = reports[0]
+    launches = rep["launches"]
+    dev_if = float(np.abs(rep["if_mean"] - if_ref.cpu().numpy()).max()
+                   / (1.0 + np.abs(rep["if_mean"]).max()))
+    check(launches == SHARD_RANKS and dev_if <= SHARD_IF_BOUND,
+          f"12b: {launches} kernel launches; gathered IF mean vs phase 3's "
+          f"{dev_if} > {SHARD_IF_BOUND}")
+    print(f"phase 12b {SHARD_RANKS} gloo ranks on {device}: "
+          f"{time.perf_counter() - t_b:.3f} s; gathered IF mean at B="
+          f"{SHARD_RANKS_SIZES['B']} vs phase 3's {dev_if:.3g} (gate "
+          f"{SHARD_IF_BOUND}); kernel launches {launches}, one per rank; the "
+          f"bare launch at B={SHARD_RANKS_SIZES['B'] // SHARD_RANKS} "
+          f"{rep['ms']!r} ms on rank 0 alone, bound "
+          f"{rep['bound_ms']!r} ms ({rep['bound_by']})", flush=True)
+    print(f"phase 12 scale-out: {time.perf_counter() - t_phase:.3f} s; {smi}",
+          flush=True)
+    return {"launches_sharded": launches,
+            "ms_sharded_b1024": rep["ms"],
+            "bound_ms_sharded_b1024": rep["bound_ms"]}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2375,6 +2855,7 @@ def main() -> int:
     phase_table_one(device, smi)
     analysis = phase_analysis(device, smi)
     phase_parallel_posterior(device, smi)
+    sharded = phase_sharded(device, smi, if_ref)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2388,7 +2869,8 @@ def main() -> int:
         "ms_lascala_b100": family["float32"]["ms"],
         "bound_ms_lascala_b100": family["float32"]["bound_ms"],
         "plain_ms_lascala_b100": family["float32"]["plain_ms"],
-        "ms_lascala_b100_f64": family["float64"]["ms"], **analysis}]}))
+        "ms_lascala_b100_f64": family["float64"]["ms"], **analysis,
+        **sharded}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,8 @@ from chirpgp_tpu_torch.apps.realdata import (
     BatCallConfig, EPTESICUS, MYOTIS, analyze_bat_call, ligo_config,
     analyze_ligo, standardize, load_wav, load_ligo_strain)
 from chirpgp_tpu_torch.apps.posterior import (
-    make_logposterior, sample_hyperposterior, smc_nll)
+    make_logposterior, sample_hyperposterior, sample_hyperposterior_sharded,
+    smc_nll)
 
 __all__ = ["IFEstimationConfig", "make_nll_fn", "fit_mle", "estimate_if",
            "run_pipeline", "estimate_if_batched", "KPT_INIT_PARAMS",
@@ -32,4 +33,5 @@ __all__ = ["IFEstimationConfig", "make_nll_fn", "fit_mle", "estimate_if",
            "BatCallConfig", "EPTESICUS", "MYOTIS", "analyze_bat_call",
            "ligo_config", "analyze_ligo", "standardize", "load_wav",
            "load_ligo_strain", "make_logposterior", "sample_hyperposterior",
+           "sample_hyperposterior_sharded",
            "smc_nll"]

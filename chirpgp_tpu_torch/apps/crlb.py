@@ -1,6 +1,5 @@
 """Filter-error Monte Carlo and the posterior Cramer--Rao bound of the
-chirp model, paper Fig. 5 (counterpart of ``chirpgp_tpu.apps.crlb``; the
-mesh waits for the scale-out slice).
+chirp model, paper Fig. 5 (counterpart of ``chirpgp_tpu.apps.crlb``).
 
 Simulate N trajectories of the chirp SDE at fixed parameters, filter every
 measurement sequence, and reduce per-time-step squared errors on the
@@ -28,6 +27,7 @@ from chirpgp_tpu_torch.infer.filters import ekf, sgp_filter
 from chirpgp_tpu_torch.models.chirp import disc_chirp_lcd, model_chirp
 from chirpgp_tpu_torch.models.crlb import posterior_cramer_rao
 from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+from chirpgp_tpu_torch.parallel.mesh import sharded_mean
 from chirpgp_tpu_torch.quad.sigma_points import gauss_hermite
 from chirpgp_tpu_torch.utils.sim import _simulate_batch_from_noise
 
@@ -112,34 +112,44 @@ def filter_error_mc(lam: float, b: float, delta: float, ell: float,
     per-seed ``sgp_filter`` (``method="ghf"``) or ``ekf``, vmapped.
 
     The draws default to a generator seeded with 2022 on ``device``.
-    Returns host arrays ``mean_err_x2``/``std_err_x2`` (chirp component)
-    and ``mean_err_v``/``std_err_v`` (frequency state).
+    With ``mesh`` the trajectories are split over its ranks, each on the
+    mesh's device: rank r takes its rows of the unsharded run's draws (so
+    every rank makes all ``num_mcs`` of them) and a SUM all-reduce adds
+    the ranks' error sums; ``num_mcs`` must be a multiple of the mesh
+    size.  Returns host arrays ``mean_err_x2``/``std_err_x2`` (chirp
+    component) and ``mean_err_v``/``std_err_v`` (frequency state).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "filter_error_mc: mesh (the sharded Monte Carlo) is not ported "
-            "yet; it comes with the scale-out slice")
     if method not in ("ghf", "ekf"):
         raise ValueError(f"Unknown method {method!r}")
+    if mesh is not None:
+        device = mesh.device
     if draws is None:
         draws = _generator_draws(generator, 2022, T, dtype, device)
     _, _, m0, P0, H = model_chirp(lam, b, ell, sigma, delta)
-    trans = disc_chirp_lcd(lam, b, ell, sigma)
     like = dict(dtype=dtype, device=device)
+    # The simulator's transition on the data's device, like the filter's.
+    trans = disc_chirp_lcd(*(torch.tensor(float(v), **like)
+                             for v in (lam, b, ell, sigma)))
     m0, P0, H = m0.to(**like), P0.to(**like), H.to(**like)
     z0, dws, zy = (z.to(**like) for z in draws(0, num_mcs))
 
-    x0 = m0 + z0 @ torch.linalg.cholesky(P0).T
-    traj = _simulate_batch_from_noise(trans, x0, dws, dt)     # (N, T, 4)
-    ys = traj @ H + math.sqrt(Xi) * zy
-    mfs = _vmap_filter_means(method, lam, b, ell, sigma,
-                             gauss_hermite(4, gh_order), H, Xi, m0, P0, dt, ys)
-    err_x2 = (mfs[..., 1] - traj[..., 1]) ** 2
-    err_v = (mfs[..., 2] - traj[..., 2]) ** 2
-    means = {name: e.mean(0).cpu().numpy()
-             for name, e in (("err_x2", err_x2), ("err_v", err_v),
-                             ("err_x2_sq", err_x2 ** 2),
-                             ("err_v_sq", err_v ** 2))}
+    def errors(rows):
+        x0 = m0 + z0[rows] @ torch.linalg.cholesky(P0).T
+        traj = _simulate_batch_from_noise(trans, x0, dws[rows], dt)
+        ys = traj @ H + math.sqrt(Xi) * zy[rows]           # traj (n, T, 4)
+        mfs = _vmap_filter_means(method, lam, b, ell, sigma,
+                                 gauss_hermite(4, gh_order), H, Xi, m0, P0,
+                                 dt, ys)
+        err_x2 = (mfs[..., 1] - traj[..., 1]) ** 2
+        err_v = (mfs[..., 2] - traj[..., 2]) ** 2
+        return dict(err_x2=err_x2, err_v=err_v, err_x2_sq=err_x2 ** 2,
+                    err_v_sq=err_v ** 2)
+
+    if mesh is not None:
+        means = sharded_mean(errors, torch.arange(num_mcs), mesh)
+    else:
+        means = {k: e.mean(0) for k, e in errors(slice(None)).items()}
+    means = {k: v.cpu().numpy() for k, v in means.items()}
     var_x2 = np.maximum(means["err_x2_sq"] - means["err_x2"] ** 2, 0.0)
     var_v = np.maximum(means["err_v_sq"] - means["err_v"] ** 2, 0.0)
     return dict(mean_err_x2=means["err_x2"], std_err_x2=np.sqrt(var_x2),

@@ -13,10 +13,13 @@ import torch
 
 from chirpgp_tpu_torch.apps.pipeline import (
     IFEstimationConfig, _init_theta, _measurements, _on_data, make_nll_fn)
-from chirpgp_tpu_torch.infer.nuts import NUTSResult, nuts_sample
+from chirpgp_tpu_torch.infer.nuts import (
+    NUTSResult, nuts_sample, nuts_sample_sharded)
 from chirpgp_tpu_torch.infer.smc import SMCDraws, bootstrap_filter
+from chirpgp_tpu_torch.parallel.mesh import Mesh
 
-__all__ = ["make_logposterior", "sample_hyperposterior", "smc_nll"]
+__all__ = ["make_logposterior", "sample_hyperposterior",
+           "sample_hyperposterior_sharded", "smc_nll"]
 
 
 def make_logposterior(cfg: IFEstimationConfig, ys, prior_scale: float = 10.0,
@@ -49,6 +52,32 @@ def sample_hyperposterior(cfg: IFEstimationConfig, ys,
     return nuts_sample(make_logposterior(cfg, ys), init_theta, generator,
                        num_samples=num_samples, num_warmup=num_warmup,
                        **nuts_kwargs)
+
+
+def sample_hyperposterior_sharded(cfg: IFEstimationConfig, ys,
+                                  generator: Optional[torch.Generator],
+                                  mesh: Mesh, num_chains: int,
+                                  init_theta: Optional[torch.Tensor] = None,
+                                  num_samples: int = 500,
+                                  num_warmup: int = 300, jitter: float = 0.1,
+                                  init_z: Optional[torch.Tensor] = None,
+                                  **nuts_kwargs) -> NUTSResult:
+    """Multi-chain NUTS over the hyperparameter posterior with the chains
+    split over ``mesh``'s ranks and one step size adapted for all of them
+    (:func:`~chirpgp_tpu_torch.infer.nuts.nuts_sample_sharded`).  The
+    chains start at ``init_theta + jitter * init_z``, ``init_z``
+    (num_chains, p) standard normals drawn from ``generator`` by default
+    (seed it alike on every rank).  The data go to the mesh's device."""
+    ys = _measurements(ys, mesh.device).to(mesh.device)
+    init_theta = _init_theta(cfg, init_theta, ys)
+    if init_z is None:
+        init_z = torch.randn((num_chains,) + init_theta.shape,
+                             generator=generator, dtype=init_theta.dtype,
+                             device=generator.device)
+    inits = init_theta + jitter * init_z.to(init_theta)
+    return nuts_sample_sharded(make_logposterior(cfg, ys), inits, generator,
+                               mesh, num_samples=num_samples,
+                               num_warmup=num_warmup, **nuts_kwargs)
 
 
 def smc_nll(cfg: IFEstimationConfig, params, ys,

@@ -1,5 +1,5 @@
 """Monte-Carlo experiment sweeps: the Table-I RMSE jobs (counterpart of
-``chirpgp_tpu.apps.sweeps``; the mesh waits for the scale-out slice).
+``chirpgp_tpu.apps.sweeps``).
 
 - **Pairing**: every method sees the same measurement realizations, from
   the same per-seed keys (:func:`generate_rnd_keys`).  Torch cannot replay
@@ -13,6 +13,10 @@
   per-lane float64 polish on the host CPU, and the estimate stage, vmapped
   over the seeds.
 - **NaN-on-divergence**: runs whose optimizer fails are recorded as NaN.
+- **Mesh**: with ``mesh``, :func:`mc_mle_sweep` and :func:`mc_kpt_sweep`
+  split the seeds over the mesh's ranks
+  (:func:`~chirpgp_tpu_torch.parallel.mesh.sharded_seed_sweep`); each rank
+  runs its seeds on its device, and every rank returns all seeds' results.
 - **Results** per (method, magnitude) as ``.npz`` with ``rmse``, learnt
   params and ``success``, consumed by :func:`print_rmse_table`.
 
@@ -36,6 +40,7 @@ from chirpgp_tpu_torch.apps.pipeline import (
 from chirpgp_tpu_torch.fit.mle import (
     MLEResult, lbfgs_minimize, lbfgs_minimize_stepped)
 from chirpgp_tpu_torch.models.bijections import g
+from chirpgp_tpu_torch.parallel.mesh import sharded_seed_sweep
 from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
 from chirpgp_tpu_torch.toymodels import (
     gen_chirp, gen_harmonic_chirp, constant_mag, damped_exp_mag,
@@ -153,11 +158,13 @@ def mc_mle_sweep(cfg: IFEstimationConfig, keys, mag_name: str,
     """MLE + filter + smooth + IF-RMSE for every seed in ``keys``, all
     seeds in one batched :func:`lbfgs_minimize` (each stops on its own
     gradient-norm rule).  Returns host arrays: rmses (N,), learnt params
-    (N, P), success flags (N,).  Divergent runs contribute NaN rmse."""
+    (N, P), success flags (N,).  Divergent runs contribute NaN rmse.
+    With ``mesh`` the seeds are split over its ranks, each on the mesh's
+    device, N a multiple of the mesh size."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mc_mle_sweep: mesh (the sharded sweep) is not ported yet; it "
-            "comes with the scale-out slice")
+        return sharded_seed_sweep(
+            lambda k: mc_mle_sweep(cfg, k, mag_name, T, None, init_theta,
+                                   mesh.device), keys, mesh)
     true_freqs, ys = _config_batch(cfg, keys, mag_name, T, device)
     init_theta = _init_theta(cfg, init_theta, ys)
 
@@ -425,11 +432,20 @@ def mc_kpt_sweep(keys, mag_name: str, Xi: float = 0.1, dt: float = 1e-3,
     ``stepped=True`` (default): :func:`_kpt_sweep_on_measurements`, the
     stepped batched L-BFGS with the rescue and the float64 host polish.
     ``stepped=False``: one batched :func:`lbfgs_minimize` in which each
-    seed stops on its own gradient-norm rule, then the estimate."""
+    seed stops on its own gradient-norm rule, then the estimate.  With
+    ``mesh`` (``stepped=False``, as in the JAX package, whose stepped
+    sweep runs unsharded) the seeds are split over its ranks, each on the
+    mesh's device."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mc_kpt_sweep: mesh (the sharded sweep) is not ported yet; it "
-            "comes with the scale-out slice")
+        if stepped:
+            raise ValueError(
+                "mc_kpt_sweep: mesh splits the stepped=False sweep; the "
+                "stepped sweep's rescue compares each lane with the whole "
+                "batch")
+        return sharded_seed_sweep(
+            lambda k: mc_kpt_sweep(k, mag_name, Xi, dt, T, num_harmonics,
+                                   max_iters, None, False, verbose,
+                                   mesh.device), keys, mesh)
     true_freqs, yss = _measurement_batch(keys, mag_name, T, dt, Xi,
                                          num_harmonics, device)
     if stepped:

@@ -30,8 +30,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from chirpgp_tpu_torch.fit.lbfgs import batched_value_and_grad
+from chirpgp_tpu_torch.parallel.mesh import (
+    Mesh, all_gather, all_reduce, rank_stream, shard_keys)
 
-__all__ = ["nuts_sample", "NUTSResult", "NUTSDraws", "nuts_draws"]
+__all__ = ["nuts_sample", "nuts_sample_sharded", "NUTSResult", "NUTSDraws",
+           "nuts_draws"]
 
 _DIVERGENCE_THRESHOLD = 1000.0
 
@@ -269,6 +272,39 @@ def _da_update(state: _DualAveraging, accept_stat, target, mu,
     return _DualAveraging(log_eps, log_eps_avg, h_avg, t)
 
 
+def _run_chains(value_and_grad, q: torch.Tensor, draw: Callable,
+                num_warmup: int, num_samples: int, step_size: float,
+                max_tree_depth: int, target_accept: float,
+                pool: Callable) -> NUTSResult:
+    """Warmup with dual averaging, then sampling, of the chains ``q`` (C,
+    d), on ``draw(i)``, the draws of transition ``i``.  ``pool`` maps the
+    chains' accept statistics (C,) to the one the step size adapts to, and
+    fixes the step size's shape: per chain (C,), or one () for all.
+    Returns the :class:`NUTSResult` with the chain axis leading."""
+    C = q.shape[0]
+    mu = math.log(10.0 * step_size)
+    with torch.no_grad():
+        logp, grad = value_and_grad(q)
+        da = _da_init(torch.as_tensor(
+            step_size, dtype=q.dtype, device=q.device).expand_as(
+                pool(torch.zeros_like(logp))).clone())
+        for i in range(num_warmup):
+            q, logp, grad, accept, _ = _nuts_transition(
+                value_and_grad, q, logp, grad,
+                torch.exp(da.log_eps).expand(C), draw(i), max_tree_depth)
+            da = _da_update(da, pool(accept), target_accept, mu)
+        eps = torch.exp(da.log_eps_avg)
+        out = []
+        for i in range(num_warmup, num_warmup + num_samples):
+            q, logp, grad, accept, diverged = _nuts_transition(
+                value_and_grad, q, logp, grad, eps.expand(C), draw(i),
+                max_tree_depth)
+            out.append((q, logp, accept, diverged))
+    qs, logps, accepts, divs = (torch.stack(x, 1) for x in zip(*out))
+    return NUTSResult(samples=qs, log_densities=logps, accept_prob=accepts,
+                      num_divergent=divs.sum(1), step_size=eps.expand(C))
+
+
 def nuts_sample(logdensity: Callable, init: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 num_samples: int = 1000, num_warmup: int = 500,
@@ -279,7 +315,8 @@ def nuts_sample(logdensity: Callable, init: torch.Tensor,
 
     ``logdensity`` maps one point (d,) to a scalar; ``init`` is (d,) for
     one chain or (C, d) for C chains on a leading axis, all evaluated in
-    one batched call per leapfrog.  The random numbers are ``draws``
+    one batched call per leapfrog, each with its own step size.  The
+    random numbers are ``draws``
     (:class:`NUTSDraws` with leading axes ``(num_warmup + num_samples,)``,
     then C if ``init`` has chains), or else drawn from ``generator``; one
     of the two is required.  Computes in ``init``'s dtype on its device.
@@ -292,29 +329,51 @@ def nuts_sample(logdensity: Callable, init: torch.Tensor,
     one_chain = init.dim() == 1
     q = init.detach()[None] if one_chain else init.detach()
     C, d = q.shape
-    value_and_grad = batched_value_and_grad(logdensity)
 
     def draw(i):
         if draws is None:
             return nuts_draws(generator, (C,), d, max_tree_depth, q.dtype)
         return NUTSDraws(*(x[i][None] if one_chain else x[i] for x in draws))
 
-    mu = math.log(10.0 * step_size)
-    with torch.no_grad():
-        logp, grad = value_and_grad(q)
-        da = _da_init(q.new_full((C,), step_size))
-        for i in range(num_warmup):
-            q, logp, grad, accept, _ = _nuts_transition(
-                value_and_grad, q, logp, grad, torch.exp(da.log_eps),
-                draw(i), max_tree_depth)
-            da = _da_update(da, accept, target_accept, mu)
-        eps = torch.exp(da.log_eps_avg)
-        out = []
-        for i in range(num_warmup, num_warmup + num_samples):
-            q, logp, grad, accept, diverged = _nuts_transition(
-                value_and_grad, q, logp, grad, eps, draw(i), max_tree_depth)
-            out.append((q, logp, accept, diverged))
-    qs, logps, accepts, divs = (torch.stack(x, 1) for x in zip(*out))
-    res = NUTSResult(samples=qs, log_densities=logps, accept_prob=accepts,
-                     num_divergent=divs.sum(1), step_size=eps)
+    res = _run_chains(batched_value_and_grad(logdensity), q, draw,
+                      num_warmup, num_samples, step_size, max_tree_depth,
+                      target_accept, lambda accept: accept)
     return NUTSResult(*(x[0] for x in res)) if one_chain else res
+
+
+def nuts_sample_sharded(logdensity: Callable, inits: torch.Tensor,
+                        generator: Optional[torch.Generator], mesh: Mesh,
+                        num_samples: int = 1000, num_warmup: int = 500,
+                        step_size: float = 0.1, max_tree_depth: int = 8,
+                        target_accept: float = 0.8,
+                        draws: Optional[NUTSDraws] = None) -> NUTSResult:
+    """Multi-chain NUTS with the chains ``inits`` (n_chains, d) split over
+    ``mesh``'s ranks and one step size for all of them: at each warmup
+    iteration the ranks all-reduce their chains' mean accept statistic and
+    divide by the mesh size (the JAX package's ``pmean``) before the dual
+    averaging update.  Every rank returns the gathered
+    :class:`NUTSResult`, samples (n_chains, num_samples, d).
+
+    ``draws`` are this rank's, leading axes ``(num_warmup + num_samples,
+    n_local)``; by default they come from a stream of this rank's own,
+    seeded from ``generator`` and the rank.  Computes in ``inits``' dtype
+    on the mesh's device.
+    """
+    q = shard_keys(torch.as_tensor(inits).detach(), mesh)
+    C, d = q.shape
+    if draws is None:
+        if generator is None:
+            raise ValueError("nuts_sample_sharded needs a torch.Generator "
+                             "or draws")
+        draws = nuts_draws(rank_stream(generator, mesh.rank),
+                           (num_warmup + num_samples, C), d, max_tree_depth,
+                           q.dtype)
+
+    def pooled(accept):
+        return all_reduce(accept.mean(), mesh) / mesh.size
+
+    res = _run_chains(batched_value_and_grad(logdensity), q,
+                      lambda i: NUTSDraws(*(x[i] for x in draws)),
+                      num_warmup, num_samples, step_size, max_tree_depth,
+                      target_accept, pooled)
+    return NUTSResult(*all_gather(tuple(res), mesh))

@@ -14,7 +14,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["Transition", "as_transition"]
+__all__ = ["Transition", "as_transition", "batched_mean_and_cov"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,3 +77,14 @@ def as_transition(m_and_cov) -> Transition:
 
     return Transition(mean=lambda u, dt: _mapped(u, dt, 0),
                       cov=lambda u, dt: _mapped(u, dt, 1), const_cov=False)
+
+
+def batched_mean_and_cov(trans, chi: torch.Tensor, dt):
+    """A transition's mean (and, unless constant, covariance) on a batch of
+    points ``chi`` of shape ``(..., S, d)``.  Returns ``(means,
+    covs_or_None, cov_const_or_None)``."""
+    t = as_transition(trans)
+    means = t.mean(chi, dt)
+    if t.const_cov:
+        return means, None, t.cov_const(dt)
+    return means, t.cov(chi, dt), None

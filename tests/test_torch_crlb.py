@@ -26,6 +26,7 @@ from chirpgp_tpu_torch.apps import (
     filter_error_mc, filter_error_mc_chunked, pcrlb_chirp_mc)
 from chirpgp_tpu_torch.models import (
     model_chirp, m32_solution, posterior_cramer_rao, stationary_cov_m32)
+from chirpgp_tpu_torch.parallel import make_mesh
 from chirpgp_tpu_torch.ops.chirp_filter import (
     ghfs_chirp_filter, ghfs_chirp_filter_reference)
 from chirpgp_tpu_torch.quad import gauss_hermite
@@ -98,8 +99,10 @@ def test_filter_error_mc_matches_jax():
         got = filter_error_mc(*ARGS, N, method=method, T=T, device="cpu",
                               draws=draws)
         _assert_stats_close(got, want)
-    with pytest.raises(NotImplementedError):
-        filter_error_mc(*ARGS, N, mesh=object(), device="cpu")
+    # A one-rank mesh (tests/test_torch_sharded.py runs four ranks).
+    on_mesh = filter_error_mc(*ARGS, N, method="ekf", T=T, draws=draws,
+                              mesh=make_mesh(device="cpu"))
+    _assert_stats_close(on_mesh, got, 1e-12)
     with pytest.raises(ValueError):
         filter_error_mc_chunked(*ARGS, N, method="ekf", backend="cf",
                                 device="cpu")

@@ -514,3 +514,48 @@ def test_profile_device_counts_the_card_kernels(cuda):
     assert prof.launches == 50 and prof.kernel_s > 0.0
     assert prof.wall_s > 0.0 and prof.profiled_wall_s > 0.0
     assert 0.0 < prof.busy
+
+
+@pytest.mark.cuda
+def test_sharded_paths_on_one_nccl_rank(cuda):
+    """A one-rank NCCL process group: the mesh's collectives run on the
+    card, and the sweep, the mean and the time-sharded KF/RTS equal their
+    unsharded forms (tests/test_torch_sharded.py runs four gloo ranks)."""
+    import socket
+    import torch.distributed as dist
+    from chirpgp_tpu_torch.infer import (
+        kf_parallel, kf_parallel_time_sharded, rts_parallel,
+        rts_parallel_time_sharded)
+    from chirpgp_tpu_torch.models import m32_solution, stationary_cov_m32
+    from chirpgp_tpu_torch.parallel import (
+        make_mesh, sharded_mean, sharded_seed_sweep)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.group is not None and mesh.device == cuda
+        x = torch.linspace(-1.0, 2.0, 8, dtype=torch.float64, device=cuda)
+        npt.assert_array_equal(
+            _np(sharded_seed_sweep(lambda k: {"a": k * k}, x, mesh)["a"]),
+            _np(x * x))
+        npt.assert_allclose(float(sharded_mean(torch.sin, x, mesh)),
+                            float(torch.sin(x).mean()), rtol=1e-15)
+        F, Sigma = (torch.as_tensor(a, device=cuda)
+                    for a in m32_solution(0.7, 1.2, 0.01))
+        H = torch.tensor([1.0, 0.0], dtype=torch.float64, device=cuda)
+        m0 = torch.zeros(2, dtype=torch.float64, device=cuda)
+        P0 = torch.as_tensor(stationary_cov_m32(0.7, 1.2), device=cuda)
+        ys = torch.sin(0.1 * torch.arange(240, dtype=torch.float64,
+                                          device=cuda))
+        want = kf_parallel(F, Sigma, H, 0.05, m0, P0, ys)
+        got = kf_parallel_time_sharded(F, Sigma, H, 0.05, m0, P0, ys, mesh)
+        want += rts_parallel(F, Sigma, want[0], want[1])
+        got += rts_parallel_time_sharded(F, Sigma, want[0], want[1], mesh)
+        for g_, w_ in zip(got, want):
+            assert g_.device.type == "cuda"
+            npt.assert_allclose(_np(g_), _np(w_), rtol=1e-12, atol=1e-14)
+    finally:
+        dist.destroy_process_group()

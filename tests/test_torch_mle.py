@@ -129,8 +129,10 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tp.fit_mle(tp.IFEstimationConfig(optimizer="adam"), ys)
     from chirpgp_tpu_torch.apps import mc_kpt_sweep
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        mc_kpt_sweep(np.zeros((1, 2), np.uint32), "const", mesh=object())
+    from chirpgp_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="stepped=False"):
+        mc_kpt_sweep(np.zeros((1, 2), np.uint32), "const",
+                     mesh=make_mesh(device="cpu"))
     for method in ("cd_ghfs", "cd_ekfs"):
         with pytest.raises(ValueError, match="form='sqrt' supports"):
             tp.make_nll_fn(tp.IFEstimationConfig(method=method, form="sqrt"),

@@ -176,3 +176,48 @@ def test_transition_hooks():
                         _np(tt.mean_channels_first(u, 1e-3)), **F64)
     with pytest.raises(ValueError):
         tm.Transition(mean=tt.mean, cov=tt.cov).cov_const(1e-3)
+
+
+def test_batched_mean_and_cov_matches_jax():
+    """The chirp LCD transition (constant covariance) and a state-dependent
+    closure on a (2, 81, 4) batch of points, float64."""
+    from chirpgp_tpu.models.transitions import batched_mean_and_cov as jbmc
+    from chirpgp_tpu_torch.models.transitions import batched_mean_and_cov
+    chi = np.random.default_rng(5).standard_normal((2, 81, 4))
+    dt = 1e-3
+    for tj, tt in ((jm.disc_chirp_lcd(0.1, 0.1, 1.0, 1.0),
+                    tm.disc_chirp_lcd(0.1, 0.1, 1.0, 1.0)),
+                   (lambda u, dt_: (jnp.sin(u) * dt_, jnp.outer(u, u) + 1.0),
+                    lambda u, dt_: (torch.sin(u) * dt_,
+                                    torch.outer(u, u) + 1.0))):
+        want = jbmc(tj, jnp.asarray(chi), dt)
+        got = batched_mean_and_cov(tt, torch.tensor(chi), dt)
+        for g_, w_ in zip(got, want):
+            assert (g_ is None) == (w_ is None)
+            if w_ is not None:
+                npt.assert_allclose(_np(g_), np.asarray(w_), **F64)
+
+
+def test_utils_reexport_the_simulators_as_jax():
+    """``chirpgp_tpu_torch.utils`` re-exports the JAX package's four
+    simulators; ``simulate_lgssm`` from JAX's own normals, float64."""
+    import jax
+    import chirpgp_tpu.utils as ju
+    import chirpgp_tpu_torch.utils as tu
+    from chirpgp_tpu_torch.utils.sim import _lgssm_from_noise
+    names = ("simulate_lgssm", "simulate_sde", "simulate_sde_init",
+             "simulate_function_parametrised_sde")
+    assert set(names) <= set(tu.__all__) and set(names) <= set(ju.__all__)
+    assert all(callable(getattr(tu, n)) for n in names)
+    T, key = 40, jax.random.PRNGKey(11)
+    A = np.array([[0.9, 0.2], [-0.1, 0.8]])
+    Q = np.array([[0.5, 0.1], [0.1, 0.3]])
+    x0 = np.array([1.0, -0.5])
+    want = ju.simulate_lgssm(jnp.asarray(A), jnp.asarray(Q), jnp.asarray(x0),
+                             T, key)
+    rnds = np.asarray(jax.random.normal(key, (T, 2), dtype=jnp.float64))
+    got = _lgssm_from_noise(torch.tensor(A), torch.tensor(Q),
+                            torch.tensor(x0), torch.tensor(rnds))
+    npt.assert_allclose(_np(got), np.asarray(want), **F64)
+    assert tu.simulate_lgssm is _lgssm_from_noise.__globals__[
+        "simulate_lgssm"]

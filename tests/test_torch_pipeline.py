@@ -315,6 +315,8 @@ def test_port_never_imports_jax():
             PORT / "infer/smc.py", PORT / "infer/nuts.py",
             PORT / "apps/posterior.py", PORT / "utils/timing.py",
             PORT / "utils/numerics.py",
+            PORT / "parallel/__init__.py", PORT / "parallel/mesh.py",
+            PORT / "parallel/multihost.py", PORT / "infer/parallel_sharded.py",
             ROOT / "chip_smoke.py"} <= set(files)
     for path in files:
         for mod in _imported_modules(path):

@@ -448,12 +448,14 @@ def test_host_data_goes_to_the_card_unless_cpu_is_asked():
             fn(*args)
     est = tp.estimate_if(cfg, params, ys[0], device="cpu")
     assert est["if_mean"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        ts.mc_mle_sweep(cfg, ts.generate_rnd_keys(1), "const", mesh=object(),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        ts.mc_kpt_sweep(ts.generate_rnd_keys(1), "const", mesh=object(),
-                        device="cpu")
+    # A mesh's device is the card unless the caller asks for the CPU; the
+    # sharded sweeps run there, whatever ``device`` says.
+    from chirpgp_tpu_torch.parallel import make_mesh
+    for fn, kwargs in ((ts.mc_mle_sweep, dict(cfg=cfg)),
+                       (ts.mc_kpt_sweep, dict(stepped=False))):
+        with pytest.raises((AssertionError, RuntimeError)):
+            fn(keys=ts.generate_rnd_keys(1), mag_name="const", T=20,
+               mesh=make_mesh(), device="cpu", **kwargs)
 
 
 def test_mc_sweeps_run_on_port_draws():
