@@ -48,7 +48,7 @@ Phases, one line each:
    device busy share; 7b two ``lbfgs_minimize_stepped`` iterations at
    B=300 (T cut to fit, the cut printed): no lane above its initial NLL,
    at least 90% below; 7c the whole ``mle_sweep_on_measurements`` (rescue,
-   float64 host polish, estimate, ``print_rmse_table``) at B=3 (seed
+   float64 polish, estimate, ``print_rmse_table``) at B=3 (seed
    0), T=40, 6 iterations: every lane finite with ``success``, the
    polish never raising a lane's float64 NLL;
 8. the model family: 8a the seed-0 gates of the harmonic CKFS/EKFS, La
@@ -61,7 +61,7 @@ Phases, one line each:
    value-and-grad of the harmonic CKFS (d=8, cubature) and KPT (K=1, 3)
    sweep objectives at B=300, T cut to a budget, lanes 0 and 299 against
    each lane alone, launches per step and busy share; 8e the whole
-   harmonic-EKFS and KPT sweeps at B=3, T=40, 3 iterations;
+   harmonic-EKFS and KPT sweeps at B=3, T=20, 3 iterations;
 9. Table I's last columns: 9a the seed-0 gates of the continuous-discrete
    ``cd_ghfs`` and ``cd_ekfs`` through ``estimate_if`` on the card at
    T=3141, float64, in child processes beside 9b-9d, against the JAX
@@ -120,7 +120,16 @@ Phases, one line each:
     3's; the time-sharded KF/RTS at T=25000; the particle-sharded SMC, the
     chain-sharded NUTS and hyperposterior; the ``mesh`` arguments of
     ``mc_mle_sweep``, ``mc_kpt_sweep`` and ``filter_error_mc`` against
-    ``mesh=None``.  A rank's failure or hang fails the run.
+    ``mesh=None``.  A rank's failure or hang fails the run;
+13. the entry points, as a user runs them: the drivers and demos of
+    ``chirpgp_tpu_torch/experiments`` and ``chirpgp_tpu_torch/demos`` in
+    child processes on the card (``python -m ... --device cuda``), at a
+    Table-I column's width (B=300) with depth cut: 13a the Table-I driver
+    with its stage times, 13b the paired table printer on its columns,
+    13c the Fig. 5 driver through the kernel (launches counted in the
+    child; its file against the same call in this process), 13d the
+    classical columns per seed against the JAX package's, 13e the KPT,
+    FHC and fastF0NLS drivers, 13f two demos and the timing script.
 
 A device busy share is the kernel time of a call under ``torch.profiler``
 (the card's activity alone) over the wall time of the same call
@@ -172,6 +181,8 @@ MLE_NLL, MLE_NLL_RTOL = 906.72448, 1e-6
 MLE_GATES = {"ghfs": 0.7856412, "ekfs": 0.7327871}
 # fit_mle's iterations in 5c: cut from 2 to make room for phase 8; and its
 # record cut to MLE_FIT_T samples (from T=3141) to make room for phase 12.
+# 5a's card-vs-host check at theta0 runs on the same crop (on the whole
+# record before phase 13).
 MLE_ITERS, MLE_FIT_T = 1, 785
 # Phase 6d: the slim fused IF mean against estimate_if_batched's, both in
 # float32, as max deviation over (1 + max |IF|).  On the host CPU the two
@@ -205,6 +216,8 @@ SWEEP_7A_T = 785
 # 7a ran T=1571 and then 1047, 7b's budget was 100 s, 30 s and 20 s, and 7c
 # ran 2 seeds per magnitude at T=60, until phases 8-10 needed the time.
 SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 15.0, 8
+# 7b's T is cut no lower than SWEEP_7B_MIN_T (100 before phase 13).
+SWEEP_7B_MIN_T = 50
 SWEEP_SMALL = (1, 40, 6)
 SWEEP_PROFILE_T = 30
 # Phase 8, the model family.  8a: seed 0 of each column at its reference
@@ -260,8 +273,12 @@ CD_SMALL = (1, 40, 3)
 # from the JAX package's column and 2.0% from the reference's own
 # spectrogram (paired median ratio 0.994); the polynomial LM 5.1e-5 from
 # the JAX package's column (the reference's departs: ROADMAP Queue 3).
+# The host CPU runs the polynomial LM on the first
+# CLASSICAL_HOST_POLY_RECORDS records (all 300 before phase 13: 97 s of
+# host time, phase 9's longest path).
 POLY_ITERS = 100
 CLASSICAL_ENV_SEED, CLASSICAL_HOST_THREADS = 9, 4
+CLASSICAL_HOST_POLY_RECORDS = 100
 CLASSICAL_HOST_RTOL = {"hilbert": 1e-9, "spectrogram": 1e-9, "poly": 2e-4,
                        "anf": 1e-9}
 CLASSICAL_REF_RTOL = (("hilbert", "reference", 1e-5),
@@ -273,7 +290,8 @@ CLASSICAL_REF_RTOL = (("hilbert", "reference", 1e-5),
 # before phase 10, and 15 s before phase 12.)
 FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 10.0
 FAMILY_PROFILE_T = 16
-FAMILY_SMALL = (1, 40, 3)
+# (8e ran T=40 before phase 13.)
+FAMILY_SMALL = (1, 20, 3)
 # Phase 10, the paper's analysis and the last baselines.  The Fig. 5
 # grid point (lam, b, delta, ell, sigma, Xi) of results/crlb_*_lam0.1_b0.1
 # at dt=0.01, T=500, float32, in chunks of 16384 trajectories (the JAX
@@ -374,7 +392,8 @@ PKF_T, PKF_BLOCKS, PKF_TOL, PKF_F64_ATOL = (3141, 25000), (128, 512), \
 PKF_PROFILE_T = 300
 PSGP_BLOCK, PSGP_ITERS, PSGP_F64_ITERS, PSGP_F64_RTOL = 128, 10, 2, 1e-9
 SMC_LGSSM_N, SMC_CHIRP_N = 4000, 4096
-NUTS_CHAINS, NUTS_DEPTH, NUTS_TRANSITIONS = 64, 6, (100, 100)
+# (11d's Gaussian ran 100 + 100 transitions before phase 13.)
+NUTS_CHAINS, NUTS_DEPTH, NUTS_TRANSITIONS = 64, 6, (60, 60)
 NUTS_COV = ((1.0, 0.7), (0.7, 2.0))
 HYPER_CHAINS, HYPER_DEPTH, HYPER_TRANSITIONS = 8, 3, (2, 2)
 # The initial step size of the hyperposterior chains.  From nuts_sample's
@@ -402,10 +421,9 @@ HYPER_LANE_RTOL = 1e-5
 # the unsharded flat scan; bootstrap_filter_sharded on 11c's LGSSM, log-ML
 # within 2% of -kf's NLL, and in float64 on the unsharded run's draws
 # within SHARD_SMC_F64_RTOL of bootstrap_filter's; nuts_sample_sharded on
-# 11d's Gaussian (11d's bounds, one step size; 60 + 60 transitions, a cut
-# of 11d's 100 + 100), and a float64 run on equal draws
-# (SHARD_NUTS_EQUAL: chains, transitions, depth) within
-# SHARD_NUTS_F64_RTOL of a one-rank mesh; sample_hyperposterior_sharded,
+# 11d's Gaussian (11d's bounds and transitions, one step size), and a
+# float64 run on equal draws (SHARD_NUTS_EQUAL: chains, transitions, depth)
+# within SHARD_NUTS_F64_RTOL of a one-rank mesh; sample_hyperposterior_sharded,
 # sqrt GHFS f32, at T=SHARD_HYPER_T, SHARD_HYPER_TRANSITIONS, every
 # evaluated point finite; mc_mle_sweep (EKFS) and mc_kpt_sweep
 # (stepped=False) at the sizes' sweep (B, T, max_iters) against
@@ -428,6 +446,46 @@ SHARD_RANKS_SIZES = dict(B=B_FULL, T=T_FULL, kf_T=PKF_T[-1],
 SHARD_ONE_RANK = dict(B=256, T=500, kf_T=PKF_T[0], smc_N=1000,
                       nuts=(16, (30, 30)), hyper_chains=2, sweep=(2, 40, 2),
                       crlb_N=4096)
+# Phase 13, the entry points: the port's drivers and demos as a user runs
+# them, ``python -m chirpgp_tpu_torch.{experiments,demos}.<name> --device
+# cuda ...``, each in a child process (the card machine has no JAX), at
+# most ENTRY_PARALLEL at once; a nonzero exit, a hang past
+# ENTRY_TIMEOUT_S or a failed check fails the run.  Table-I width:
+# ENTRY_SEEDS = 100 seeds of each magnitude, B=300, for every column
+# driver, the two sweeps (13a, 13e's KPT) included: their rescue and
+# float64 polish run each lane's SciPy L-BFGS-B with the lanes'
+# evaluations batched on the card (``apps/sweeps.py::_minimize_lanes``).
+# Depth cut
+# (each cut printed): 13a the Table-I driver (sqrt GHFS, the stepped sweep
+# with its rescue, float64 polish and estimate) on the committed
+# toydata_* cropped to ENTRY_T samples, ENTRY_ITERS iterations; 13b
+# print_table --paired on 13a's
+# columns; 13c run_crlb at ENTRY_CRLB_N trajectories, float32, cf backend:
+# ENTRY_CRLB_N / CRLB_CHUNK kernel launches, counted in the child, its
+# file equal to an in-process filter_error_mc_chunked on the same draws
+# within ENTRY_CRLB_RTOL; 13d run_classical (Hilbert, spectrogram, ANF) at
+# the full T=3141 on JAX's records of its keys, per seed against the JAX
+# package's committed results/{method}_{mag}.npz within
+# ENTRY_CLASSICAL_RTOL (the host CPU: Hilbert 1.1e-6, spectrogram 2.1e-7,
+# ANF 8.5e-11), the random records' Hilbert within ENTRY_HILBERT_RANDOM_RTOL
+# (1.25e-5 on the host CPU: the OU magnitude crosses zero, where the
+# analytic signal's angle amplifies round-off); 13e run_kpt at ENTRY_T and
+# ENTRY_ITERS, run_fhc (K=3) on ENTRY_FHC_SEEDS seeds (10e's bounds
+# against the committed columns) and run_fastnls on ENTRY_NLS_SEEDS seed
+# against the committed columns within ENTRY_NLS_RTOL (1.6e-6 on the host
+# CPU: the float32 records remade from JAX's keys part from XLA's by
+# float32 round-off of the chirp); 13f the classical_methods demo, the
+# ghfs_mle demo at ENTRY_DEMO (T, max_iters) and print_time at
+# ENTRY_PRINT_TIME_T.
+ENTRY_PARALLEL, ENTRY_TIMEOUT_S = 4, 400
+# (13f's ghfs_mle ran T=50 with 3 iterations and print_time T=785 in the
+# first card run: phase 13 took 140 s.)
+ENTRY_SEEDS, ENTRY_T, ENTRY_ITERS = 100, 100, 2
+ENTRY_CRLB_N, ENTRY_CRLB_RTOL = 65536, 1e-12
+ENTRY_CLASSICAL_RTOL = {"hilbert": 1e-5, "spectrogram": 1e-6, "anf": 1e-9}
+ENTRY_HILBERT_RANDOM_RTOL = 5e-5
+ENTRY_FHC_SEEDS, ENTRY_NLS_SEEDS, ENTRY_NLS_RTOL = 10, 1, 1e-5
+ENTRY_DEMO, ENTRY_PRINT_TIME_T = (30, 2), 200
 
 class SmokeFailure(RuntimeError):
     pass
@@ -457,48 +515,6 @@ def measurements(B, T, seed, dtype, device):
     noise = np.random.default_rng(seed).standard_normal((B, T))
     return base[None] + math.sqrt(XI) * torch.as_tensor(
         noise, dtype=dtype, device=device)
-
-
-_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def threefry2x32(key, x1, x2):
-    """JAX's Threefry-2x32 hash (20 rounds) of the counter words (x1, x2)
-    under ``key`` (two uint32 words), in NumPy uint32 arithmetic."""
-    k1, k2 = np.uint32(key[0]), np.uint32(key[1])
-    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
-    x = [np.asarray(x1, np.uint32) + ks[0], np.asarray(x2, np.uint32) + ks[1]]
-    for i in range(5):
-        for r in _THREEFRY_ROTATIONS[i % 2]:
-            x[0] = x[0] + x[1]
-            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
-            x[1] = x[0] ^ x[1]
-        x[0] = x[0] + ks[(i + 1) % 3]
-        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x
-
-
-def jax_split(key):
-    """``jax.random.split(key)`` (partitionable Threefry): two keys."""
-    b1, b2 = threefry2x32(key, np.zeros(2, np.uint32),
-                          np.arange(2, dtype=np.uint32))
-    return np.stack([b1, b2], axis=-1)
-
-
-def jax_normal_f64(key, n):
-    """``jax.random.normal(key, (n,))`` at float64 (partitionable
-    Threefry, 64-bit draws): the uniform on (-1, 1) from the top 52 bits,
-    then sqrt(2) erfinv.  SciPy's erfinv is not XLA's; the draws agree to
-    ~1e-11 (tests/test_torch_classical.py)."""
-    import scipy.special
-    b1, b2 = threefry2x32(key, np.zeros(n, np.uint32),
-                          np.arange(n, dtype=np.uint32))
-    bits = (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
-    u = ((bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)) \
-        .view(np.float64) - 1.0
-    lo = np.nextafter(-1.0, 0.0)
-    u = np.maximum(lo, u * (1.0 - lo) + lo)
-    return np.sqrt(2.0) * scipy.special.erfinv(u)
 
 
 def deviations(kern, plain):
@@ -812,15 +828,18 @@ def phase_mle(device):
     t_phase = time.perf_counter()
 
     ghfs_chirp_filter.launches = 0
-    # a. float64 cov GHFS objective: card against host CPU, at theta* and
-    # theta0.  The gradient nearly vanishes at the optimum, so there its
-    # deviation is held to the gradient's scale at theta0.
+    # a. float64 cov GHFS objective: card against host CPU, at theta* on
+    # the whole record and at theta0 on its first MLE_FIT_T samples.  The
+    # gradient nearly vanishes at the optimum, so there its deviation is
+    # held to the gradient's scale at theta0.
     card_nll = pipeline.make_nll_fn(cfg, ys)
     host_nll = pipeline.make_nll_fn(cfg, y_host)
     v_star, g_star, t_star = value_and_grad(card_nll, theta_star, device)
-    v0, g0, t0 = value_and_grad(card_nll, theta0, device)
+    v0, g0, t0 = value_and_grad(pipeline.make_nll_fn(cfg, ys[:MLE_FIT_T]),
+                                theta0, device)
     v_host, g_host, t_host = value_and_grad(host_nll, theta_star, cpu)
-    v0_host, g0_host, _ = value_and_grad(host_nll, theta0, cpu)
+    v0_host, g0_host, _ = value_and_grad(
+        pipeline.make_nll_fn(cfg, y_host[:MLE_FIT_T]), theta0, cpu)
     check(abs(v_star - MLE_NLL) <= MLE_NLL_RTOL * MLE_NLL,
           f"nll at theta* {v_star!r} not within {MLE_NLL_RTOL} of {MLE_NLL}")
     scale = float(g0_host.abs().max())
@@ -834,12 +853,13 @@ def phase_mle(device):
                                 f"max|grad(theta0)|")
     parts.append(
         f"5a cov GHFS f64 T={ys.shape[0]}: nll(theta*) card {v_star!r}, "
-        f"host {v_host!r}; nll(theta0) card {v0!r}, host {v0_host!r}; max|d "
+        f"host {v_host!r}; nll(theta0) at T={MLE_FIT_T} (cut from {T_FULL} "
+        f"for phase 13) card {v0!r}, host {v0_host!r}; max|d "
         f"grad| card vs host over max|grad(theta0)| {devs['theta*']:.3g} at "
         f"theta*, {devs['theta0']:.3g} at theta0; |grad(theta*)| "
         f"{float(g_star.norm())!r}, |grad(theta0)| {float(g0.norm())!r}; "
-        f"value-and-grad card {t_star:.3f} s, {t0:.3f} s, host CPU "
-        f"{t_host:.3f} s")
+        f"value-and-grad card {t_star:.3f} s, {t0:.3f} s (T={MLE_FIT_T}), "
+        f"host CPU {t_host:.3f} s")
 
     # c. fit_mle from theta0 on the record's first MLE_FIT_T samples,
     # counting the objective's calls and keeping their values.
@@ -1081,8 +1101,8 @@ def phase_sweep(device, smi):
     # 7b: two stepped L-BFGS iterations at B=300, T cut to fit the budget.
     t_b = SWEEP_7A_T
     if t_vg > SWEEP_VG_LIMIT_S or SWEEP_7B_EVALS * t_vg > SWEEP_7B_BUDGET_S:
-        t_b = min(SWEEP_7A_T, max(100, int(SWEEP_7A_T * SWEEP_7B_BUDGET_S
-                                        / (SWEEP_7B_EVALS * t_vg))))
+        t_b = min(SWEEP_7A_T, max(SWEEP_7B_MIN_T, int(
+            SWEEP_7A_T * SWEEP_7B_BUDGET_S / (SWEEP_7B_EVALS * t_vg))))
     yb = ys[:, :t_b].contiguous()
     with torch.no_grad():
         f_init = torch.func.vmap(nll)(theta0, yb)
@@ -1389,7 +1409,7 @@ def phase_family(device, smi):
             parts.append(f"{tag} " + family_vg_report(rec, alone))
         del ys_h3, ys_1
 
-        # 8e: the whole sweeps at a small depth, the polish on threads.
+        # 8e: the whole sweeps at a small depth, the polish batched on the card.
         n, t_e, iters = FAMILY_SMALL
         stages = {}
         polish = sweeps._polish_lanes_f64
@@ -1429,7 +1449,8 @@ def phase_family(device, smi):
                           f"8e {name}: polish of lane {i} raised the f64 NLL "
                           f"{f_in} -> {f_out}")
             parts.append(
-                f"8e {name} sweep B={ys_e.shape[0]} T={t_e} max_iters={iters}:"
+                f"8e {name} sweep B={ys_e.shape[0]} T={t_e} (cut from 40) "
+                f"max_iters={iters}:"
                 f" {t_run:.3f} s; all lanes finite with success; f64 NLL "
                 f"change by the polish {min(gaps):.4g} to {max(gaps):.4g}; "
                 f"rmse x10 {[round(10 * float(r), 4) for r in res['rmse']]}")
@@ -1489,6 +1510,7 @@ def classical_inputs(seeds, T):
     init, numpy's degree-11 fit of the true IF."""
     from chirpgp_tpu_torch.toymodels import (
         constant_mag, gen_chirp, gen_chirp_envelope, meow_freq)
+    from chirpgp_tpu_torch.utils.jax_keys import jax_normal, split
     ts = torch.linspace(DT, DT * T, T, dtype=torch.float64)
     freq, phase = meow_freq(offset=8.0)
     tf = freq(ts)
@@ -1499,7 +1521,7 @@ def classical_inputs(seeds, T):
         (3 * seeds, T))
     env300 = (env + math.sqrt(XI) * torch.as_tensor(noise)).numpy()
     keys = np.load(ROOT / "results/data/toydata_const.npz")["keys"][:seeds]
-    noise = torch.as_tensor(np.stack([jax_normal_f64(jax_split(k)[0], T)
+    noise = torch.as_tensor(np.stack([jax_normal(split(k)[0], T)
                                       for k in keys]))
     ys_ref = gen_chirp(ts, constant_mag(1.0), phase) + math.sqrt(XI) * noise
     env_ref = env + math.sqrt(XI) * noise
@@ -1509,13 +1531,14 @@ def classical_inputs(seeds, T):
                 ys_ref=ys_ref.numpy(), env_ref=env_ref.numpy(), init=init)
 
 
-def classical_columns(ts, tf, ys, env, init, device, iters, threads=0):
+def classical_columns(ts, tf, ys, env, init, device, iters, threads=0,
+                      poly_records=None):
     """The four classical columns on ``device`` (records ``ys`` (B, T) and
     envelopes ``env`` (B, T), NumPy float64), 100 records per call, as the
     JAX package's Table-I driver runs them (the polynomial LM for at most
-    ``iters`` iterations): per-record IF-RMSE of each method and its
-    seconds.  Phase 9d runs it on the card and, in a child
-    process with ``threads`` threads, on the host CPU."""
+    ``iters`` iterations, on the first ``poly_records`` records): per-record
+    IF-RMSE of each method and its seconds.  Phase 9d runs it on the card
+    and, in a child process with ``threads`` threads, on the host CPU."""
     from chirpgp_tpu_torch.baselines import (
         adaptive_notch_filter, butter_lowpass, hilbert_method,
         mean_power_spectrum, mle_polynomial_batched)
@@ -1557,7 +1580,8 @@ def classical_columns(ts, tf, ys, env, init, device, iters, threads=0):
     out, secs = {}, {}
     for name, fn, data in (("hilbert", hilbert, ys),
                            ("spectrogram", spectrogram, ys),
-                           ("poly", poly, ys), ("anf", anf, env)):
+                           ("poly", poly, ys[:poly_records]),
+                           ("anf", anf, env)):
         sync()
         t0 = time.perf_counter()
         rows = [fn(torch.as_tensor(data[i:i + 100], device=device))
@@ -1594,7 +1618,8 @@ def phase_table_one(device, smi):
                      for m in CD_GATES}
         host_fut = host.submit(classical_columns,
                                *(inputs[k] for k in cols), "cpu",
-                               POLY_ITERS, CLASSICAL_HOST_THREADS)
+                               POLY_ITERS, CLASSICAL_HOST_THREADS,
+                               CLASSICAL_HOST_POLY_RECORDS)
 
         # 9b: the cd sweep objectives at B=300, float32.
         ys_1, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)
@@ -1604,8 +1629,8 @@ def phase_table_one(device, smi):
             parts.append("9b " + family_vg_report(rec, alone))
         del ys_1
 
-        # 9c: the whole cd_ekfs sweep at a small depth, the polish on
-        # threads.
+        # 9c: the whole cd_ekfs sweep at a small depth, the polish batched
+        # on the card.
         n, t_c, iters = CD_SMALL
         captured = {}
         polish = sweeps._polish_lanes_f64
@@ -1650,13 +1675,15 @@ def phase_table_one(device, smi):
         for name in card:
             c, h = card[name], host_rmse[name]
             check(bool(np.all(np.isfinite(c))), f"9d {name}: non-finite")
+            c = c[:h.shape[0]]
             rel = float(np.max(np.abs(c - h) / np.abs(h)))
             tol = CLASSICAL_HOST_RTOL[name]
             check(rel <= tol, f"9d {name}: card vs host CPU rel {rel} > {tol}")
             col.append(f"{name} card {card_s[name]:.3f} s, host CPU "
-                       f"({CLASSICAL_HOST_THREADS} threads) {host_s[name]:.3f}"
-                       f" s, max rel |card - host| {rel:.3g}, median rmse x10 "
-                       f"{10 * float(np.median(c)):.4f}")
+                       f"({CLASSICAL_HOST_THREADS} threads, {h.shape[0]} "
+                       f"records) {host_s[name]:.3f} s, max rel |card - host| "
+                       f"{rel:.3g}, median rmse x10 "
+                       f"{10 * float(np.median(card[name])):.4f}")
         parts.append(f"9d classical columns B={inputs['ys'].shape[0]} "
                      f"T={SWEEP_T} f64 (toydata_* records, NumPy envelopes): "
                      + "; ".join(col))
@@ -1759,20 +1786,12 @@ def fastnls_columns(seeds):
 
 
 def ligo_synthetic_h():
-    """run_ligo.py's synthetic H record (synth_gw150914: chirp mass 30
+    """run_ligo's synthetic H record (``synth_gw150914``: chirp mass 30
     Msun, 35 -> 300 Hz at 4096 Hz, noise 0.55 N(0, 1) from the first half
-    of jax.random.split(PRNGKey(0)), float64): (ts, ys)."""
-    fs, gm = 4096.0, 30.0 * 4.925491e-6
-    k = (5.0 / 256.0) ** 0.375 / math.pi * gm ** (-0.625)
-    tc = (k / 35.0) ** (8.0 / 3.0)
-    T = int((tc - (k / 300.0) ** (8.0 / 3.0)) * fs)
-    ts = np.arange(1, T + 1) / fs
-    tau = tc - ts
-    true_f = k * tau ** (-0.375)
-    phase = -2.0 * math.pi * k * 1.6 * tau ** 0.625
-    clean = (true_f / 35.0) ** (2.0 / 3.0) * np.sin(phase - phase[0])
-    k1 = jax_split(np.zeros(2, np.uint32))[0]
-    return ts, clean + 0.55 * jax_normal_f64(k1, T)
+    of JAX's split of PRNGKey(0), float64): (ts, ys) host arrays."""
+    from chirpgp_tpu_torch.experiments.run_ligo import synth_gw150914
+    ts, ys, _, _ = synth_gw150914()[0]
+    return ts.numpy(), ys.numpy()
 
 
 def myotis_analog():
@@ -2373,7 +2392,7 @@ def phase_parallel_posterior(device, smi):
           f"11d Gaussian: mean {dmean}, cov {dcov}, accept {acc}, "
           f"divergences {ndiv}")
     gauss = (f"Gaussian, {NUTS_CHAINS} chains, depth {NUTS_DEPTH}, {n_w} + "
-             f"{n_s} transitions: {t_g:.3f} s = "
+             f"{n_s} transitions (cut from 100 + 100): {t_g:.3f} s = "
              f"{1e3 * t_g / (n_w + n_s):.2f} ms per transition of all "
              f"chains; pooled mean {dmean:.4f} (gate 0.15), cov {dcov:.4f} "
              f"(0.35), accept {acc:.3f} (0.6), {ndiv} divergences")
@@ -2824,6 +2843,216 @@ def phase_sharded(device, smi, if_ref, backend="nccl"):
             "bound_ms_sharded_b1024": rep["bound_ms"]}
 
 
+def run_entry(module: str, args, cwd, on_card: bool = True) -> tuple:
+    """``python -m chirpgp_tpu_torch.<module> --device cuda <args>`` in a
+    child process from the repository root (without ``--device`` when not
+    ``on_card``: the NumPy table printer): (stdout, seconds).  A nonzero
+    exit or a hang past ENTRY_TIMEOUT_S raises SmokeFailure."""
+    cmd = [sys.executable, "-m", f"chirpgp_tpu_torch.{module}",
+           *(("--device", "cuda") if on_card else ()), *map(str, args)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                              timeout=ENTRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        tail = exc.stdout or b""
+        tail = tail.decode() if isinstance(tail, bytes) else tail
+        raise SmokeFailure(f"13 {module}: no exit within {ENTRY_TIMEOUT_S} "
+                           f"s; its output ended: {tail[-1500:]}")
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"13 {module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, secs
+
+
+def entry_columns(out_dir, prefix, n):
+    """The three magnitude files ``{prefix}_{mag}.npz`` of a driver's run,
+    each with ``n`` lanes and a finite ``rmse`` wherever ``success``."""
+    cols = {}
+    for mag in MAGNITUDES:
+        res = np.load(Path(out_dir) / f"{prefix}_{mag}.npz")
+        rmse = res["rmse"]
+        ok = res["success"] if "success" in res.files else \
+            np.ones_like(rmse, bool)
+        check(rmse.shape == (n,) and bool(np.all(np.isfinite(rmse[ok]))),
+              f"13 {prefix}_{mag}: rmse {rmse.shape}, not finite where "
+              f"success")
+        cols[mag] = res
+    return cols
+
+
+def phase_entry_points(device, smi):
+    """13a-13f: the drivers of ``chirpgp_tpu_torch/experiments`` and the
+    demos of ``chirpgp_tpu_torch/demos`` in child processes on the card,
+    up to ENTRY_PARALLEL at once, each checked as it ends."""
+    import concurrent.futures
+    import re
+    import tempfile
+    from chirpgp_tpu_torch.apps import filter_error_mc_chunked
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_entry_")
+    work = Path(tmp.name)
+    data = work / "data"
+    data.mkdir()
+    for mag in MAGNITUDES:
+        d = np.load(ROOT / f"results/data/toydata_{mag}.npz")
+        np.savez(data / f"toydata_{mag}.npz", ys=d["ys"][:, :ENTRY_T],
+                 true_freqs=d["true_freqs"][:ENTRY_T], ts=d["ts"][:ENTRY_T],
+                 keys=d["keys"])
+    exp, demos = "experiments.", "demos."
+    sweep = ("--seeds", ENTRY_SEEDS, "--max-iters", ENTRY_ITERS)
+
+    def table_one():
+        out_a, secs_a = run_entry(exp + "run_rmse_table", (
+            "--methods", "ghfs", *sweep, "--data-dir", data, "--out",
+            work / "a"), ROOT)
+        out_b, secs_b = run_entry(exp + "print_table", (
+            "--paired", "--results", work / "a", "--reference",
+            ROOT / "results/reference"), ROOT, on_card=False)
+        return out_a, secs_a, out_b, secs_b
+
+    n_demo_t, n_demo_iters = ENTRY_DEMO
+    # Longest first: the pool takes them in this order.
+    jobs = {
+        "13a": table_one,
+        "13f classical_methods": lambda: run_entry(
+            demos + "classical_methods", (), ROOT),
+        "13d": lambda: run_entry(exp + "run_classical", (
+            "--methods", "hilbert", "spectrogram", "anf", "--seeds",
+            ENTRY_SEEDS, "--out", work / "d"), ROOT),
+        "13e kpt": lambda: run_entry(exp + "run_kpt", (
+            *sweep, "--T", ENTRY_T, "--out", work / "e"), ROOT),
+        "13e fhc": lambda: run_entry(exp + "run_fhc", (
+            "--seeds", ENTRY_FHC_SEEDS, "--out", work / "e"), ROOT),
+        "13e fastnls": lambda: run_entry(exp + "run_fastnls", (
+            "--seeds", ENTRY_NLS_SEEDS, "--out", work / "e"), ROOT),
+        "13f print_time": lambda: run_entry(exp + "print_time", (
+            "--T", ENTRY_PRINT_TIME_T, "--methods", "ghfs", "ekfs"), ROOT),
+        "13f ghfs_mle": lambda: run_entry(demos + "ghfs_mle", (
+            "--T", n_demo_t, "--max-iters", n_demo_iters), ROOT),
+        "13c": lambda: run_entry(exp + "run_crlb", (
+            "-method", "ghf", "-num_mcs", ENTRY_CRLB_N, "-lam", 0.1, "-b",
+            0.1, "--backend", "cf", "-out", work / "c"), ROOT),
+    }
+    with concurrent.futures.ThreadPoolExecutor(ENTRY_PARALLEL) as pool:
+        futs = {name: pool.submit(job) for name, job in jobs.items()}
+        concurrent.futures.wait(futs.values())
+    failed = {name: fut.exception() for name, fut in futs.items()
+              if fut.exception() is not None}
+    if failed:
+        print("phase 13 children: " + "; ".join(
+            f"{name} {fut.result()[-1]:.3f} s" if name not in failed
+            else f"{name} FAILED" for name, fut in futs.items()), flush=True)
+        raise SmokeFailure("; ".join(f"{k}: {v}" for k, v in failed.items()))
+    done = {name: fut.result() for name, fut in futs.items()}
+    parts = []
+
+    # 13a: three columns of 100 lanes; the sweep's stage times.
+    out_a, secs_a, out_b, secs_b = done["13a"]
+    entry_columns(work / "a", "ghfs", ENTRY_SEEDS)
+    stages = re.findall(r"stage (.+?): ([0-9.]+) s", out_a)
+    check(len(stages) == 4, f"13a: stage times {stages}")
+    parts.append(
+        f"13a run_rmse_table --methods ghfs B={3 * ENTRY_SEEDS}, T cut to "
+        f"{ENTRY_T} on toydata_* cropped, --max-iters "
+        f"{ENTRY_ITERS}: {secs_a:.3f} s; " + ", ".join(
+            f"{k} {v} s" for k, v in stages))
+    rows = [ln.strip() for ln in out_b.splitlines()
+            if ln.startswith("ghfs ")]
+    check(len(rows) == 3, f"13b print_table --paired: ghfs rows {rows}")
+    parts.append(f"13b print_table --paired {secs_b:.3f} s: "
+                 + "; ".join(" ".join(r.split()) for r in rows))
+
+    # 13c: 4 launches in the child; its file against the same call here.
+    out_c, secs_c = done["13c"]
+    launches = re.findall(r"filter kernel launches (\d+)", out_c)
+    want_launches = -(-ENTRY_CRLB_N // CRLB_CHUNK)
+    check(launches == [str(want_launches)],
+          f"13c run_crlb: kernel launches {launches}, want {want_launches}")
+    got = np.load(work / "c" / "crlb_ghf_lam0.1_b0.1.npz")
+    want = filter_error_mc_chunked(*CRLB_ARGS, ENTRY_CRLB_N, device=device)
+    rel = max(float(np.max(np.abs(got[k] - v)) / float(np.max(np.abs(v))))
+              for k, v in want.items())
+    check(rel <= ENTRY_CRLB_RTOL, f"13c run_crlb vs in-process rel {rel}")
+    parts.append(
+        f"13c run_crlb N={ENTRY_CRLB_N} f32 cf {secs_c:.3f} s (its wall_s "
+        f"{float(got['wall_s']):.3f} s): {launches[0]} kernel launches in the "
+        f"child, its statistics vs filter_error_mc_chunked here max rel "
+        f"{rel:.3g}")
+
+    # 13d: every seed against the JAX package's committed columns.
+    _, secs_d = done["13d"]
+    held = []
+    for name, rtol in ENTRY_CLASSICAL_RTOL.items():
+        worst = 0.0
+        for mag in MAGNITUDES:
+            got = np.load(work / "d" / f"{name}_{mag}.npz")["rmse"]
+            want = np.load(ROOT / f"results/{name}_{mag}.npz")["rmse"][
+                :ENTRY_SEEDS]
+            bound = ENTRY_HILBERT_RANDOM_RTOL \
+                if (name, mag) == ("hilbert", "random") else rtol
+            rel = float(np.max(np.abs(got - want) / want))
+            check(got.shape == (ENTRY_SEEDS,) and rel <= bound,
+                  f"13d {name}_{mag}: per-seed rel {rel} > {bound}")
+            worst = max(worst, rel)
+        held.append(f"{name} max rel {worst:.3g}")
+    parts.append(f"13d run_classical B={3 * ENTRY_SEEDS} T={T_FULL} f64 on "
+                 f"JAX's records {secs_d:.3f} s, per seed vs results/: "
+                 + ", ".join(held))
+
+    # 13e: the KPT, FHC and fastF0NLS drivers.
+    _, secs_k = done["13e kpt"]
+    entry_columns(work / "e", "kpt", ENTRY_SEEDS)
+    _, secs_f = done["13e fhc"]
+    gaps = []
+    for mag in MAGNITUDES:
+        got = np.load(work / "e" / f"harmonic_fhc_{mag}.npz")["rmse"]
+        want = np.load(ROOT / f"results/harmonic_fhc_{mag}.npz")["rmse"][
+            :ENTRY_FHC_SEEDS]
+        gaps.append(got / want)
+    gaps = np.concatenate(gaps)
+    q = float(np.quantile(np.abs(gaps - 1.0), FHC_QUANTILE))
+    med = float(np.median(gaps))
+    check(q <= FHC_SEED_RTOL and abs(med - 1.0) <= FHC_MEDIAN_RTOL,
+          f"13e run_fhc: {FHC_QUANTILE} quantile {q}, median ratio {med}")
+    _, secs_n = done["13e fastnls"]
+    nls = max(float(np.max(np.abs(
+        np.load(work / "e" / f"fastf0nls_{mag}.npz")["rmse"]
+        - np.load(ROOT / f"results/fastf0nls_{mag}.npz")["rmse"][
+            :ENTRY_NLS_SEEDS]) / np.load(ROOT / f"results/fastf0nls_{mag}"
+                                         f".npz")["rmse"][:ENTRY_NLS_SEEDS]))
+        for mag in MAGNITUDES)
+    check(nls <= ENTRY_NLS_RTOL, f"13e run_fastnls vs committed rel {nls}")
+    parts.append(
+        f"13e run_kpt B={3 * ENTRY_SEEDS}, T cut to "
+        f"{ENTRY_T}, --max-iters {ENTRY_ITERS} {secs_k:.3f} s; run_fhc K=3 "
+        f"{3 * ENTRY_FHC_SEEDS} records {secs_f:.3f} s, per seed vs committed {FHC_QUANTILE} "
+        f"quantile {q:.3g}, median ratio {med:.4f}; run_fastnls "
+        f"{3 * ENTRY_NLS_SEEDS} records {secs_n:.3f} s, vs committed max rel "
+        f"{nls:.3g}")
+
+    # 13f: the demos and the timing script, their numbers finite.
+    demo_parts = []
+    for name, pattern, n in (
+            ("13f classical_methods", r"IF RMSE[^:]*: (\S+)", 4),
+            ("13f ghfs_mle", r"IF RMSE: (\S+)", 3),
+            ("13f print_time", r"T=\d+: best ([0-9.]+) ms", 2)):
+        out, secs = done[name]
+        vals = [float(v) for v in re.findall(pattern, out)]
+        check(len(vals) == n and all(math.isfinite(v) for v in vals),
+              f"{name}: {vals} from {out[-1000:]}")
+        demo_parts.append(f"{name.split()[1]} {secs:.3f} s {vals}")
+    parts.append(f"13f demos: classical_methods (T={T_FULL}); ghfs_mle (T "
+                 f"cut to {n_demo_t}, --max-iters {n_demo_iters}: IF RMSE of "
+                 f"const, damped, random_ou); print_time (T cut from 785 to "
+                 f"{ENTRY_PRINT_TIME_T}, best ms of ghfs, ekfs): "
+                 + "; ".join(demo_parts))
+    tmp.cleanup()
+    print(f"phase 13 entry points ({time.perf_counter() - t_phase:.3f} s; "
+          f"{smi}; {len(jobs)} child processes, {ENTRY_PARALLEL} at once): "
+          + "; ".join(parts), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2856,6 +3085,7 @@ def main() -> int:
     analysis = phase_analysis(device, smi)
     phase_parallel_posterior(device, smi)
     sharded = phase_sharded(device, smi, if_ref)
+    phase_entry_points(device, smi)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,

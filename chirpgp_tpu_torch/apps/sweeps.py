@@ -9,9 +9,9 @@
 - **Batched MLE**: all seeds step in lockstep through the batched L-BFGS
   (:func:`~chirpgp_tpu_torch.fit.mle.lbfgs_minimize_stepped`), each value
   and gradient one ``torch.func.vmap`` over the seeds on the measurements'
-  device; then a per-lane SciPy rescue of stuck lanes on that device, a
-  per-lane float64 polish on the host CPU, and the estimate stage, vmapped
-  over the seeds.
+  device; then a per-lane SciPy rescue of stuck lanes and a per-lane
+  float64 SciPy polish, both on that device with the lanes' evaluations
+  batched, and the estimate stage, vmapped over the seeds.
 - **NaN-on-divergence**: runs whose optimizer fails are recorded as NaN.
 - **Mesh**: with ``mesh``, :func:`mc_mle_sweep` and :func:`mc_kpt_sweep`
   split the seeds over the mesh's ranks
@@ -24,9 +24,10 @@ Entry points that take host data put it on ``device``, the card unless
 the caller passes ``device="cpu"``.
 """
 
-import concurrent.futures
 import math
 import os
+import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ from chirpgp_tpu_torch.apps.kpt import (
 from chirpgp_tpu_torch.apps.pipeline import (
     IFEstimationConfig, _filter_fns, _init_theta, _measurements, _on_data,
     make_nll_fn)
+from chirpgp_tpu_torch.fit.lbfgs import batched_value_and_grad
 from chirpgp_tpu_torch.fit.mle import (
     MLEResult, lbfgs_minimize, lbfgs_minimize_stepped)
 from chirpgp_tpu_torch.models.bijections import g
@@ -189,6 +191,83 @@ def mc_mle_sweep_stepped(cfg: IFEstimationConfig, keys, mag_name: str,
                                      init_theta=init_theta, verbose=verbose)
 
 
+def _minimize_lanes(nll, ys, dtype, x0s, max_iters: int):
+    """One SciPy L-BFGS-B per lane ``i`` of ``ys``, from ``x0s[i]``, on
+    ``nll(theta, ys[i])`` in ``dtype`` on ``ys``' device; a list of the
+    lanes' ``OptimizeResult``.
+
+    Each lane's SciPy run is its own host thread; whenever every running
+    lane waits on a point, those points go to the objective as one batched
+    value-and-grad (:func:`~chirpgp_tpu_torch.fit.lbfgs.batched_value_and_grad`
+    over the waiting lanes).  So a lane takes the steps its own SciPy run
+    takes, and the device sees one call per round of evaluations in place
+    of one per lane.
+    """
+    from scipy.optimize import minimize
+
+    cond = threading.Condition()
+    asked, answers, results = {}, {}, [None] * len(x0s)
+    state = {"running": len(x0s), "error": None}
+
+    def run_lane(i):
+        def f_np(x):
+            with cond:
+                asked[i] = np.array(x, dtype=np.float64)
+                cond.notify_all()
+                while i not in answers and state["error"] is None:
+                    cond.wait()
+                if state["error"] is not None:
+                    raise RuntimeError("lane evaluation failed")
+                return answers.pop(i)
+
+        try:
+            results[i] = minimize(f_np, x0s[i], method="L-BFGS-B", jac=True,
+                                  options={"maxiter": max_iters})
+        except BaseException as exc:  # re-raised on the calling thread
+            with cond:
+                state["error"] = state["error"] or exc
+        finally:
+            with cond:
+                state["running"] -= 1
+                cond.notify_all()
+
+    threads = [threading.Thread(target=run_lane, args=(i,), daemon=True)
+               for i in range(len(x0s))]
+    for t in threads:
+        t.start()
+    try:
+        while True:
+            with cond:
+                while (state["error"] is None and state["running"]
+                       and len(asked) < state["running"]):
+                    cond.wait()
+                if state["error"] is not None or not state["running"]:
+                    break
+                lanes = sorted(asked)
+                points = np.stack([asked.pop(i) for i in lanes])
+            try:
+                at = torch.as_tensor(lanes, device=ys.device)
+                values, grads = batched_value_and_grad(nll, (ys[at],))(
+                    torch.as_tensor(points, dtype=dtype, device=ys.device))
+                values = values.cpu().numpy().astype(np.float64)
+                grads = grads.cpu().numpy().astype(np.float64)
+            except BaseException as exc:
+                with cond:
+                    state["error"] = exc
+                    cond.notify_all()
+                break
+            with cond:
+                for k, i in enumerate(lanes):
+                    answers[i] = (float(values[k]), grads[k])
+                cond.notify_all()
+    finally:
+        for t in threads:
+            t.join()
+    if state["error"] is not None:
+        raise state["error"]
+    return results
+
+
 def _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
                         max_iters: int = 300, rescue_tol: float = 1e-3,
                         outlier_z: float = 8.0, verbose: bool = False):
@@ -201,9 +280,8 @@ def _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
     non-finite; a lane whose NLL improvement ``f_final - f_init`` lies
     more than ``outlier_z`` MAD-sigmas above the batch median is
     re-optimized too.  The rescued lane keeps whichever result is better.
+    The rescued lanes run together through :func:`_minimize_lanes`.
     """
-    from scipy.optimize import minimize
-
     with torch.no_grad():
         f_init = torch.func.vmap(nll)(theta0, ys).cpu().numpy()
     f_fin = opt.fun_val.cpu().numpy().astype(np.float64)
@@ -230,18 +308,10 @@ def _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
     iters_np = opt.num_iters.cpu().numpy().copy()
     theta_init64 = np.asarray(torch.as_tensor(init_theta).cpu(),
                               dtype=np.float64)
-    for i in idx:
-        ys_i = ys[i]
-
-        def f_np(x):
-            theta = torch.tensor(x, dtype=theta0.dtype, device=theta0.device,
-                                 requires_grad=True)
-            value = nll(theta, ys_i)
-            grad, = torch.autograd.grad(value, theta)
-            return float(value.detach()), grad.cpu().numpy().astype(np.float64)
-
-        res = minimize(f_np, theta_init64, method="L-BFGS-B", jac=True,
-                       options={"maxiter": max_iters})
+    results = _minimize_lanes(nll, ys[torch.as_tensor(idx, device=ys.device)],
+                              theta0.dtype, [theta_init64] * idx.size,
+                              max_iters)
+    for i, res in zip(idx, results):
         if np.isfinite(res.fun) and (not np.isfinite(f_fin[i])
                                      or res.fun < f_fin[i]):
             params_np[i] = np.asarray(res.x, dtype=params_np.dtype)
@@ -263,8 +333,9 @@ def _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
 def _polish_lanes_f64(nll, init_theta, opt, ys, max_iters: int = 200,
                       verbose: bool = False):
     """Per-lane float64 L-BFGS-B polish of the batched stage's solution, on
-    the host CPU, over a small thread pool -- as the JAX package pins
-    ``jax.devices("cpu")`` at x64 for it.
+    the measurements' device, every lane's evaluations batched by
+    :func:`_minimize_lanes`.  (The JAX package pins ``jax.devices("cpu")``
+    at x64 for it, since its TPU has no float64; the card has.)
 
     The float32 NLL of this model family sits at O(1e3) nats, so float32
     resolves relative improvements only down to ~1e-4, and the stepped
@@ -276,55 +347,35 @@ def _polish_lanes_f64(nll, init_theta, opt, ys, max_iters: int = 200,
     relative slack) is rejected; a lane without a finite incoming value
     takes its polish only when SciPy reports convergence.
     """
-    from scipy.optimize import minimize
-
     params_np = opt.params.cpu().numpy().astype(np.float64)
     f_fin = opt.fun_val.cpu().numpy().astype(np.float64)
     succ_np = opt.success.cpu().numpy().copy()
     iters_np = opt.num_iters.cpu().numpy().copy()
-    ys64 = ys.cpu().to(torch.float64)
     init64 = np.asarray(torch.as_tensor(init_theta).cpu(), dtype=np.float64)
-
-    def polish_lane(i):
-        x0 = params_np[i]
-        if not np.all(np.isfinite(x0)):
-            x0 = init64
-        ys_i = ys64[i]
-
-        def f_np(x):
-            theta = torch.tensor(x, dtype=torch.float64, requires_grad=True)
-            value = nll(theta, ys_i)
-            grad, = torch.autograd.grad(value, theta)
-            return float(value.detach()), grad.numpy()
-
-        return i, minimize(f_np, x0, method="L-BFGS-B", jac=True,
-                           options={"maxiter": max_iters})
-
-    # The lanes are independent; results are applied on this thread, in
-    # lane order.
-    workers = max(2, min(4, os.cpu_count() or 2))
-    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
-        for i, res in ex.map(polish_lane, range(params_np.shape[0])):
-            incoming_finite = np.isfinite(f_fin[i])
-            slack = 1e-3 * max(1.0, abs(f_fin[i])) if incoming_finite else 0.0
-            accept = np.isfinite(res.fun) and (
-                (incoming_finite and res.fun <= f_fin[i] + slack)
-                or (not incoming_finite and bool(res.success)))
-            if accept:
-                if verbose and (not incoming_finite
-                                or res.fun < f_fin[i] - 1e-3):
-                    print(f"    f64 polish lane {i}: {f_fin[i]:.3f} -> "
-                          f"{res.fun:.3f} ({int(res.nit)} iters)", flush=True)
-                params_np[i] = np.asarray(res.x)
-                f_fin[i] = res.fun
-                # NaN-on-DIVERGENCE: a finite polished optimum is a usable
-                # estimate even if SciPy stopped on maxiter.
-                succ_np[i] = True
-                iters_np[i] = iters_np[i] + int(res.nit)
-            elif verbose:
-                print(f"    f64 polish lane {i}: rejected (fun="
-                      f"{res.fun:.3f} vs incoming {f_fin[i]:.3f}, success="
-                      f"{res.success})", flush=True)
+    x0s = [x0 if np.all(np.isfinite(x0)) else init64 for x0 in params_np]
+    results = _minimize_lanes(nll, ys.to(torch.float64), torch.float64, x0s,
+                              max_iters)
+    for i, res in enumerate(results):
+        incoming_finite = np.isfinite(f_fin[i])
+        slack = 1e-3 * max(1.0, abs(f_fin[i])) if incoming_finite else 0.0
+        accept = np.isfinite(res.fun) and (
+            (incoming_finite and res.fun <= f_fin[i] + slack)
+            or (not incoming_finite and bool(res.success)))
+        if accept:
+            if verbose and (not incoming_finite
+                            or res.fun < f_fin[i] - 1e-3):
+                print(f"    f64 polish lane {i}: {f_fin[i]:.3f} -> "
+                      f"{res.fun:.3f} ({int(res.nit)} iters)", flush=True)
+            params_np[i] = np.asarray(res.x)
+            f_fin[i] = res.fun
+            # NaN-on-DIVERGENCE: a finite polished optimum is a usable
+            # estimate even if SciPy stopped on maxiter.
+            succ_np[i] = True
+            iters_np[i] = iters_np[i] + int(res.nit)
+        elif verbose:
+            print(f"    f64 polish lane {i}: rejected (fun="
+                  f"{res.fun:.3f} vs incoming {f_fin[i]:.3f}, success="
+                  f"{res.success})", flush=True)
 
     device = opt.params.device
     return MLEResult(
@@ -343,10 +394,11 @@ def mle_sweep_on_measurements(cfg: IFEstimationConfig, true_freqs, ys,
     """Host-stepped batched MLE sweep over measurement batches ``ys (B,
     T)`` with their true IFs ``true_freqs`` ((B, T), or (T,) for all):
     :func:`lbfgs_minimize_stepped` (``tail_iters=30``), the rescue of stuck
-    lanes, the float64 host polish (``polish_f64``), and the estimate,
+    lanes, the float64 polish (``polish_f64``), and the estimate,
     vmapped over the lanes.  Lanes may mix scenarios (all three magnitude
     cases in one batch).  ``checkpoint_path``/``checkpoint_tag`` go to the
-    stepped optimizer; the file is not deleted here.  Returns host arrays
+    stepped optimizer; the file is not deleted here.  ``verbose`` prints the
+    stages' progress and each stage's seconds.  Returns host arrays
     ``rmse`` (B,), ``params`` (B, P) and ``success`` (B,)."""
     ys = _measurements(ys, device)
     true_freqs = _measurements(true_freqs, device)
@@ -358,6 +410,17 @@ def mle_sweep_on_measurements(cfg: IFEstimationConfig, true_freqs, ys,
         return make_nll_fn(cfg, ys_i)(theta)
 
     theta0 = init_theta.expand((ys.shape[0],) + init_theta.shape).clone()
+    t_stage = time.perf_counter()
+
+    def stage_done(name):
+        """With ``verbose``, the stage's host wall time (every stage ends
+        in a copy to the host, so the device's work is in it)."""
+        nonlocal t_stage
+        now = time.perf_counter()
+        if verbose:
+            print(f"  stage {name}: {now - t_stage:.3f} s", flush=True)
+        t_stage = now
+
     opt = lbfgs_minimize_stepped(nll, theta0, batch_args=(ys,),
                                  max_iters=cfg.max_iters,
                                  ftol_rel=cfg.ftol_rel,
@@ -365,12 +428,17 @@ def mle_sweep_on_measurements(cfg: IFEstimationConfig, true_freqs, ys,
                                  checkpoint_path=checkpoint_path,
                                  checkpoint_tag=checkpoint_tag,
                                  tail_iters=30, verbose=verbose)
+    stage_done("stepped L-BFGS")
     opt = _rescue_stuck_lanes(nll, init_theta, theta0, ys, opt,
                               max_iters=cfg.max_iters, verbose=verbose)
+    stage_done("rescue")
     if polish_f64:
         opt = _polish_lanes_f64(nll, init_theta, opt, ys,
                                 max_iters=cfg.max_iters, verbose=verbose)
-    return _estimate_lanes(cfg, opt.params, true_freqs, ys, opt.success)
+        stage_done("float64 polish")
+    res = _estimate_lanes(cfg, opt.params, true_freqs, ys, opt.success)
+    stage_done("estimate")
+    return res
 
 
 def _kpt_estimate_lanes(theta, true_freqs, yss, success, fs: float, Xi,
@@ -400,7 +468,7 @@ def _kpt_sweep_on_measurements(true_freqs, yss, Xi: float = 0.1,
     their true IFs ``true_freqs`` ((B, T), or (T,) for all):
     :func:`lbfgs_minimize_stepped` over all lanes (``ftol_rel=1e-9``,
     ``patience=10``, ``tail_iters=30``), the rescue of stuck lanes, the
-    float64 host polish and the vmapped estimate.  Returns host arrays
+    float64 polish and the vmapped estimate.  Returns host arrays
     ``rmse`` (B,), ``params`` (B, 5) and ``success`` (B,)."""
     yss = _measurements(yss, device)
     true_freqs = _measurements(true_freqs, device)
@@ -430,7 +498,7 @@ def mc_kpt_sweep(keys, mag_name: str, Xi: float = 0.1, dt: float = 1e-3,
     IF and record its RMSE (NaN on divergence).
 
     ``stepped=True`` (default): :func:`_kpt_sweep_on_measurements`, the
-    stepped batched L-BFGS with the rescue and the float64 host polish.
+    stepped batched L-BFGS with the rescue and the float64 polish.
     ``stepped=False``: one batched :func:`lbfgs_minimize` in which each
     seed stops on its own gradient-norm rule, then the estimate.  With
     ``mesh`` (``stepped=False``, as in the JAX package, whose stepped

@@ -116,15 +116,20 @@ def _stft_psd(ys: torch.Tensor, fs, nperseg: int, noverlap: int,
     and density scaling (``scipy.signal.spectrogram``'s defaults): the
     frequencies, the frame centres and the PSD ``(..., nfreq, frames)``."""
     step = nperseg - noverlap
-    n_frames = 1 + (ys.shape[-1] - nperseg) // step
-    frames = ys.unfold(-1, nperseg, step)                 # (..., F, nperseg)
-    frames = frames - frames.mean(dim=-1, keepdim=True)
+    # A record shorter than one frame has no frames (an empty spectrogram,
+    # as the JAX package's).
+    n_frames = max(1 + (ys.shape[-1] - nperseg) // step, 0)
     like = dict(dtype=ys.dtype, device=ys.device)
     win = cosine_window(nperseg, **like) if window == "cosine" \
         else tukey_window(nperseg, **like)
-    spec = torch.fft.rfft(frames * win, dim=-1)          # (..., F, nfreq)
     scale = 1.0 / (fs * torch.sum(win ** 2))
-    psd = (spec.real ** 2 + spec.imag ** 2) * scale
+    if n_frames:
+        frames = ys.unfold(-1, nperseg, step)             # (..., F, nperseg)
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+        spec = torch.fft.rfft(frames * win, dim=-1)      # (..., F, nfreq)
+        psd = (spec.real ** 2 + spec.imag ** 2) * scale
+    else:
+        psd = ys.new_zeros(ys.shape[:-1] + (0, nperseg // 2 + 1))
     # One-sided doubling (except DC, and Nyquist for even nperseg).
     mult = torch.ones(psd.shape[-1], **like)
     mult[1:] = 2.0

@@ -353,17 +353,23 @@ def test_seed0_columns_match_the_reference():
 
 def test_chip_smoke_replays_the_jax_draws():
     """``chip_smoke.py`` phase 9d makes the reference's records on the card
-    machine, without JAX, from ``toydata``'s keys: its NumPy Threefry split
-    and float64 normal draw against the JAX package's."""
+    machine, without JAX, from ``toydata``'s keys, through the package's
+    NumPy Threefry (``utils/jax_keys.py``; the script keeps no copy of
+    its own): its split and float64 normal draw against the JAX
+    package's."""
+    from chirpgp_tpu_torch.utils.jax_keys import jax_normal, split
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    assert not hasattr(smoke, "threefry2x32")
+    assert "from chirpgp_tpu_torch.utils.jax_keys import" in \
+        (ROOT / "chip_smoke.py").read_text()
     keys = np.load(ROOT / "results/data/toydata_const.npz")["keys"][:4]
     for key in keys:
-        split = np.asarray(jax.random.split(jnp.asarray(key)))
-        npt.assert_array_equal(smoke.jax_split(key), split)
-        npt.assert_allclose(smoke.jax_normal_f64(split[0], 3141),
+        keys_j = np.asarray(jax.random.split(jnp.asarray(key)))
+        npt.assert_array_equal(split(key), keys_j)
+        npt.assert_allclose(jax_normal(keys_j[0], 3141),
                             np.asarray(jax.random.normal(
-                                jnp.asarray(split[0]), (3141,))),
+                                jnp.asarray(keys_j[0]), (3141,))),
                             atol=1e-11, rtol=0)

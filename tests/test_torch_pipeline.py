@@ -317,7 +317,16 @@ def test_port_never_imports_jax():
             PORT / "utils/numerics.py",
             PORT / "parallel/__init__.py", PORT / "parallel/mesh.py",
             PORT / "parallel/multihost.py", PORT / "infer/parallel_sharded.py",
-            ROOT / "chip_smoke.py"} <= set(files)
+            PORT / "utils/jax_keys.py", PORT / "experiments/__init__.py",
+            PORT / "experiments/_common.py",
+            PORT / "demos/__init__.py", ROOT / "chip_smoke.py"} \
+        | {PORT / f"experiments/{name}.py" for name in (
+            "gen_toymodel_data", "run_rmse_table", "print_table", "run_kpt",
+            "run_classical", "run_fhc", "run_fastnls", "run_crlb",
+            "print_time", "run_ligo")} \
+        | {PORT / f"demos/{name}.py" for name in (
+            "ghfs_mle", "ghfs_harmonics_mle", "classical_methods",
+            "bats_analysis", "ligo_analysis")} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

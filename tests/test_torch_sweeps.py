@@ -215,6 +215,51 @@ def test_f64_polish_never_worse():
                         rtol=0.02)
 
 
+def test_minimize_lanes_equals_one_scipy_run_per_lane():
+    """The rescue's and the polish's driver: each lane's L-BFGS-B run, its
+    evaluations batched with the other lanes', ends where SciPy ends on
+    that lane alone, whatever number of evaluations each lane takes."""
+    from scipy.optimize import minimize
+
+    _, ys = _seed0(60)
+    _, nt = _nll_pair(dict(method="ekfs"))
+    init = tp.IFEstimationConfig().default_init_theta(torch.float64)
+    yss = torch.tensor(np.stack([ys[0], ys[0][::-1].copy(), ys[0] * 0.5]))
+
+    def scipy_alone(i, x0):
+        def f_np(x):
+            value, grad = batched_value_and_grad(nt, (yss[i:i + 1],))(
+                torch.tensor(x)[None])
+            return float(value[0]), grad[0].numpy()
+
+        return minimize(f_np, x0, method="L-BFGS-B", jac=True,
+                        options={"maxiter": 8})
+
+    # Lane 0 starts where 8 iterations from the init end: its line
+    # searches take more evaluations than the other lanes'.
+    x0s = [scipy_alone(0, init.numpy()).x, init.numpy() + 0.05,
+           init.numpy() - 0.05]
+    got = ts._minimize_lanes(nt, yss, torch.float64, x0s, max_iters=8)
+    assert len({res.nfev for res in got}) > 1
+    for i, res in enumerate(got):
+        want = scipy_alone(i, x0s[i])
+        assert (res.nit, res.nfev, res.success) == \
+            (want.nit, want.nfev, want.success)
+        npt.assert_allclose(res.x, want.x, atol=1e-10, rtol=0)
+        npt.assert_allclose(res.fun, want.fun, rtol=1e-12, atol=0)
+
+
+def test_minimize_lanes_raises_what_the_objective_raises():
+    """A failing batched evaluation ends every lane's run and is raised
+    on the calling thread; nothing hangs."""
+    def nll(theta, ys_i):
+        raise ValueError("objective failed")
+
+    with pytest.raises(ValueError, match="objective failed"):
+        ts._minimize_lanes(nll, torch.zeros(3, 5, dtype=torch.float64),
+                           torch.float64, [np.zeros(2)] * 3, max_iters=3)
+
+
 def test_print_rmse_table_matches_jax(capsys):
     rng = np.random.default_rng(0)
     r = rng.uniform(0.05, 0.2, 6)
