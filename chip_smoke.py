@@ -129,7 +129,13 @@ Phases, one line each:
     13c the Fig. 5 driver through the kernel (launches counted in the
     child; its file against the same call in this process), 13d the
     classical columns per seed against the JAX package's, 13e the KPT,
-    FHC and fastF0NLS drivers, 13f two demos and the timing script.
+    FHC and fastF0NLS drivers, 13f two demos and the timing script, 13g
+    the paper's figures as arrays (``plots --save-arrays``: the samples
+    and the conditional covariance against the host CPU, the crlb arrays
+    against the committed files), 13h the scaling harness on four
+    ``gloo`` ranks sharing the card (``bench_scaling``: one kernel launch
+    per rank per sweep, counted in the child; the values of four ranks
+    against one rank's).
 
 A device busy share is the kernel time of a call under ``torch.profiler``
 (the card's activity alone) over the wall time of the same call
@@ -141,8 +147,10 @@ The line before the last is a JSON record of the kernels (``ms`` and
 ``ms_f64`` and ``bound_ms_f64`` at B=4096 float64, La Scala's path,
 phase 8b: its launches, ``ms_lascala_b100`` and its bound, and the CRLB
 path, phase 10: ``launches_crlb``, ``ms_crlb_chunk`` and
-``bound_ms_crlb_chunk``, and the sharded path, phase 12b:
-``launches_sharded``, ``ms_sharded_b1024`` and its bound); the last
+``bound_ms_crlb_chunk``, the sharded path, phase 12b:
+``launches_sharded``, ``ms_sharded_b1024`` and its bound, and the
+scaling harness, 13h: ``launches_scaling``, per mesh size the launches
+of each rank over its sweeps, and ``b_per_rank_scaling``); the last
 line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
@@ -486,6 +494,21 @@ ENTRY_CLASSICAL_RTOL = {"hilbert": 1e-5, "spectrogram": 1e-6, "anf": 1e-9}
 ENTRY_HILBERT_RANDOM_RTOL = 5e-5
 ENTRY_FHC_SEEDS, ENTRY_NLS_SEEDS, ENTRY_NLS_RTOL = 10, 1, 1e-5
 ENTRY_DEMO, ENTRY_PRINT_TIME_T = (30, 2), 200
+# 13g the paper's figures, ``plots --save-arrays`` with all nine: the
+# samples, the covariance surface and the conditional covariance at the
+# JAX script's sizes, the two estimation records cut from T=3141 to
+# ENTRY_PLOTS_T; every array finite and of the script's shape, the
+# samples and the conditional covariance against the same ``_arrays``
+# call on the host CPU in this process (float32, ENTRY_PLOTS_RTOL of each
+# array's largest magnitude), the crlb arrays equal to the committed
+# files.  13h the scaling harness, ``bench_scaling --ranks 4 --seeds
+# 1024`` with T cut from 512 to ENTRY_SCALING["T"] (four gloo ranks on the
+# one card): mesh sizes 1, 2 and 4 reported, one kernel launch per rank
+# per sweep (SCALING_SWEEPS: a warm-up and three timed), counted in the
+# child, and each size's values within ENTRY_SCALING_RTOL of one rank's.
+ENTRY_PLOTS_T, ENTRY_PLOTS_RTOL = 785, 1e-4
+ENTRY_SCALING = dict(ranks=4, seeds=1024, T=64)
+ENTRY_SCALING_RTOL, SCALING_SWEEPS = 1e-5, 4
 
 class SmokeFailure(RuntimeError):
     pass
@@ -2881,10 +2904,87 @@ def entry_columns(out_dir, prefix, n):
     return cols
 
 
+def plots_shapes(T_est):
+    """The arrays of each computed figure of ``plots`` and their shapes at
+    the JAX script's sizes, the estimation records at ``T_est``."""
+    est = {k: (T_est,) for k in ("ts", "true_if", "if_mean", "if_lower",
+                                 "if_upper")}
+    return {"samples": {"ts": (3000,), "x2": (4, 3000), "if": (4, 3000)},
+            "cov": {"ts": (80,), "surf": (80, 80, 2, 2)},
+            "cond_cov": {"ts": (100,), "vs": (100, 2),
+                         "surf": (100, 100, 2, 2)},
+            "estimation": est, "estimation_harmonic": est}
+
+
+def check_plots(out_dir):
+    """13g's files: each figure's arrays finite and of the script's
+    shapes; ``samples`` and ``cond_cov`` against the same calls on the host
+    CPU here, float32; the crlb arrays equal to the committed files.
+    Returns the largest deviation of each host-checked figure."""
+    from chirpgp_tpu_torch.experiments import plots
+    for name, shapes in plots_shapes(ENTRY_PLOTS_T).items():
+        got = np.load(Path(out_dir) / f"{name}.npz")
+        check(sorted(got.files) == sorted(shapes) and all(
+            got[k].shape == v and bool(np.all(np.isfinite(got[k])))
+            for k, v in shapes.items()),
+            f"13g {name}: {[(k, got[k].shape) for k in got.files]}, want "
+            f"{shapes}, finite")
+    devs = {}
+    for name, host in (("samples", plots.samples_arrays(device="cpu")),
+                       ("cond_cov", plots.cond_cov_arrays(device="cpu"))):
+        got = np.load(Path(out_dir) / f"{name}.npz")
+        devs[name] = max(
+            float(np.max(np.abs(got[k] - v)) / np.max(np.abs(v)))
+            for k, v in host.items())
+        check(devs[name] <= ENTRY_PLOTS_RTOL,
+              f"13g {name}: card vs host CPU {devs[name]} > "
+              f"{ENTRY_PLOTS_RTOL} of scale")
+    for name, methods in (("crlb", ("ekf",)), ("crlb_ghf", ("ghf",)),
+                          ("crlb_ekf", ("ekf",)),
+                          ("crlb_both", ("ghf", "ekf"))):
+        got = np.load(Path(out_dir) / f"{name}.npz")
+        cells = 0
+        for method in methods:
+            for path in sorted((ROOT / "results").glob(
+                    f"crlb_{method}_lam*_b*.npz")):
+                want = np.load(path)
+                cell = f"{method}_{path.stem.split('_', 2)[2]}"
+                for k in ("mean_err_v", "pcrlb_v"):
+                    if k in want.files:
+                        check(np.array_equal(got[f"{cell}_{k}"], want[k]),
+                              f"13g {name}: {cell}_{k} is not {path.name}'s")
+                cells += 1
+        check(cells == 16 * len(methods), f"13g {name}: {cells} cells")
+    return devs
+
+
+def check_scaling(out):
+    """13h's JSON line: sizes 1, 2 and 4, one kernel launch per rank per
+    sweep, each size's values within ENTRY_SCALING_RTOL of one rank's."""
+    line = json.loads(out.strip().splitlines()[-1])
+    sizes = ["1", "2", "4"]
+    check(line["metric"] == "mc_sweep_seeds_per_sec_scaling"
+          and list(line["seeds_per_sec"]) == sizes
+          and list(line["efficiency_vs_1dev"]) == sizes,
+          f"13h bench_scaling: sizes {line}")
+    want = {s: [SCALING_SWEEPS] * int(s) for s in sizes}
+    check(line["kernel_launches_per_rank"] == want,
+          f"13h bench_scaling: kernel launches per rank "
+          f"{line['kernel_launches_per_rank']}, want {want}")
+    rel = line["nell_rel_vs_1dev"]
+    check(all(0.0 <= rel[s] <= ENTRY_SCALING_RTOL for s in sizes[1:]),
+          f"13h bench_scaling: values vs one rank {rel} > "
+          f"{ENTRY_SCALING_RTOL}")
+    check(line["label"] == "contention, not scaling",
+          f"13h bench_scaling: label {line['label']}")
+    return line
+
+
 def phase_entry_points(device, smi):
-    """13a-13f: the drivers of ``chirpgp_tpu_torch/experiments`` and the
+    """13a-13h: the drivers of ``chirpgp_tpu_torch/experiments`` and the
     demos of ``chirpgp_tpu_torch/demos`` in child processes on the card,
-    up to ENTRY_PARALLEL at once, each checked as it ends."""
+    up to ENTRY_PARALLEL at once, each checked as it ends.  Returns the
+    scaling harness's kernel launches per rank and seeds per rank."""
     import concurrent.futures
     import re
     import tempfile
@@ -2915,6 +3015,11 @@ def phase_entry_points(device, smi):
     # Longest first: the pool takes them in this order.
     jobs = {
         "13a": table_one,
+        "13g": lambda: run_entry(exp + "plots", (
+            "--save-arrays", work / "g", "--T", ENTRY_PLOTS_T), ROOT),
+        "13h": lambda: run_entry(exp + "bench_scaling", (
+            "--ranks", ENTRY_SCALING["ranks"], "--seeds",
+            ENTRY_SCALING["seeds"], "--T", ENTRY_SCALING["T"]), ROOT),
         "13f classical_methods": lambda: run_entry(
             demos + "classical_methods", (), ROOT),
         "13d": lambda: run_entry(exp + "run_classical", (
@@ -3047,10 +3152,32 @@ def phase_entry_points(device, smi):
                  f"const, damped, random_ou); print_time (T cut from 785 to "
                  f"{ENTRY_PRINT_TIME_T}, best ms of ghfs, ekfs): "
                  + "; ".join(demo_parts))
+
+    # 13g: the figures' arrays; 13h: the scaling harness's JSON line.
+    _, secs_g = done["13g"]
+    devs = check_plots(work / "g")
+    parts.append(
+        f"13g plots --save-arrays, nine figures, the estimation records' T "
+        f"cut from {T_FULL} to {ENTRY_PLOTS_T}: {secs_g:.3f} s; samples and "
+        f"cond_cov vs the host CPU, f32, max " + ", ".join(
+            f"{k} {v:.3g}" for k, v in devs.items())
+        + " of scale; crlb arrays equal to results/")
+    out_h, secs_h = done["13h"]
+    line = check_scaling(out_h)
+    parts.append(
+        f"13h bench_scaling --ranks {ENTRY_SCALING['ranks']} --seeds "
+        f"{ENTRY_SCALING['seeds']}, T cut from 512 to {ENTRY_SCALING['T']}: "
+        f"{secs_h:.3f} s; seeds/s {line['seeds_per_sec']}, efficiency "
+        f"{line['efficiency_vs_1dev']} ({line['label']}); kernel launches "
+        f"per rank {line['kernel_launches_per_rank']} over "
+        f"{SCALING_SWEEPS} sweeps; values vs one rank "
+        f"{line['nell_rel_vs_1dev']}")
     tmp.cleanup()
     print(f"phase 13 entry points ({time.perf_counter() - t_phase:.3f} s; "
           f"{smi}; {len(jobs)} child processes, {ENTRY_PARALLEL} at once): "
           + "; ".join(parts), flush=True)
+    return {"launches_scaling": line["kernel_launches_per_rank"],
+            "b_per_rank_scaling": line["seeds_per_rank"]}
 
 
 def main() -> int:
@@ -3085,7 +3212,7 @@ def main() -> int:
     analysis = phase_analysis(device, smi)
     phase_parallel_posterior(device, smi)
     sharded = phase_sharded(device, smi, if_ref)
-    phase_entry_points(device, smi)
+    scaling = phase_entry_points(device, smi)
     full = timing["gh3/B=4096/f32"]
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3100,7 +3227,7 @@ def main() -> int:
         "bound_ms_lascala_b100": family["float32"]["bound_ms"],
         "plain_ms_lascala_b100": family["float32"]["plain_ms"],
         "ms_lascala_b100_f64": family["float64"]["ms"], **analysis,
-        **sharded}]}))
+        **sharded, **scaling}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,11 @@
 ``chirpgp_tpu.apps.sweeps``).
 
 - **Pairing**: every method sees the same measurement realizations, from
-  the same per-seed keys (:func:`generate_rnd_keys`).  Torch cannot replay
-  JAX's threefry streams, so the port's own draws differ from the JAX
-  package's; parity with it runs on the committed data in
-  ``results/data/`` through :func:`mle_sweep_on_measurements`.
+  the same per-seed keys (:func:`generate_rnd_keys`): the JAX package's
+  keys, whose records the port remakes without JAX
+  (``utils/jax_keys.py``), so a key-driven sweep runs on the same records
+  as the JAX package's and its columns pair with ``results/`` seed by
+  seed.
 - **Batched MLE**: all seeds step in lockstep through the batched L-BFGS
   (:func:`~chirpgp_tpu_torch.fit.mle.lbfgs_minimize_stepped`), each value
   and gradient one ``torch.func.vmap`` over the seeds on the measurements'
@@ -24,7 +25,6 @@ Entry points that take host data put it on ``device``, the card unless
 the caller passes ``device="cpu"``.
 """
 
-import math
 import os
 import threading
 import time
@@ -44,9 +44,8 @@ from chirpgp_tpu_torch.fit.mle import (
 from chirpgp_tpu_torch.models.bijections import g
 from chirpgp_tpu_torch.parallel.mesh import sharded_seed_sweep
 from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
-from chirpgp_tpu_torch.toymodels import (
-    gen_chirp, gen_harmonic_chirp, constant_mag, damped_exp_mag,
-    random_ou_mag, meow_freq)
+from chirpgp_tpu_torch.utils.jax_keys import (
+    jax_rnd_keys, jax_toymodel_measurements)
 from chirpgp_tpu_torch.utils.metrics import rmse
 
 __all__ = ["generate_rnd_keys", "toymodel_measurements", "mc_mle_sweep",
@@ -54,30 +53,30 @@ __all__ = ["generate_rnd_keys", "toymodel_measurements", "mc_mle_sweep",
            "mle_sweep_on_measurements", "save_results", "print_rmse_table",
            "MAGNITUDES"]
 
-_SEED_BOUND = 2 ** 62
-
 
 def generate_rnd_keys(num: int = 1000, seed: int = 999) -> torch.Tensor:
-    """``num`` integer seeds drawn from ``torch.Generator().manual_seed(
-    seed)``: the port's counterpart of the reference's pregenerated keys
-    (``tetralith/generate_rndkeys.py``).  They pair the methods of one
-    sweep with each other; they are not JAX's ``PRNGKey(999)`` keys."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, _SEED_BOUND, (num,), generator=gen)
+    """The JAX package's pregenerated keys, ``jax.random.split(
+    jax.random.PRNGKey(seed), num)`` (the reference's
+    ``tetralith/generate_rndkeys.py``), remade without JAX
+    (:func:`~chirpgp_tpu_torch.utils.jax_keys.jax_rnd_keys`): a (num, 2)
+    int64 tensor of each key's two uint32 words.  They split along the
+    leading axis like any tensor (``shard_keys``, ``pad_to_multiple``)."""
+    return torch.from_numpy(jax_rnd_keys(num, seed).astype(np.int64))
 
 
 # The three magnitude scenarios of the paper's Table I.
 MAGNITUDES = ("const", "damped", "random")
 
 
-def _magnitude(name: str, generator: torch.Generator):
-    if name == "const":
-        return constant_mag(1.0)
-    if name == "damped":
-        return damped_exp_mag(0.3)
-    if name == "random":
-        return random_ou_mag(1.0, 1.0, generator)
-    raise ValueError(f"Unknown magnitude {name!r}")
+def _host_keys(keys) -> np.ndarray:
+    """JAX keys, one (2,) or a batch (N, 2), of any integer tensor or array
+    on any device, as the uint32 words on the host."""
+    k = keys.cpu().numpy() if isinstance(keys, torch.Tensor) \
+        else np.asarray(keys)
+    if k.ndim not in (1, 2) or k.shape[-1] != 2:
+        raise ValueError(f"JAX keys have shape (2,) or (N, 2), not "
+                         f"{k.shape}")
+    return k.astype(np.uint32)
 
 
 def toymodel_measurements(key, mag_name: str, dt: float = 1e-3,
@@ -85,39 +84,28 @@ def toymodel_measurements(key, mag_name: str, dt: float = 1e-3,
                           num_harmonics: int = 1, device="cuda"):
     """One seed's toymodel data: (ts, true_freqs, ys).
 
-    Times ``dt..T*dt``, the meow IF with offset 8, chirp + N(0, Xi)
-    noise.  ``key`` is an integer seed or a host ``torch.Generator``; it is
-    split once, as the JAX package splits its key: first for the
-    measurement noise, second for the OU magnitude (when used).  The
-    record is made on the host in float64 and returned on ``device`` in
-    torch's default dtype (as the JAX package returns JAX's).
+    The JAX package's record of the JAX key ``key`` (2,) (one row of
+    :func:`generate_rnd_keys`): times ``dt..T*dt``, the meow IF with
+    offset 8, chirp + N(0, Xi) noise, the key split once, first for the
+    measurement noise, second for the OU magnitude (when used).  It is
+    remade on the host in torch's default dtype, JAX's draws in that dtype
+    (:func:`~chirpgp_tpu_torch.utils.jax_keys.jax_toymodel_measurements`),
+    and returned on ``device``.
     """
-    gen = key if isinstance(key, torch.Generator) \
-        else torch.Generator().manual_seed(int(key))
-    seed_noise, seed_mag = torch.randint(0, _SEED_BOUND, (2,),
-                                         generator=gen).tolist()
-    ts = torch.linspace(dt, dt * T, T, dtype=torch.float64)
-    freq_func, phase_func = meow_freq(offset=8.0)
-    mag = _magnitude(mag_name, torch.Generator().manual_seed(seed_mag))
-    if num_harmonics == 1:
-        chirp = gen_chirp(ts, mag, phase_func)
-    else:
-        # Every overtone gets the same magnitude function, as the
-        # reference's harmonic jobs do.
-        chirp = gen_harmonic_chirp(ts, [mag] * num_harmonics, phase_func)
-    noise = torch.randn(T, generator=torch.Generator().manual_seed(seed_noise),
-                        dtype=torch.float64)
-    ys = chirp + math.sqrt(Xi) * noise
-    like = dict(dtype=torch.get_default_dtype(), device=device)
-    return ts.to(**like), freq_func(ts).to(**like), ys.to(**like)
+    return jax_toymodel_measurements(
+        _host_keys(key), mag_name, dt=dt, T=T, Xi=Xi,
+        num_harmonics=num_harmonics, dtype=torch.get_default_dtype(),
+        device=device)
 
 
 def _measurement_batch(keys, mag_name, T, dt, Xi, num_harmonics, device):
-    recs = [toymodel_measurements(k, mag_name, dt=dt, T=T, Xi=Xi,
-                                  num_harmonics=num_harmonics, device=device)
-            for k in keys]
-    return (torch.stack([r[1] for r in recs]),
-            torch.stack([r[2] for r in recs]))
+    """(true_freqs, ys), each (N, T) on ``device``: the records of the JAX
+    keys ``keys`` (N, 2), as :func:`toymodel_measurements` makes one."""
+    _, true_freqs, ys = jax_toymodel_measurements(
+        _host_keys(keys).reshape(-1, 2), mag_name, dt=dt, T=T, Xi=Xi,
+        num_harmonics=num_harmonics, dtype=torch.get_default_dtype(),
+        device=device)
+    return true_freqs, ys
 
 
 def _config_batch(cfg: IFEstimationConfig, keys, mag_name, T, device):
@@ -157,12 +145,15 @@ def _estimate_lanes(cfg: IFEstimationConfig, theta, true_freqs, ys,
 def mc_mle_sweep(cfg: IFEstimationConfig, keys, mag_name: str,
                  T: int = 3141, mesh=None, init_theta=None,
                  device="cuda") -> Dict[str, np.ndarray]:
-    """MLE + filter + smooth + IF-RMSE for every seed in ``keys``, all
-    seeds in one batched :func:`lbfgs_minimize` (each stops on its own
-    gradient-norm rule).  Returns host arrays: rmses (N,), learnt params
-    (N, P), success flags (N,).  Divergent runs contribute NaN rmse.
+    """MLE + filter + smooth + IF-RMSE for every seed in ``keys`` (JAX
+    keys (N, 2), :func:`generate_rnd_keys`; the records are the JAX
+    package's, :func:`toymodel_measurements`), all seeds in one batched
+    :func:`lbfgs_minimize` (each stops on its own gradient-norm rule).
+    Returns host arrays: rmses (N,), learnt params (N, P), success flags
+    (N,).  Divergent runs contribute NaN rmse.
     With ``mesh`` the seeds are split over its ranks, each on the mesh's
-    device, N a multiple of the mesh size."""
+    device, N a multiple of the mesh size; each rank makes its own keys'
+    records."""
     if mesh is not None:
         return sharded_seed_sweep(
             lambda k: mc_mle_sweep(cfg, k, mag_name, T, None, init_theta,
@@ -493,7 +484,8 @@ def mc_kpt_sweep(keys, mag_name: str, Xi: float = 0.1, dt: float = 1e-3,
                  T: int = 3141, num_harmonics: int = 1, max_iters: int = 100,
                  mesh=None, stepped: bool = True, verbose: bool = False,
                  device="cuda") -> Dict[str, np.ndarray]:
-    """KPT-baseline Monte-Carlo sweep: per seed, learn ``[q1, q2, p0, f0,
+    """KPT-baseline Monte-Carlo sweep on the JAX package's records of the
+    JAX keys ``keys`` (N, 2): per seed, learn ``[q1, q2, p0, f0,
     a0]`` by EKF-marginal MLE, smooth with the linear RTS, estimate the
     IF and record its RMSE (NaN on divergence).
 

@@ -70,13 +70,14 @@ def torchrun_mesh(device: torch.device):
     return global_mesh(device=None if device.type == "cuda" else device)
 
 
-def require_matplotlib(ap: argparse.ArgumentParser):
-    """Stop at once, with a clear message, when ``--plot`` was given and
-    matplotlib is not installed (it is imported only for plots)."""
+def require_matplotlib(ap: argparse.ArgumentParser, what: str = "--plot"):
+    """Stop at once, with a clear message, when ``what`` (``--plot``, or
+    drawing a figure) asks for matplotlib and it is not installed (it is
+    imported only for plots)."""
     try:
         import matplotlib  # noqa: F401
     except ImportError as exc:
-        ap.error(f"--plot needs matplotlib, which is not installed ({exc})")
+        ap.error(f"{what} needs matplotlib, which is not installed ({exc})")
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:

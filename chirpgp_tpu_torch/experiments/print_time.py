@@ -24,17 +24,21 @@ from chirpgp_tpu_torch.utils.jax_keys import (
 
 
 def toy_record(T: int, dt: float = 1e-3, Xi: float = 0.1, seed: int = 555,
-               dtype=None):
+               dtype=None, mags=None):
     """``gen_chirp(meow) + sqrt(Xi) * normal(PRNGKey(seed), (T,))`` as the
     JAX package's timing script and demos make it, on the host in
-    ``dtype`` (torch's default): ``(ts, ys)``."""
-    from chirpgp_tpu_torch.toymodels import constant_mag, gen_chirp, meow_freq
+    ``dtype`` (torch's default): ``(ts, ys)``.  With ``mags``, a list of
+    magnitude functions, the chirp is ``gen_harmonic_chirp(ts, mags,
+    meow)`` instead, as the JAX package's harmonic figure makes it."""
+    from chirpgp_tpu_torch.toymodels import (
+        constant_mag, gen_chirp, gen_harmonic_chirp, meow_freq)
     dtype = dtype or torch.get_default_dtype()
     ts = jax_linspace(dt, dt * T, T, dtype)
     _, phase = meow_freq(offset=8.0)
     noise = jax_normal(prng_key(seed), (T,), numpy_dtype(dtype))
-    return ts, gen_chirp(ts, constant_mag(1.0), phase) \
-        + math.sqrt(Xi) * torch.from_numpy(noise)
+    chirp = gen_chirp(ts, constant_mag(1.0), phase) if mags is None \
+        else gen_harmonic_chirp(ts, mags, phase)
+    return ts, chirp + math.sqrt(Xi) * torch.from_numpy(noise)
 
 
 def main(argv=None):

@@ -14,9 +14,10 @@ Records, as the JAX package's ``experiments/run_rmse_table.py`` draws them:
   columns pair seed by seed with the JAX package's;
 - ``--data-dir``: the committed ``toydata_*.npz`` files.  The records'
   own length is used and ``--T`` is ignored, as in the JAX driver;
-- ``--monolithic``: the port's own draws (``generate_rnd_keys``), one
-  ``mc_mle_sweep`` per magnitude; under ``torchrun`` its seeds are split
-  over every rank (``global_mesh``).
+- ``--monolithic``: the same JAX records, from the JAX package's keys
+  (``generate_rnd_keys``), one ``mc_mle_sweep`` per magnitude; under
+  ``torchrun`` its seeds are split over every rank (``global_mesh``), each
+  rank remaking its own keys' records.
 
 A stepped run keeps a checkpoint ``{out}/.ckpt_{method}.npz``; run again,
 the same command resumes from it, and it is removed once the column is
@@ -100,8 +101,8 @@ def _monolithic(args, methods, device):
     rank = mesh.rank if mesh is not None else 0
     size = mesh.size if mesh is not None else 1
     if rank == 0:
-        print(f"--monolithic: the port's own draws (generate_rnd_keys), "
-              f"not the JAX package's records; {size} rank(s)", flush=True)
+        print(f"--monolithic: the JAX package's records of its keys "
+              f"(generate_rnd_keys); {size} rank(s)", flush=True)
     keys, n_real = pad_to_multiple(generate_rnd_keys(max(args.seeds, 1))
                                    [:args.seeds], size)
     all_results = {}
@@ -140,8 +141,8 @@ def main(argv=None):
                     help="the stepped batched L-BFGS with rescue and "
                          "float64 polish (the default)")
     ap.add_argument("--monolithic", action="store_true",
-                    help="one mc_mle_sweep per magnitude on the port's own "
-                         "draws; split over the ranks under torchrun")
+                    help="one mc_mle_sweep per magnitude on JAX's records "
+                         "of its keys; split over the ranks under torchrun")
     ap.add_argument("--data-dir", default=None,
                     help="load the toydata_*.npz records of this directory "
                          "instead of remaking them from JAX's keys")

@@ -53,10 +53,13 @@ def cov_harmonic_sde(t1, t2, cov_xs, f, lam, b) -> torch.Tensor:
     ``torch.func.vmap``."""
     w = 2.0 * math.pi * f
     t1, t2 = as_real_tensor(t1), as_real_tensor(t2)
-    lt = marginal_cov_harmonic_sde(t1, 0.0, cov_xs, lam, b, w) \
+    # The origin in the times' dtype: a float64 0.0 would promote float32
+    # times to float64 in one branch only.
+    zero = torch.zeros((), dtype=t1.dtype, device=t1.device)
+    lt = marginal_cov_harmonic_sde(t1, zero, cov_xs, lam, b, w) \
         @ transition_harmonic_sde(t2, t1, lam, w).T
     ge = transition_harmonic_sde(t1, t2, lam, w) \
-        @ marginal_cov_harmonic_sde(t2, 0.0, cov_xs, lam, b, w)
+        @ marginal_cov_harmonic_sde(t2, zero, cov_xs, lam, b, w)
     return torch.where(t1 < t2, lt, ge)
 
 

@@ -173,8 +173,9 @@ def test_run_fastnls_matches_jax_script(tmp_path):
 
 
 def test_monolithic_sweep_splits_over_torchrun_ranks(tmp_path):
-    """``--monolithic`` on the port's own draws: one rank in this process
-    and three ``gloo`` ranks under ``torchrun`` write the same column."""
+    """``--monolithic`` on the JAX package's records of its keys: one rank
+    in this process and three ``gloo`` ranks under ``torchrun`` write the
+    same column."""
     args = ["--monolithic", "--seeds", "3", "--T", "40", "--max-iters", "3",
             "--mags", "const", "--device", "cpu"]
     ranks = subprocess.Popen(
@@ -186,7 +187,8 @@ def test_monolithic_sweep_splits_over_torchrun_ranks(tmp_path):
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     run_rmse_table.main(args + ["--out", str(tmp_path / "one")])
     out = finish(ranks)
-    assert "the port's own draws" in out and "3 rank(s)" in out
+    assert "the JAX package's records of its keys" in out \
+        and "3 rank(s)" in out
     one = np.load(tmp_path / "one" / "ghfs_const.npz")
     split = np.load(tmp_path / "ranks" / "ghfs_const.npz")
     assert one.files == split.files == ["params", "rmse", "success"]

@@ -323,7 +323,7 @@ def test_port_never_imports_jax():
         | {PORT / f"experiments/{name}.py" for name in (
             "gen_toymodel_data", "run_rmse_table", "print_table", "run_kpt",
             "run_classical", "run_fhc", "run_fastnls", "run_crlb",
-            "print_time", "run_ligo")} \
+            "print_time", "run_ligo", "plots", "bench_scaling")} \
         | {PORT / f"demos/{name}.py" for name in (
             "ghfs_mle", "ghfs_harmonics_mle", "classical_methods",
             "bats_analysis", "ligo_analysis")} <= set(files)

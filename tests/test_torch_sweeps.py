@@ -1,11 +1,12 @@
 """PyTorch port vs the JAX package: the Table-I Monte-Carlo sweeps
 (``apps/sweeps.py``: the chirp, harmonic and La Scala columns and the KPT
 baseline), the toy models and the SDE simulator, in float64 on the
-committed data of ``results/data/`` (torch cannot replay JAX's random
-keys).  Tolerances: the whole ``mle_sweep_on_measurements`` (stepped
-L-BFGS, rescue, float64 polish, estimate) and the KPT sweep the same
+committed data of ``results/data/`` and on the JAX package's keys, whose
+records the port remakes without JAX.  Tolerances: the whole
+``mle_sweep_on_measurements`` (stepped L-BFGS, rescue, float64 polish,
+estimate), the key-driven ``mc_mle_sweep`` and the KPT sweeps the same
 ``success``, the learnt params within 1e-5 and the IF-RMSE within 1e-6
-relative; the toy models and the simulator from JAX's own draws 1e-12;
+relative; the records of a key 1e-10; the toy models and the simulator from JAX's own draws 1e-12;
 the vmapped objective against one lane alone 1e-12 relative."""
 
 import concurrent.futures
@@ -396,34 +397,86 @@ def test_metric_helpers_match_jax():
             **F64)
 
 
-def test_port_draws_replay_and_split():
-    """The port's own draws: a magnitude realization replays, a seed makes
-    the same record twice, and the seed's first split drives the noise --
-    the const and random records of one seed share it, as in the JAX
-    package."""
+@pytest.fixture
+def float64_default():
+    """torch's default dtype float64 for the test (the records are made in
+    it, as JAX's are under x64), restored after it."""
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(dtype)
+
+
+def test_generate_rnd_keys_are_jax_keys():
+    """``generate_rnd_keys`` is ``split(PRNGKey(999), num)`` bit for bit,
+    as (num, 2) int64 words, and splits along its leading axis."""
+    from chirpgp_tpu_torch.parallel import make_mesh, pad_to_multiple, \
+        shard_keys
+    got = ts.generate_rnd_keys(1000)
+    assert got.shape == (1000, 2) and got.dtype == torch.int64
+    npt.assert_array_equal(got.numpy(),
+                           np.asarray(js.generate_rnd_keys(1000)))
+    padded, n = pad_to_multiple(got[:7], 4)
+    assert n == 7 and padded.shape == (8, 2)
+    npt.assert_array_equal(padded[7].numpy(), got[6].numpy())
+    npt.assert_array_equal(shard_keys(got[:8], make_mesh(device="cpu")
+                                      ).numpy(), got[:8].numpy())
+
+
+def test_port_draws_replay_and_split(float64_default):
+    """The port's records of JAX's keys: a key makes the same record twice,
+    another key another record, and each equals the JAX package's
+    ``toymodel_measurements`` of that key in float64 (1e-10): the key's
+    first split drives the noise, its second the OU magnitude."""
     ts_ = torch.linspace(1e-3, 0.5, 500, dtype=torch.float64)
     ou = tt.random_ou_mag(1.0, 1.0, torch.Generator().manual_seed(5))
     npt.assert_array_equal(ou(ts_).numpy(), ou(ts_).numpy())
     keys = ts.generate_rnd_keys(3)
-    npt.assert_array_equal(keys.numpy(), ts.generate_rnd_keys(3).numpy())
     kw = dict(T=300, device="cpu")
-    _, tf, yc = ts.toymodel_measurements(int(keys[0]), "const", **kw)
-    _, _, yc2 = ts.toymodel_measurements(int(keys[0]), "const", **kw)
-    _, _, yr = ts.toymodel_measurements(int(keys[0]), "random", **kw)
-    _, _, y1 = ts.toymodel_measurements(int(keys[1]), "const", **kw)
+    _, _, yc = ts.toymodel_measurements(keys[0], "const", **kw)
+    _, _, yc2 = ts.toymodel_measurements(keys[0], "const", **kw)
+    _, _, y1 = ts.toymodel_measurements(keys[1], "const", **kw)
     npt.assert_array_equal(yc.numpy(), yc2.numpy())
     assert not np.allclose(yc.numpy(), y1.numpy())
-    t = torch.linspace(1e-3, 0.3, 300, dtype=torch.float64)
-    phase = tt.meow_freq(offset=8.0)[1]
-    gen = torch.Generator().manual_seed(int(keys[0]))
-    _, seed_mag = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
-    ou0 = tt.random_ou_mag(1.0, 1.0, torch.Generator().manual_seed(seed_mag))
-    # The records are float32 (torch's default dtype): 1e-6.
-    npt.assert_allclose((yr - tt.gen_chirp(t, ou0, phase)).numpy(),
-                        (yc - tt.gen_chirp(t, tt.constant_mag(1.0),
-                                           phase)).numpy(), atol=1e-6)
-    npt.assert_allclose(tf.numpy(), tt.meow_freq(offset=8.0)[0](t).numpy(),
-                        rtol=1e-6)
+    jkeys = js.generate_rnd_keys(3)
+    for mag in ts.MAGNITUDES:
+        got = ts.toymodel_measurements(keys[0], mag, **kw)
+        want = js.toymodel_measurements(jkeys[0], mag, T=300)
+        assert all(x.dtype == torch.float64 for x in got)
+        for a, b in zip(got, want):
+            npt.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-10)
+    with pytest.raises(ValueError, match="JAX keys"):
+        ts.toymodel_measurements(torch.arange(3), "const", **kw)
+
+
+def test_mc_mle_sweep_matches_jax(float64_default):
+    """``mc_mle_sweep`` (sqrt GHFS, 2 seeds, T=40, 3 iterations) on the
+    JAX package's keys against the JAX package's ``mc_mle_sweep`` on the
+    same keys: the same ``success``, params 1e-5, rmse 1e-6 relative."""
+    cfg_kw = dict(method="ghfs", form="sqrt", max_iters=3)
+    rj = js.mc_mle_sweep(jp.IFEstimationConfig(**cfg_kw),
+                         js.generate_rnd_keys(2), "random", T=40)
+    rt = ts.mc_mle_sweep(tp.IFEstimationConfig(**cfg_kw),
+                         ts.generate_rnd_keys(2), "random", T=40,
+                         device="cpu")
+    assert rt["params"].shape == (2, 6) and rt["rmse"].shape == (2,)
+    npt.assert_array_equal(rt["success"], rj["success"])
+    npt.assert_allclose(rt["params"], rj["params"], atol=1e-5, rtol=0)
+    npt.assert_allclose(rt["rmse"], rj["rmse"], rtol=1e-6, atol=0)
+
+
+def test_mc_kpt_sweep_matches_jax(float64_default):
+    """``mc_kpt_sweep`` (the stepped sweep, 2 seeds, T=40, 5 iterations) on
+    the JAX package's keys against the JAX package's on the same keys:
+    the same ``success``, params 1e-5, rmse 1e-6 relative."""
+    rj = js.mc_kpt_sweep(js.generate_rnd_keys(2), "damped", T=40,
+                         max_iters=5)
+    rt = ts.mc_kpt_sweep(ts.generate_rnd_keys(2), "damped", T=40,
+                         max_iters=5, device="cpu")
+    assert rt["params"].shape == (2, 5) and rt["rmse"].shape == (2,)
+    npt.assert_array_equal(rt["success"], rj["success"])
+    npt.assert_allclose(rt["params"], rj["params"], atol=1e-5, rtol=0)
+    npt.assert_allclose(rt["rmse"], rj["rmse"], rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(method="ghfs", form="sqrt"),
@@ -504,7 +557,8 @@ def test_host_data_goes_to_the_card_unless_cpu_is_asked():
 
 
 def test_mc_sweeps_run_on_port_draws():
-    """The key-driven sweeps on the port's own draws: the batched
+    """The key-driven sweeps on the JAX package's records of its keys,
+    float32 as torch's default dtype makes them: the batched
     ``lbfgs_minimize`` sweep and the stepped one, finite and of the
     documented shapes."""
     cfg = tp.IFEstimationConfig(method="ekfs", max_iters=3)
@@ -518,7 +572,8 @@ def test_mc_sweeps_run_on_port_draws():
 
 @pytest.mark.parametrize("stepped", [True, False], ids=["stepped", "batched"])
 def test_mc_kpt_sweep_runs_on_port_draws(stepped):
-    """``mc_kpt_sweep`` on the port's own draws, K=3: finite, of the
+    """``mc_kpt_sweep`` on the JAX package's records of its keys (float32),
+    K=3: finite, of the
     documented shapes; the batched form's lanes equal ``kpt_mle`` on each
     record alone (each lane stops on its own rule)."""
     keys = ts.generate_rnd_keys(2)
@@ -527,7 +582,7 @@ def test_mc_kpt_sweep_runs_on_port_draws(stepped):
     assert res["params"].shape == (2, 5) and res["rmse"].shape == (2,)
     assert np.all(np.isfinite(res["params"])) and res["success"].dtype == bool
     if not stepped:
-        _, _, y0 = ts.toymodel_measurements(int(keys[0]), "damped", T=40,
+        _, _, y0 = ts.toymodel_measurements(keys[0], "damped", T=40,
                                             num_harmonics=3, device="cpu")
         alone = tk.kpt_mle(1000.0, 0.1, y0, num_harmonics=3, max_iters=3)
         npt.assert_allclose(res["params"][0], g(alone.params).numpy(),
