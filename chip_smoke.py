@@ -154,12 +154,21 @@ of each rank over its sweeps, and ``b_per_rank_scaling``); the last
 line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
+
+It leaves no process behind: each child of phase 13 runs in a session of
+its own whose process group is killed when the child ends, and the
+script makes itself the subreaper of its descendants, so that a process
+orphaned on the way comes back to it, and kills and reaps every one of
+them (and multiprocessing's resource tracker) before it exits, whether a
+phase passed or failed.
 """
 
 import dataclasses
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2866,26 +2875,39 @@ def phase_sharded(device, smi, if_ref, backend="nccl"):
             "bound_ms_sharded_b1024": rep["bound_ms"]}
 
 
+def kill_group(pgid: int):
+    """SIGKILL every process left in the process group ``pgid``."""
+    try:
+        os.killpg(pgid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
 def run_entry(module: str, args, cwd, on_card: bool = True) -> tuple:
     """``python -m chirpgp_tpu_torch.<module> --device cuda <args>`` in a
     child process from the repository root (without ``--device`` when not
-    ``on_card``: the NumPy table printer): (stdout, seconds).  A nonzero
-    exit or a hang past ENTRY_TIMEOUT_S raises SmokeFailure."""
+    ``on_card``: the NumPy table printer), in a session of its own whose
+    process group is killed when the child ends: (stdout, seconds).  A
+    nonzero exit or a hang past ENTRY_TIMEOUT_S raises SmokeFailure."""
     cmd = [sys.executable, "-m", f"chirpgp_tpu_torch.{module}",
            *(("--device", "cuda") if on_card else ()), *map(str, args)]
     t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
     try:
-        proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
-                              timeout=ENTRY_TIMEOUT_S)
-    except subprocess.TimeoutExpired as exc:
-        tail = exc.stdout or b""
-        tail = tail.decode() if isinstance(tail, bytes) else tail
+        stdout, stderr = proc.communicate(timeout=ENTRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        kill_group(proc.pid)
+        stdout, _ = proc.communicate()
         raise SmokeFailure(f"13 {module}: no exit within {ENTRY_TIMEOUT_S} "
-                           f"s; its output ended: {tail[-1500:]}")
+                           f"s; its output ended: {stdout[-1500:]}")
+    finally:
+        kill_group(proc.pid)
     secs = time.perf_counter() - t0
     check(proc.returncode == 0,
-          f"13 {module} exited {proc.returncode}: {proc.stderr[-2000:]}")
-    return proc.stdout, secs
+          f"13 {module} exited {proc.returncode}: {stderr[-2000:]}")
+    return stdout, secs
 
 
 def entry_columns(out_dir, prefix, n):
@@ -3180,7 +3202,104 @@ def phase_entry_points(device, smi):
             "b_per_rank_scaling": line["seeds_per_rank"]}
 
 
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def become_subreaper():
+    """Make this process the subreaper of its descendants (Linux), so that
+    a process orphaned below it is re-parented to it, not to init."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed: errno "
+              f"{ctypes.get_errno()}", file=sys.stderr)
+
+
+def child_pids() -> dict:
+    """{pid: command line} of this process's children, from /proc."""
+    me, kids = os.getpid(), {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == me:
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    kids[int(entry)] = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()[:120]
+        except (OSError, IndexError, ValueError):
+            pass
+    return kids
+
+
+def reap_descendants(grace_s: float = 5.0) -> list:
+    """Wait up to ``grace_s`` for the children left (orphans come back as
+    children of a subreaper) to exit, SIGKILL and reap the rest, then the
+    same for multiprocessing's resource tracker once its pipe is closed.
+    Returns the command lines of the processes it killed."""
+    from multiprocessing import resource_tracker
+    tracker = getattr(resource_tracker, "_resource_tracker", None)
+    killed = reap_children(grace_s, keep=getattr(tracker, "_pid", None))
+    if getattr(tracker, "_fd", None) is not None:
+        os.close(tracker._fd)  # its end of file stops the tracker
+        tracker._fd = tracker._pid = None
+    return killed + reap_children(grace_s)
+
+
+def reap_children(grace_s: float, keep=None) -> list:
+    """Reap this process's children but ``keep`` until none is left,
+    killing those still running after ``grace_s``; gives up on what
+    outlives three rounds of SIGKILL."""
+    def reap():
+        for pid in child_pids():
+            if pid != keep:
+                try:
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+
+    killed, deadline, rounds = [], time.monotonic() + grace_s, 0
+    while rounds < 3:
+        reap()
+        kids = {pid: cmd for pid, cmd in child_pids().items()
+                if pid != keep and not _is_zombie(pid)}
+        if not kids:
+            reap()  # what exited since the last pass
+            return killed
+        if time.monotonic() < deadline:
+            time.sleep(0.1)
+            continue
+        for pid, cmd in kids.items():
+            try:
+                os.kill(pid, signal.SIGKILL)
+                killed.append(cmd)
+            except ProcessLookupError:
+                pass
+        deadline, rounds = time.monotonic() + grace_s, rounds + 1
+    return killed
+
+
+def _is_zombie(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except (OSError, IndexError):
+        return True
+
+
 def main() -> int:
+    become_subreaper()
+    try:
+        return run()
+    finally:
+        killed = reap_descendants()
+        if killed:
+            print(f"chip_smoke: killed {len(killed)} processes left "
+                  f"running: {killed}", file=sys.stderr, flush=True)
+
+
+def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
