@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Builds the hand-written CUDA kernel from ``chirpgp_tpu_torch/ops/csrc`` on
-first use and drives the batched IF-estimation path, the single-record
+Builds the hand-written CUDA kernels (the chirp filter and the chirp
+smoother) from ``chirpgp_tpu_torch/ops/csrc`` on first use, one ``nvcc``
+each, started together, and drives the batched IF-estimation path (the
+two kernels, one launch each), the single-record
 MLE path, the fused batched filter+smoother, the Table-I Monte-Carlo
 sweep, every other column of Table I, the paper's analysis and
 real-data pipelines, the parallel-in-time and posterior-inference
@@ -12,23 +14,35 @@ paths, and the scale-out layer once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
-   versions, the kernel's nvcc build time and ptxas report (no register
-   spills allowed);
+   versions, the kernels' nvcc build times and ptxas reports (no register
+   spills allowed but in ``SPILLS_ALLOWED``: the float64 smoother at P=8
+   with GH-3's rows);
 2. kernel vs plain PyTorch version on the card: GH-3 and cubature at
    B=512, T=32 on 0.1 N(0, 1) measurements in float32 (atol 5e-5 on
    mfs/nll, 1e-4 on L L^T and on Lfs) and float64 (atol 1e-9), at every
    team size the kernel is built for, then GH-3 at B=4096, T=3141 on the
    benchmark's data in float64 and float32 (scaled bounds below), and
    each float32 version against the float64 kernel, the on-card oracle;
+   2b. the smoother kernel (GH-10 expectation of g(V) fused) against its
+   plain version on the filter kernel's outputs: GH-3 and cubature at
+   B=512, T=32 on the same measurements at every team size, float32 at
+   the filter's levels (atol 5e-5 on mss, 1e-4 on L L^T and Lss, 1e-4 of
+   scale on the IF mean) and float64 (1e-9); then at B=4096, T=3141 on
+   phase 2's filter outputs, float64 and float32 (scaled bounds below),
+   and each float32 version against the float64 kernel;
 3. ``estimate_if_batched`` at B=4096, T=3141, dt=1e-3, Xi=0.1, GH-3,
-   float32: finite outputs, the kernel launched by the main path, wall
-   times of the kernel, of the plain filter (in turns: plain, kernel,
-   kernel, plain) and of the whole estimate;
+   float32: finite outputs, one filter and one smoother launch by the
+   main path, the call's CUDA kernel count under ``torch.profiler`` (the
+   same small count at T=64 as at T=3141), wall times of the filter
+   kernel, of the plain filter (in turns: plain, kernel, kernel, plain)
+   and of the whole estimate, and its steps/s;
    3b. the kernel's CUDA-event time (the bare launch) at every team size:
    GH-3 at B=4096, T=3141 (float32 and float64), GH-3 and cubature at the
    Table-I width (the 100 records of ``toydata_const`` at the GHFS and
    CKFS reference optima, float32), cubature at B=4096 (float32), beside
-   its flop and byte counts, its bound and its share of the bound;
+   its flop and byte counts, its bound and its share of the bound; and
+   the smoother's (with its GH-10 epilogue) at B=4096, T=3141 (float32
+   and float64) and at the Table-I width (float32), beside its bound;
 4. accuracy gate: seed 0 of ``results/data/toydata_const.npz`` at the
    reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32;
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
@@ -133,16 +147,17 @@ Phases, one line each:
     the paper's figures as arrays (``plots --save-arrays``: the samples
     and the conditional covariance against the host CPU, the crlb arrays
     against the committed files), 13h the scaling harness on four
-    ``gloo`` ranks sharing the card (``bench_scaling``: one kernel launch
-    per rank per sweep, counted in the child; the values of four ranks
-    against one rank's).
+    ``gloo`` ranks sharing the card (``bench_scaling``: one filter and
+    one smoother kernel launch per rank per sweep, counted in the child;
+    the values of four ranks against one rank's).
 
 A device busy share is the kernel time of a call under ``torch.profiler``
 (the card's activity alone) over the wall time of the same call
 unprofiled (``utils/timing.py::profile_device``).
 
 Every phase must pass; a failure ends the run with a nonzero exit code.
-The line before the last is a JSON record of the kernels (``ms`` and
+The line before the last is a JSON record of the kernels.  The filter's
+(``ms`` and
 ``bound_ms`` at B=4096 float32, ``ms_b100`` at the Table-I width,
 ``ms_f64`` and ``bound_ms_f64`` at B=4096 float64, La Scala's path,
 phase 8b: its launches, ``ms_lascala_b100`` and its bound, and the CRLB
@@ -150,7 +165,16 @@ path, phase 10: ``launches_crlb``, ``ms_crlb_chunk`` and
 ``bound_ms_crlb_chunk``, the sharded path, phase 12b:
 ``launches_sharded``, ``ms_sharded_b1024`` and its bound, and the
 scaling harness, 13h: ``launches_scaling``, per mesh size the launches
-of each rank over its sweeps, and ``b_per_rank_scaling``); the last
+of each rank over its sweeps, and ``b_per_rank_scaling``); the
+smoother's, which replaces the JAX package's compiled scan
+(``replaces``: ``chirpgp_tpu/infer/batched.py:152``), has the contract's
+keys at B=4096 float32 (``plain_ms`` from phase 2b; ``library_ms`` null:
+no single PyTorch call computes it), ``ms_b100`` and ``bound_ms_b100``,
+``ms_f64`` and ``bound_ms_f64``, and the launches of La Scala's path
+(8b), of the sharded sweep (12b) and of the scaling harness (13h).
+``bound_ms`` counts the least work of the function
+(``ops/chirp_smoother.py::smoother_cost``: the smoother's step in the
+lesser of two square-root forms).  The last
 line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
@@ -188,6 +212,18 @@ SMALL_PARAMS = (0.1, 0.1, 0.1, 1.0, 1.0, 7.0)
 # version alone deviates from the float64 kernel by up to ~8e-6 in
 # nll[-1] (measured on an H100), so their difference is held to 2e-5.
 FULL_BOUNDS = {"float64": (1e-9, 1e-9, 1e-12), "float32": (1e-4, 1e-4, 2e-5)}
+# Phase 2b, the smoother kernel against its plain version: the small cases
+# (atol on mss, L L^T, Lss, and the IF mean over 1 + max |IF|) at the
+# filter's levels, and at the full shape max deviation over (1 + max
+# |plain|) for mss, L L^T and the IF mean.
+SMOOTHER_SMALL_TOLS = {"float32": (5e-5, 1e-4, 1e-4, 1e-4),
+                       "float64": (1e-9,) * 4}
+SMOOTHER_FULL_BOUNDS = {"float64": (1e-9, 1e-9, 1e-9),
+                        "float32": (1e-4, 1e-4, 1e-4)}
+# Phase 3: one estimate_if_batched call runs at most SLICE_MAX_KERNELS
+# CUDA kernels (the two hand-written ones and a few small tensor
+# operations), the same count at T=SLICE_SHORT_T as at T=3141.
+SLICE_MAX_KERNELS, SLICE_SHORT_T = 32, 64
 # Seed-0 gates: (IF-RMSE x10, nell) of the float64 reference.
 GATES = {"ckfs": ("cubature", 0.77619, 906.6107),
          "ghfs": ("gauss_hermite", 0.78564, 906.7245)}
@@ -209,6 +245,16 @@ FUSED_IF_BOUND = 1e-4
 FUSED_SMALL_B, FUSED_SMALL_T, FUSED_F64_BOUND = 512, 256, 1e-9
 KERNEL_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_filter.cu"
 KERNEL_REPLACES = "chirpgp_tpu/experimental/pallas_filter.py:248"
+# The smoother kernel replaces no Pallas kernel but the JAX package's
+# compiled reverse scan (and the expectation after it).
+SMOOTHER_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_smoother.cu"
+SMOOTHER_REPLACES = "chirpgp_tpu/infer/batched.py:152"
+# Phase 1: the instances whose register spills are reported and allowed,
+# (kernel, dtype, team, rows): the float64 smoother at P=8 with GH-3's 11
+# rows of 8 values per member (255 registers; the on-card oracle, still
+# faster than P=32 at B=4096 on an H100).  Every other instance must not
+# spill.
+SPILLS_ALLOWED = {("smoother", "f64", 8, 11)}
 # Phase 3b: CUDA-event launches after one warm-up, and the H100 SXM's
 # published peaks (NVIDIA data sheet, dense, at 700 W): float32 and float64
 # outside the tensor cores, and HBM3.
@@ -512,9 +558,9 @@ ENTRY_DEMO, ENTRY_PRINT_TIME_T = (30, 2), 200
 # array's largest magnitude), the crlb arrays equal to the committed
 # files.  13h the scaling harness, ``bench_scaling --ranks 4 --seeds
 # 1024`` with T cut from 512 to ENTRY_SCALING["T"] (four gloo ranks on the
-# one card): mesh sizes 1, 2 and 4 reported, one kernel launch per rank
-# per sweep (SCALING_SWEEPS: a warm-up and three timed), counted in the
-# child, and each size's values within ENTRY_SCALING_RTOL of one rank's.
+# one card): mesh sizes 1, 2 and 4 reported, one filter and one smoother
+# kernel launch per rank per sweep (SCALING_SWEEPS: a warm-up and three
+# timed), counted in the child, and each size's values within ENTRY_SCALING_RTOL of one rank's.
 ENTRY_PLOTS_T, ENTRY_PLOTS_RTOL = 785, 1e-4
 ENTRY_SCALING = dict(ranks=4, seeds=1024, T=64)
 ENTRY_SCALING_RTOL, SCALING_SWEEPS = 1e-5, 4
@@ -565,31 +611,44 @@ def deviations(kern, plain):
 
 
 def phase_environment(device):
+    import concurrent.futures
     from chirpgp_tpu_torch.ops.chirp_filter import load_kernel
+    from chirpgp_tpu_torch.ops.chirp_smoother import load_smoother_kernel
     from chirpgp_tpu_torch.ops._build import find_nvcc
     smi = nvidia_smi()
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
-    built = load_kernel()
+    # One nvcc per source, started together.
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = dict(zip(("filter", "smoother"), pool.map(
+            lambda load: load(), (load_kernel, load_smoother_kernel))))
+    t_build = time.perf_counter() - t0
     # ptxas -v: each kernel instance (dtype, team size, rows per member)
     # with its registers, stack frame and spills.
-    ptxas = []
-    for ln in built.log.splitlines():
-        inst = re.search(r"entry function '\S*?kernelI([fd])Li(\d+)ELi(\d+)E",
-                         ln)
-        if inst:
-            ptxas.append(f"{dict(f='f32', d='f64')[inst[1]]} P={inst[2]} "
-                         f"rows={inst[3]}:")
-        elif "registers" in ln or "spill" in ln:
-            ptxas.append(ln.split("ptxas info    :")[-1].strip())
+    ptxas, spills = [], []
+    for name, lib in built.items():
+        inst = None
+        for ln in lib.log.splitlines():
+            found = re.search(
+                r"entry function '\S*?kernelI([fd])Li(\d+)ELi(\d+)E", ln)
+            if found:
+                inst = (name, dict(f="f32", d="f64")[found[1]],
+                        int(found[2]), int(found[3]))
+                ptxas.append(f"{name} {inst[1]} P={inst[2]} rows={inst[3]}:")
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(ln.split("ptxas info    :")[-1].strip())
+                if ("spill" in ln and inst not in SPILLS_ALLOWED and
+                        "0 bytes spill stores, 0 bytes spill loads" not in ln):
+                    spills.append((inst, ln.strip()))
     print(f"phase 1 environment: device={torch.cuda.get_device_name(device)}"
           f" | nvidia-smi: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {nvcc[-1] if nvcc else 'nvcc ?'} | "
-          f"kernel build {built.build_seconds:.2f} s | ptxas: "
+          f"kernel builds, in parallel: {t_build:.2f} s (filter "
+          f"{built['filter'].build_seconds:.2f} s, smoother "
+          f"{built['smoother'].build_seconds:.2f} s) | ptxas: "
           f"{' '.join(ptxas)}")
     print(smi)
-    spills = [ln for ln in ptxas if "spill" in ln
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     check(not spills, f"ptxas reports register spills: {spills}")
     return smi
 
@@ -653,15 +712,105 @@ def phase_kernel_vs_plain(device):
                      f"nll[-1]| {dev['nll_last_rel']!r}")
     dev = deviations(kern["float32"], plain["float32"])
     print("phase 2 kernel vs plain: " + "; ".join(parts))
-    return max(dev["mfs"], dev["Lfs"], dev["nll"])
+    return max(dev["mfs"], dev["Lfs"], dev["nll"]), kern
+
+
+def smoother_deviations(kern, plain):
+    """max |d mss|, |d Ls Ls^T|, |d Lss|, |d if_mean|, and the scales
+    max |mss|, max |Ls Ls^T|, max |if_mean| of the plain version."""
+    (mk, lk, ik), (mp, lp, ip) = [[x.double() for x in out]
+                                  for out in (kern, plain)]
+    Pk = torch.einsum("tikb,tjkb->tijb", lk, lk)
+    Pp = torch.einsum("tikb,tjkb->tijb", lp, lp)
+    return dict(
+        mss=float((mk - mp).abs().max()), LLT=float((Pk - Pp).abs().max()),
+        Lss=float((lk - lp).abs().max()), if_mean=float((ik - ip).abs().max()),
+        scale_mss=float(mp.abs().max()), scale_LLT=float(Pp.abs().max()),
+        scale_if=float(ip.abs().max()))
+
+
+def phase_smoother_vs_plain(device, filtered):
+    """2b: the smoother kernel (with its GH-10 epilogue) against its plain
+    version on the filter kernel's outputs: the small cases at every team
+    size, then the benchmark's B=4096 x T=3141 (phase 2's filter outputs
+    ``filtered``) in float64 and float32, each float32 version against the
+    float64 kernel.  Returns the float32 kernel's largest deviation and
+    the plain version's time at the benchmark's shape, float32."""
+    from chirpgp_tpu_torch.utils.timing import timed
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter import TEAMS, ghfs_chirp_filter
+    from chirpgp_tpu_torch.ops.chirp_smoother import (
+        ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
+        ghfs_chirp_smoother_reference)
+    from chirpgp_tpu_torch.quad import cubature, gauss_hermite
+    cfg = IFEstimationConfig()
+    order = cfg.expectation_order
+    rules = {"gh3": gauss_hermite(4, 3), "cubature": cubature(4)}
+    parts = []
+    t_phase = time.perf_counter()
+    small = 0.1 * np.random.default_rng(0).standard_normal((SMALL_B, SMALL_T))
+    for dtype, tols in ((torch.float32, SMOOTHER_SMALL_TOLS["float32"]),
+                        (torch.float64, SMOOTHER_SMALL_TOLS["float64"])):
+        yss = torch.as_tensor(small, dtype=dtype, device=device)
+        for name, rule in rules.items():
+            mfs, Lfs, _ = ghfs_chirp_filter(SMALL_PARAMS, XI, DT, rule, yss)
+            args = (SMALL_PARAMS, DT, rule, mfs, Lfs, order)
+            plain = ghfs_chirp_smoother_reference(*args)
+            for team in TEAMS:
+                dev = smoother_deviations(
+                    ghfs_chirp_smoother_kernel(*args, team=team), plain)
+                dev["if_scaled"] = dev["if_mean"] / (1.0 + dev["scale_if"])
+                tag = f"{name}/{str(dtype)[6:]}/P={team}"
+                for key, tol in zip(("mss", "LLT", "Lss", "if_scaled"), tols):
+                    check(dev[key] <= tol,
+                          f"2b {tag}: max |d {key}| = {dev[key]} > {tol}")
+                parts.append(f"{tag} mss {dev['mss']:.3g} LLT "
+                             f"{dev['LLT']:.3g} Lss {dev['Lss']:.3g} if_mean "
+                             f"{dev['if_mean']:.3g}")
+
+    params = g(cfg.default_init_theta()).to(torch.float32)
+    kern, plain_ms = {}, None
+    for tag in ("float64", "float32"):
+        mfs, Lfs, _ = filtered[tag]
+        args = (params, DT, cfg.sigma_points(), mfs, Lfs, order)
+        kern[tag] = ghfs_chirp_smoother(*args)
+        plain, t_plain = timed(ghfs_chirp_smoother_reference, *args)
+        dev = smoother_deviations(kern[tag], plain)
+        scaled = (dev["mss"] / (1.0 + dev["scale_mss"]),
+                  dev["LLT"] / (1.0 + dev["scale_LLT"]),
+                  dev["if_mean"] / (1.0 + dev["scale_if"]))
+        for key, val, bound in zip(("mss", "LLT", "if_mean"), scaled,
+                                   SMOOTHER_FULL_BOUNDS[tag]):
+            check(val <= bound,
+                  f"2b full {tag}: scaled |d {key}| {val} > {bound}")
+        parts.append(
+            f"full gh3/{tag} B={B_FULL} T={T_FULL}: max|d mss| {dev['mss']!r}"
+            f" (max|mss| {dev['scale_mss']!r}), max|d LLT| {dev['LLT']!r} "
+            f"(max|LLT| {dev['scale_LLT']!r}), max|d Lss| {dev['Lss']!r}, "
+            f"max|d if_mean| {dev['if_mean']!r} (max|if_mean| "
+            f"{dev['scale_if']!r}); plain smoother {t_plain:.3f} s")
+        if tag == "float32":
+            plain_ms, plain32 = 1e3 * t_plain, plain
+            max_err = max(dev["mss"], dev["Lss"], dev["if_mean"])
+    # Each float32 version against the float64 kernel, the on-card oracle.
+    for name, out in (("kernel", kern["float32"]), ("plain", plain32)):
+        dev = smoother_deviations(out, kern["float64"])
+        parts.append(f"float32 {name} vs float64 kernel: max|d mss| "
+                     f"{dev['mss']!r}, max|d LLT| {dev['LLT']!r}, max|d "
+                     f"if_mean| {dev['if_mean']!r}")
+    print(f"phase 2b smoother kernel vs plain "
+          f"({time.perf_counter() - t_phase:.3f} s): " + "; ".join(parts))
+    return max_err, plain_ms
 
 
 def phase_slice(device):
-    from chirpgp_tpu_torch.utils.timing import timed
+    from chirpgp_tpu_torch.utils.timing import profile_device, timed
     from chirpgp_tpu_torch.apps import IFEstimationConfig, estimate_if_batched
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import (
         ghfs_chirp_filter, ghfs_chirp_filter_reference)
+    from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
     cfg = IFEstimationConfig()
     params = g(cfg.default_init_theta()).to(torch.float32).to(device)
     yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
@@ -672,21 +821,35 @@ def phase_slice(device):
         fn = ghfs_chirp_filter if which == "kernel" else ghfs_chirp_filter_reference
         times[which].append(timed(fn, *args)[1])
 
-    ghfs_chirp_filter.launches = 0
+    ghfs_chirp_filter.launches = ghfs_chirp_smoother.launches = 0
     est, t_est = timed(estimate_if_batched, cfg, params, yss)
-    launches = ghfs_chirp_filter.launches
-    check(launches >= 1, "estimate_if_batched did not launch the kernel")
+    launches = (ghfs_chirp_filter.launches, ghfs_chirp_smoother.launches)
+    check(launches == (1, 1), f"estimate_if_batched launched the filter and "
+                              f"the smoother {launches} times, not once each")
     for key in ("if_mean", "nell", "mss", "Lss"):
         check(bool(torch.isfinite(est[key]).all()), f"non-finite {key}")
     check(tuple(est["if_mean"].shape) == (B_FULL, T_FULL), "if_mean shape")
     check(tuple(est["nell"].shape) == (B_FULL,), "nell shape")
+    # The CUDA kernels of one call, at the full T and at SLICE_SHORT_T: the
+    # same small count, whatever T.
+    profs = {T: profile_device(lambda: estimate_if_batched(
+        cfg, params, yss[:, :T])) for T in (T_FULL, SLICE_SHORT_T)}
+    counts = {T: prof.launches for T, prof in profs.items()}
+    check(len(set(counts.values())) == 1
+          and counts[T_FULL] <= SLICE_MAX_KERNELS,
+          f"estimate_if_batched ran {counts} CUDA kernels at T = "
+          f"{list(counts)}, not one count of at most {SLICE_MAX_KERNELS}")
+    prof = profs[T_FULL]
     ms_p = 1e3 * sum(times["plain"]) / 2
     print(f"phase 3 slice: estimate_if_batched B={B_FULL} T={T_FULL} GH-3 "
-          f"float32: finite, kernel launches {launches}; filter kernel "
-          f"{[round(1e3 * t, 3) for t in times['kernel']]} ms, plain filter "
-          f"{[round(1e3 * t, 3) for t in times['plain']]} ms (order plain, "
-          f"kernel, kernel, plain); whole estimate {1e3 * t_est:.3f} ms = "
-          f"{B_FULL * T_FULL / t_est:.1f} steps/s")
+          f"float32: finite, filter and smoother kernel launches {launches}; "
+          f"{counts[T_FULL]} CUDA kernels per call at T={T_FULL} and "
+          f"{counts[SLICE_SHORT_T]} at T={SLICE_SHORT_T} (torch.profiler), "
+          f"device busy {100 * prof.busy:.2f}% of {1e3 * prof.wall_s:.3f} ms;"
+          f" filter kernel {[round(1e3 * t, 3) for t in times['kernel']]} ms,"
+          f" plain filter {[round(1e3 * t, 3) for t in times['plain']]} ms "
+          f"(order plain, kernel, kernel, plain); whole estimate "
+          f"{1e3 * t_est:.3f} ms = {B_FULL * T_FULL / t_est:.1f} steps/s")
     return launches, ms_p, est["if_mean"], t_est
 
 
@@ -705,15 +868,16 @@ def event_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(S, T, B, dtype):
-    """The least time the card could take for one filter call: the larger
-    of flop over the peak rate of ``dtype`` and bytes over the memory
-    rate.  Returns (flop, bytes, ms, what bounds it)."""
+def bound_ms(S, T, B, dtype, cost=None):
+    """The least time the card could take for one filter call (one call of
+    the kernel whose work ``cost`` counts, ``filter_cost``'s signature):
+    the larger of flop over the peak rate of ``dtype`` and bytes over the
+    memory rate.  Returns (flop, bytes, ms, what bounds it)."""
     from chirpgp_tpu_torch.ops.chirp_filter import filter_cost
-    cost = filter_cost(S, T, B, dtype)
-    t_ops = cost.flop / PEAK_FLOPS[dtype]
-    t_bytes = cost.bytes / PEAK_BYTES
-    return (cost.flop, cost.bytes, 1e3 * max(t_ops, t_bytes),
+    work = (cost or filter_cost)(S, T, B, dtype)
+    t_ops = work.flop / PEAK_FLOPS[dtype]
+    t_bytes = work.bytes / PEAK_BYTES
+    return (work.flop, work.bytes, 1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -789,6 +953,65 @@ def phase_kernel_timing(device, smi):
             f"P={p} {t!r} ms" for p, (t, _) in times.items()) + f"; default "
             f"P={launch_geometry(B, gh3.n_points, num_sms).team}")
     print(f"phase 3b kernel timing (CUDA events around the bare launch, 1 "
+          f"warm-up + {TIMING_REPS} launches; {smi}; peaks 67/34 TFLOP/s "
+          f"f32/f64, 3.35 TB/s): " + "; ".join(parts))
+    return out
+
+
+def phase_smoother_timing(device, smi, filtered):
+    """3b, the smoother: CUDA-event times of the bare launch at every team
+    size, GH-3 with the GH-10 epilogue, at the benchmark's B=4096 x T=3141
+    (phase 2's filter outputs ``filtered``, float32 and float64) and at the
+    Table-I width (the 100 records of toydata_const at the reference's
+    GHFS optimum, float32), beside the bound.  Each team's IF mean is held
+    to the default geometry's."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter import (
+        TEAMS, ghfs_chirp_filter, launch_geometry)
+    from chirpgp_tpu_torch.ops.chirp_smoother import (
+        smoother_cost, smoother_kernel_launcher)
+    cfg = IFEstimationConfig()
+    rule = cfg.sigma_points()
+    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    p_bench = g(cfg.default_init_theta())
+    opt = params_from_jax(np.load(
+        ROOT / "results/reference/ghfs_const.npz")["params"][0])
+    y100 = torch.as_tensor(
+        np.load(ROOT / "results/data/toydata_const.npz")["ys"],
+        dtype=torch.float32, device=device)
+    cases = {"gh3/B=4096/f32": (p_bench, filtered["float32"][:2]),
+             "gh3/B=4096/f64": (p_bench, filtered["float64"][:2]),
+             "gh3/B=100/f32": (opt, ghfs_chirp_filter(opt, XI, DT, rule,
+                                                      y100)[:2])}
+    out, parts = {}, []
+    for tag, (params, (mfs, Lfs)) in cases.items():
+        T, _, B = mfs.shape
+        default = launch_geometry(B, rule.n_points, num_sms)
+        times = {}
+        for team in TEAMS:
+            launch, (_, _, if_mean) = smoother_kernel_launcher(
+                params, DT, rule, mfs, Lfs, cfg.expectation_order, team)
+            times[team] = (event_ms(launch), if_mean.double())
+        if_ref = times[default.team][1]
+        for team, (_, if_mean) in times.items():
+            dev = scaled_dev(if_mean, if_ref)
+            bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][2]
+            check(bool(torch.isfinite(if_mean).all()) and dev <= bound,
+                  f"3b smoother {tag} P={team}: IF mean vs default {dev}")
+        flop, nbytes, bound, bound_by = bound_ms(rule.n_points, T, B,
+                                                 mfs.dtype, smoother_cost)
+        ms = times[default.team][0]
+        out[tag] = dict(ms=ms, bound_ms=bound, bound_by=bound_by)
+        parts.append(
+            f"{tag} T={T}: " + ", ".join(f"P={p} {t!r} ms" for p, (t, _) in
+                                         times.items())
+            + f"; default P={default.team} rows={default.rows} "
+            f"({default.lanes_per_block} lanes x {default.blocks} blocks) "
+            f"{ms!r} ms; {flop} flop, {nbytes} B, bound {bound!r} ms "
+            f"({bound_by}), share {bound / ms:.4f}")
+    print(f"phase 3b smoother timing (CUDA events around the bare launch, 1 "
           f"warm-up + {TIMING_REPS} launches; {smi}; peaks 67/34 TFLOP/s "
           f"f32/f64, 3.35 TB/s): " + "; ".join(parts))
     return out
@@ -1353,6 +1576,7 @@ def phase_family(device, smi):
     from chirpgp_tpu_torch.ops.chirp_filter import (
         ghfs_chirp_filter, ghfs_chirp_filter_reference, kernel_launcher,
         lascala_chirp_params)
+    from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
     from chirpgp_tpu_torch.utils import rmse
     spawn = multiprocessing.get_context("spawn")
     parts, out = [], {}
@@ -1389,11 +1613,14 @@ def phase_family(device, smi):
         for yss in (y64.float(), y64):
             tag = str(yss.dtype)[6:]
             params = las.to(device, yss.dtype)
-            ghfs_chirp_filter.launches = 0
+            ghfs_chirp_filter.launches = ghfs_chirp_smoother.launches = 0
             est, t_est = timed(estimate_if_batched, cfg, params, yss)
             launches = ghfs_chirp_filter.launches
-            check(launches >= 1, f"8b {tag}: estimate_if_batched(lascala) "
-                                 f"did not launch the kernel")
+            smoother_launches = ghfs_chirp_smoother.launches
+            check(launches == 1 and smoother_launches == 1,
+                  f"8b {tag}: estimate_if_batched(lascala) launched the "
+                  f"filter {launches} and the smoother {smoother_launches} "
+                  f"times, not once each")
             for key in ("if_mean", "nell", "mss", "Lss"):
                 check(bool(torch.isfinite(est[key]).all()),
                       f"8b {tag}: non-finite {key}")
@@ -1419,11 +1646,13 @@ def phase_family(device, smi):
             flop, nbytes, bound, bound_by = bound_ms(rule.n_points, T, B,
                                                      yss.dtype)
             ms = out[tag]["ms"]
-            out[tag].update(launches=launches, bound_ms=bound,
+            out[tag].update(launches=launches,
+                            smoother_launches=smoother_launches, bound_ms=bound,
                             bound_by=bound_by, plain_ms=1e3 * t_plain)
             parts.append(
                 f"8b lascala estimate_if_batched B={B} T={T} GH-3 {tag}: "
-                f"{t_est:.3f} s, kernel launches {launches}; record 0 IF-RMSE "
+                f"{t_est:.3f} s, filter and smoother kernel launches "
+                f"{launches}, {smoother_launches}; record 0 IF-RMSE "
                 f"x10 {r10!r}, nll {nll0!r}; kernel vs plain: max|d mfs| "
                 f"{dev['mfs']!r}, max|d LLT| {dev['LLT']!r}, max rel|d "
                 f"nll[-1]| {dev['nll_last_rel']!r}; bare launch {ms!r} ms "
@@ -2511,6 +2740,7 @@ def shard_checks(mesh, sizes, smi, say):
     from chirpgp_tpu_torch.models import disc_m32, g
     from chirpgp_tpu_torch.ops.chirp_filter import (
         ghfs_chirp_filter, kernel_launcher)
+    from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
     from chirpgp_tpu_torch.parallel.mesh import Mesh, all_reduce
     from chirpgp_tpu_torch.parallel import sharded_seed_sweep
     from chirpgp_tpu_torch.utils.timing import timed
@@ -2533,17 +2763,21 @@ def shard_checks(mesh, sizes, smi, say):
     params = g(cfg.default_init_theta()).to(torch.float32).to(dev)
     B, T = sizes["B"], sizes["T"]
     yss = measurements(B, T, 999, torch.float32, dev)
-    ghfs_chirp_filter.launches = 0
+    ghfs_chirp_filter.launches = ghfs_chirp_smoother.launches = 0
     est, t_est = timed(sharded_seed_sweep, lambda y: {
         "if_mean": estimate_if_batched(cfg, params, y)["if_mean"]}, yss, mesh)
     launches = ghfs_chirp_filter.launches
+    smoother_launches = ghfs_chirp_smoother.launches
     if_mean = est["if_mean"]
-    check(launches == 1, f"12 sharded sweep: rank {mesh.rank} launched the "
-                         f"kernel {launches} times, not once")
+    check(launches == 1 and smoother_launches == 1,
+          f"12 sharded sweep: rank {mesh.rank} launched the filter "
+          f"{launches} and the smoother {smoother_launches} times, not once "
+          f"each")
     check(tuple(if_mean.shape) == (B, T)
           and bool(torch.isfinite(if_mean).all()),
           f"12 sharded sweep: IF mean {tuple(if_mean.shape)}, not finite")
-    rep["launches"] = all_reduce(torch.tensor([launches]), mesh).tolist()[0]
+    rep["launches"], rep["smoother_launches"] = all_reduce(
+        torch.tensor([launches, smoother_launches]), mesh).tolist()
     barrier()
     if lead:
         local = rows(yss)
@@ -2557,7 +2791,8 @@ def shard_checks(mesh, sizes, smi, say):
     barrier()
     say(f"sharded seed sweep of estimate_if_batched, B={B} "
         f"({B // mesh.size} lanes per rank), T={T}, GH-3 f32: "
-        f"{t_est:.3f} s, kernel launches {rep['launches']} (one per rank)")
+        f"{t_est:.3f} s, filter and smoother kernel launches "
+        f"{rep['launches']}, {rep['smoother_launches']} (one each per rank)")
 
     # The time-sharded KF/RTS on 11a's configuration.
     ref = np.load(ROOT / "results/data/parallel_kf_ref.npz")
@@ -2855,22 +3090,26 @@ def phase_sharded(device, smi, if_ref, backend="nccl"):
     check(codes == [0] * SHARD_RANKS and len(reports) == SHARD_RANKS,
           f"12b: exit codes {codes}, {len(reports)} reports")
     rep = reports[0]
-    launches = rep["launches"]
+    launches, smoother_launches = rep["launches"], rep["smoother_launches"]
     dev_if = float(np.abs(rep["if_mean"] - if_ref.cpu().numpy()).max()
                    / (1.0 + np.abs(rep["if_mean"]).max()))
-    check(launches == SHARD_RANKS and dev_if <= SHARD_IF_BOUND,
-          f"12b: {launches} kernel launches; gathered IF mean vs phase 3's "
+    check(launches == SHARD_RANKS == smoother_launches
+          and dev_if <= SHARD_IF_BOUND,
+          f"12b: {launches} filter and {smoother_launches} smoother kernel "
+          f"launches; gathered IF mean vs phase 3's "
           f"{dev_if} > {SHARD_IF_BOUND}")
     print(f"phase 12b {SHARD_RANKS} gloo ranks on {device}: "
           f"{time.perf_counter() - t_b:.3f} s; gathered IF mean at B="
           f"{SHARD_RANKS_SIZES['B']} vs phase 3's {dev_if:.3g} (gate "
-          f"{SHARD_IF_BOUND}); kernel launches {launches}, one per rank; the "
+          f"{SHARD_IF_BOUND}); filter and smoother kernel launches "
+          f"{launches}, {smoother_launches}, one each per rank; the "
           f"bare launch at B={SHARD_RANKS_SIZES['B'] // SHARD_RANKS} "
           f"{rep['ms']!r} ms on rank 0 alone, bound "
           f"{rep['bound_ms']!r} ms ({rep['bound_by']})", flush=True)
     print(f"phase 12 scale-out: {time.perf_counter() - t_phase:.3f} s; {smi}",
           flush=True)
     return {"launches_sharded": launches,
+            "smoother_launches_sharded": smoother_launches,
             "ms_sharded_b1024": rep["ms"],
             "bound_ms_sharded_b1024": rep["bound_ms"]}
 
@@ -2981,8 +3220,9 @@ def check_plots(out_dir):
 
 
 def check_scaling(out):
-    """13h's JSON line: sizes 1, 2 and 4, one kernel launch per rank per
-    sweep, each size's values within ENTRY_SCALING_RTOL of one rank's."""
+    """13h's JSON line: sizes 1, 2 and 4, one filter and one smoother
+    kernel launch per rank per sweep, each size's values within
+    ENTRY_SCALING_RTOL of one rank's."""
     line = json.loads(out.strip().splitlines()[-1])
     sizes = ["1", "2", "4"]
     check(line["metric"] == "mc_sweep_seeds_per_sec_scaling"
@@ -2990,9 +3230,9 @@ def check_scaling(out):
           and list(line["efficiency_vs_1dev"]) == sizes,
           f"13h bench_scaling: sizes {line}")
     want = {s: [SCALING_SWEEPS] * int(s) for s in sizes}
-    check(line["kernel_launches_per_rank"] == want,
-          f"13h bench_scaling: kernel launches per rank "
-          f"{line['kernel_launches_per_rank']}, want {want}")
+    for key in ("kernel_launches_per_rank", "smoother_launches_per_rank"):
+        check(line[key] == want,
+              f"13h bench_scaling: {key} {line[key]}, want {want}")
     rel = line["nell_rel_vs_1dev"]
     check(all(0.0 <= rel[s] <= ENTRY_SCALING_RTOL for s in sizes[1:]),
           f"13h bench_scaling: values vs one rank {rel} > "
@@ -3190,15 +3430,17 @@ def phase_entry_points(device, smi):
         f"13h bench_scaling --ranks {ENTRY_SCALING['ranks']} --seeds "
         f"{ENTRY_SCALING['seeds']}, T cut from 512 to {ENTRY_SCALING['T']}: "
         f"{secs_h:.3f} s; seeds/s {line['seeds_per_sec']}, efficiency "
-        f"{line['efficiency_vs_1dev']} ({line['label']}); kernel launches "
-        f"per rank {line['kernel_launches_per_rank']} over "
-        f"{SCALING_SWEEPS} sweeps; values vs one rank "
+        f"{line['efficiency_vs_1dev']} ({line['label']}); filter kernel "
+        f"launches per rank {line['kernel_launches_per_rank']}, smoother "
+        f"{line['smoother_launches_per_rank']}, over {SCALING_SWEEPS} "
+        f"sweeps; values vs one rank "
         f"{line['nell_rel_vs_1dev']}")
     tmp.cleanup()
     print(f"phase 13 entry points ({time.perf_counter() - t_phase:.3f} s; "
           f"{smi}; {len(jobs)} child processes, {ENTRY_PARALLEL} at once): "
           + "; ".join(parts), flush=True)
     return {"launches_scaling": line["kernel_launches_per_rank"],
+            "smoother_launches_scaling": line["smoother_launches_per_rank"],
             "b_per_rank_scaling": line["seeds_per_rank"]}
 
 
@@ -3319,9 +3561,12 @@ def run() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     smi = phase_environment(device)
-    max_err = phase_kernel_vs_plain(device)
+    max_err, filtered = phase_kernel_vs_plain(device)
+    smoother_err, smoother_plain_ms = phase_smoother_vs_plain(device, filtered)
     launches, ms_p, if_ref, t_ref = phase_slice(device)
     timing = phase_kernel_timing(device, smi)
+    smoother = phase_smoother_timing(device, smi, filtered)
+    del filtered
     phase_accuracy(device)
     phase_mle(device)
     phase_fused(device, if_ref, t_ref)
@@ -3333,9 +3578,11 @@ def run() -> int:
     sharded = phase_sharded(device, smi, if_ref)
     scaling = phase_entry_points(device, smi)
     full = timing["gh3/B=4096/f32"]
+    smoother_sharded = sharded.pop("smoother_launches_sharded")
+    smoother_scaling = scaling.pop("smoother_launches_scaling")
     print(json.dumps({"kernels": [{
         "name": "ghfs_chirp_filter", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
+        "replaces": KERNEL_REPLACES, "launches": launches[0],
         "max_abs_err": max_err, "ms": full["ms"], "plain_ms": ms_p,
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": None, "ms_b100": timing["gh3/B=100/f32"]["ms"],
@@ -3346,7 +3593,21 @@ def run() -> int:
         "bound_ms_lascala_b100": family["float32"]["bound_ms"],
         "plain_ms_lascala_b100": family["float32"]["plain_ms"],
         "ms_lascala_b100_f64": family["float64"]["ms"], **analysis,
-        **sharded, **scaling}]}))
+        **sharded, **scaling}, {
+        "name": "ghfs_chirp_smoother", "route": "cuda",
+        "source": SMOOTHER_SOURCE, "replaces": SMOOTHER_REPLACES,
+        "launches": launches[1], "max_abs_err": smoother_err,
+        "ms": smoother["gh3/B=4096/f32"]["ms"],
+        "plain_ms": smoother_plain_ms,
+        "bound_ms": smoother["gh3/B=4096/f32"]["bound_ms"],
+        "bound_by": smoother["gh3/B=4096/f32"]["bound_by"],
+        "library_ms": None, "ms_b100": smoother["gh3/B=100/f32"]["ms"],
+        "bound_ms_b100": smoother["gh3/B=100/f32"]["bound_ms"],
+        "ms_f64": smoother["gh3/B=4096/f64"]["ms"],
+        "bound_ms_f64": smoother["gh3/B=4096/f64"]["bound_ms"],
+        "launches_lascala": family["float32"]["smoother_launches"],
+        "launches_sharded": smoother_sharded,
+        "launches_scaling": smoother_scaling}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

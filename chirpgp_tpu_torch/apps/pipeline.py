@@ -22,13 +22,14 @@ from chirpgp_tpu_torch.infer import (
     ekf, eks, sgp_filter, sgp_smoother, cd_ekf, cd_eks, cd_sgp_filter,
     cd_sgp_smoother, sqrt_ekf, sqrt_eks, sqrt_sgp_filter, sqrt_sgp_smoother)
 from chirpgp_tpu_torch.infer.batched import (
-    sqrt_sgp_filter_batched, sqrt_sgp_smoother_batched,
-    gaussian_expectation_batched)
+    smoothed_expectation_batched, sqrt_sgp_filter_batched,
+    sqrt_sgp_smoother_batched)
 from chirpgp_tpu_torch.models.bijections import g, g_inv
 from chirpgp_tpu_torch.models.chirp import (
     build_chirp_model, build_harmonic_chirp_model, build_lascala_model)
 from chirpgp_tpu_torch.ops.chirp_filter import (
     ghfs_chirp_filter, lascala_chirp_params)
+from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
 from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
 from chirpgp_tpu_torch.quad.sigma_points import (
     SigmaPoints, cubature, gauss_hermite, unscented)
@@ -269,14 +270,18 @@ def estimate_if_batched(cfg: IFEstimationConfig, params, yss,
     a batched sqrt sigma-point filter, the batched sqrt smoother, and the
     order-``expectation_order`` Gauss-Hermite expectation of ``g(V)``.
 
-    The chirp and La Scala models filter with the fused chirp filter
-    (``ops.chirp_filter.ghfs_chirp_filter``: the CUDA kernel for a CUDA
-    tensor, its plain version on the CPU), La Scala through the chirp
-    params :func:`~chirpgp_tpu_torch.ops.chirp_filter.lascala_chirp_params`;
-    the harmonic model (d = 2K + 2, beyond the kernel's d = 4) with the
-    plain ``sqrt_sgp_filter_batched``, whose update takes a one-hot
-    measurement vector: K = 1 only, as in the JAX package (at K > 1 it
-    raises ``ValueError``).
+    The model decides the path; neither falls back to the other.  The
+    chirp and La Scala models (d = 4) run the fused chirp filter
+    (``ops.chirp_filter.ghfs_chirp_filter``) and the chirp smoother with
+    the expectation as its epilogue (``ops.chirp_smoother.
+    ghfs_chirp_smoother``): for a CUDA tensor two kernel launches, on the
+    CPU their plain versions; La Scala through the chirp params
+    :func:`~chirpgp_tpu_torch.ops.chirp_filter.lascala_chirp_params`.  The
+    harmonic model (d = 2K + 2 and another mean, beyond the chirp-only
+    kernels) runs the plain ``sqrt_sgp_filter_batched``,
+    ``sqrt_sgp_smoother_batched`` and ``smoothed_expectation_batched`` on
+    either device; the filter's update takes a one-hot measurement vector:
+    K = 1 only, as in the JAX package (at K > 1 it raises ``ValueError``).
 
     ``params`` are the constrained params of ``cfg.model``.  Returns dict
     with ``if_mean`` (B, T), ``nell`` (B,), ``mss`` (T, d, B) and ``Lss``
@@ -284,24 +289,23 @@ def estimate_if_batched(cfg: IFEstimationConfig, params, yss,
     """
     yss = _measurements(yss, device)
     params = torch.as_tensor(params)
-    pack = cfg.build(params)
     sgps = cfg.sigma_points()
     if cfg.model == "harmonic":
+        pack = cfg.build(params)
         mfs, Lfs, nll = sqrt_sgp_filter_batched(
             pack.m_and_cov, sgps, pack.H, cfg.Xi, pack.m0, pack.P0, cfg.dt,
             yss)
+        mss, Lss = sqrt_sgp_smoother_batched(pack.m_and_cov, sgps, mfs, Lfs,
+                                             cfg.dt)
+        if_mean = smoothed_expectation_batched(
+            mss, Lss, cfg.v_index(), order=cfg.expectation_order)
     else:
         chirp = params if cfg.model == "chirp" else lascala_chirp_params(params)
         mfs, Lfs, nll = ghfs_chirp_filter(chirp, cfg.Xi, cfg.dt, sgps, yss)
-    mss, Lss = sqrt_sgp_smoother_batched(pack.m_and_cov, sgps, mfs, Lfs,
-                                         cfg.dt)
-    v_idx = cfg.v_index()
-    v_mean = mss[:, v_idx, :]
-    v_std = torch.sqrt(torch.einsum("tkb,tkb->tb", Lss[:, v_idx],
-                                    Lss[:, v_idx]))
-    if_mean = gaussian_expectation_batched(
-        v_mean, v_std, order=cfg.expectation_order) * cfg.freq_scale
-    return dict(if_mean=if_mean.T, nell=nll[-1], mss=mss, Lss=Lss)
+        mss, Lss, if_mean = ghfs_chirp_smoother(
+            chirp, cfg.dt, sgps, mfs, Lfs, if_order=cfg.expectation_order)
+    return dict(if_mean=(if_mean * cfg.freq_scale).T, nell=nll[-1], mss=mss,
+                Lss=Lss)
 
 
 def run_pipeline(cfg: IFEstimationConfig, ys,

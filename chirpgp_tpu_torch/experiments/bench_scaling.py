@@ -9,15 +9,16 @@ magnitude, dt 1e-3) plus ``sqrt(0.1) * normal(key, (T,))`` for the keys
 (``utils/jax_keys.py``; float64 with ``--x64``).  The value per seed is
 the final NLL of the square-root GHFS at ``g(default_init_theta())``
 (the JAX script's ``estimate_if(...)["nell"][-1]``).  Each rank computes
-its seeds' values as one ``estimate_if_batched``: one launch of the CUDA
-filter kernel per rank per sweep on the card.  The sweep runs through
+its seeds' values as one ``estimate_if_batched``: on the card one launch
+of the CUDA filter kernel and one of the smoother kernel per rank per
+sweep, both counted.  The sweep runs through
 ``parallel/mesh.py::sharded_seed_sweep``.
 
 Timing as the JAX script: one warm-up, then the best of three, each
 ending in ``torch.cuda.synchronize()`` and a barrier on every rank of the
 mesh.  The last line is the JAX script's JSON (``seeds_per_sec`` and
 ``efficiency_vs_1dev`` keyed by mesh size), with the card, the seeds per
-rank, the kernel launches of each rank and the largest relative gap of
+rank, each kernel's launches on each rank and the largest relative gap of
 each size's values to one rank's.
 
 Ranks: under ``torchrun``, or with ``--distributed``, the process group
@@ -92,11 +93,13 @@ def scaling(seeds: int, T: int, device, dtype=torch.float32,
     """Every rank of the process group (or one rank without one) times the
     sweep on meshes of size 1, 2, 4, ... up to the world size, one warm-up
     and ``reps`` timed runs each.  Returns, on rank 0, per size: the
-    seeds, their rate (best of ``reps``), the kernel launches of each of
-    the mesh's ranks over its ``reps + 1`` sweeps and the gathered values;
+    seeds, their rate (best of ``reps``), the filter and the smoother
+    kernels' launches on each of the mesh's ranks over its ``reps + 1``
+    sweeps and the gathered values;
     on the other ranks None."""
     from chirpgp_tpu_torch.apps.sweeps import generate_rnd_keys
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
     from chirpgp_tpu_torch.parallel.mesh import (
         all_gather, make_mesh, sharded_seed_sweep)
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -119,23 +122,28 @@ def scaling(seeds: int, T: int, device, dtype=torch.float32,
                 _sync(mesh)
                 return got
 
-            launches0 = ghfs_chirp_filter.launches
+            def counts():
+                return torch.tensor([[ghfs_chirp_filter.launches,
+                                      ghfs_chirp_smoother.launches]])
+
+            counts0 = counts()
             run()
             times = []
             for _ in range(reps):
                 t0 = time.perf_counter()
                 nell = run()
                 times.append(time.perf_counter() - t0)
-            launches = all_gather(torch.tensor(
-                [ghfs_chirp_filter.launches - launches0]), mesh)
+            launches = all_gather(counts() - counts0, mesh)
             best = min(times)
             if rank == 0:
                 say(f"ranks={size}: {n_seeds} seeds in {best:.6f} s -> "
                     f"{n_seeds / best:,.1f} seeds/s (runs "
-                    f"{', '.join(f'{t:.6f}' for t in times)} s; kernel "
-                    f"launches per rank {launches.tolist()})")
+                    f"{', '.join(f'{t:.6f}' for t in times)} s; filter, "
+                    f"smoother kernel launches per rank "
+                    f"{launches.tolist()})")
                 out[size] = dict(seeds=n_seeds, rate=n_seeds / best,
-                                 launches=launches.tolist(),
+                                 launches=launches[:, 0].tolist(),
+                                 smoother_launches=launches[:, 1].tolist(),
                                  nell=nell.cpu().numpy())
         if dist.is_initialized():
             dist.barrier()
@@ -154,7 +162,7 @@ def card() -> str:
 
 def report(res: dict, device: torch.device, local_ranks: int) -> dict:
     """The JAX script's JSON of :func:`scaling`'s result, with the card,
-    the seeds per rank, the kernel launches of each rank per sweep and the
+    the seeds per rank, each kernel's launches on each rank and the
     largest relative gap of each size's values to one rank's."""
     base = res[1]
     rates = {s: r["rate"] for s, r in res.items()}
@@ -173,6 +181,8 @@ def report(res: dict, device: torch.device, local_ranks: int) -> dict:
         "seeds_per_rank": {str(s): r["seeds"] // s for s, r in res.items()},
         "kernel_launches_per_rank": {str(s): r["launches"]
                                      for s, r in res.items()},
+        "smoother_launches_per_rank": {str(s): r["smoother_launches"]
+                                       for s, r in res.items()},
         "nell_rel_vs_1dev": {str(s): g for s, g in gaps.items() if s > 1},
     }
 

@@ -24,7 +24,7 @@ from chirpgp_tpu_torch.utils.numerics import cholesky_or_nan, psd_cholesky
 
 __all__ = ["tria_cf", "sqrt_sgp_filter_batched", "sqrt_sgp_smoother_batched",
            "sqrt_sgp_filter_smoother_batched", "cov_sgp_filter_smoother_batched",
-           "gaussian_expectation_batched"]
+           "gaussian_expectation_batched", "smoothed_expectation_batched"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -460,3 +460,12 @@ def gaussian_expectation_batched(ms: torch.Tensor, stds: torch.Tensor,
     ws = torch.as_tensor(rule.w, dtype=ms.dtype, device=ms.device)
     chi = ms[None] + stds[None] * nodes[:, None, None]    # (S, T, B)
     return torch.einsum("s,stb->tb", ws, func(chi))
+
+
+def smoothed_expectation_batched(mss: torch.Tensor, Lss: torch.Tensor,
+                                 v_index: int, order: int = 10) -> torch.Tensor:
+    """E[g(V)] of state ``v_index`` of the smoother's (T, d, B) means and
+    (T, d, d, B) factors, V ~ N(mss[v], |row v of Lss|^2): (T, B)."""
+    v_std = torch.sqrt(torch.einsum("tkb,tkb->tb", Lss[:, v_index],
+                                    Lss[:, v_index]))
+    return gaussian_expectation_batched(mss[:, v_index], v_std, order=order)

@@ -87,8 +87,9 @@ def test_same_metric_and_keys_as_the_jax_script(lines):
     assert port["card"] == "cpu"
     assert port["label"] == "contention, not scaling"
     assert port["seeds_per_rank"] == {"1": 8, "2": 4}
-    # The CPU runs the kernel's plain version: no launches.
+    # The CPU runs the kernels' plain versions: no launches.
     assert port["kernel_launches_per_rank"] == {"1": [0], "2": [0, 0]}
+    assert port["smoother_launches_per_rank"] == {"1": [0], "2": [0, 0]}
 
 
 def test_two_ranks_match_one_rank(lines):

@@ -22,6 +22,9 @@ from chirpgp_tpu_torch.models import build_chirp_model, g_inv
 from chirpgp_tpu_torch.ops.chirp_filter import (
     TEAMS, ghfs_chirp_filter, ghfs_chirp_filter_kernel,
     ghfs_chirp_filter_reference, lascala_chirp_params, launch_geometry)
+from chirpgp_tpu_torch.ops.chirp_smoother import (
+    ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
+    ghfs_chirp_smoother_reference)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
@@ -121,16 +124,67 @@ def test_chirp_filter_kernel_single_step(cuda, rule, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 50])
+@pytest.mark.parametrize("B", [1, 33, 100])
+@pytest.mark.parametrize("rule", ["gh3", "cubature"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_chirp_smoother_kernel_matches_plain(cuda, dtype, rule, B, T):
+    """The smoother kernel with its GH-10 epilogue against the plain
+    version, on the filter kernel's outputs, at every team size and the
+    default geometry: mss and the IF mean within atol_m, Lss and L L^T
+    within atol_P; ragged B, T = 1 (the filter's row) and T = 2."""
+    atol_m, atol_P = TOLS[dtype]
+    sgps = RULES[rule]()
+    ys = torch.tensor(
+        0.1 * np.random.default_rng(B + T).standard_normal((B, T)),
+        dtype=getattr(torch, dtype), device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    want = [_np(x) for x in ghfs_chirp_smoother_reference(
+        PARAMS, 1e-3, sgps, mfs, Lfs, 10)]
+    for team in (None,) + TEAMS:
+        before = ghfs_chirp_smoother.launches
+        got = [_np(x) for x in ghfs_chirp_smoother_kernel(
+            PARAMS, 1e-3, sgps, mfs, Lfs, 10, team=team)]
+        assert ghfs_chirp_smoother.launches == before + 1
+        for g, w, atol in zip(got, want, (atol_m, atol_P, atol_m)):
+            assert g.shape == w.shape
+            npt.assert_allclose(g, w, atol=atol, rtol=0)
+        npt.assert_allclose(_gram(got[1]), _gram(want[1]), atol=atol_P,
+                            rtol=0)
+    npt.assert_array_equal(got[0][-1], _np(mfs)[-1])
+
+
+@pytest.mark.cuda
+def test_chirp_smoother_kernel_refusals(cuda):
+    """Non-contiguous inputs and mixed devices are refused, and a launch
+    repeats its outputs bit for bit."""
+    sgps = gauss_hermite(4, 3)
+    ys = torch.tensor(0.1 * np.random.default_rng(5).standard_normal((9, 20)),
+                      device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    first = ghfs_chirp_smoother(PARAMS, 1e-3, sgps, mfs, Lfs, 10)
+    for a, b in zip(first, ghfs_chirp_smoother(PARAMS, 1e-3, sgps, mfs, Lfs,
+                                               10)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ghfs_chirp_smoother(PARAMS, 1e-3, sgps, mfs.transpose(0, 1)
+                            .contiguous().transpose(0, 1), Lfs, 10)
+    with pytest.raises(ValueError, match="Lfs on"):
+        ghfs_chirp_smoother(PARAMS, 1e-3, sgps, mfs, Lfs.cpu(), 10)
+
+
+@pytest.mark.cuda
 def test_estimate_if_batched_on_card_matches_cpu(cuda):
     ts = 1e-3 * np.arange(1, 129)
     ys = np.sin(2 * np.pi * 8.0 * ts)[None] + np.sqrt(0.1) * \
         np.random.default_rng(1).standard_normal((8, 128))
     params = torch.tensor(PARAMS, dtype=torch.float64)
     cfg = IFEstimationConfig()
-    before = ghfs_chirp_filter.launches
+    before = ghfs_chirp_filter.launches, ghfs_chirp_smoother.launches
     on_card = estimate_if_batched(cfg, params.to(cuda),
                                   torch.tensor(ys, device=cuda))
-    assert ghfs_chirp_filter.launches == before + 1
+    assert (ghfs_chirp_filter.launches, ghfs_chirp_smoother.launches) == (
+        before[0] + 1, before[1] + 1)
     on_cpu = estimate_if_batched(cfg, params, torch.tensor(ys))
     for key in ("if_mean", "nell", "mss", "Lss"):
         npt.assert_allclose(_np(on_card[key]), _np(on_cpu[key]), atol=1e-9,
@@ -273,10 +327,11 @@ def test_lascala_estimate_if_batched_on_card_matches_cpu(cuda):
         .astype(np.float64)
     cfg = IFEstimationConfig(model="lascala")
     params = torch.tensor(LASCALA)
-    before = ghfs_chirp_filter.launches
+    before = ghfs_chirp_filter.launches, ghfs_chirp_smoother.launches
     on_card = estimate_if_batched(cfg, params.to(cuda),
                                   torch.tensor(ys, device=cuda))
-    assert ghfs_chirp_filter.launches == before + 1
+    assert (ghfs_chirp_filter.launches, ghfs_chirp_smoother.launches) == (
+        before[0] + 1, before[1] + 1)
     on_cpu = estimate_if_batched(cfg, params, torch.tensor(ys))
     for key in ("if_mean", "nell", "mss", "Lss"):
         npt.assert_allclose(_np(on_card[key]), _np(on_cpu[key]), atol=1e-9,

@@ -303,7 +303,8 @@ def test_port_never_imports_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert {PORT / "models/kpt.py", PORT / "apps/kpt.py",
-            PORT / "ops/chirp_filter.py", PORT / "quad/integrators.py",
+            PORT / "ops/chirp_filter.py", PORT / "ops/chirp_smoother.py",
+            PORT / "quad/integrators.py",
             PORT / "fit/gauss_newton.py", PORT / "baselines/classical.py",
             PORT / "baselines/__init__.py", PORT / "utils/lti.py",
             PORT / "models/tme.py", PORT / "models/crlb.py",
