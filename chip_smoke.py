@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Builds the hand-written CUDA kernels (the chirp filter and the chirp
-smoother) from ``chirpgp_tpu_torch/ops/csrc`` on first use, one ``nvcc``
-each, started together, and drives the batched IF-estimation path (the
-two kernels, one launch each), the single-record
+Builds the hand-written CUDA kernels (the chirp filter, and the chirp
+smoother's three: phase A's rows, phase B's recursion, phase E's
+expectation) from ``chirpgp_tpu_torch/ops/csrc`` on first use, one
+``nvcc`` per source, started together, and drives the batched
+IF-estimation path (one filter and one smoother wrapper launch), the single-record
 MLE path, the fused batched filter+smoother, the Table-I Monte-Carlo
 sweep, every other column of Table I, the paper's analysis and
 real-data pipelines, the parallel-in-time and posterior-inference
@@ -14,25 +15,34 @@ paths, and the scale-out layer once at full width.
 Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
-   versions, the kernels' nvcc build times and ptxas reports (no register
-   spills allowed but in ``SPILLS_ALLOWED``: the float64 smoother at P=8
-   with GH-3's rows);
+   versions, the kernels' nvcc build times and ptxas reports of every
+   instance (no register spills allowed but in ``SPILLS_ALLOWED``: the
+   float64 smoother's phase A at P=8 with GH-3's rows);
 2. kernel vs plain PyTorch version on the card: GH-3 and cubature at
    B=512, T=32 on 0.1 N(0, 1) measurements in float32 (atol 5e-5 on
    mfs/nll, 1e-4 on L L^T and on Lfs) and float64 (atol 1e-9), at every
    team size the kernel is built for, then GH-3 at B=4096, T=3141 on the
    benchmark's data in float64 and float32 (scaled bounds below), and
    each float32 version against the float64 kernel, the on-card oracle;
-   2b. the smoother kernel (GH-10 expectation of g(V) fused) against its
-   plain version on the filter kernel's outputs: GH-3 and cubature at
-   B=512, T=32 on the same measurements at every team size, float32 at
-   the filter's levels (atol 5e-5 on mss, 1e-4 on L L^T and Lss, 1e-4 of
-   scale on the IF mean) and float64 (1e-9); then at B=4096, T=3141 on
-   phase 2's filter outputs, float64 and float32 (scaled bounds below),
-   and each float32 version against the float64 kernel;
+   2b. the smoother's kernels (phases A, B and E, with the GH-10
+   expectation of g(V)) against the plain version on the filter kernel's
+   outputs: GH-3 and cubature at B=512, T=32 on the same measurements,
+   float32 at the filter's levels (atol 5e-5
+   on mss, 1e-4 on L L^T and Lss, 1e-4 of scale on the IF mean) and
+   float64 (1e-9), and a scratch cap that forces slabs of 32 lanes
+   against one slab, bit for bit; then at B=4096, T=3141 on phase 2's
+   filter outputs, float64 and float32 (scaled bounds below), each
+   float32 version against the float64 kernel, and in float32 each
+   kernel against its own plain counterpart (phase A's rows against
+   ``smoother_rows_reference``, phase B against
+   ``smoother_backward_reference`` over the kernel's rows, phase E
+   against ``smoothed_expectation_batched``; each launched alone through
+   ``SmootherKernels``), each timed and held to the scaled bound;
 3. ``estimate_if_batched`` at B=4096, T=3141, dt=1e-3, Xi=0.1, GH-3,
    float32: finite outputs, one filter and one smoother launch by the
-   main path, the call's CUDA kernel count under ``torch.profiler`` (the
+   main path and the smoother's three kernels launched exactly as its
+   slabs ask (phases A and B once per slab, E once), the
+   call's CUDA kernel count under ``torch.profiler`` (the
    same small count at T=64 as at T=3141), wall times of the filter
    kernel, of the plain filter (in turns: plain, kernel, kernel, plain)
    and of the whole estimate, and its steps/s;
@@ -41,8 +51,13 @@ Phases, one line each:
    Table-I width (the 100 records of ``toydata_const`` at the GHFS and
    CKFS reference optima, float32), cubature at B=4096 (float32), beside
    its flop and byte counts, its bound and its share of the bound; and
-   the smoother's (with its GH-10 epilogue) at B=4096, T=3141 (float32
-   and float64) and at the Table-I width (float32), beside its bound;
+   the smoother's (its three kernels, with the GH-10 expectation) and
+   each phase alone (A and B slab by slab, B on its own slab's rows), at
+   B=4096, T=3141 (float32 and float64) and at the Table-I width
+   (float32), beside its bound and each phase's, and its ratio to the
+   filter's bare launch on the same records; where the cap of the
+   split's first version (2 GiB) gives other slabs, the whole launch at
+   that cap too;
 4. accuracy gate: seed 0 of ``results/data/toydata_const.npz`` at the
    reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32;
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
@@ -170,11 +185,17 @@ smoother's, which replaces the JAX package's compiled scan
 (``replaces``: ``chirpgp_tpu/infer/batched.py:152``), has the contract's
 keys at B=4096 float32 (``plain_ms`` from phase 2b; ``library_ms`` null:
 no single PyTorch call computes it), ``ms_b100`` and ``bound_ms_b100``,
-``ms_f64`` and ``bound_ms_f64``, and the launches of La Scala's path
-(8b), of the sharded sweep (12b) and of the scaling harness (13h).
-``bound_ms`` counts the least work of the function
-(``ops/chirp_smoother.py::smoother_cost``: the smoother's step in the
-lesser of two square-root forms).  The last
+``ms_f64`` and ``bound_ms_f64``, the ratios to the filter's bare launch,
+and the launches of La Scala's path (8b), of the sharded sweep (12b) and
+of the scaling harness (13h); then one entry for each of the smoother's
+kernels (``smoother_rows``, ``smoother_backward``, ``smoother_expect``)
+with the contract's keys (its launches in phase 3, its time alone, its
+plain counterpart's and its deviation from it in phase 2b) and
+``ms_b100`` and ``ms_f64``.  The smoother's ``bound_ms`` counts the
+least work of the function (``ops/chirp_smoother.py::smoother_cost``:
+the smoother's step in the lesser of two square-root forms); each
+kernel's, its own work and bytes, its phase A's rows included
+(``smoother_phase_costs``).  The last
 line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without
 the ``chirpgp_tpu_torch`` package beside this script, it exits nonzero.
@@ -187,6 +208,7 @@ them (and multiprocessing's resource tracker) before it exits, whether a
 phase passed or failed.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -250,15 +272,19 @@ KERNEL_REPLACES = "chirpgp_tpu/experimental/pallas_filter.py:248"
 SMOOTHER_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_smoother.cu"
 SMOOTHER_REPLACES = "chirpgp_tpu/infer/batched.py:152"
 # Phase 1: the instances whose register spills are reported and allowed,
-# (kernel, dtype, team, rows): the float64 smoother at P=8 with GH-3's 11
-# rows of 8 values per member (255 registers; the on-card oracle, still
-# faster than P=32 at B=4096 on an H100).  Every other instance must not
-# spill.
-SPILLS_ALLOWED = {("smoother", "f64", 8, 11)}
+# (kernel, dtype, template integers): the float64 smoother's phase A with
+# GH-3's 11 rows of 8 values per member (255 registers, 116 B of spill
+# stores; faster than teams of 16 and 32 at B=4096 on an H100).  Every
+# other instance must not spill.
+SPILLS_ALLOWED = {("smoother_rows", "f64", 11)}
 # Phase 3b: CUDA-event launches after one warm-up, and the H100 SXM's
 # published peaks (NVIDIA data sheet, dense, at 700 W): float32 and float64
 # outside the tensor cores, and HBM3.
 TIMING_REPS = 6
+# Phase 3b also times the smoother's whole launch at this scratch cap (the
+# cap of the split's first version), where it gives other slabs than the
+# wrapper's SCRATCH_CAP: float64 at B=4096 in two slabs.
+OTHER_SCRATCH_CAP = 2 << 30
 SWEEP_B = (528, 1056, 2112)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
@@ -624,18 +650,21 @@ def phase_environment(device):
         built = dict(zip(("filter", "smoother"), pool.map(
             lambda load: load(), (load_kernel, load_smoother_kernel))))
     t_build = time.perf_counter() - t0
-    # ptxas -v: each kernel instance (dtype, team size, rows per member)
-    # with its registers, stack frame and spills.
+    # ptxas -v: each kernel instance (kernel, dtype, team size and rows per
+    # member where it has them) with its registers, stack frame and spills.
     ptxas, spills = [], []
     for name, lib in built.items():
         inst = None
         for ln in lib.log.splitlines():
-            found = re.search(
-                r"entry function '\S*?kernelI([fd])Li(\d+)ELi(\d+)E", ln)
+            found = re.search(r"entry function '\S*?([a-z_]+)_kernelI([fd])"
+                              r"((?:Li\d+E)*)", ln)
             if found:
-                inst = (name, dict(f="f32", d="f64")[found[1]],
-                        int(found[2]), int(found[3]))
-                ptxas.append(f"{name} {inst[1]} P={inst[2]} rows={inst[3]}:")
+                # Template integers: the filter's team and rows, phase A's rows.
+                ints = tuple(int(x) for x in re.findall(r"\d+", found[3]))
+                inst = (found[1], dict(f="f32", d="f64")[found[2]], *ints)
+                names = ("P", "rows") if len(ints) == 2 else ("rows",)
+                ptxas.append(" ".join(inst[:2]) + "".join(
+                    f" {k}={v}" for k, v in zip(names, ints)) + ":")
             elif "registers" in ln or "spill" in ln:
                 ptxas.append(ln.split("ptxas info    :")[-1].strip())
                 if ("spill" in ln and inst not in SPILLS_ALLOWED and
@@ -729,20 +758,89 @@ def smoother_deviations(kern, plain):
         scale_if=float(ip.abs().max()))
 
 
+def upper_gram(words):
+    """R22^T R22 of the (..., 10, B) upper-triangle words of R22 (phase A's
+    rows): a row of R22 may change sign with the rounding of a near-zero
+    diagonal, and phase B reads only the Gram."""
+    iu = torch.triu_indices(4, 4)
+    up = words.new_zeros(words.shape[:-2] + (4, 4, words.shape[-1]))
+    up[..., iu[0], iu[1], :] = words
+    return torch.einsum("...kib,...kjb->...ijb", up, up)
+
+
+def smoother_phase_deviations(args, outputs):
+    """Each smoother kernel against its own plain counterpart on the same
+    inputs, all lanes as one slab, its deviation over (1 + max |plain|)
+    held to SMOOTHER_FULL_BOUNDS: phase A's rows against
+    ``smoother_rows_reference`` (m_p and X, and R22 by its Gram), phase B's
+    mss and Lss against ``smoother_backward_reference`` over the kernel's
+    own rows, phase E's IF mean against ``smoothed_expectation_batched`` of
+    the wrapper's mss and Lss (``outputs``).  Returns {kernel: (max |d|,
+    plain seconds)}."""
+    from chirpgp_tpu_torch.infer.batched import smoothed_expectation_batched
+    from chirpgp_tpu_torch.ops.chirp_smoother import (
+        ROW_WORDS, SmootherKernels, smoother_backward_reference,
+        smoother_rows_reference)
+    from chirpgp_tpu_torch.utils.timing import timed
+    params, dt, rule, mfs, Lfs, order = args
+    T, _, B = mfs.shape
+    kernels = SmootherKernels(params, dt, rule, order, mfs.dtype, mfs.device)
+    rows = mfs.new_empty((T - 1, ROW_WORDS, B))
+    kernels.rows(mfs, Lfs, rows)
+    want, t_rows = timed(smoother_rows_reference, params, dt, rule, mfs, Lfs)
+    gram, gram_p = (upper_gram(x[:, 20:].double()) for x in (rows, want))
+    devs = {"smoother_rows": [(rows[:, :20], want[:, :20]), (gram, gram_p)]}
+    del want, gram, gram_p
+    mss = torch.empty_like(mfs)
+    lss = mfs.new_empty((T, 16, B))
+    kernels.backward(mfs, Lfs, rows, mss, lss)
+    (ms_p, Ls_p), t_back = timed(smoother_backward_reference, mfs, Lfs, rows)
+    devs["smoother_backward"] = [(mss, ms_p), (lss.view(T, 4, 4, B), Ls_p)]
+    del rows
+    if_mean = mfs.new_empty((T, B))
+    kernels.expect(outputs[0], outputs[1].view(T, 16, B), if_mean)
+    if_p, t_exp = timed(smoothed_expectation_batched, *outputs[:2], 2, order)
+    devs["smoother_expect"] = [(if_mean, if_p)]
+    bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][0]
+    out = {}
+    for (kernel, pairs), t in zip(devs.items(), (t_rows, t_back, t_exp)):
+        d = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+        scaled = max(scaled_dev(a, b) for a, b in pairs)
+        check(scaled <= bound, f"2b {kernel} vs its plain counterpart: "
+                               f"scaled |d| {scaled} > {bound}")
+        out[kernel] = (d, t)
+    return out
+
+
+@contextlib.contextmanager
+def scratch_cap(cap):
+    """The smoother wrapper with ``SCRATCH_CAP`` = ``cap`` bytes for the
+    launchers built inside."""
+    from chirpgp_tpu_torch.ops import chirp_smoother
+    saved, chirp_smoother.SCRATCH_CAP = chirp_smoother.SCRATCH_CAP, cap
+    try:
+        yield
+    finally:
+        chirp_smoother.SCRATCH_CAP = saved
+
+
 def phase_smoother_vs_plain(device, filtered):
-    """2b: the smoother kernel (with its GH-10 epilogue) against its plain
-    version on the filter kernel's outputs: the small cases at every team
-    size, then the benchmark's B=4096 x T=3141 (phase 2's filter outputs
-    ``filtered``) in float64 and float32, each float32 version against the
-    float64 kernel.  Returns the float32 kernel's largest deviation and
-    the plain version's time at the benchmark's shape, float32."""
+    """2b: the smoother's kernels (phases A, B and E) against the plain
+    version on the filter kernel's outputs: the small cases, a scratch cap
+    that forces slabs of lanes against one
+    slab (bit for bit), then the benchmark's B=4096 x T=3141 (phase 2's
+    filter outputs ``filtered``) in float64 and float32, each float32
+    version against the float64 kernel, and in float32 each kernel
+    against its own plain counterpart.  Returns the float32 kernels'
+    largest deviation, the plain version's time at the benchmark's shape,
+    float32, and {kernel: (max |d|, plain ms)}."""
     from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.models import g
-    from chirpgp_tpu_torch.ops.chirp_filter import TEAMS, ghfs_chirp_filter
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     from chirpgp_tpu_torch.ops.chirp_smoother import (
-        ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
-        ghfs_chirp_smoother_reference)
+        ROW_WORDS, ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
+        ghfs_chirp_smoother_reference, smoother_kernel_launcher)
     from chirpgp_tpu_torch.quad import cubature, gauss_hermite
     cfg = IFEstimationConfig()
     order = cfg.expectation_order
@@ -757,24 +855,33 @@ def phase_smoother_vs_plain(device, filtered):
             mfs, Lfs, _ = ghfs_chirp_filter(SMALL_PARAMS, XI, DT, rule, yss)
             args = (SMALL_PARAMS, DT, rule, mfs, Lfs, order)
             plain = ghfs_chirp_smoother_reference(*args)
-            for team in TEAMS:
-                dev = smoother_deviations(
-                    ghfs_chirp_smoother_kernel(*args, team=team), plain)
-                dev["if_scaled"] = dev["if_mean"] / (1.0 + dev["scale_if"])
-                tag = f"{name}/{str(dtype)[6:]}/P={team}"
-                for key, tol in zip(("mss", "LLT", "Lss", "if_scaled"), tols):
-                    check(dev[key] <= tol,
-                          f"2b {tag}: max |d {key}| = {dev[key]} > {tol}")
-                parts.append(f"{tag} mss {dev['mss']:.3g} LLT "
-                             f"{dev['LLT']:.3g} Lss {dev['Lss']:.3g} if_mean "
-                             f"{dev['if_mean']:.3g}")
+            kern = ghfs_chirp_smoother_kernel(*args)
+            dev = smoother_deviations(kern, plain)
+            dev["if_scaled"] = dev["if_mean"] / (1.0 + dev["scale_if"])
+            tag = f"{name}/{str(dtype)[6:]}"
+            for key, tol in zip(("mss", "LLT", "Lss", "if_scaled"), tols):
+                check(dev[key] <= tol,
+                      f"2b {tag}: max |d {key}| = {dev[key]} > {tol}")
+            parts.append(f"{tag} mss {dev['mss']:.3g} LLT {dev['LLT']:.3g} "
+                         f"Lss {dev['Lss']:.3g} if_mean {dev['if_mean']:.3g}")
+            # Slabs of 32 lanes: the bits of one slab.
+            cap = 32 * (SMALL_T - 1) * ROW_WORDS * mfs.element_size()
+            before = ghfs_chirp_smoother.kernel_launches["smoother_rows"]
+            with scratch_cap(cap):
+                launch, slabbed = smoother_kernel_launcher(*args)
+            launch()
+            slabs = (ghfs_chirp_smoother.kernel_launches["smoother_rows"]
+                     - before)
+            check(slabs == SMALL_B // 32 and all(
+                torch.equal(a, b) for a, b in zip(slabbed, kern)),
+                  f"2b {tag}: {slabs} slabs differ from one")
 
     params = g(cfg.default_init_theta()).to(torch.float32)
-    kern, plain_ms = {}, None
+    kern, plain_ms, phases = {}, None, {}
     for tag in ("float64", "float32"):
         mfs, Lfs, _ = filtered[tag]
         args = (params, DT, cfg.sigma_points(), mfs, Lfs, order)
-        kern[tag] = ghfs_chirp_smoother(*args)
+        kern[tag] = ghfs_chirp_smoother_kernel(*args)
         plain, t_plain = timed(ghfs_chirp_smoother_reference, *args)
         dev = smoother_deviations(kern[tag], plain)
         scaled = (dev["mss"] / (1.0 + dev["scale_mss"]),
@@ -793,15 +900,21 @@ def phase_smoother_vs_plain(device, filtered):
         if tag == "float32":
             plain_ms, plain32 = 1e3 * t_plain, plain
             max_err = max(dev["mss"], dev["Lss"], dev["if_mean"])
+            del plain
+            phases = {k: (err, 1e3 * t) for k, (err, t) in
+                      smoother_phase_deviations(args, kern[tag]).items()}
+            parts.append("float32 each kernel vs its plain counterpart: " +
+                         ", ".join(f"{k} max|d| {err!r}, plain {t:.3f} ms"
+                                   for k, (err, t) in phases.items()))
     # Each float32 version against the float64 kernel, the on-card oracle.
     for name, out in (("kernel", kern["float32"]), ("plain", plain32)):
         dev = smoother_deviations(out, kern["float64"])
         parts.append(f"float32 {name} vs float64 kernel: max|d mss| "
                      f"{dev['mss']!r}, max|d LLT| {dev['LLT']!r}, max|d "
                      f"if_mean| {dev['if_mean']!r}")
-    print(f"phase 2b smoother kernel vs plain "
+    print(f"phase 2b smoother kernels vs plain "
           f"({time.perf_counter() - t_phase:.3f} s): " + "; ".join(parts))
-    return max_err, plain_ms
+    return max_err, plain_ms, phases
 
 
 def phase_slice(device):
@@ -810,7 +923,8 @@ def phase_slice(device):
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import (
         ghfs_chirp_filter, ghfs_chirp_filter_reference)
-    from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
+    from chirpgp_tpu_torch.ops.chirp_smoother import (
+        KERNELS, ghfs_chirp_smoother, smoother_slabs)
     cfg = IFEstimationConfig()
     params = g(cfg.default_init_theta()).to(torch.float32).to(device)
     yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
@@ -822,10 +936,17 @@ def phase_slice(device):
         times[which].append(timed(fn, *args)[1])
 
     ghfs_chirp_filter.launches = ghfs_chirp_smoother.launches = 0
+    ghfs_chirp_smoother.kernel_launches = dict.fromkeys(KERNELS, 0)
     est, t_est = timed(estimate_if_batched, cfg, params, yss)
     launches = (ghfs_chirp_filter.launches, ghfs_chirp_smoother.launches)
+    kernel_launches = dict(ghfs_chirp_smoother.kernel_launches)
     check(launches == (1, 1), f"estimate_if_batched launched the filter and "
                               f"the smoother {launches} times, not once each")
+    slabs = len(smoother_slabs(T_FULL, B_FULL, yss.element_size()))
+    want = dict(zip(KERNELS, (slabs, slabs, 1)))
+    check(kernel_launches == want,
+          f"estimate_if_batched launched the smoother's kernels "
+          f"{kernel_launches}, not {want} (phases A and B once per slab)")
     for key in ("if_mean", "nell", "mss", "Lss"):
         check(bool(torch.isfinite(est[key]).all()), f"non-finite {key}")
     check(tuple(est["if_mean"].shape) == (B_FULL, T_FULL), "if_mean shape")
@@ -842,7 +963,8 @@ def phase_slice(device):
     prof = profs[T_FULL]
     ms_p = 1e3 * sum(times["plain"]) / 2
     print(f"phase 3 slice: estimate_if_batched B={B_FULL} T={T_FULL} GH-3 "
-          f"float32: finite, filter and smoother kernel launches {launches}; "
+          f"float32: finite, filter and smoother launches {launches}, the "
+          f"smoother's kernels {kernel_launches}; "
           f"{counts[T_FULL]} CUDA kernels per call at T={T_FULL} and "
           f"{counts[SLICE_SHORT_T]} at T={SLICE_SHORT_T} (torch.profiler), "
           f"device busy {100 * prof.busy:.2f}% of {1e3 * prof.wall_s:.3f} ms;"
@@ -850,7 +972,7 @@ def phase_slice(device):
           f" plain filter {[round(1e3 * t, 3) for t in times['plain']]} ms "
           f"(order plain, kernel, kernel, plain); whole estimate "
           f"{1e3 * t_est:.3f} ms = {B_FULL * T_FULL / t_est:.1f} steps/s")
-    return launches, ms_p, est["if_mean"], t_est
+    return launches, kernel_launches, ms_p, est["if_mean"], t_est
 
 
 def event_ms(fn, reps=TIMING_REPS):
@@ -958,23 +1080,29 @@ def phase_kernel_timing(device, smi):
     return out
 
 
-def phase_smoother_timing(device, smi, filtered):
-    """3b, the smoother: CUDA-event times of the bare launch at every team
-    size, GH-3 with the GH-10 epilogue, at the benchmark's B=4096 x T=3141
-    (phase 2's filter outputs ``filtered``, float32 and float64) and at the
-    Table-I width (the 100 records of toydata_const at the reference's
-    GHFS optimum, float32), beside the bound.  Each team's IF mean is held
-    to the default geometry's."""
+def phase_smoother_timing(device, smi, filtered, filter_timing):
+    """3b, the smoother: CUDA-event times of the whole bare launch (phases
+    A, B and E) and of each phase alone, GH-3 with the GH-10 expectation,
+    at the benchmark's B=4096 x T=3141 (phase 2's filter outputs
+    ``filtered``, float32 and float64) and at the Table-I width (the 100
+    records of toydata_const at the reference's GHFS optimum, float32),
+    beside the bounds and the ratio to the filter's bare launch on the same
+    records in this run (``filter_timing``, phase 3b's).  Phases A and B
+    are timed slab by slab (``smoother_slabs``), B on its own slab's rows;
+    where ``OTHER_SCRATCH_CAP`` gives other slabs, the whole launch is
+    timed at that cap too.  The IF mean of the timed launches is held to
+    that of a launch of the wrapper, and to the bits of the phases alone
+    and of the other slabs."""
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.convert import params_from_jax
     from chirpgp_tpu_torch.models import g
-    from chirpgp_tpu_torch.ops.chirp_filter import (
-        TEAMS, ghfs_chirp_filter, launch_geometry)
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     from chirpgp_tpu_torch.ops.chirp_smoother import (
-        smoother_cost, smoother_kernel_launcher)
+        KERNELS, ROW_WORDS, SmootherKernels, ghfs_chirp_smoother,
+        rows_per_member, smoother_cost, smoother_kernel_launcher,
+        smoother_phase_costs, smoother_slabs)
     cfg = IFEstimationConfig()
-    rule = cfg.sigma_points()
-    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rule, order = cfg.sigma_points(), cfg.expectation_order
     p_bench = g(cfg.default_init_theta())
     opt = params_from_jax(np.load(
         ROOT / "results/reference/ghfs_const.npz")["params"][0])
@@ -988,32 +1116,77 @@ def phase_smoother_timing(device, smi, filtered):
     out, parts = {}, []
     for tag, (params, (mfs, Lfs)) in cases.items():
         T, _, B = mfs.shape
-        default = launch_geometry(B, rule.n_points, num_sms)
-        times = {}
-        for team in TEAMS:
-            launch, (_, _, if_mean) = smoother_kernel_launcher(
-                params, DT, rule, mfs, Lfs, cfg.expectation_order, team)
-            times[team] = (event_ms(launch), if_mean.double())
-        if_ref = times[default.team][1]
-        for team, (_, if_mean) in times.items():
-            dev = scaled_dev(if_mean, if_ref)
-            bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][2]
-            check(bool(torch.isfinite(if_mean).all()) and dev <= bound,
-                  f"3b smoother {tag} P={team}: IF mean vs default {dev}")
+        if_ref = ghfs_chirp_smoother(params, DT, rule, mfs, Lfs, order)[2]
+        launch, outputs = smoother_kernel_launcher(params, DT, rule, mfs,
+                                                   Lfs, order)
+        if_mean = outputs[2]
+        ms = event_ms(launch)
+        del launch, outputs   # one launcher's outputs and scratch at a time
+        dev = scaled_dev(if_mean, if_ref)
+        bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][2]
+        check(bool(torch.isfinite(if_mean).all()) and dev <= bound,
+              f"3b smoother {tag}: IF mean of the timed launches {dev}")
+        # Each phase alone: phases A and B slab by slab, phase B on the
+        # rows phase A has just written for its own slab.
+        kernels = SmootherKernels(params, DT, rule, order, mfs.dtype, device)
+        slabs = smoother_slabs(T, B, mfs.element_size())
+        mss, lss = torch.empty_like(mfs), mfs.new_empty((T, 16, B))
+        slab_ms = {"smoother_rows": [], "smoother_backward": []}
+        for b0, nb in slabs:
+            rows = mfs.new_empty((T - 1, ROW_WORDS, nb))
+            slab_ms["smoother_rows"].append(event_ms(
+                lambda: kernels.rows(mfs, Lfs, rows, b0)))
+            slab_ms["smoother_backward"].append(event_ms(
+                lambda: kernels.backward(mfs, Lfs, rows, mss, lss, b0)))
+            del rows
+        if_e = torch.empty_like(if_mean)
+        slab_ms["smoother_expect"] = [event_ms(
+            lambda: kernels.expect(mss, lss, if_e))]
+        check(torch.equal(if_e, if_mean),
+              f"3b smoother {tag}: the phases alone differ from the launch")
+        del kernels, mss, lss, if_e
+        phases = {}
+        for kernel in KERNELS:
+            _, _, pbound, pby = bound_ms(
+                rule.n_points, T, B, mfs.dtype,
+                lambda *a, _k=kernel: smoother_phase_costs(*a, order)[_k])
+            phases[kernel] = dict(ms=sum(slab_ms[kernel]), bound_ms=pbound,
+                                  bound_by=pby, slab_ms=slab_ms[kernel])
+        # The whole launch at the other cap, where it gives other slabs.
+        other = smoother_slabs(T, B, mfs.element_size(), OTHER_SCRATCH_CAP)
+        ms_other = None
+        if other != slabs:
+            with scratch_cap(OTHER_SCRATCH_CAP):
+                launch_o, (_, _, if_o) = smoother_kernel_launcher(
+                    params, DT, rule, mfs, Lfs, order)
+            ms_other = event_ms(launch_o)
+            check(torch.equal(if_o, if_mean),
+                  f"3b smoother {tag}: {len(other)} slabs differ from "
+                  f"{len(slabs)}")
+            del launch_o, if_o
         flop, nbytes, bound, bound_by = bound_ms(rule.n_points, T, B,
                                                  mfs.dtype, smoother_cost)
-        ms = times[default.team][0]
-        out[tag] = dict(ms=ms, bound_ms=bound, bound_by=bound_by)
+        ratio = ms / filter_timing[tag]["ms"]
+        out[tag] = dict(ms=ms, bound_ms=bound, bound_by=bound_by,
+                        ratio=ratio, phases=phases, slabs=len(slabs))
         parts.append(
-            f"{tag} T={T}: " + ", ".join(f"P={p} {t!r} ms" for p, (t, _) in
-                                         times.items())
-            + f"; default P={default.team} rows={default.rows} "
-            f"({default.lanes_per_block} lanes x {default.blocks} blocks) "
-            f"{ms!r} ms; {flop} flop, {nbytes} B, bound {bound!r} ms "
-            f"({bound_by}), share {bound / ms:.4f}")
-    print(f"phase 3b smoother timing (CUDA events around the bare launch, 1 "
-          f"warm-up + {TIMING_REPS} launches; {smi}; peaks 67/34 TFLOP/s "
-          f"f32/f64, 3.35 TB/s): " + "; ".join(parts))
+            f"{tag} T={T}: rows={rows_per_member(rule.n_points)} "
+            f"({len(slabs)} slab(s)) {ms!r} ms; {flop} flop, {nbytes} "
+            f"B, bound {bound!r} ms ({bound_by}), share {bound / ms:.4f}; "
+            f"filter {filter_timing[tag]['ms']!r} ms, smoother/filter "
+            f"{ratio:.3f}; phases alone: " + ", ".join(
+                f"{k} {v['ms']!r} ms (bound {v['bound_ms']!r} ms, "
+                f"{v['bound_by']}, share {v['bound_ms'] / v['ms']:.4f}"
+                + (f"; slabs {v['slab_ms']!r} ms" if len(slabs) > 1 else "")
+                + ")" for k, v in phases.items())
+            + ("" if ms_other is None else
+               f"; the whole launch at a {OTHER_SCRATCH_CAP} B cap, "
+               f"{len(other)} slabs: {ms_other!r} ms"))
+    print(f"phase 3b smoother timing (CUDA events around the bare launches, "
+          f"1 warm-up + {TIMING_REPS} launches; {smi}; peaks 67/34 TFLOP/s "
+          f"f32/f64, 3.35 TB/s): " + "; ".join(parts) + "; this process's "
+          f"peak reserved memory so far "
+          f"{torch.cuda.max_memory_reserved(device) / 2 ** 30:.2f} GiB")
     return out
 
 
@@ -3562,11 +3735,16 @@ def run() -> int:
     torch.cuda.set_device(device)
     smi = phase_environment(device)
     max_err, filtered = phase_kernel_vs_plain(device)
-    smoother_err, smoother_plain_ms = phase_smoother_vs_plain(device, filtered)
-    launches, ms_p, if_ref, t_ref = phase_slice(device)
+    smoother_err, smoother_plain_ms, smoother_phases = phase_smoother_vs_plain(
+        device, filtered)
+    launches, smoother_kernels, ms_p, if_ref, t_ref = phase_slice(device)
     timing = phase_kernel_timing(device, smi)
-    smoother = phase_smoother_timing(device, smi, filtered)
+    smoother = phase_smoother_timing(device, smi, filtered, timing)
     del filtered
+    # 2b and 3b hold the benchmark's filter and smoother outputs in both
+    # dtypes at once; give their cached blocks back to the card, which the
+    # later phases' child processes and ranks share.
+    torch.cuda.empty_cache()
     phase_accuracy(device)
     phase_mle(device)
     phase_fused(device, if_ref, t_ref)
@@ -3605,9 +3783,24 @@ def run() -> int:
         "bound_ms_b100": smoother["gh3/B=100/f32"]["bound_ms"],
         "ms_f64": smoother["gh3/B=4096/f64"]["ms"],
         "bound_ms_f64": smoother["gh3/B=4096/f64"]["bound_ms"],
+        "ratio_to_filter": smoother["gh3/B=4096/f32"]["ratio"],
+        "ratio_to_filter_b100": smoother["gh3/B=100/f32"]["ratio"],
+        "ratio_to_filter_f64": smoother["gh3/B=4096/f64"]["ratio"],
         "launches_lascala": family["float32"]["smoother_launches"],
         "launches_sharded": smoother_sharded,
-        "launches_scaling": smoother_scaling}]}))
+        "launches_scaling": smoother_scaling}] + [{
+        # Each CUDA kernel of the smoother's launch, alone.
+        "name": kernel, "route": "cuda", "source": SMOOTHER_SOURCE,
+        "replaces": SMOOTHER_REPLACES, "launches": smoother_kernels[kernel],
+        "max_abs_err": smoother_phases[kernel][0],
+        "ms": smoother["gh3/B=4096/f32"]["phases"][kernel]["ms"],
+        "plain_ms": smoother_phases[kernel][1],
+        "bound_ms": smoother["gh3/B=4096/f32"]["phases"][kernel]["bound_ms"],
+        "bound_by": smoother["gh3/B=4096/f32"]["phases"][kernel]["bound_by"],
+        "library_ms": None,
+        "ms_b100": smoother["gh3/B=100/f32"]["phases"][kernel]["ms"],
+        "ms_f64": smoother["gh3/B=4096/f64"]["phases"][kernel]["ms"]}
+        for kernel in smoother_kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

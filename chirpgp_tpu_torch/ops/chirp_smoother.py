@@ -1,6 +1,7 @@
 """Square-root GHFS smoother for the chirp model (d=4), with the
-Gauss-Hermite expectation of ``g(V)`` as its epilogue: the hand-written
-CUDA kernel ``csrc/ghfs_chirp_smoother.cu`` and its plain PyTorch version.
+Gauss-Hermite expectation of ``g(V)`` of every step: the hand-written CUDA
+kernels of ``csrc/ghfs_chirp_smoother.cu``, the plain PyTorch version, and
+the plain twin of the kernels' split.
 
 It replaces no Pallas kernel: on the JAX package's main path
 (``chirpgp_tpu.apps.pipeline.estimate_if_batched``) the smoother is an
@@ -8,37 +9,70 @@ XLA-compiled reverse ``lax.scan`` (``chirpgp_tpu.infer.batched.
 sqrt_sgp_smoother_batched``) followed by ``gaussian_expectation_batched``;
 the port's plain versions of both are eager loops of small launches.
 :func:`ghfs_chirp_smoother` runs the plain versions for tensors on the
-CPU and the kernel for tensors on a CUDA device; there is no fallback from
-one to the other, and no gradient.  It reads the filter's outputs
+CPU and the kernels for tensors on a CUDA device; there is no fallback
+from one to the other, and no gradient.  It reads the filter's outputs
 (:func:`~chirpgp_tpu_torch.ops.chirp_filter.ghfs_chirp_filter`) as they
 are, takes the filter's params (La Scala through
-:func:`~chirpgp_tpu_torch.ops.chirp_filter.lascala_chirp_params`), its
-model constants and its launch geometry.  :func:`smoother_cost` counts
-the least work of the call.
+:func:`~chirpgp_tpu_torch.ops.chirp_filter.lascala_chirp_params`) and its
+model constants.  :func:`smoother_cost` counts the least work of the call.
+
+The kernels split a step where the carry enters.  Phase A computes, for
+every t < T-1 and lane at once, what depends on the filter's (mf_t, Lf_t)
+alone: ``ROW_WORDS`` = 30 words, m_p (4), the gain's ``X = R11^-1 R12``
+(16, row-major; G = X^T) and R22's upper triangle (10, row by row), into
+a ``(T-1, 30, B)`` scratch.  Phase B runs the short recursion over them,
+one thread per lane: ``ms <- mf + X^T (ms - m_p)``, ``Ls <- tria([(X^T
+Ls)^T; R22])^T``.  Phase E takes the expectation of every step at once.
+:func:`smoother_rows_reference` and :func:`smoother_backward_reference`
+are the plain twins of phases A and B, and ``smoothed_expectation_batched``
+is phase E's plain version: the kernels' oracle.
 """
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from chirpgp_tpu_torch.infer.batched import (
-    smoothed_expectation_batched, sqrt_sgp_smoother_batched)
+    _backsub_cf, _rule_tensors, smoothed_expectation_batched,
+    sqrt_sgp_smoother_batched, tria_cf)
 from chirpgp_tpu_torch.infer.sqrt import _require_nonneg_weights
 from chirpgp_tpu_torch.ops.chirp_filter import (
-    MAX_POINTS, MAX_THREADS, _chirp_constants, _chirp_pack, launch_geometry)
+    MAX_POINTS, _chirp_constants, _chirp_pack)
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints, gauss_hermite
+from chirpgp_tpu_torch.utils.numerics import psd_cholesky
 
-__all__ = ["ghfs_chirp_smoother", "ghfs_chirp_smoother_kernel",
-           "ghfs_chirp_smoother_reference", "load_smoother_kernel",
-           "smoother_cost", "smoother_kernel_launcher"]
+__all__ = ["KERNELS", "ROWS", "ROW_WORDS", "SCRATCH_CAP", "SmootherKernels",
+           "TEAM", "ghfs_chirp_smoother", "ghfs_chirp_smoother_kernel",
+           "ghfs_chirp_smoother_reference", "ghfs_chirp_smoother_split",
+           "load_smoother_kernel", "rows_per_member",
+           "smoother_backward_reference", "smoother_cost",
+           "smoother_kernel_launcher", "smoother_phase_costs",
+           "smoother_rows_reference", "smoother_slabs"]
 
 _D = 4
 _V = 2   # the state V whose g is the frequency (kV in csrc/chirp_lcd.cuh)
 _KERNEL = "ghfs_chirp_smoother"
-# The epilogue's cap on Gauss-Hermite nodes (csrc/ghfs_chirp_smoother.cu).
+# The expectation's cap on Gauss-Hermite nodes (csrc/ghfs_chirp_smoother.cu).
 MAX_NODES = 32
+# Words of phase A's row per lane-step: m_p, X, R22's upper triangle.
+ROW_WORDS = _D + _D * _D + _D * (_D + 1) // 2
+# Phase A's threads per lane-step (kTeam in csrc/ghfs_chirp_smoother.cu)
+# and the pre-array rows per member it is built for (those of cubature and
+# GH-3 at d = 4, the rules of Table I).
+TEAM = 8
+ROWS = (2, 11)
+# The CUDA kernels of csrc/ghfs_chirp_smoother.cu: phases A, B and E.
+KERNELS = ("smoother_rows", "smoother_backward", "smoother_expect")
+# Bytes of phase A's scratch per slab of lanes: past it, phases A and B run
+# over slabs of lanes, one scratch reused.  A slab more runs phase B, which
+# is bound by its recursion's latency, once more in sequence; 4 GiB holds
+# the benchmark's B=4096 x T=3141 in one slab in float64 (3.09 GB).
+SCRATCH_CAP = 4 << 30
+_WARP = 32
+# Lane-steps per chunk of smoother_rows_reference.
+_TWIN_LANE_STEPS = 1 << 18
 
 
 def ghfs_chirp_smoother_reference(params, dt, sgps: SigmaPoints,
@@ -51,6 +85,81 @@ def ghfs_chirp_smoother_reference(params, dt, sgps: SigmaPoints,
     pack = _chirp_pack(params, None)
     mss, Lss = sqrt_sgp_smoother_batched(pack.m_and_cov, sgps, mfs, Lfs,
                                          float(dt))
+    return mss, Lss, smoothed_expectation_batched(mss, Lss, _V, if_order)
+
+
+def smoother_rows_reference(params, dt, sgps: SigmaPoints, mfs: torch.Tensor,
+                            Lfs: torch.Tensor) -> torch.Tensor:
+    """Phase A's plain twin: for every t < T-1 and lane at once, the step of
+    ``sqrt_sgp_smoother_batched`` up to the gain, as ``(T-1, ROW_WORDS, B)``
+    rows of m_p (4), X = R11^-1 R12 (16, row-major) and R22's upper
+    triangle (10, row by row)."""
+    trans = _chirp_pack(params, None).m_and_cov
+    T, d, B = mfs.shape
+    like = dict(dtype=mfs.dtype, device=mfs.device)
+    xi, w, sw = _rule_tensors(sgps, mfs)
+    LqT = psd_cholesky(trans.cov_const(float(dt))).to(**like).T[:, :, None]
+    iu = torch.triu_indices(d, d)
+
+    def chunk(t0, t1):
+        """Rows t0..t1-1; its lane-steps (t, b) as one batch, b minor."""
+        n = (t1 - t0) * B
+        mf = mfs[t0:t1].permute(1, 0, 2).reshape(d, n)
+        Lf = Lfs[t0:t1].permute(1, 2, 0, 3).reshape(d, d, n)
+        chi = mf[None] + torch.einsum("sj,ijb->sib", xi, Lf)
+        mu = trans.mean_channels_first(chi, float(dt))
+        mp = torch.einsum("s,sib->ib", w, mu)
+        dev_pred = sw[:, None, None] * (mu - mp[None])
+        dev_prev = sw[:, None, None] * (chi - mf[None])
+        M = torch.cat([
+            torch.cat([dev_pred, dev_prev], dim=1),
+            torch.cat([LqT.expand(d, d, n), mfs.new_zeros((d, d, n))], dim=1),
+        ], dim=0)                                         # (S+d, 2d, n)
+        R = tria_cf(M)
+        X = _backsub_cf(R[:d, :d], R[:d, d:], d)
+        rows = torch.cat([mp, X.reshape(d * d, n), R[d:, d:][iu[0], iu[1]]])
+        return rows.reshape(ROW_WORDS, t1 - t0, B).permute(1, 0, 2)
+
+    # Time in chunks of about _TWIN_LANE_STEPS lane-steps, to bound memory.
+    steps = max(1, _TWIN_LANE_STEPS // max(B, 1))
+    return torch.cat([chunk(t0, min(t0 + steps, T - 1))
+                      for t0 in range(0, T - 1, steps)]
+                     or [mfs.new_empty((0, ROW_WORDS, B))]).contiguous()
+
+
+def smoother_backward_reference(mfs: torch.Tensor, Lfs: torch.Tensor,
+                                rows: torch.Tensor):
+    """Phase B's plain twin: the recursion over phase A's ``rows`` (the
+    fused form's ``bstep``), from the filter's row T-1.  Returns ``(mss,
+    Lss)``."""
+    T, d, B = mfs.shape
+    iu = torch.triu_indices(d, d)
+    ms, Ls = mfs[-1], Lfs[-1]
+    mss, Lss = [ms], [Ls]
+    for t in range(T - 2, -1, -1):
+        mp, X = rows[t, :d], rows[t, d:d + d * d].reshape(d, d, B)
+        R22 = rows.new_zeros((d, d, B))
+        R22[iu[0], iu[1]] = rows[t, d + d * d:]
+        G = X.transpose(0, 1)
+        ms = mfs[t] + torch.einsum("ijb,jb->ib", G, ms - mp)
+        GLs = torch.einsum("ijb,jkb->ikb", G, Ls)
+        Ls = tria_cf(torch.cat([GLs.transpose(0, 1), R22], dim=0)
+                     ).transpose(0, 1)
+        mss.append(ms)
+        Lss.append(Ls)
+    return torch.stack(mss[::-1]), torch.stack(Lss[::-1])
+
+
+def ghfs_chirp_smoother_split(params, dt, sgps: SigmaPoints,
+                              mfs: torch.Tensor, Lfs: torch.Tensor,
+                              if_order: int):
+    """The plain twin of the kernels: :func:`smoother_rows_reference`, then
+    :func:`smoother_backward_reference`, then phase E's plain version,
+    ``smoothed_expectation_batched``.  Same contract as
+    :func:`ghfs_chirp_smoother`."""
+    _check(sgps, mfs, Lfs, if_order)
+    rows = smoother_rows_reference(params, dt, sgps, mfs, Lfs)
+    mss, Lss = smoother_backward_reference(mfs, Lfs, rows)
     return mss, Lss, smoothed_expectation_batched(mss, Lss, _V, if_order)
 
 
@@ -104,8 +213,9 @@ def ghfs_chirp_smoother(params, dt, sgps: SigmaPoints, mfs: torch.Tensor,
     ``mfs.dtype`` on ``mfs.device``: the contract of
     ``sqrt_sgp_smoother_batched`` and ``smoothed_expectation_batched``.
     Row T-1 is the filter's.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (built on first use) or raise.
-    ``ghfs_chirp_smoother.launches`` counts the kernel launches.
+    tensors launch the kernels (built on first use) or raise.
+    ``ghfs_chirp_smoother.launches`` counts the calls that launched them,
+    ``ghfs_chirp_smoother.kernel_launches`` each kernel's launches.
     """
     _check(sgps, mfs, Lfs, if_order)
     if mfs.device.type == "cpu":
@@ -119,14 +229,36 @@ def ghfs_chirp_smoother(params, dt, sgps: SigmaPoints, mfs: torch.Tensor,
 
 def ghfs_chirp_smoother_kernel(params, dt, sgps: SigmaPoints,
                                mfs: torch.Tensor, Lfs: torch.Tensor,
-                               if_order: int, team: Optional[int] = None):
-    """The kernel alone, for CUDA tensors: :func:`ghfs_chirp_smoother` with
-    the team size ``team`` (8 or 32; ``None`` lets ``launch_geometry``
-    choose it)."""
+                               if_order: int):
+    """The kernels alone, for CUDA tensors: :func:`ghfs_chirp_smoother`
+    without the plain route."""
     launch, outputs = smoother_kernel_launcher(params, dt, sgps, mfs, Lfs,
-                                               if_order, team)
+                                               if_order)
     launch()
     return outputs
+
+
+def rows_per_member(S: int) -> int:
+    """Phase A's pre-array rows per team member for ``S`` sigma points: the
+    fewest of ``ROWS`` that hold the S + 4 rows of the pre-array."""
+    if not 1 <= S <= MAX_POINTS:
+        raise ValueError(f"the kernel takes 1..{MAX_POINTS} sigma points, "
+                         f"got S={S}")
+    return min(r for r in ROWS if TEAM * r >= S + _D)
+
+
+def smoother_slabs(T: int, B: int, itemsize: int, cap: int | None = None):
+    """The slabs ``(first lane, lanes)`` over which phases A and B run, so
+    that the ``(T-1, ROW_WORDS, lanes)`` scratch stays within ``cap`` bytes
+    (``SCRATCH_CAP`` by default): as few as that allows, each a whole
+    number of warps of lanes but the last (one lane at least, whatever the
+    cap)."""
+    cap = SCRATCH_CAP if cap is None else cap
+    per_lane = max(T - 1, 1) * ROW_WORDS * itemsize
+    lanes = min(B, max(1, cap // per_lane))
+    if _WARP <= lanes < B:
+        lanes -= lanes % _WARP
+    return [(b0, min(lanes, B - b0)) for b0 in range(0, B, max(lanes, 1))]
 
 
 def load_smoother_kernel():
@@ -136,33 +268,110 @@ def load_smoother_kernel():
     built = load_library(_KERNEL)
     lib = built.lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ghfs_chirp_smoother_f32, lib.ghfs_chirp_smoother_f64):
-        fn.argtypes = ([ptr] * 7 + [ctypes.POINTER(ctypes.c_double)]
-                       + [i32] * 7 + [ptr] * 4)
-        fn.restype = i32
+    for dt in ("f32", "f64"):
+        rows = getattr(lib, f"smoother_rows_{dt}")
+        rows.argtypes = ([ptr] * 5 + [ctypes.POINTER(ctypes.c_double)]
+                         + [i32] * 5 + [ptr] * 2)
+        back = getattr(lib, f"smoother_backward_{dt}")
+        back.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 3
+        expect = getattr(lib, f"smoother_expect_{dt}")
+        expect.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
+        for fn in (rows, back, expect):
+            fn.restype = i32
     for fn in (lib.ghfs_chirp_smoother_max_points,
                lib.ghfs_chirp_smoother_max_nodes,
                lib.ghfs_chirp_smoother_num_consts,
-               lib.ghfs_chirp_smoother_max_threads):
+               lib.ghfs_chirp_smoother_row_words):
         fn.argtypes = []
         fn.restype = i32
     if (lib.ghfs_chirp_smoother_max_points() != MAX_POINTS
             or lib.ghfs_chirp_smoother_max_nodes() != MAX_NODES
-            or lib.ghfs_chirp_smoother_max_threads() != MAX_THREADS):
+            or lib.ghfs_chirp_smoother_row_words() != ROW_WORDS):
         raise RuntimeError("the smoother kernel's limits do not match the "
                            "wrapper's")
     return built
 
 
+class SmootherKernels:
+    """The smoother's three CUDA kernels for one model (``params``, ``dt``),
+    rule, IF order, dtype and device, built on first use.  Each method
+    launches one kernel on the tensors it is given, on the current stream,
+    and counts it in ``ghfs_chirp_smoother.kernel_launches``; it does no
+    host work besides the ctypes call, so CUDA events around it time the
+    kernel alone.  The tensors are contiguous, on ``device``, in ``dtype``;
+    a slab is the lanes ``b0 .. b0 + nb - 1`` of the filter's B, with
+    ``nb = rows.shape[2]``."""
+
+    def __init__(self, params, dt, sgps: SigmaPoints, if_order: int,
+                 dtype: torch.dtype, device: torch.device):
+        self.lib = load_smoother_kernel().lib
+        # Xi is not read by the smoother: the filter's layout, sqrt(Xi) = 1.
+        consts = _chirp_constants(params, 1.0, dt)
+        if consts.size != self.lib.ghfs_chirp_smoother_num_consts():
+            raise RuntimeError("model constants do not match the kernel's "
+                               "layout")
+        self.consts = (ctypes.c_double * consts.size)(*consts.tolist())
+        like = dict(dtype=dtype, device=device)
+        self.device, self.S, self.if_order = device, sgps.n_points, if_order
+        self.rows_per_member = rows_per_member(self.S)
+        self.xi = torch.as_tensor(np.ascontiguousarray(sgps.xi), **like)
+        self.w = torch.as_tensor(np.asarray(sgps.w), **like)
+        self.sw = torch.sqrt(self.w)
+        gh = gauss_hermite(1, if_order)
+        self.ghx = torch.as_tensor(np.ascontiguousarray(gh.xi[:, 0]), **like)
+        self.ghw = torch.as_tensor(np.asarray(gh.w), **like)
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        self._fns = {k: getattr(self.lib, f"{k}_{suffix}") for k in KERNELS}
+
+    def _run(self, kernel, *args):
+        rc = self._fns[kernel](
+            *args, torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ghfs_chirp_smoother kernel {kernel} launch "
+                               f"failed: CUDA error {rc}")
+        ghfs_chirp_smoother.kernel_launches[kernel] += 1
+
+    @staticmethod
+    def _at(x, b0):
+        return x.data_ptr() + b0 * x.element_size()
+
+    def rows(self, mfs, Lfs, rows, b0=0):
+        """Phase A: the slab's ``(T-1, ROW_WORDS, nb)`` rows of the filter's
+        ``mfs`` (T, 4, B) and ``Lfs`` (T, 4, 4, B) into ``rows``."""
+        T, _, B = mfs.shape
+        if T > 1 and rows.shape[2]:
+            self._run("smoother_rows", self._at(mfs, b0), self._at(Lfs, b0),
+                      self.xi.data_ptr(), self.w.data_ptr(),
+                      self.sw.data_ptr(), self.consts, self.S, T, B,
+                      rows.shape[2], self.rows_per_member, rows.data_ptr())
+
+    def backward(self, mfs, Lfs, rows, mss, lss, b0=0):
+        """Phase B: the slab's recursion over its ``rows``, into ``mss``
+        (T, 4, B) and ``lss`` (T, 16, B)."""
+        T, _, B = mfs.shape
+        self._run("smoother_backward", self._at(mfs, b0), self._at(Lfs, b0),
+                  rows.data_ptr(), T, B, rows.shape[2], self._at(mss, b0),
+                  self._at(lss, b0))
+
+    def expect(self, mss, lss, if_mean):
+        """Phase E: the IF mean (T, B) of every step of ``mss``, ``lss``."""
+        T, _, B = mss.shape
+        if B:
+            self._run("smoother_expect", mss.data_ptr(), lss.data_ptr(),
+                      self.ghx.data_ptr(), self.ghw.data_ptr(), self.if_order,
+                      T, B, if_mean.data_ptr())
+
+
 def smoother_kernel_launcher(params, dt, sgps: SigmaPoints,
                              mfs: torch.Tensor, Lfs: torch.Tensor,
-                             if_order: int, team: Optional[int] = None):
+                             if_order: int):
     """Check the inputs of :func:`ghfs_chirp_smoother_kernel`, build the
-    kernel, its constants and its outputs, and return ``(launch,
-    outputs)``: each ``launch()`` runs the kernel once on the current
-    stream, writes the outputs and counts the launch.  It does no host work
-    besides the ctypes call, so CUDA events around it time the kernel
-    alone."""
+    kernels (:class:`SmootherKernels`), the scratch and the outputs, and
+    return ``(launch, outputs)``: each ``launch()`` runs phases A and B over
+    each slab of lanes (:func:`smoother_slabs`), one scratch reused, then
+    phase E, on the current stream, writes the outputs and counts one
+    launch.  It does no host work besides the ctypes calls, so CUDA events
+    around it time the kernels alone."""
     _check(sgps, mfs, Lfs, if_order)
     if mfs.device.type != "cuda":
         raise ValueError(f"the ghfs_chirp_smoother kernel runs on cuda "
@@ -171,41 +380,27 @@ def smoother_kernel_launcher(params, dt, sgps: SigmaPoints,
     if not (mfs.is_contiguous() and Lfs.is_contiguous()):
         raise ValueError("the smoother kernel takes contiguous mfs and Lfs")
     T, _, B = mfs.shape
-    S = sgps.n_points
-    num_sms = torch.cuda.get_device_properties(mfs.device).multi_processor_count
-    geo = launch_geometry(B, S, num_sms, team)
-
-    lib = load_smoother_kernel().lib
-    # Xi is not read by the smoother: the filter's layout with sqrt(Xi) = 1.
-    consts = _chirp_constants(params, 1.0, dt)
-    if consts.size != lib.ghfs_chirp_smoother_num_consts():
-        raise RuntimeError("model constants do not match the kernel's layout")
-
+    kernels = SmootherKernels(params, dt, sgps, if_order, mfs.dtype,
+                              mfs.device)
     like = dict(dtype=mfs.dtype, device=mfs.device)
-    xi = torch.as_tensor(np.ascontiguousarray(sgps.xi), **like)
-    w = torch.as_tensor(np.asarray(sgps.w), **like)
-    sw = torch.sqrt(w)
-    gh = gauss_hermite(1, if_order)
-    ghx = torch.as_tensor(np.ascontiguousarray(gh.xi[:, 0]), **like)
-    ghw = torch.as_tensor(np.asarray(gh.w), **like)
     mss = torch.empty((T, _D, B), **like)
     lss = torch.empty((T, _D * _D, B), **like)
     if_mean = torch.empty((T, B), **like)
-    c_consts = (ctypes.c_double * consts.size)(*consts.tolist())
-    entry = getattr(lib, "ghfs_chirp_smoother_f32" if mfs.dtype ==
-                    torch.float32 else "ghfs_chirp_smoother_f64")
-    inputs = (mfs, Lfs, xi, w, sw, ghx, ghw)
-    outputs = (mss, lss, if_mean)
+    slabs = smoother_slabs(T, B, mfs.element_size())
+    scratch = torch.empty((T - 1) * ROW_WORDS * max(
+        [nb for _, nb in slabs], default=0), **like)
+    # The closure holds every tensor a kernel reads or writes, so that they
+    # live as long as ``launch``, whatever the caller keeps.
+    views = [(b0, scratch[:(T - 1) * ROW_WORDS * nb].view(T - 1, ROW_WORDS,
+                                                           nb))
+             for b0, nb in slabs]
 
     def launch():
         with torch.cuda.device(mfs.device):
-            rc = entry(*[x.data_ptr() for x in inputs], c_consts, S,
-                       if_order, T, B, geo.team, geo.rows,
-                       geo.lanes_per_block, *[x.data_ptr() for x in outputs],
-                       torch.cuda.current_stream(mfs.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"ghfs_chirp_smoother kernel launch failed: "
-                               f"CUDA error {rc}")
+            for b0, rows in views:
+                kernels.rows(mfs, Lfs, rows, b0)
+                kernels.backward(mfs, Lfs, rows, mss, lss, b0)
+            kernels.expect(mss, lss, if_mean)
         ghfs_chirp_smoother.launches += 1
 
     return launch, (mss, lss.reshape(T, _D, _D, B), if_mean)
@@ -256,18 +451,43 @@ def smoother_cost(S: int, T: int, B: int, dtype=torch.float32,
     The expectation, per step (T of them): the variance of V, 8, its
     sqrt, 1; per GH node the point, 2, softplus, 2, and the weighted sum,
     2.  Bytes: 4 + 16 words read and 4 + 16 + 1 written per seed-step."""
-    d = _D
-    tria = sum(4 * (8 - j) + 3 + (4 - j) * 6 * (8 - j) for j in range(d))
-    tail = 64 + 40 + 80 + tria
-    full = 61 * S + _householder_flop(S + d, 2 * d)
-    projected = (117 * S + _householder_flop(S, d)
-                 + _householder_flop(3 * d, 2 * d))
-    per_step = min(full, projected) + tail
-    per_row = 9 + 6 * if_order
+    phases = smoother_phase_costs(S, T, B, dtype, if_order)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    words = (d + d * d) * 2 + 1
-    return SmootherCost((per_step * (T - 1) + per_row * T) * B,
+    words = (_D + _D * _D) * 2 + 1
+    return SmootherCost(sum(c.flop for c in phases.values()),
                         itemsize * words * T * B)
 
 
+def smoother_phase_costs(S: int, T: int, B: int, dtype=torch.float32,
+                         if_order: int = 10) -> dict:
+    """:func:`smoother_cost`'s flop split over the kernels (``KERNELS``),
+    each with the bytes of its own inputs and outputs, phase A's rows
+    included: ``smoother_rows``, the lesser form's step up to the gain X,
+    reading 4 + 16 words and writing ``ROW_WORDS`` per seed-step but the
+    last; ``smoother_backward``, the mean update, G Ls and the 8 x 4
+    triangularization, reading 4 + ``ROW_WORDS`` words per step and the
+    filter's last row, writing 4 + 16 per seed-step; ``smoother_expect``,
+    the expectation, reading ms[2] and Ls[2, :3] and writing one word per
+    seed-step."""
+    d = _D
+    tria = sum(4 * (8 - j) + 3 + (4 - j) * 6 * (8 - j) for j in range(d))
+    full = 61 * S + _householder_flop(S + d, 2 * d)
+    projected = (117 * S + _householder_flop(S, d)
+                 + _householder_flop(3 * d, 2 * d))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    steps = (T - 1) * B
+    return {
+        "smoother_rows": SmootherCost(
+            (min(full, projected) + 64) * steps,
+            itemsize * (d + d * d + ROW_WORDS) * steps),
+        "smoother_backward": SmootherCost(
+            (40 + 80 + tria) * steps,
+            itemsize * ((d + ROW_WORDS) * steps + (d + d * d) * (1 + T) * B)),
+        "smoother_expect": SmootherCost((9 + 6 * if_order) * T * B,
+                                        itemsize * 5 * T * B)}
+
+
 ghfs_chirp_smoother.launches = 0
+# Launches of each CUDA kernel of the smoother (phases A and B once per
+# slab, phase E once per call).
+ghfs_chirp_smoother.kernel_launches = dict.fromkeys(KERNELS, 0)

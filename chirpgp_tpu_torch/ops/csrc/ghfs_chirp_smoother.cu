@@ -1,79 +1,106 @@
 // Square-root Gauss-Hermite smoother (GHFS) for the chirp LCD model, d = 4,
-// with the Gauss-Hermite expectation of g(V) = softplus(V) as its epilogue.
+// with the Gauss-Hermite expectation of g(V) = softplus(V) of every step.
 //
 // Replaces no Pallas kernel: it replaces the XLA-compiled reverse lax.scan
 // of chirpgp_tpu/infer/batched.py:152 (sqrt_sgp_smoother_batched) and the
 // expectation of :546 (gaussian_expectation_batched) on the JAX package's
 // main path, apps/pipeline.py::estimate_if_batched.  It computes what the
 // plain PyTorch versions chirpgp_tpu_torch/infer/batched.py::
-// sqrt_sgp_smoother_batched and gaussian_expectation_batched compute for
+// sqrt_sgp_smoother_batched and smoothed_expectation_batched compute for
 // the chirp model, from the filter kernel's outputs as they are (mfs
 // (T, 4, B), Lfs (T, 4, 4, B) lower, B minor).  Per step, from t = T-2
 // down to 0, with ms and Ls carried from t+1: sigma points chi = mf + xi
 // Lf, the chirp-LCD mean mu, m_p = sum w mu, a Householder
 // triangularization of the (S+4) x 8 joint pre-array
 //   [[sqrt(w)(mu - m_p), sqrt(w)(chi - mf)], [Lq^T, 0]]  ->  R (8 x 8),
-// the gain G = (R11^-1 R12)^T by back-substitution, ms <- mf + G (ms -
-// m_p), Ls <- tria([(G Ls)^T; R22])^T, and E[g(V)] with V ~ N(ms[kV],
-// sum_k Ls[kV][k]^2) by the order-K Gauss-Hermite rule (kV = 2, the
-// chirp model's frequency state, in chirp_lcd.cuh).
+// the gain G = X^T with X = R11^-1 R12 by back-substitution, ms <- mf +
+// G (ms - m_p), Ls <- tria([(G Ls)^T; R22])^T, and E[g(V)] with V ~
+// N(ms[kV], sum_k Ls[kV][k]^2) by the order-K Gauss-Hermite rule (kV = 2,
+// the chirp model's frequency state, in chirp_lcd.cuh).
+//
+// The split.  Only three operations of a step read the carry (ms_{t+1},
+// Ls_{t+1}): the mean update, G Ls and the 8 x 4 triangularization.  The
+// rest -- the sigma points, the LCD means, m_p, the (S+4) x 8 Householder,
+// X and R22, ~15.7k of the ~16.4k flop of a step at S = 81 -- depends on
+// the filter's (mf_t, Lf_t) alone.  So the smoother runs as three kernels
+// in one wrapper call, the count whatever T is:
+//   A. smoother_rows_kernel, parallel over (t, lane): for t = 0..T-2 the
+//      30 words m_p (4), X (16, row-major) and R22's upper triangle (10,
+//      row by row) into a (T-1, 30, B) scratch, B minor (the packed rows
+//      of the JAX package's fused form, infer/batched.py:297-337);
+//   B. smoother_backward_kernel, one thread per lane: the short recursion
+//      ms <- mf + X^T (ms - m_p), Ls <- tria([(X^T Ls)^T; R22])^T, the
+//      factor branch's bstep (infer/batched.py:349-365), writing mss and
+//      Lss;
+//   E. smoother_expect_kernel, parallel over (t, lane): E[g(V)] from the
+//      stored ms[kV] and row kV of Ls.
+// The wrapper (ops/chirp_smoother.py) allocates the scratch with
+// torch.empty and, where (T-1) x 30 x B words pass its cap, runs A and B
+// over slabs of lanes.
 //
 // What bounds it.  The least work of a step (ops/chirp_smoother.py::
-// smoother_cost) is that of the projected form, which this kernel does
-// not yet run: a rule exact to degree two has sum w xi xi^T = I, so
-// sqrt(w) xi has orthonormal columns Q, sqrt(w)(chi - mf) = Q Lf^T, and
-// the same R comes from C = Q^T dev_pred, E = dev_pred - Q C, a
-// triangularization of the S x 4 array E and one of the 12 x 8 array
-// [[C, Lf^T], [R_E, 0], [Lq^T, 0]].  At S = 81 that is ~14.3k flop per
-// seed-step: sigma points, LCD mean, weighted mean, dev_pred, C and E
-// 117 S = 9.5k, the two Householders 4.1k, the gain, mean update, G Ls
-// and the 8 x 4 triangularization 0.7k, the GH-10 expectation 0.07k.
-// This kernel's form, the Householder of the whole (S + 4) x 8 pre-array,
-// costs ~16.5k (61 S = 4.9k and 10.8k for the Householder).  Besides, 3
-// transcendentals per sigma point and 2 per GH node, against 164 B of
-// traffic in float32 (4 + 16 words read, 4 + 16 + 1 written).  At B =
-// 4096, T = 3141 that is ~184 GFLOP and 2.1 GB: compute-bound, ~2.7 ms
-// at the 67 TFLOP/s float32 peak.  The T recursion is sequential, so the
-// only parallelism is across lanes and across the sigma points of one
-// step.
+// smoother_cost) is that of the projected form: a rule exact to degree two
+// has sum w xi xi^T = I, so sqrt(w) xi has orthonormal columns Q, sqrt(w)
+// (chi - mf) = Q Lf^T, and the same R comes from C = Q^T dev_pred, E =
+// dev_pred - Q C, a triangularization of the S x 4 array E and one of the
+// 12 x 8 array [[C, Lf^T], [R_E, 0], [Lq^T, 0]]: ~14.3k flop per seed-step
+// at S = 81.  Phase A runs the full (S+4) x 8 form (~16.4k with the
+// tail).  Besides, 3 transcendentals per sigma point and 2 per GH node,
+// against 164 B of least traffic in float32 (4 + 16 words read, 4 + 16 + 1
+// written).  At B = 4096, T = 3141 that is ~184 GFLOP and 2.1 GB:
+// compute-bound, 2.75 ms at the 67 TFLOP/s float32 peak.  The scratch is
+// the kernel's own traffic (120 B written and read per seed-step in
+// float32, 1.5 GB each way at that shape, ~0.9 ms at 3.35 TB/s); the
+// bound does not count it.
+// - Phase A has 12.9M lane-steps to spread at that shape and is bound by
+//   instruction issue: its float32 instance is ~7.1k SASS instructions
+//   per lane-step of a team (measured on an H100: more warps per SM, the
+//   butterflies' shuffles and the block size do not move it).  It keeps
+//   the filter kernel's team (ghfs_chirp_filter.cu, whose note explains
+//   each choice): kTeam = 8 threads per lane-step (8 was faster than 16
+//   and 32 at B = 100 and 4096, in float32 and float64), member p owning
+//   rows p, p + 8, ... (kRows of them, a template constant) of the
+//   pre-array in registers and
+//   computing chi, mu and both deviations of its own sigma points; column
+//   j of the Householder is one __shfl_xor_sync butterfly of the partial
+//   Gram row, alpha = -sign(M_jj) |x| (tria_cf's sign rule), reflections
+//   with |v|^2 <= 1e-30 skipped.  Row j is owned by member j, which
+//   broadcasts it; every member builds the rows of R from the broadcast
+//   rows and the reduced w, and solves for the one column of X whose
+//   words it stores (member p stores the words w with w % kTeam == p,
+//   and kTeam is a multiple of 4).  The work is spread over t, so there
+//   is no carry and nothing to wait on: the grid holds as many blocks of
+//   kRowsThreads as
+//   the SMs take at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+//   which sizes it by the instance's registers), and each team walks the
+//   (t, lane) items with a grid stride, lanes minor, so a warp's loads and
+//   stores fall on neighbouring lanes.  The sigma table and Lq^T are
+//   loaded into shared memory once per block.
+// - Phase B is bound by the latency of one step's dependent chain (G Ls,
+//   then the 8 x 4 triangularization with its 4 sqrts and reciprocals),
+//   ~3140 times over, and B lanes give only B / 32 warps.  So the chain is
+//   kept short: the expectation, which reads nothing of the carry, is left
+//   to phase E, and the 34 words a step reads (mf_t and row t) are copied
+//   kStages - 1 steps ahead with cp.async into a ring in shared memory, so
+//   that no step waits on device memory.  A thread copies and then reads
+//   only its own lane's words, so no barrier is needed; a warp's copies of
+//   one word are 32 neighbouring lanes, 128 B in float32.  Blocks are one
+//   warp, so a small batch spreads over the SMs.  The triangularization is
+//   tria_dense below, tria_cf's arithmetic reflection for reflection.
+// - Phase E is a few dozen operations per (t, lane), bound by its bytes.
 //
-// Design: the filter kernel's (ghfs_chirp_filter.cu, whose note explains
-// each choice), with twice its columns.
-// - A team of P threads per Monte-Carlo lane (P = 8 or 32, a template
-//   constant; the wrapper picks it and the launch geometry with
-//   ops/chirp_filter.py::launch_geometry).  Member p owns rows p, p + P,
-//   ... (kRows of them) of the pre-array, in registers, and computes chi,
-//   mu and both deviations of its own sigma points; the Lq^T rows S..S+3
-//   fall to fixed members; rows past S+4 hold zeros.  Nothing is indexed
-//   at run time.
-// - Column j of the Householder triangularization is one team reduction
-//   (a __shfl_xor_sync butterfly) of the partial Gram row G_jk = sum_{r >=
-//   j} M_rj M_rk, k >= j; alpha = -sign(M_jj) |x| (tria_cf's sign rule),
-//   |v|^2 = 2 (G_jj - alpha M_jj), w_k = G_jk - alpha M_jk, and each member
-//   reflects columns k > j of its own rows.  Row j (j < 8 <= P) is owned
-//   by member j, which broadcasts it.  Reflections with |v|^2 <= 1e-30 are
-//   skipped, as in tria_cf.  IEEE addition commutes, so every member of a
-//   butterfly gets the same bits.
-// - The tail is done redundantly by every member in registers, so that no
-//   member waits on another: the rows of R are built from the broadcast
-//   rows and the reduced w, then G, ms, G Ls and the dense 8 x 4
-//   triangularization with tria_cf's arithmetic reflection for reflection.
-// - The epilogue's GH nodes are spread over the members, one butterfly
-//   sums them.  Member p stores the output words w with w % P == p
-//   (mss[t, i, b], lss[t, i*4+j, b], if_mean[t, b]).  Row T-1 is the
-//   filter's, copied, with its expectation.
-// - A team whose lane is >= B leaves after the tables are loaded; teams
-//   never straddle a warp, and every shuffle names only its team's
-//   threads.  The sigma table (xi transposed to 4 x S, w, sqrt(w)), Lq^T
-//   and the GH table (K <= kMaxNodes) sit in shared memory.
-// - Registers: twice the filter's pre-array.  P = 8 with GH-3 holds 11
-//   rows x 8 values per member: ~200 registers in float32, no spill; in
-//   float64 it spills (255 registers), and is kept, since at B = 4096 it
-//   is still faster than P = 32 on an H100.  Phase 1 of chip_smoke.py
-//   prints ptxas's registers, stack and spills of each instance.
-// - Model constants in the filter's layout (ops/chirp_filter.py::
-//   _chirp_constants, computed in float64 on the host; only F, Lq^T, the
-//   decay and dt are read).  No fast math.  Templated on float and double.
+// What is not used, and why.  Tensor cores: the per-lane products are 4
+// wide, and TF32 is barred by the port's precision policy (reduced-
+// precision products moved the JAX package's CKFS IF-RMSE x10 from 0.777 to
+// 0.92).  A Cholesky of the Gram matrix in place of the Householder: it
+// squares the condition number, which float32 does not survive on the
+// chirp smoother.  The filter kernel is not changed.
+//
+// Registers and spills of each instance: phase 1 of chip_smoke.py prints
+// ptxas's report.  Model constants in the filter's layout
+// (ops/chirp_filter.py::_chirp_constants, computed in float64 on the host;
+// only F, Lq^T, the decay and dt are read).  No fast math.  Templated on
+// float and double.
 
 #include <cuda_runtime.h>
 
@@ -84,7 +111,23 @@
 namespace {
 
 constexpr int kD2 = 2 * kD;      // columns of the joint pre-array
-constexpr int kMaxNodes = 32;    // cap on the GH nodes of the epilogue
+constexpr int kMaxNodes = 32;    // cap on the GH nodes of the expectation
+// Words of phase A's row per lane-step: m_p, X (row-major), R22's upper
+// triangle (row by row).
+constexpr int kXWord = kD;
+constexpr int kR22Word = kD + kD * kD;
+constexpr int kRowWords = kR22Word + kD * (kD + 1) / 2;
+constexpr int kStepWords = kD + kRowWords;   // phase B's words per step
+constexpr int kStages = 4;                   // phase B's ring of steps
+constexpr int kTeam = 8;                     // phase A's threads per lane-step
+constexpr int kRowsThreads = 64;             // phase A's threads per block
+constexpr int kBackLanes = 32;               // phase B's lanes per block
+constexpr int kExpectThreads = 256;          // phase E's threads per block
+
+// Word of R22[r][c] (c >= r) in a row.
+__host__ __device__ constexpr int r22_word(int r, int c) {
+  return kR22Word + r * kD - r * (r - 1) / 2 + (c - r);
+}
 
 // Householder triangularization of the Rows x Cols array M (Rows >= Cols)
 // in registers, with tria_cf's arithmetic: per column j, norm over rows
@@ -119,77 +162,28 @@ __device__ __forceinline__ void tria_dense(Real (&M)[Rows][Cols]) {
   }
 }
 
-// E[softplus(V)], V ~ N(mean, std^2), over the team: member p adds the GH
-// nodes p, p + P, ...; a butterfly leaves the sum on every member.
-template <typename Real, int P>
-__device__ __forceinline__ Real expect_softplus(Real mean, Real std,
-                                                const Real* ghx,
-                                                const Real* ghw, int K,
-                                                int member, unsigned mask) {
-  Real acc = Real(0);
-  for (int q = member; q < K; q += P) acc += ghw[q] * softplus(mean + std * ghx[q]);
-#pragma unroll
-  for (int o = P / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(mask, acc, o, P);
-  return acc;
-}
-
-// Row t of the outputs from (m, L), with E[softplus(V)], V ~ N(m[kV],
-// sum_k L[kV][k]^2).  Member p writes the words w with w % P == p.
-template <typename Real, int P>
-__device__ __forceinline__ void store_row(
-    int t, const Real (&m)[kD], const Real (&L)[kD][kD], const Real* ghx,
-    const Real* ghw, int K, int member, unsigned mask, size_t Bs, int b,
-    Real* mss, Real* lss, Real* if_out) {
-  Real vv = Real(0);
-#pragma unroll
-  for (int j = 0; j <= kV; ++j) vv += L[kV][j] * L[kV][j];
-  const Real vm = expect_softplus<Real, P>(m[kV], dsqrt(vv), ghx, ghw, K,
-                                           member, mask);
-  // Words w = i (mss), kD + i kD + j (lss) and kWords - 1 (if_mean).
-  const size_t ts = static_cast<size_t>(t);
-#pragma unroll
-  for (int i = 0; i < kD; ++i) {
-    if (i % P == member) mss[(ts * kD + i) * Bs + b] = m[i];
-#pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      if ((kD + i * kD + j) % P == member)
-        lss[(ts * kD * kD + i * kD + j) * Bs + b] = j <= i ? L[i][j] : Real(0);
-    }
-  }
-  if ((kWords - 1) % P == member) if_out[ts * Bs + b] = vm;
-}
-
-// kRows: pre-array rows a member owns, with P kRows >= S + kD.
-template <typename Real, int P, int kRows>
-__global__ void __launch_bounds__(kMaxThreads)
-ghfs_chirp_smoother_kernel(const Real* __restrict__ mfs,   // (T, kD, B)
-                           const Real* __restrict__ lfs,   // (T, kD*kD, B)
-                           const Real* __restrict__ xi_g,  // (S, kD)
-                           const Real* __restrict__ w_g,   // (S,)
-                           const Real* __restrict__ sw_g,  // (S,)
-                           const Real* __restrict__ ghx_g,   // (K,)
-                           const Real* __restrict__ ghw_g,   // (K,)
-                           const ChirpConsts<Real> c, const int S,
-                           const int K, const int T, const int B,
-                           const int lanes_per_block,
-                           Real* __restrict__ mss,         // (T, kD, B)
-                           Real* __restrict__ lss,         // (T, kD*kD, B)
-                           Real* __restrict__ if_out) {    // (T, B)
+// Phase A.  kRows: pre-array rows a member owns, with kTeam kRows >= S +
+// kD.  Item g = t nb + b of the (T-1) x nb lane-steps of a slab of nb
+// lanes; mfs and lfs have ld lanes per row, the rows out nb.
+template <typename Real, int kRows>
+__global__ void __launch_bounds__(kRowsThreads)
+smoother_rows_kernel(const Real* __restrict__ mfs,   // (T, kD, ld)
+                     const Real* __restrict__ lfs,   // (T, kD*kD, ld)
+                     const Real* __restrict__ xi_g,  // (S, kD)
+                     const Real* __restrict__ w_g,   // (S,)
+                     const Real* __restrict__ sw_g,  // (S,)
+                     const ChirpConsts<Real> c, const int S, const int T,
+                     const int ld, const int nb,
+                     Real* __restrict__ rows) {      // (T-1, kRowWords, nb)
   __shared__ Real xi_s[kD][kMaxPoints];
   __shared__ Real w_s[kMaxPoints];
   __shared__ Real sw_s[kMaxPoints];
   __shared__ Real lqt_s[kD][kD];
-  __shared__ Real ghx_s[kMaxNodes];
-  __shared__ Real ghw_s[kMaxNodes];
   for (int i = threadIdx.x; i < S * kD; i += blockDim.x)
     xi_s[i % kD][i / kD] = xi_g[i];
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     w_s[i] = w_g[i];
     sw_s[i] = sw_g[i];
-  }
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    ghx_s[i] = ghx_g[i];
-    ghw_s[i] = ghw_g[i];
   }
   if (threadIdx.x == 0) {   // constant indices: c stays in parameter space
 #pragma unroll
@@ -197,43 +191,32 @@ ghfs_chirp_smoother_kernel(const Real* __restrict__ mfs,   // (T, kD, B)
   }
   __syncthreads();
 
+  constexpr int P = kTeam;
+  constexpr int kTeams = kRowsThreads / P;
   const int member = threadIdx.x % P;
-  const int b = blockIdx.x * lanes_per_block + static_cast<int>(threadIdx.x) / P;
-  if (b >= B) return;
-  const unsigned mask =
-      P == 32 ? 0xffffffffu
-              : ((1u << P) - 1u) << ((threadIdx.x & 31u) & ~unsigned(P - 1));
-  const size_t Bs = static_cast<size_t>(B);
+  const unsigned mask = ((1u << P) - 1u) << ((threadIdx.x & 31u) & ~unsigned(P - 1));
+  const int xcol = member % kD;   // the column of X whose words it stores
   const int n = S + kD;
+  const size_t Ld = static_cast<size_t>(ld), Ns = static_cast<size_t>(nb);
+  const long long items = static_cast<long long>(T - 1) * nb;
+  const long long stride = static_cast<long long>(gridDim.x) * kTeams;
 
-  Real ms[kD], Ls[kD][kD];   // the carry; Ls: lower triangle only
-  if (T < 1) return;
-  {
-    const size_t ts = static_cast<size_t>(T - 1);
-#pragma unroll
-    for (int i = 0; i < kD; ++i) {
-      ms[i] = mfs[(ts * kD + i) * Bs + b];
-#pragma unroll
-      for (int j = 0; j <= i; ++j) Ls[i][j] = lfs[(ts * kD * kD + i * kD + j) * Bs + b];
-    }
-  }
-  store_row<Real, P>(T - 1, ms, Ls, ghx_s, ghw_s, K, member, mask, Bs, b,
-                     mss, lss, if_out);
-
-  Real pre[kRows][kD2];   // rows member + P*i of the pre-array
-  for (int t = T - 2; t >= 0; --t) {
-    const size_t ts = static_cast<size_t>(t);
+  for (long long g = static_cast<long long>(blockIdx.x) * kTeams + threadIdx.x / P;
+       g < items; g += stride) {
+    const size_t ts = static_cast<size_t>(g / nb);
+    const int b = static_cast<int>(g % nb);
     Real mf[kD], Lf[kD][kD];
 #pragma unroll
     for (int i = 0; i < kD; ++i) {
-      mf[i] = mfs[(ts * kD + i) * Bs + b];
+      mf[i] = mfs[(ts * kD + i) * Ld + b];
 #pragma unroll
-      for (int j = 0; j <= i; ++j) Lf[i][j] = lfs[(ts * kD * kD + i * kD + j) * Bs + b];
+      for (int j = 0; j <= i; ++j) Lf[i][j] = lfs[(ts * kD * kD + i * kD + j) * Ld + b];
     }
 
     // Own sigma points, their LCD means and the partial weighted mean.
     // Every row slot is computed, without a branch; a slot past S computes
     // point S-1 at weight 0.
+    Real pre[kRows][kD2];   // rows member + P*i of the pre-array
     Real mp[kD];
 #pragma unroll
     for (int k = 0; k < kD; ++k) mp[k] = Real(0);
@@ -280,35 +263,43 @@ ghfs_chirp_smoother_kernel(const Real* __restrict__ mfs,   // (T, kD, B)
 
     // Householder triangularization, one team reduction per column.  Row
     // j is owned by member j (i = 0); rows r < j are finished and masked.
-    Real R[kD2][kD2];   // upper triangle, on every member
+    // Every member keeps R11, R22 and its column xcol of R12.
+    Real R11[kD][kD], r12[kD] = {}, R22[kD][kD];
 #pragma unroll
     for (int j = 0; j < kD2; ++j) {
-      Real g[kD2], Mj[kD2];
+      Real g2[kD2], Mj[kD2];
 #pragma unroll
-      for (int k = j; k < kD2; ++k) g[k] = Real(0);
+      for (int k = j; k < kD2; ++k) g2[k] = Real(0);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const Real x = (i > 0 || member >= j) ? pre[i][j] : Real(0);
 #pragma unroll
-        for (int k = j; k < kD2; ++k) g[k] += x * pre[i][k];
+        for (int k = j; k < kD2; ++k) g2[k] += x * pre[i][k];
       }
 #pragma unroll
       for (int k = j; k < kD2; ++k) Mj[k] = __shfl_sync(mask, pre[0][k], j, P);
 #pragma unroll
       for (int o = P / 2; o > 0; o >>= 1) {
 #pragma unroll
-        for (int k = j; k < kD2; ++k) g[k] += __shfl_xor_sync(mask, g[k], o, P);
+        for (int k = j; k < kD2; ++k) g2[k] += __shfl_xor_sync(mask, g2[k], o, P);
       }
-      const Real norm = dsqrt(g[j]);
+      const Real norm = dsqrt(g2[j]);
       const Real alpha = Mj[j] >= Real(0) ? -norm : norm;
-      const Real vn2 = Real(2) * (g[j] - alpha * Mj[j]);
+      const Real vn2 = Real(2) * (g2[j] - alpha * Mj[j]);
       const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
       const Real vj = Mj[j] - alpha;
       Real wk[kD2];
 #pragma unroll
       for (int k = j; k < kD2; ++k) {
-        wk[k] = g[k] - alpha * Mj[k];
-        R[j][k] = Mj[k] - beta * vj * wk[k];
+        wk[k] = g2[k] - alpha * Mj[k];
+        const Real rjk = Mj[k] - beta * vj * wk[k];
+        if (j >= kD) {
+          R22[j - kD][k - kD] = rjk;
+        } else if (k < kD) {
+          R11[j][k] = rjk;
+        } else if (k - kD == xcol) {
+          r12[j] = rjk;
+        }
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
@@ -318,17 +309,140 @@ ghfs_chirp_smoother_kernel(const Real* __restrict__ mfs,   // (T, kD, B)
       }
     }
 
-    // X = R11^-1 R12 by back-substitution (_backsub_cf); G = X^T.
-    Real X[kD][kD];
+    // Column xcol of X = R11^-1 R12 by back-substitution (_backsub_cf).
+    Real x[kD];
 #pragma unroll
     for (int i = kD - 1; i >= 0; --i) {
+      Real acc = r12[i];
+#pragma unroll
+      for (int k = i + 1; k < kD; ++k) acc = acc - R11[i][k] * x[k];
+      x[i] = acc / R11[i][i];
+    }
+
+    // Member p stores the words w with w % P == p: m_p, X (its words are
+    // in column w % kD = xcol), R22's upper triangle.
+    Real* out = rows + ts * kRowWords * Ns + b;
+#pragma unroll
+    for (int w = 0; w < kXWord; ++w)
+      if (w % P == member) out[w * Ns] = mp[w];
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
 #pragma unroll
       for (int col = 0; col < kD; ++col) {
-        Real acc = R[i][kD + col];
-#pragma unroll
-        for (int k = i + 1; k < kD; ++k) acc = acc - R[i][k] * X[k][col];
-        X[i][col] = acc / R[i][i];
+        const int w = kXWord + i * kD + col;
+        if (w % P == member) out[w * Ns] = x[i];
       }
+    }
+#pragma unroll
+    for (int r = 0; r < kD; ++r) {
+#pragma unroll
+      for (int col = r; col < kD; ++col) {
+        const int w = r22_word(r, col);
+        if (w % P == member) out[w * Ns] = R22[r][col];
+      }
+    }
+  }
+}
+
+// One word of global memory into shared memory, asynchronously (cp.async,
+// sm_80 and later); the copy compiled for a host is the same copy, done at
+// once.  Each asm names memory as clobbered, so the compiler keeps the
+// loads of a slot between the wait for its copies and the next copies
+// into it: with no barrier after the wait, nothing else orders them.
+template <typename Real>
+__device__ __forceinline__ void copy_async(Real* dst, const Real* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(saddr),
+               "l"(src), "n"(sizeof(Real)) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// Phase B: one thread per lane of a slab of nb lanes (mfs, lfs, mss and
+// lss with ld lanes per row, the rows of phase A with nb).
+template <typename Real>
+__global__ void __launch_bounds__(kBackLanes)
+smoother_backward_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
+                         const Real* __restrict__ lfs,    // (T, kD*kD, ld)
+                         const Real* __restrict__ rows,   // (T-1, kRowWords, nb)
+                         const int T, const int ld, const int nb,
+                         Real* __restrict__ mss,          // (T, kD, ld)
+                         Real* __restrict__ lss) {        // (T, kD*kD, ld)
+  // Step t's words sit in ring[t % kStages]: mf_t, then row t.
+  __shared__ Real ring[kStages][kStepWords][kBackLanes];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * kBackLanes + lane;
+  if (b >= nb || T < 1) return;
+  const size_t Ld = static_cast<size_t>(ld), Ns = static_cast<size_t>(nb);
+
+  auto fetch = [&](int t) {
+    const size_t ts = static_cast<size_t>(t);
+    Real(*slot)[kBackLanes] = ring[t % kStages];
+#pragma unroll
+    for (int i = 0; i < kD; ++i) copy_async(&slot[i][lane], &mfs[(ts * kD + i) * Ld + b]);
+#pragma unroll
+    for (int w = 0; w < kRowWords; ++w)
+      copy_async(&slot[kD + w][lane], &rows[(ts * kRowWords + w) * Ns + b]);
+  };
+  auto store = [&](int t, const Real(&m)[kD], const Real(&L)[kD][kD]) {
+    const size_t ts = static_cast<size_t>(t);
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      mss[(ts * kD + i) * Ld + b] = m[i];
+#pragma unroll
+      for (int j = 0; j < kD; ++j)
+        lss[(ts * kD * kD + i * kD + j) * Ld + b] = j <= i ? L[i][j] : Real(0);
+    }
+  };
+
+  // The first kStages - 1 steps in flight, one group each (empty past t = 0).
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (T - 2 - s >= 0) fetch(T - 2 - s);
+    copy_commit();
+  }
+
+  // Row T-1 is the filter's.
+  Real ms[kD], Ls[kD][kD];   // the carry; Ls: lower triangle only
+  {
+    const size_t ts = static_cast<size_t>(T - 1);
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      ms[i] = mfs[(ts * kD + i) * Ld + b];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) Ls[i][j] = lfs[(ts * kD * kD + i * kD + j) * Ld + b];
+    }
+  }
+  store(T - 1, ms, Ls);
+
+  for (int t = T - 2; t >= 0; --t) {
+    if (t - (kStages - 1) >= 0) fetch(t - (kStages - 1));
+    copy_commit();
+    copy_wait<kStages - 1>();   // step t's group has landed
+    const Real(*slot)[kBackLanes] = ring[t % kStages];
+    Real mf[kD], mp[kD], X[kD][kD];
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      mf[i] = slot[i][lane];
+      mp[i] = slot[kD + i][lane];
+#pragma unroll
+      for (int col = 0; col < kD; ++col) X[i][col] = slot[kD + kXWord + i * kD + col][lane];
     }
     // The array [(G Ls)^T; R22], (G Ls)^T[r][col] = sum_j X[j][col] Ls[j][r]
     // over j >= r (Ls lower), from the carried Ls.
@@ -341,7 +455,7 @@ ghfs_chirp_smoother_kernel(const Real* __restrict__ mfs,   // (T, kD, B)
 #pragma unroll
         for (int j = r; j < kD; ++j) acc += X[j][col] * Ls[j][r];
         A[r][col] = acc;
-        A[kD + r][col] = col >= r ? R[kD + r][kD + col] : Real(0);
+        A[kD + r][col] = col >= r ? slot[kD + r22_word(r, col)][lane] : Real(0);
       }
     }
     // ms <- mf + G (ms - mp).
@@ -362,52 +476,130 @@ ghfs_chirp_smoother_kernel(const Real* __restrict__ mfs,   // (T, kD, B)
 #pragma unroll
       for (int j = 0; j <= i; ++j) Ls[i][j] = A[j][i];
     }
-    store_row<Real, P>(t, ms, Ls, ghx_s, ghw_s, K, member, mask, Bs, b,
-                       mss, lss, if_out);
+    store(t, ms, Ls);
   }
 }
 
-template <typename Real, int P, int kRows>
-int launch_team(const Real* mfs, const Real* lfs, const Real* xi,
-                const Real* w, const Real* sw, const Real* ghx,
-                const Real* ghw, const ChirpConsts<Real>& c, int S, int K,
-                int T, int B, int lanes_per_block, Real* mss,
-                Real* lss, Real* if_out, cudaStream_t stream) {
-  if (lanes_per_block < 1 || P * lanes_per_block > kMaxThreads ||
-      S + kD > P * kRows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (T == 0 || B == 0) return 0;
-  const int blocks = (B + lanes_per_block - 1) / lanes_per_block;
-  ghfs_chirp_smoother_kernel<Real, P, kRows>
-      <<<blocks, P * lanes_per_block, 0, stream>>>(
-          mfs, lfs, xi, w, sw, ghx, ghw, c, S, K, T, B,
-          lanes_per_block, mss, lss, if_out);
+// Phase E: E[softplus(V)], V ~ N(mss[t, kV], sum_{j <= kV} Lss[t, kV, j]^2),
+// one thread per (t, lane) of n = T x B, lanes minor.
+template <typename Real>
+__global__ void __launch_bounds__(kExpectThreads)
+smoother_expect_kernel(const Real* __restrict__ mss,    // (T, kD, B)
+                       const Real* __restrict__ lss,    // (T, kD*kD, B)
+                       const Real* __restrict__ ghx_g,  // (K,)
+                       const Real* __restrict__ ghw_g,  // (K,)
+                       const int K, const long long n, const int B,
+                       Real* __restrict__ if_out) {     // (T, B)
+  __shared__ Real ghx_s[kMaxNodes];
+  __shared__ Real ghw_s[kMaxNodes];
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    ghx_s[i] = ghx_g[i];
+    ghw_s[i] = ghw_g[i];
+  }
+  __syncthreads();
+  const size_t Bs = static_cast<size_t>(B);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const size_t ts = static_cast<size_t>(i / B);
+    const size_t b = static_cast<size_t>(i % B);
+    const Real m = mss[(ts * kD + kV) * Bs + b];
+    Real vv = Real(0);
+#pragma unroll
+    for (int j = 0; j <= kV; ++j) {
+      const Real l = lss[(ts * kD * kD + kV * kD + j) * Bs + b];
+      vv += l * l;
+    }
+    const Real sd = dsqrt(vv);
+    Real acc = Real(0);
+    for (int q = 0; q < K; ++q) acc += ghw_s[q] * softplus(m + sd * ghx_s[q]);
+    if_out[ts * Bs + b] = acc;
+  }
+}
+
+// Blocks of `threads` that the card holds at once for `kernel`, at least 1.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  *blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(err);
+}
+
+template <typename Real, int kRows>
+int launch_rows_instance(const Real* mfs, const Real* lfs, const Real* xi,
+                         const Real* w, const Real* sw,
+                         const ChirpConsts<Real>& c, int S, int T, int ld,
+                         int nb, Real* rows, cudaStream_t stream) {
+  if (S + kD > kTeam * kRows) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(T - 1) * nb;
+  if (items <= 0) return 0;
+  constexpr int kTeams = kRowsThreads / kTeam;
+  int cap = 0;
+  const int err = resident_blocks(smoother_rows_kernel<Real, kRows>,
+                                  kRowsThreads, &cap);
+  if (err != 0) return err;
+  const long long need = (items + kTeams - 1) / kTeams;
+  const int blocks = static_cast<int>(need < cap ? need : cap);
+  smoother_rows_kernel<Real, kRows><<<blocks, kRowsThreads, 0, stream>>>(
+      mfs, lfs, xi, w, sw, c, S, T, ld, nb, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Real>
-int launch(const Real* mfs, const Real* lfs, const Real* xi, const Real* w,
-           const Real* sw, const Real* ghx, const Real* ghw,
-           const double* consts, int S, int K, int T, int B,
-           int team, int rows, int lanes_per_block, Real* mss, Real* lss,
-           Real* if_out, void* stream) {
-  if (S < 1 || S > kMaxPoints || T < 0 || B < 0 || K < 1 || K > kMaxNodes)
+int launch_rows(const Real* mfs, const Real* lfs, const Real* xi,
+                const Real* w, const Real* sw, const double* consts, int S,
+                int T, int ld, int nb, int rows_per_member, Real* rows,
+                void* stream) {
+  if (S < 1 || S > kMaxPoints || T < 1 || nb < 0 || ld < nb)
     return static_cast<int>(cudaErrorInvalidValue);
   const ChirpConsts<Real> c = load_consts<Real>(consts);
   const auto s = static_cast<cudaStream_t>(stream);
-  // The instantiated (team, rows) pairs: the filter kernel's, which
-  // ops/chirp_filter.py::ROWS lists.
-#define GHFS_LAUNCH(P, ROWS)                                                \
-  launch_team<Real, P, ROWS>(mfs, lfs, xi, w, sw, ghx, ghw, c, S, K, T, B,  \
-                             lanes_per_block, mss, lss, if_out, s)
-  switch (team * 100 + rows) {
-    case 802: return GHFS_LAUNCH(8, 2);
-    case 811: return GHFS_LAUNCH(8, 11);
-    case 3201: return GHFS_LAUNCH(32, 1);
-    case 3203: return GHFS_LAUNCH(32, 3);
+  // The instantiated rows per member, which ops/chirp_smoother.py::ROWS
+  // lists: those of cubature (S + 4 = 12) and GH-3 (S + 4 = 85) at d = 4.
+#define SMOOTHER_ROWS_LAUNCH(ROWS)                                           \
+  launch_rows_instance<Real, ROWS>(mfs, lfs, xi, w, sw, c, S, T, ld, nb, rows, s)
+  switch (rows_per_member) {
+    case 2: return SMOOTHER_ROWS_LAUNCH(2);
+    case 11: return SMOOTHER_ROWS_LAUNCH(11);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GHFS_LAUNCH
+#undef SMOOTHER_ROWS_LAUNCH
+}
+
+template <typename Real>
+int launch_backward(const Real* mfs, const Real* lfs, const Real* rows, int T,
+                    int ld, int nb, Real* mss, Real* lss, void* stream) {
+  if (T < 1 || nb < 0 || ld < nb) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0) return 0;
+  const int blocks = (nb + kBackLanes - 1) / kBackLanes;
+  smoother_backward_kernel<Real><<<blocks, kBackLanes, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      mfs, lfs, rows, T, ld, nb, mss, lss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Real>
+int launch_expect(const Real* mss, const Real* lss, const Real* ghx,
+                  const Real* ghw, int K, int T, int B, Real* if_out,
+                  void* stream) {
+  if (K < 1 || K > kMaxNodes || T < 0 || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(T) * B;
+  if (n == 0) return 0;
+  int cap = 0;
+  const int err = resident_blocks(smoother_expect_kernel<Real>,
+                                  kExpectThreads, &cap);
+  if (err != 0) return err;
+  const long long need = (n + kExpectThreads - 1) / kExpectThreads;
+  const int blocks = static_cast<int>(need < cap ? need : cap);
+  smoother_expect_kernel<Real><<<blocks, kExpectThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      mss, lss, ghx, ghw, K, n, B, if_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -420,29 +612,46 @@ int ghfs_chirp_smoother_max_nodes() { return kMaxNodes; }
 
 int ghfs_chirp_smoother_num_consts() { return kNumConsts; }
 
-int ghfs_chirp_smoother_max_threads() { return kMaxThreads; }
+int ghfs_chirp_smoother_row_words() { return kRowWords; }
 
-int ghfs_chirp_smoother_f32(const float* mfs, const float* lfs,
-                            const float* xi, const float* w, const float* sw,
-                            const float* ghx, const float* ghw,
-                            const double* consts, int S, int K, int T, int B,
-                            int team, int rows,
-                            int lanes_per_block, float* mss, float* lss,
-                            float* if_out, void* stream) {
-  return launch<float>(mfs, lfs, xi, w, sw, ghx, ghw, consts, S, K, T, B,
-                       team, rows, lanes_per_block, mss, lss, if_out, stream);
+int smoother_rows_f32(const float* mfs, const float* lfs, const float* xi,
+                      const float* w, const float* sw, const double* consts,
+                      int S, int T, int ld, int nb, int rows_per_member,
+                      float* rows, void* stream) {
+  return launch_rows<float>(mfs, lfs, xi, w, sw, consts, S, T, ld, nb,
+                            rows_per_member, rows, stream);
 }
 
-int ghfs_chirp_smoother_f64(const double* mfs, const double* lfs,
-                            const double* xi, const double* w,
-                            const double* sw, const double* ghx,
-                            const double* ghw, const double* consts, int S,
-                            int K, int T, int B, int team, int rows,
-                            int lanes_per_block, double* mss,
-                            double* lss, double* if_out, void* stream) {
-  return launch<double>(mfs, lfs, xi, w, sw, ghx, ghw, consts, S, K, T, B,
-                        team, rows, lanes_per_block, mss, lss, if_out,
-                        stream);
+int smoother_rows_f64(const double* mfs, const double* lfs, const double* xi,
+                      const double* w, const double* sw, const double* consts,
+                      int S, int T, int ld, int nb, int rows_per_member,
+                      double* rows, void* stream) {
+  return launch_rows<double>(mfs, lfs, xi, w, sw, consts, S, T, ld, nb,
+                             rows_per_member, rows, stream);
+}
+
+int smoother_backward_f32(const float* mfs, const float* lfs, const float* rows,
+                          int T, int ld, int nb, float* mss, float* lss,
+                          void* stream) {
+  return launch_backward<float>(mfs, lfs, rows, T, ld, nb, mss, lss, stream);
+}
+
+int smoother_backward_f64(const double* mfs, const double* lfs,
+                          const double* rows, int T, int ld, int nb,
+                          double* mss, double* lss, void* stream) {
+  return launch_backward<double>(mfs, lfs, rows, T, ld, nb, mss, lss, stream);
+}
+
+int smoother_expect_f32(const float* mss, const float* lss, const float* ghx,
+                        const float* ghw, int K, int T, int B, float* if_out,
+                        void* stream) {
+  return launch_expect<float>(mss, lss, ghx, ghw, K, T, B, if_out, stream);
+}
+
+int smoother_expect_f64(const double* mss, const double* lss,
+                        const double* ghx, const double* ghw, int K, int T,
+                        int B, double* if_out, void* stream) {
+  return launch_expect<double>(mss, lss, ghx, ghw, K, T, B, if_out, stream);
 }
 
 }  // extern "C"

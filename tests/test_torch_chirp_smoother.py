@@ -1,9 +1,11 @@
 """The chirp smoother of the PyTorch port: its plain version (the wrapper on
-CPU tensors) against the JAX package's ``sqrt_sgp_smoother_batched`` and
+CPU tensors) and the plain twin of the kernels' split (phase A's rows, then
+the recursion) against the JAX package's ``sqrt_sgp_smoother_batched`` and
 ``gaussian_expectation_batched`` over the same filter outputs, La Scala
 through the chirp params, ``estimate_if_batched`` end to end against the
-JAX package, the work count, the wrapper's refusals and routing.  The CUDA
-kernel itself is tested on a card by tests/test_torch_cuda.py."""
+JAX package, the work counts, the slabs, the wrapper's refusals and
+routing.  The CUDA kernels themselves are tested on a card by
+tests/test_torch_cuda.py."""
 
 import re
 
@@ -20,15 +22,19 @@ import chirpgp_tpu_torch.apps as tp
 import chirpgp_tpu_torch.models as tm
 import chirpgp_tpu_torch.quad as tq
 from chirpgp_tpu.infer.batched import (
-    gaussian_expectation_batched as jax_expectation,
-    sqrt_sgp_smoother_batched as jax_smoother)
+    _backsub_cf as jax_backsub, gaussian_expectation_batched as jax_expectation,
+    sqrt_sgp_smoother_batched as jax_smoother, tria_cf as jax_tria)
 from chirpgp_tpu_torch.convert import params_from_jax
 from chirpgp_tpu_torch.ops import _build
+from chirpgp_tpu_torch.ops import chirp_smoother
 from chirpgp_tpu_torch.ops.chirp_filter import (
-    ROWS, TEAMS, ghfs_chirp_filter_reference, lascala_chirp_params)
+    ghfs_chirp_filter_reference, lascala_chirp_params)
 from chirpgp_tpu_torch.ops.chirp_smoother import (
-    MAX_NODES, ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
-    ghfs_chirp_smoother_reference, smoother_cost, smoother_kernel_launcher)
+    KERNELS, MAX_NODES, ROW_WORDS, ROWS, SCRATCH_CAP, TEAM,
+    ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
+    ghfs_chirp_smoother_reference, ghfs_chirp_smoother_split, rows_per_member,
+    smoother_cost, smoother_kernel_launcher, smoother_phase_costs,
+    smoother_rows_reference, smoother_slabs)
 
 torch.set_num_threads(1)
 
@@ -220,7 +226,7 @@ def test_kernel_entry_rejects_cpu_tensors(monkeypatch):
                                                            18))
     for fn in (ghfs_chirp_smoother_kernel, smoother_kernel_launcher):
         with pytest.raises(ValueError, match="cuda"):
-            fn(PARAMS, DT, rule, mfs, Lfs, if_order=10, team=8)
+            fn(PARAMS, DT, rule, mfs, Lfs, if_order=10)
     assert ghfs_chirp_smoother.launches == 0
 
 
@@ -277,21 +283,195 @@ def test_projected_form_has_the_same_gram(rule):
 
 
 def test_kernel_source_matches_wrapper():
-    """The kernel is built from ``csrc`` with the filter's (team, rows)
-    instances (which ``launch_geometry`` picks) and the wrapper's node cap;
-    its symbols are the ones the wrapper binds."""
+    """The kernels are built from ``csrc`` with phase A's team and its
+    rows-per-member instances (which ``rows_per_member`` picks), the
+    wrapper's node cap and row width; their symbols are the ones the
+    wrapper binds, and each kernel the wrapper counts is a kernel of the
+    source."""
     src = (_build.CSRC / "ghfs_chirp_smoother.cu").read_text()
-    cases = re.findall(r"case (\d+): return GHFS_LAUNCH\((\d+), (\d+)\);",
+    cases = re.findall(r"case (\d+): return SMOOTHER_ROWS_LAUNCH\((\d+)\);",
                        src)
-    assert {(int(p), int(r)) for _, p, r in cases} == {
-        (p, r) for p in TEAMS for r in ROWS[p]}
+    assert sorted(int(r) for _, r in cases) == list(ROWS)
+    assert all(c == r for c, r in cases)
+    assert f"constexpr int kTeam = {TEAM};" in src
     assert f"constexpr int kMaxNodes = {MAX_NODES};" in src
-    for sym in ("f32", "f64", "max_points", "max_nodes", "num_consts",
-                "max_threads"):
+    assert "constexpr int kRowWords = kR22Word + kD * (kD + 1) / 2;" in src
+    assert ROW_WORDS == 30
+    for name in KERNELS:
+        assert re.search(rf"__global__ void __launch_bounds__\(\w+\)\n"
+                         rf"{name}_kernel\(", src), name
+        for dt in ("f32", "f64"):
+            assert re.search(rf"\bint {name}_{dt}\(", src), (name, dt)
+    for sym in ("max_points", "max_nodes", "num_consts", "row_words"):
         assert re.search(rf"\bint ghfs_chirp_smoother_{sym}\(", src), sym
     assert '#include "chirp_lcd.cuh"' in src
-    # The epilogue's V is the state the wrapper takes it from.
+    # The expectation's V is the state the wrapper takes it from.
     lcd = (_build.CSRC / "chirp_lcd.cuh").read_text()
     assert "constexpr int kV = 2;" in lcd and "softplus(chi[kV])" in lcd
     assert tp.IFEstimationConfig(model="chirp").v_index() == 2
     assert tp.IFEstimationConfig(model="lascala").v_index() == 2
+
+
+@pytest.mark.parametrize("T", [1, 2, 37])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_split_matches_jax(rule, dtype, T):
+    """The plain twin of the kernels' split, phase A's rows then the
+    recursion and the expectation, against the JAX package's smoother and
+    GH-10 expectation over the same filter outputs (B=5): float64 within
+    1e-10, float32 within 5e-5 on the means and the IF mean, 1e-4 on
+    L L^T.  Row T-1 is the filter's, bit for bit."""
+    trule, jrule = (f() for f in RULES[rule])
+    mfs, Lfs = _filter_outputs(PARAMS, trule, 5, T, 20 + T)
+    tdt = getattr(torch, dtype)
+    got = [_np(x) for x in ghfs_chirp_smoother_split(
+        torch.tensor(PARAMS, dtype=tdt), DT, trule,
+        torch.tensor(mfs, dtype=tdt), torch.tensor(Lfs, dtype=tdt),
+        if_order=10)]
+    assert [x.shape for x in got] == [(T, 4, 5), (T, 4, 4, 5), (T, 5)]
+    jpack = jm.build_chirp_model(jnp.asarray(PARAMS, getattr(jnp, dtype)))
+    want = _jax_smooth(jpack.m_and_cov, jrule, mfs, Lfs, dtype)
+    _assert_close(got, want, dtype)
+    npt.assert_array_equal(got[0][-1], mfs[-1].astype(dtype))
+    npt.assert_array_equal(got[1][-1], Lfs[-1].astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_split_lascala_matches_jax_lascala(dtype):
+    """La Scala through ``lascala_chirp_params``: the twin against the JAX
+    package's smoother on the La Scala model."""
+    trule, jrule = (f() for f in RULES["gh3"])
+    chirp = lascala_chirp_params(torch.tensor(LASCALA, dtype=torch.float64))
+    mfs, Lfs = _filter_outputs(chirp, trule, 3, 40, 12)
+    tdt = getattr(torch, dtype)
+    got = ghfs_chirp_smoother_split(chirp, DT, trule,
+                                    torch.tensor(mfs, dtype=tdt),
+                                    torch.tensor(Lfs, dtype=tdt), if_order=10)
+    jpack = jm.build_lascala_model(jnp.asarray(LASCALA, getattr(jnp, dtype)))
+    want = _jax_smooth(jpack.m_and_cov, jrule, mfs, Lfs, dtype)
+    _assert_close([_np(x) for x in got], want, dtype)
+
+
+def _jax_rows(m_and_cov, rule, mfs, Lfs):
+    """m_p, X and R22 of every step t < T-1, float64, from the JAX
+    package's ``tria_cf`` and ``_backsub_cf`` of the joint pre-array, as in
+    its ``sqrt_sgp_smoother_batched``."""
+    from chirpgp_tpu.models.transitions import as_transition
+    from chirpgp_tpu.utils.numerics import psd_cholesky
+    trans = as_transition(m_and_cov)
+    d, B = 4, mfs.shape[2]
+    xi, w = jnp.asarray(rule.xi), jnp.asarray(rule.w)
+    sw = jnp.sqrt(w)
+    LqT = jnp.broadcast_to(psd_cholesky(trans.cov_const(DT)).T[:, :, None],
+                           (d, d, B))
+    out = []
+    for t in range(mfs.shape[0] - 1):
+        mf, Lf = jnp.asarray(mfs[t]), jnp.asarray(Lfs[t])
+        chi = mf[None] + jnp.einsum("sj,ijb->sib", xi, Lf)
+        mu = trans.mean_channels_first(chi, DT)
+        mp = jnp.einsum("s,sib->ib", w, mu)
+        M = jnp.concatenate([
+            jnp.concatenate([sw[:, None, None] * (mu - mp[None]),
+                             sw[:, None, None] * (chi - mf[None])], axis=1),
+            jnp.concatenate([LqT, jnp.zeros((d, d, B))], axis=1)], axis=0)
+        R = jax_tria(M)
+        out.append([np.asarray(x) for x in
+                    (mp, jax_backsub(R[:d, :d], R[:d, d:], d), R[d:, d:])])
+    return [np.stack(x) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+def test_rows_match_jax_tria(rule):
+    """Phase A's rows from the twin against the JAX package's ``tria_cf``
+    and ``_backsub_cf`` of the same joint pre-arrays, float64: m_p and X
+    within 1e-10 of scale, R22 by its Gram R22^T R22 (a row of R22 may
+    change sign with the rounding of a near-zero diagonal; the recursion
+    reads only the Gram)."""
+    trule, jrule = (f() for f in RULES[rule])
+    mfs, Lfs = _filter_outputs(PARAMS, trule, 4, 9, 30)
+    rows = _np(smoother_rows_reference(PARAMS, DT, trule, torch.tensor(mfs),
+                                       torch.tensor(Lfs)))
+    assert rows.shape == (8, ROW_WORDS, 4)
+    jpack = jm.build_chirp_model(jnp.asarray(PARAMS, jnp.float64))
+    mp, X, R22 = _jax_rows(jpack.m_and_cov, jrule, mfs, Lfs)
+    npt.assert_allclose(rows[:, :4], mp, atol=1e-10, rtol=0)
+    npt.assert_allclose(rows[:, 4:20], X.reshape(8, 16, 4),
+                        atol=1e-10 * (1 + np.abs(X).max()), rtol=0)
+    up = np.zeros((8, 4, 4, 4))
+    iu = np.triu_indices(4)
+    up[:, iu[0], iu[1]] = rows[:, 20:]
+    npt.assert_allclose(np.einsum("tkib,tkjb->tijb", up, up),
+                        np.einsum("tkib,tkjb->tijb", R22, R22), atol=1e-10,
+                        rtol=0)
+
+
+def test_rows_reference_chunks_time(monkeypatch):
+    """The twin's phase A runs time in chunks of lane-steps: the same rows
+    to round-off (float64) whatever the chunk, a ragged last chunk
+    included."""
+    rule = tq.cubature(4)
+    mfs, Lfs = (torch.tensor(x) for x in _filter_outputs(PARAMS, rule, 3, 12,
+                                                           31))
+    whole = smoother_rows_reference(PARAMS, DT, rule, mfs, Lfs)
+    monkeypatch.setattr(chirp_smoother, "_TWIN_LANE_STEPS", 3 * 5)
+    chunked = smoother_rows_reference(PARAMS, DT, rule, mfs, Lfs)
+    assert chunked.shape == whole.shape == (11, ROW_WORDS, 3)
+    npt.assert_allclose(_np(chunked), _np(whole), rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("T,B,itemsize,cap,want", [
+    (3141, 4096, 4, 2 << 30, [(0, 4096)]),
+    (3141, 4096, 8, 2 << 30, [(0, 2848), (2848, 1248)]),
+    (1, 5, 4, 2 << 30, [(0, 5)]),
+    (10, 0, 4, 2 << 30, []),
+    (11, 100, 8, 11 * 30 * 8 * 40, [(0, 32), (32, 32), (64, 32), (96, 4)]),
+    (11, 100, 4, 10 * 30 * 4 * 5, [(b, 5) for b in range(0, 100, 5)]),
+    (11, 7, 4, 1, [(b, 1) for b in range(7)]),
+    (3141, 4096, 8, SCRATCH_CAP, [(0, 4096)]),
+])
+def test_smoother_slabs(T, B, itemsize, cap, want):
+    """Slabs of lanes whose (T-1, 30, lanes) scratch fits the cap: as few as
+    the cap allows, whole warps but the last, one lane at least."""
+    assert smoother_slabs(T, B, itemsize, cap) == want
+
+
+def test_smoother_slabs_default_to_the_module_cap(monkeypatch):
+    """Without a cap, the slabs follow ``SCRATCH_CAP`` as it is at the
+    call, so that a test may force slabs by setting it."""
+    assert smoother_slabs(11, 100, 8) == [(0, 100)]
+    monkeypatch.setattr(chirp_smoother, "SCRATCH_CAP", 10 * 30 * 8 * 40)
+    assert smoother_slabs(11, 100, 8) == [(0, 32), (32, 32), (64, 32),
+                                          (96, 4)]
+
+
+def test_rows_per_member():
+    """Phase A's rows per member: the fewest built that hold the S + 4
+    pre-array rows over the team of 8 (GH-3 85, GH-2 20, cubature 12)."""
+    assert TEAM == 8
+    assert rows_per_member(81) == 11
+    assert rows_per_member(16) == 11
+    assert rows_per_member(12) == 2
+    assert rows_per_member(8) == 2
+    assert rows_per_member(1) == 2
+    with pytest.raises(ValueError, match="sigma points"):
+        rows_per_member(82)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_phase_costs_split_the_smoother_cost(dtype):
+    """The kernels' flop add up to ``smoother_cost``'s; their bytes are each
+    kernel's own reads and writes, phase A's rows among them.  GH-3, S=81:
+    phase A 14251 - 720 + 64 flop per seed-step but the last, phase B the
+    mean update, G Ls and the 8 x 4 triangularization, 656."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    S, T, B = 81, 3141, 4096
+    costs = smoother_phase_costs(S, T, B, dtype)
+    assert tuple(costs) == KERNELS
+    assert sum(c.flop for c in costs.values()) == smoother_cost(
+        S, T, B, dtype).flop
+    steps = (T - 1) * B
+    assert costs["smoother_rows"] == ((14251 - 720 + 64) * steps,
+                                      isz * 50 * steps)
+    assert costs["smoother_backward"] == (
+        (40 + 80 + 536) * steps, isz * (34 * steps + 20 * (T + 1) * B))
+    assert costs["smoother_expect"] == (69 * T * B, isz * 5 * T * B)

@@ -22,9 +22,11 @@ from chirpgp_tpu_torch.models import build_chirp_model, g_inv
 from chirpgp_tpu_torch.ops.chirp_filter import (
     TEAMS, ghfs_chirp_filter, ghfs_chirp_filter_kernel,
     ghfs_chirp_filter_reference, lascala_chirp_params, launch_geometry)
+from chirpgp_tpu_torch.ops import chirp_smoother
 from chirpgp_tpu_torch.ops.chirp_smoother import (
-    ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
-    ghfs_chirp_smoother_reference)
+    ROW_WORDS, SmootherKernels, ghfs_chirp_smoother,
+    ghfs_chirp_smoother_kernel, ghfs_chirp_smoother_reference,
+    smoother_kernel_launcher, smoother_rows_reference)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
@@ -124,15 +126,16 @@ def test_chirp_filter_kernel_single_step(cuda, rule, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 2, 50])
+@pytest.mark.parametrize("T", [1, 2, 50, 83])
 @pytest.mark.parametrize("B", [1, 33, 100])
 @pytest.mark.parametrize("rule", ["gh3", "cubature"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_chirp_smoother_kernel_matches_plain(cuda, dtype, rule, B, T):
-    """The smoother kernel with its GH-10 epilogue against the plain
-    version, on the filter kernel's outputs, at every team size and the
-    default geometry: mss and the IF mean within atol_m, Lss and L L^T
-    within atol_P; ragged B, T = 1 (the filter's row) and T = 2."""
+    """The smoother's kernels (phases A, B and E) against the plain
+    version, on the filter kernel's outputs: mss and the IF mean within
+    atol_m, Lss and L L^T within atol_P; ragged B (past phase B's 32 lanes
+    per block), T = 1 (the filter's row), T = 2, and T = 50 and 83, past
+    phase B's ring of steps and not a multiple of it."""
     atol_m, atol_P = TOLS[dtype]
     sgps = RULES[rule]()
     ys = torch.tensor(
@@ -141,17 +144,129 @@ def test_chirp_smoother_kernel_matches_plain(cuda, dtype, rule, B, T):
     mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
     want = [_np(x) for x in ghfs_chirp_smoother_reference(
         PARAMS, 1e-3, sgps, mfs, Lfs, 10)]
-    for team in (None,) + TEAMS:
-        before = ghfs_chirp_smoother.launches
-        got = [_np(x) for x in ghfs_chirp_smoother_kernel(
-            PARAMS, 1e-3, sgps, mfs, Lfs, 10, team=team)]
-        assert ghfs_chirp_smoother.launches == before + 1
-        for g, w, atol in zip(got, want, (atol_m, atol_P, atol_m)):
-            assert g.shape == w.shape
-            npt.assert_allclose(g, w, atol=atol, rtol=0)
-        npt.assert_allclose(_gram(got[1]), _gram(want[1]), atol=atol_P,
-                            rtol=0)
+    before = ghfs_chirp_smoother.launches
+    got = [_np(x) for x in ghfs_chirp_smoother_kernel(PARAMS, 1e-3, sgps, mfs,
+                                                      Lfs, 10)]
+    assert ghfs_chirp_smoother.launches == before + 1
+    for g, w, atol in zip(got, want, (atol_m, atol_P, atol_m)):
+        assert g.shape == w.shape
+        npt.assert_allclose(g, w, atol=atol, rtol=0)
+    npt.assert_allclose(_gram(got[1]), _gram(want[1]), atol=atol_P, rtol=0)
     npt.assert_array_equal(got[0][-1], _np(mfs)[-1])
+
+
+def _upper_gram(words):
+    """R22^T R22 of the (..., 10, B) upper-triangle words of R22."""
+    iu = np.triu_indices(4)
+    up = np.zeros(words.shape[:-2] + (4, 4, words.shape[-1]))
+    up[..., iu[0], iu[1], :] = words
+    return np.einsum("...kib,...kjb->...ijb", up, up)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["gh3", "cubature"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_chirp_smoother_rows_kernel_matches_twin(cuda, dtype, rule):
+    """Phase A alone against the plain twin's rows on the same filter
+    outputs (B=37, T=23): m_p within atol_m, X within
+    atol_P of its scale, R22 by its Gram within atol_P (a row of R22 may
+    change sign with the rounding of a near-zero diagonal; phase B reads
+    only the Gram)."""
+    atol_m, atol_P = TOLS[dtype]
+    sgps = RULES[rule]()
+    ys = torch.tensor(0.1 * np.random.default_rng(3).standard_normal((37, 23)),
+                      dtype=getattr(torch, dtype), device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    want = _np(smoother_rows_reference(PARAMS, 1e-3, sgps, mfs, Lfs))
+    kernels = SmootherKernels(PARAMS, 1e-3, sgps, 10, mfs.dtype, cuda)
+    rows = mfs.new_empty((22, ROW_WORDS, 37))
+    before = dict(ghfs_chirp_smoother.kernel_launches)
+    kernels.rows(mfs, Lfs, rows)
+    assert ghfs_chirp_smoother.kernel_launches == dict(
+        before, smoother_rows=before["smoother_rows"] + 1)
+    got = _np(rows)
+    npt.assert_allclose(got[:, :4], want[:, :4], atol=atol_m, rtol=0)
+    npt.assert_allclose(got[:, 4:20], want[:, 4:20],
+                        atol=atol_P * (1 + np.abs(want[:, 4:20]).max()), rtol=0)
+    npt.assert_allclose(_upper_gram(got[:, 20:]), _upper_gram(want[:, 20:]),
+                        atol=atol_P, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_chirp_smoother_slabs_give_the_same_bits(cuda, dtype, monkeypatch):
+    """A scratch cap that forces slabs of lanes (here 32, 32, 32, 4 lanes,
+    and one lane each) gives the outputs of one slab bit for bit."""
+    sgps = gauss_hermite(4, 3)
+    ys = torch.tensor(0.1 * np.random.default_rng(4).standard_normal((100, 41)),
+                      dtype=getattr(torch, dtype), device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    whole = ghfs_chirp_smoother_kernel(PARAMS, 1e-3, sgps, mfs, Lfs, 10)
+    per_lane = 40 * ROW_WORDS * mfs.element_size()
+    for cap, slabs in ((40 * per_lane, 4), (per_lane, 100)):
+        before = dict(ghfs_chirp_smoother.kernel_launches)
+        monkeypatch.setattr(chirp_smoother, "SCRATCH_CAP", cap)
+        launch, out = smoother_kernel_launcher(PARAMS, 1e-3, sgps, mfs, Lfs,
+                                               10)
+        launch()
+        assert ghfs_chirp_smoother.kernel_launches == {
+            "smoother_rows": before["smoother_rows"] + slabs,
+            "smoother_backward": before["smoother_backward"] + slabs,
+            "smoother_expect": before["smoother_expect"] + 1}
+        for a, b in zip(out, whole):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_chirp_smoother_phases_alone_match_the_launch(cuda, dtype,
+                                                      monkeypatch):
+    """Each kernel launched alone through ``SmootherKernels``, phases A and
+    B slab by slab with B on its own slab's rows (slabs of 32, 32, 32 and 4
+    lanes), then phase E, gives a wrapper launch's outputs bit for bit."""
+    sgps = gauss_hermite(4, 3)
+    ys = torch.tensor(0.1 * np.random.default_rng(7).standard_normal((100, 29)),
+                      dtype=getattr(torch, dtype), device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    want = ghfs_chirp_smoother_kernel(PARAMS, 1e-3, sgps, mfs, Lfs, 10)
+    monkeypatch.setattr(chirp_smoother, "SCRATCH_CAP",
+                        32 * 28 * ROW_WORDS * mfs.element_size())
+    slabs = chirp_smoother.smoother_slabs(29, 100, mfs.element_size())
+    assert [nb for _, nb in slabs] == [32, 32, 32, 4]
+    kernels = SmootherKernels(PARAMS, 1e-3, sgps, 10, mfs.dtype, cuda)
+    mss, lss = torch.empty_like(mfs), mfs.new_empty((29, 16, 100))
+    if_mean = mfs.new_empty((29, 100))
+    for b0, nb in reversed(slabs):
+        rows = mfs.new_empty((28, ROW_WORDS, nb))
+        kernels.rows(mfs, Lfs, rows, b0)
+        kernels.backward(mfs, Lfs, rows, mss, lss, b0)
+    kernels.expect(mss, lss, if_mean)
+    for a, b in zip((mss, lss.view(29, 4, 4, 100), if_mean), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chirp_smoother_launch_keeps_its_tensors(cuda):
+    """A bare ``launch`` whose caller keeps only the IF mean still writes
+    its own outputs and reads its own tables: repeated launches, with the
+    caching allocator handing the freed memory of other tensors around,
+    give the first launch's IF mean bit for bit."""
+    import gc
+    sgps = gauss_hermite(4, 3)
+    ys = torch.tensor(0.1 * np.random.default_rng(6).standard_normal((64, 150)),
+                      dtype=torch.float32, device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    launch, (_, _, if_mean) = smoother_kernel_launcher(PARAMS, 1e-3, sgps,
+                                                       mfs, Lfs, 10)
+    gc.collect()
+    launch()
+    first = if_mean.clone()
+    for k in range(6):
+        junk = [torch.full((n,), float(k + 1), device=cuda)
+                for n in (64 * 150 * 4, 64 * 150 * 16, 81 * 4, 81)]
+        launch()
+        del junk
+        assert torch.equal(if_mean, first), k
 
 
 @pytest.mark.cuda
