@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Builds the hand-written CUDA kernels (the chirp filter, and the chirp
+Builds the hand-written CUDA kernels (the chirp filter, the chirp
 smoother's three: phase A's rows, phase B's recursion, phase E's
-expectation) from ``chirpgp_tpu_torch/ops/csrc`` on first use, one
-``nvcc`` per source, started together, and drives the batched
-IF-estimation path (one filter and one smoother wrapper launch), the single-record
-MLE path, the fused batched filter+smoother, the Table-I Monte-Carlo
+expectation in its two input modes, and the fused filter+smoother's two:
+F's forward scan, G's affine backward recursion) from
+``chirpgp_tpu_torch/ops/csrc`` on first use, one ``nvcc`` per source,
+started together, and drives the batched IF-estimation path (one filter
+and one smoother wrapper launch), the single-record MLE path, the fused
+batched filter+smoother (bench.py's headline: kernels F, G and E), the
+Table-I Monte-Carlo
 sweep, every other column of Table I, the paper's analysis and
 real-data pipelines, the parallel-in-time and posterior-inference
 paths, and the scale-out layer once at full width.
@@ -64,11 +67,19 @@ Phases, one line each:
    float64) value and gradient on the card against the host CPU; the
    float32 sqrt objective against the CUDA kernel's nll; ``fit_mle``
    (SciPy L-BFGS-B, 1 iteration); ``estimate_if`` GHFS and EKFS gates;
-6. the fused batched filter+smoother: at B=512, T=256, float64, against
-   the separate filter and smoother, slim output bit-equal to the full
-   one, covariance form against square-root form; then the slim output at
-   the benchmark's B=4096, T=3141, float32, its GH-10 IF mean against
-   phase 3's;
+6. the fused batched filter+smoother: at B=512, T=256, float64, the
+   plain loops against the separate filter and smoother, slim output
+   bit-equal to the full one, covariance form against square-root form,
+   and the kernels' route (``ghfs_chirp_filter_smoother`` on the card) in
+   its three modes against its plain twins (scaled 1e-9); 6d bench.py's
+   headline, B=4096, T=3141, GH-3, float32, ``out_index=2``, then the
+   GH-10 expectation of g(V) (``gaussian_expectation_g``): F, G and E
+   launched once each (counted, and under ``torch.profiler``, with the
+   same CUDA kernel count per call at T=64 as at T=3141), each kernel
+   alone against its plain twin (scaled 1e-4), the IF mean against phase
+   3's; 6e each fused kernel's CUDA-event time alone (F in maps and factor
+   mode, G slim and full, E, phase B on F's rows) at B=4096 float32 and
+   float64 and at the Table-I width, beside its bound;
 7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
    magnitude of ``results/data`` (B=300): 7a one vmapped value-and-grad
    of the objective at T=785, timed, with its peak memory, lanes 0 and
@@ -191,7 +202,14 @@ of the scaling harness (13h); then one entry for each of the smoother's
 kernels (``smoother_rows``, ``smoother_backward``, ``smoother_expect``)
 with the contract's keys (its launches in phase 3, its time alone, its
 plain counterpart's and its deviation from it in phase 2b) and
-``ms_b100`` and ``ms_f64``.  The smoother's ``bound_ms`` counts the
+``ms_b100`` and ``ms_f64``; then one entry for each kernel of the fused
+filter+smoother's slim path (``fused_forward``, ``affine_backward``,
+``smoother_expect_var``; ``replaces`` the JAX package's compiled forward
+scan, ``chirpgp_tpu/infer/batched.py:297``, reverse scan, ``:383``, and
+``gaussian_expectation_batched``, ``:546``): its launches and deviation
+from its plain twin in 6d, its time alone and its bound in 6e at B=4096
+float32 in 6d's mode, ``ms_b100``, ``ms_f64``, and F's factor mode and
+G's full output beside (``ms_factors``, ``ms_full``).  The smoother's ``bound_ms`` counts the
 least work of the function (``ops/chirp_smoother.py::smoother_cost``:
 the smoother's step in the lesser of two square-root forms); each
 kernel's, its own work and bytes, its phase A's rows included
@@ -265,18 +283,36 @@ MLE_ITERS, MLE_FIT_T = 1, 785
 # lane maximum at B=4096 and the filter kernel's own float32 rounding.
 FUSED_IF_BOUND = 1e-4
 FUSED_SMALL_B, FUSED_SMALL_T, FUSED_F64_BOUND = 512, 256, 1e-9
+# 6a-d: the fused kernels (ops/chirp_fused.py) against their plain twins,
+# max |d| over (1 + max |twin|): the filter kernel's scaled bounds at the
+# benchmark's shape (FULL_BOUNDS).  The wrapper's three modes.
+FUSED_KERNEL_BOUNDS = {"float32": 1e-4, "float64": FUSED_F64_BOUND}
+FUSED_MODES = {"factors": {}, "full": dict(return_factors=False),
+               "slim": dict(return_factors=False, out_index=2)}
 KERNEL_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_filter.cu"
 KERNEL_REPLACES = "chirpgp_tpu/experimental/pallas_filter.py:248"
 # The smoother kernel replaces no Pallas kernel but the JAX package's
 # compiled reverse scan (and the expectation after it).
 SMOOTHER_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_smoother.cu"
 SMOOTHER_REPLACES = "chirpgp_tpu/infer/batched.py:152"
+# The fused filter+smoother's kernels replace the JAX package's compiled
+# scans of sqrt_sgp_filter_smoother_batched: F its forward scan, G the
+# covariance branch's reverse scan; E's variance mode bench.py's
+# gaussian_expectation_batched of the slim output.
+FUSED_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_fused.cu"
+FUSED_REPLACES = {"fused_forward": "chirpgp_tpu/infer/batched.py:297",
+                  "affine_backward": "chirpgp_tpu/infer/batched.py:383",
+                  "smoother_expect_var": "chirpgp_tpu/infer/batched.py:546"}
 # Phase 1: the instances whose register spills are reported and allowed,
 # (kernel, dtype, template integers): the float64 smoother's phase A with
 # GH-3's 11 rows of 8 values per member (255 registers, 116 B of spill
 # stores; faster than teams of 16 and 32 at B=4096 on an H100).  Every
 # other instance must not spill.
-SPILLS_ALLOWED = {("smoother_rows", "f64", 11)}
+# And the float64 fused forward kernel F at P=8 with cubature's 1 row per
+# member: ptxas gives it 128 registers and 60 B of spill stores (44 B of
+# loads) where GH-3's 11 rows get 255 and none; cubature in float64 is
+# off the benchmark's path.
+SPILLS_ALLOWED = {("smoother_rows", "f64", 11), ("fused_forward", "f64", 8, 1)}
 # Phase 3b: CUDA-event launches after one warm-up, and the H100 SXM's
 # published peaks (NVIDIA data sheet, dense, at 700 W): float32 and float64
 # outside the tensor cores, and HBM3.
@@ -636,9 +672,17 @@ def deviations(kern, plain):
         scale_mfs=float(mp.abs().max()), scale_LLT=float(Pp.abs().max()))
 
 
+# Phase 1: the names of each kernel's template integers in ptxas's report.
+TEMPLATE_NAMES = {"ghfs_chirp_filter": ("P", "rows"),
+                  "smoother_rows": ("rows",),
+                  "fused_forward": ("P", "rows"),
+                  "affine_backward": ("slim",)}
+
+
 def phase_environment(device):
     import concurrent.futures
     from chirpgp_tpu_torch.ops.chirp_filter import load_kernel
+    from chirpgp_tpu_torch.ops.chirp_fused import load_fused_kernel
     from chirpgp_tpu_torch.ops.chirp_smoother import load_smoother_kernel
     from chirpgp_tpu_torch.ops._build import find_nvcc
     smi = nvidia_smi()
@@ -646,25 +690,26 @@ def phase_environment(device):
                           text=True, timeout=60).stdout.strip().splitlines()
     # One nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = dict(zip(("filter", "smoother"), pool.map(
-            lambda load: load(), (load_kernel, load_smoother_kernel))))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        built = dict(zip(("filter", "smoother", "fused"), pool.map(
+            lambda load: load(),
+            (load_kernel, load_smoother_kernel, load_fused_kernel))))
     t_build = time.perf_counter() - t0
-    # ptxas -v: each kernel instance (kernel, dtype, team size and rows per
-    # member where it has them) with its registers, stack frame and spills.
+    # ptxas -v: each kernel instance (kernel, dtype, and its template
+    # integers: the team size and rows per member, G's slim flag) with its
+    # registers, stack frame and spills.
     ptxas, spills = [], []
     for name, lib in built.items():
         inst = None
         for ln in lib.log.splitlines():
             found = re.search(r"entry function '\S*?([a-z_]+)_kernelI([fd])"
-                              r"((?:Li\d+E)*)", ln)
+                              r"((?:L[ib]\d+E)*)", ln)
             if found:
-                # Template integers: the filter's team and rows, phase A's rows.
                 ints = tuple(int(x) for x in re.findall(r"\d+", found[3]))
                 inst = (found[1], dict(f="f32", d="f64")[found[2]], *ints)
-                names = ("P", "rows") if len(ints) == 2 else ("rows",)
                 ptxas.append(" ".join(inst[:2]) + "".join(
-                    f" {k}={v}" for k, v in zip(names, ints)) + ":")
+                    f" {k}={v}" for k, v in zip(
+                        TEMPLATE_NAMES.get(found[1], ()), ints)) + ":")
             elif "registers" in ln or "spill" in ln:
                 ptxas.append(ln.split("ptxas info    :")[-1].strip())
                 if ("spill" in ln and inst not in SPILLS_ALLOWED and
@@ -675,7 +720,8 @@ def phase_environment(device):
           f"{torch.version.cuda} | {nvcc[-1] if nvcc else 'nvcc ?'} | "
           f"kernel builds, in parallel: {t_build:.2f} s (filter "
           f"{built['filter'].build_seconds:.2f} s, smoother "
-          f"{built['smoother'].build_seconds:.2f} s) | ptxas: "
+          f"{built['smoother'].build_seconds:.2f} s, fused "
+          f"{built['fused'].build_seconds:.2f} s) | ptxas: "
           f"{' '.join(ptxas)}")
     print(smi)
     check(not spills, f"ptxas reports register spills: {spills}")
@@ -1351,7 +1397,49 @@ def phase_mle(device):
           f"launches in 5a/5c/5d: {path_launches}): " + "; ".join(parts))
 
 
+def fused_headline(ys):
+    """bench.py's slim headline on ``ys`` (B, T), the call of 6d: the fused
+    filter+smoother at the default parameters, GH-3, ``out_index=2`` (F
+    and G), then the GH-10 expectation of g(V) (E).  Returns ``(if_mean
+    (T, B), nll (T, B))``."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_fused import ghfs_chirp_filter_smoother
+    from chirpgp_tpu_torch.ops.chirp_smoother import gaussian_expectation_g
+    cfg = IFEstimationConfig()
+    v_mean, v_var, nll = ghfs_chirp_filter_smoother(
+        g(cfg.default_init_theta()), XI, DT, cfg.sigma_points(), ys,
+        return_factors=False, out_index=2)
+    return gaussian_expectation_g(v_mean, v_var, cfg.expectation_order), nll
+
+
+def fused_headline_profiles(device, Ts):
+    """``torch.profiler`` over 6d's call on the first T steps of its
+    measurements, for each T of ``Ts``, each after one unprofiled warm-up
+    call: {T: DeviceProfile}.  6d runs it in a process of its own: in the
+    smoke run's own process, after phases 1-5, the profiled call of
+    T=3141 recorded no CUDA activity at all on an H100 while the call of
+    T=64 recorded its kernels, and a fresh process records both."""
+    from chirpgp_tpu_torch.utils.timing import profile_device
+    device = torch.device(device)
+    yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
+    out = {}
+    for T in Ts:
+        fused_headline(yss[:, :T])
+        out[T] = profile_device(lambda: fused_headline(yss[:, :T]))
+    return out
+
+
 def phase_fused(device, if_ref, t_ref):
+    """6a-c: the plain fused filter+smoother in float64 against the separate
+    filter and smoother and the covariance form, slim against full, and the
+    kernels' route (``ghfs_chirp_filter_smoother`` on the card) against its
+    plain twins in its three modes; 6d: bench.py's headline through F, G
+    and E, each kernel against its plain twin, the IF mean against phase
+    3's, the kernels per call under ``torch.profiler``.  Returns {kernel:
+    (launches, max |d| from its twin, twin ms)}."""
+    import concurrent.futures
+    import multiprocessing
     from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.infer.batched import (
@@ -1360,8 +1448,13 @@ def phase_fused(device, if_ref, t_ref):
         sqrt_sgp_smoother_batched)
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    from chirpgp_tpu_torch.ops.chirp_fused import (
+        KERNELS, ROW_WORDS, FusedKernels, affine_backward_reference,
+        fused_forward_reference, ghfs_chirp_filter_smoother,
+        ghfs_chirp_filter_smoother_reference)
+    from chirpgp_tpu_torch.ops.chirp_smoother import gaussian_expectation_g
     cfg = IFEstimationConfig()
-    rule = cfg.sigma_points()
+    rule, order = cfg.sigma_points(), cfg.expectation_order
     parts = []
     t_phase = time.perf_counter()
 
@@ -1387,6 +1480,18 @@ def phase_fused(device, if_ref, t_ref):
             "cov form vs sqrt fused": (scaled_dev(ms_k, ms_c),
                                        scaled_dev(Ps_k, Ps_c),
                                        scaled_dev(nll_k, nll_c))}
+    # The kernels' route in its three modes against its plain twins (the
+    # factors by their Gram: a row may change sign at a near-zero pivot).
+    params = g(cfg.default_init_theta())
+    for mode, kwargs in FUSED_MODES.items():
+        kern = ghfs_chirp_filter_smoother(params, XI, DT, rule, yss, **kwargs)
+        twin = ghfs_chirp_filter_smoother_reference(params, XI, DT, rule, yss,
+                                                    **kwargs)
+        if mode == "factors":
+            kern, twin = ([x[0], torch.einsum("tikb,tjkb->tijb", x[1], x[1]),
+                           x[2]] for x in (kern, twin))
+        devs[f"kernels vs twins, {mode}"] = tuple(
+            scaled_dev(k, t) for k, t in zip(kern, twin))
     for what, vals in devs.items():
         for key, val in zip(("mss", "Pss", "nll"), vals):
             check(val <= FUSED_F64_BOUND, f"6: {what} {key} {val} > "
@@ -1398,27 +1503,250 @@ def phase_fused(device, if_ref, t_ref):
     check(slim_equal, "6b: slim output is not bit-equal to the full slices")
     parts.insert(0, f"6a-c B={FUSED_SMALL_B} T={FUSED_SMALL_T} f64; slim == "
                     f"full slices: {slim_equal}")
+    del mfs, Lfs, mss, Lss, Pss, ms_f, Ls_f, Ps_f, ms_c, Ps_c, ms_k, Ps_k
 
+    # 6d: bench.py's headline, B=4096, T=3141, GH-3, f32, out_index=2, then
+    # the GH-10 expectation of g(V): F, G and E once each.
     yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
-    (vm, vv, nll), t_fused = timed(sqrt_sgp_filter_smoother_batched,
-                                   *args(torch.float32, yss),
-                                   return_factors=False, out_index=2)
-    for name, x in (("v_mean", vm), ("v_var", vv), ("nll", nll)):
+    ghfs_chirp_filter_smoother.launches = gaussian_expectation_g.launches = 0
+    ghfs_chirp_filter_smoother.kernel_launches = dict.fromkeys(KERNELS, 0)
+    (if_mean, nll), t_call = timed(fused_headline, yss)
+    launches = {**ghfs_chirp_filter_smoother.kernel_launches,
+                "smoother_expect_var": gaussian_expectation_g.launches}
+    want = dict(fused_forward=1, affine_backward=1, smoother_backward=0,
+                smoother_expect_var=1)
+    check(ghfs_chirp_filter_smoother.launches == 1 and launches == want,
+          f"6d: the call launched {launches}, not {want}")
+    for name, x in (("if_mean", if_mean), ("nll", nll)):
         check(bool(torch.isfinite(x).all()), f"6d: non-finite {name}")
-    if_mean = gaussian_expectation_batched(vm, vv.clamp_min(0.0).sqrt(),
-                                           order=cfg.expectation_order).T
-    dev = scaled_dev(if_mean, if_ref)
-    check(dev <= FUSED_IF_BOUND,
-          f"6d: fused IF mean vs estimate_if_batched {dev} > {FUSED_IF_BOUND}")
+    dev_if = scaled_dev(if_mean.T, if_ref)
+    check(dev_if <= FUSED_IF_BOUND,
+          f"6d: fused IF mean vs estimate_if_batched {dev_if} > "
+          f"{FUSED_IF_BOUND}")
+    # Each kernel alone against its plain twin on the same inputs.
+    bound = FUSED_KERNEL_BOUNDS["float32"]
+    like = dict(dtype=yss.dtype, device=device)
+    kernels = FusedKernels(params, XI, DT, rule, yss.dtype, device)
+    rows = torch.empty((T_FULL - 1, ROW_WORDS, B_FULL), **like)
+    mf = torch.empty((1, 4, B_FULL), **like)
+    lf = torch.empty((1, 16, B_FULL), **like)
+    nll_k = torch.empty((T_FULL, B_FULL), **like)
+    kernels.forward(yss.T.contiguous(), rows, mf, lf, nll_k, False)
+    twin, t_f = timed(fused_forward_reference, params, XI, DT, rule, yss)
+    # The on-card oracle: F in float64 on the same measurements, in factor
+    # mode, its maps derived (G = X^T, u = mf_{t-1} - G m_p, D = R22^T R22).
+    oracle = fused_oracle_maps(params, rule, yss.double())
+    # u = mf_{t-1} - G m_p cancels: its float32 rounding is on the scale of
+    # the filtered means, which the f32 twin shows against the oracle too.
+    u_scale = oracle["mf_scale"]
+    pairs = {"fused_forward": [(rows[:, 4:20], twin.rows[:, 4:20]),
+                               (rows[:, 20:], twin.rows[:, 20:]),
+                               (mf, twin.mfs), (nll_k, twin.nll),
+                               (*(torch.einsum("tikb,tjkb->tijb", x, x) for x
+                                  in (lf.view(1, 4, 4, B_FULL), twin.Lfs)),)]}
+    u_dev = {name: float((x[:, :4].double() - oracle["rows"][:, :4]).abs()
+                         .max()) for name, x in (("kernel", rows),
+                                                 ("twin", twin.rows))}
+    u_dev["kernel vs twin"] = float((rows[:, :4].double()
+                                     - twin.rows[:, :4]).abs().max())
+    oracle_dev = {name: max(scaled_dev(x[:, 4:], oracle["rows"][:, 4:]),
+                            scaled_dev(n, oracle["nll"]))
+                  for name, x, n in (("kernel", rows, nll_k),
+                                     ("twin", twin.rows, twin.nll))}
+    del twin, oracle
+    check(u_dev["kernel vs twin"] / u_scale <= bound,
+          f"6d fused_forward u vs its plain twin: |d| "
+          f"{u_dev['kernel vs twin']} over the means' scale {u_scale} > "
+          f"{bound}")
+    vm = torch.empty((T_FULL, B_FULL), **like)
+    vv = torch.empty((T_FULL, B_FULL), **like)
+    kernels.backward(rows, mf, lf, vm, vv, 2)
+    twin, t_g = timed(affine_backward_reference, rows, mf[0],
+                      lf[0].view(4, 4, B_FULL), 2)
+    pairs["affine_backward"] = list(zip((vm, vv), twin))
+    ie = gaussian_expectation_g(vm, vv, order)
+    twin, t_e = timed(lambda: gaussian_expectation_batched(
+        vm, vv.clamp_min(0.0).sqrt(), g, order))
+    pairs["smoother_expect_var"] = [(ie, twin)]
+    out, kparts = {}, []
+    for kernel, t in zip(pairs, (t_f, t_g, t_e)):
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs[kernel])
+        scaled = max(scaled_dev(a, b) for a, b in pairs[kernel])
+        check(scaled <= bound, f"6d {kernel} vs its plain twin: scaled |d| "
+                               f"{scaled} > {bound}")
+        if kernel == "fused_forward":
+            err = max(err, u_dev["kernel vs twin"])
+        out[kernel] = (launches[kernel], err, 1e3 * t)
+        kparts.append(f"{kernel} max|d| {err!r} (scaled {scaled:.3g}), twin "
+                      f"{t:.3f} s")
+    kparts.insert(1, f"F's u: max|d| kernel vs twin "
+                     f"{u_dev['kernel vs twin']!r}, each from the float64 "
+                     f"oracle: kernel {u_dev['kernel']!r}, twin "
+                     f"{u_dev['twin']!r} (the means' scale {u_scale!r}); F's "
+                     f"G, D and nll scaled from the oracle: kernel "
+                     f"{oracle_dev['kernel']:.3g}, twin "
+                     f"{oracle_dev['twin']:.3g}")
+    del pairs, twin, rows, kernels
+    # The CUDA kernels of one call (the host-to-device copies of the rule's
+    # tables apart: the profiler records a varying number of them), at the
+    # full T and at SLICE_SHORT_T, in a child process on the same card.
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        profs = pool.submit(fused_headline_profiles, str(device),
+                            (T_FULL, SLICE_SHORT_T)).result()
+    counts = {T: sum(not n.startswith(("Memcpy", "Memset"))
+                     for n in prof.names) for T, prof in profs.items()}
+    hand = {k: sum(f"{k}_kernel" in n for n in profs[T_FULL].names)
+            for k in ("fused_forward", "affine_backward",
+                      "smoother_expect_var")}
+    check(len(set(counts.values())) == 1 and set(hand.values()) == {1},
+          f"6d: {counts} CUDA kernels per call at T = {list(counts)}, the "
+          f"hand kernels {hand} times each (not once)")
+    prof = profs[T_FULL]
     parts.append(
-        f"6d slim fused B={B_FULL} T={T_FULL} f32: {1e3 * t_fused:.3f} ms = "
-        f"{B_FULL * T_FULL / t_fused:.1f} steps/s (estimate_if_batched, "
-        f"phase 3: {1e3 * t_ref:.3f} ms = {B_FULL * T_FULL / t_ref:.1f} "
-        f"steps/s); GH-10 IF mean vs phase 3's: scaled {dev:.3g} (bound "
-        f"{FUSED_IF_BOUND})")
+        f"6d bench.py's slim GH-3 headline + GH-10 E[g(V)], B={B_FULL} "
+        f"T={T_FULL} f32: {1e3 * t_call:.3f} ms = "
+        f"{B_FULL * T_FULL / t_call:.1f} steps/s (estimate_if_batched, phase "
+        f"3: {1e3 * t_ref:.3f} ms); launches {launches}; {counts[T_FULL]} "
+        f"CUDA kernels per call at T={T_FULL} and {counts[SLICE_SHORT_T]} at "
+        f"T={SLICE_SHORT_T} (torch.profiler in a child process; with the "
+        f"copies {prof.launches} and {profs[SLICE_SHORT_T].launches} "
+        f"events), the hand kernels {hand}, device "
+        f"busy {100 * prof.busy:.2f}% of {1e3 * prof.wall_s:.3f} ms; IF mean "
+        f"vs phase 3's: scaled {dev_if:.3g} (bound {FUSED_IF_BOUND}); each "
+        f"kernel vs its plain twin: " + ", ".join(kparts))
     print(f"phase 6 fused filter+smoother ({time.perf_counter() - t_phase:.3f}"
-          f" s; kernel launches: {ghfs_chirp_filter.launches}): "
+          f" s; filter kernel launches: {ghfs_chirp_filter.launches}): "
           + "; ".join(parts))
+    return out
+
+
+def fused_oracle_maps(params, rule, y64):
+    """F in float64 on the card in factor mode on ``y64``, with the maps of
+    its rows (``u = mf_{t-1} - X^T m_p``, ``G = X^T``, D's upper triangle):
+    {"rows": (T-1, 30, B) maps, "nll": (T, B), "mf_scale": 1 + max |mf|}."""
+    from chirpgp_tpu_torch.ops.chirp_fused import ROW_WORDS, FusedKernels
+    B, T = y64.shape
+    like = dict(dtype=y64.dtype, device=y64.device)
+    rows = torch.empty((T - 1, ROW_WORDS, B), **like)
+    mfs, lfs = (torch.empty((T, n, B), **like) for n in (4, 16))
+    nll = torch.empty((T, B), **like)
+    FusedKernels(params, XI, DT, rule, y64.dtype, y64.device).forward(
+        y64.T.contiguous(), rows, mfs, lfs, nll, True)
+    del lfs
+    X = rows[:, 4:20].reshape(T - 1, 4, 4, B)
+    G = X.transpose(1, 2)
+    u = mfs[:-1] - torch.einsum("tijb,tjb->tib", G, rows[:, :4])
+    iu = torch.triu_indices(4, 4)
+    up = rows.new_zeros((T - 1, 4, 4, B))
+    up[:, iu[0], iu[1]] = rows[:, 20:]
+    D = torch.einsum("tkib,tkjb->tijb", up, up)[:, iu[0], iu[1]]
+    return {"rows": torch.cat([u, G.reshape(T - 1, 16, B), D], dim=1),
+            "nll": nll, "mf_scale": 1.0 + float(mfs.abs().max())}
+
+
+def fused_entry(timing, kernel):
+    """The ``kernels`` line's times of a fused kernel from 6e's ``timing``:
+    ``ms``, ``bound_ms`` and ``bound_by`` at B=4096 f32 in the mode of
+    6d's call (F maps, G slim), ``ms_b100``, ``ms_f64`` and its bound, and
+    F's factor mode and G's full output beside."""
+    key = {"affine_backward": "affine_backward_slim"}.get(kernel, kernel)
+    f32, f64, b100 = (timing[t] for t in ("B=4096/f32", "B=4096/f64",
+                                          "B=100/f32"))
+    entry = dict(ms=f32[key]["ms"], bound_ms=f32[key]["bound_ms"],
+                 bound_by=f32[key]["bound_by"], ms_b100=b100[key]["ms"],
+                 ms_f64=f64[key]["ms"], bound_ms_f64=f64[key]["bound_ms"])
+    other = {"fused_forward": ("fused_forward_factors", "factors"),
+             "affine_backward": ("affine_backward", "full")}.get(kernel)
+    if other:
+        entry.update({f"ms_{other[1]}": f32[other[0]]["ms"],
+                      f"bound_ms_{other[1]}": f32[other[0]]["bound_ms"],
+                      f"ms_{other[1]}_f64": f64[other[0]]["ms"]})
+    return entry
+
+
+def phase_fused_timing(device, smi):
+    """6e: CUDA-event times of each fused kernel alone, after one warm-up:
+    F in maps and factor mode, G full and slim, E in its variance mode,
+    and the smoother's phase B on F's factor rows, GH-3 at B=4096 x
+    T=3141 (float32 and float64) and at the Table-I width (the 100 records
+    of toydata_const at the reference's GHFS optimum, float32), beside each
+    kernel's bound (``fused_cost``, ``expectation_g_cost``,
+    ``smoother_phase_costs``)."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.convert import params_from_jax
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_fused import (
+        ROW_WORDS, FusedKernels, fused_cost)
+    from chirpgp_tpu_torch.ops.chirp_smoother import (
+        expectation_g_cost, expectation_launcher, smoother_phase_costs)
+    cfg = IFEstimationConfig()
+    rule, order = cfg.sigma_points(), cfg.expectation_order
+    S = rule.n_points
+    t_phase = time.perf_counter()
+    y100 = torch.as_tensor(
+        np.load(ROOT / "results/data/toydata_const.npz")["ys"],
+        dtype=torch.float32, device=device)
+    opt = params_from_jax(np.load(
+        ROOT / "results/reference/ghfs_const.npz")["params"][0])
+    bench = measurements(B_FULL, T_FULL, 999, torch.float64, device)
+    cases = {"B=4096/f32": (g(cfg.default_init_theta()), bench.float()),
+             "B=4096/f64": (g(cfg.default_init_theta()), bench),
+             "B=100/f32": (opt, y100)}
+    out, parts = {}, []
+    for tag, (params, yss) in cases.items():
+        B, T = yss.shape
+        like = dict(dtype=yss.dtype, device=device)
+        kernels = FusedKernels(params, XI, DT, rule, yss.dtype, device)
+        ys_t = yss.T.contiguous()
+        rows = torch.empty((T - 1, ROW_WORDS, B), **like)
+        nll = torch.empty((T, B), **like)
+        mf, lf = (torch.empty((1, n, B), **like) for n in (4, 16))
+        ms = {"fused_forward": event_ms(
+            lambda: kernels.forward(ys_t, rows, mf, lf, nll, False))}
+        vm, vv = (torch.empty((T, B), **like) for _ in range(2))
+        ms["affine_backward_slim"] = event_ms(
+            lambda: kernels.backward(rows, mf, lf, vm, vv, 2))
+        om, op = torch.empty((T, 4, B), **like), torch.empty((T, 16, B),
+                                                             **like)
+        ms["affine_backward"] = event_ms(
+            lambda: kernels.backward(rows, mf, lf, om, op))
+        check(torch.equal(om[:, 2], vm) and torch.equal(op[:, 10], vv),
+              f"6e {tag}: G's slim output differs from its full one")
+        del om, op
+        launch, if_mean = expectation_launcher(vm, vv, order)
+        ms["smoother_expect_var"] = event_ms(launch)
+        check(all(bool(torch.isfinite(x).all()) for x in (nll, if_mean)),
+              f"6e {tag}: non-finite outputs")
+        del launch, if_mean
+        mfs, lfs = (torch.empty((T, n, B), **like) for n in (4, 16))
+        ms["fused_forward_factors"] = event_ms(
+            lambda: kernels.forward(ys_t, rows, mfs, lfs, nll, True))
+        mss, lss = torch.empty_like(mfs), torch.empty_like(lfs)
+        ms["smoother_backward"] = event_ms(
+            lambda: kernels.rows_backward(mfs, lfs, rows, mss, lss))
+        check(bool(torch.isfinite(mss).all()), f"6e {tag}: non-finite mss")
+        del mfs, lfs, mss, lss, rows, kernels
+        costs = {**fused_cost(S, T, B, yss.dtype),
+                 "smoother_expect_var": expectation_g_cost(T, B, yss.dtype,
+                                                           order),
+                 "smoother_backward": smoother_phase_costs(
+                     S, T, B, yss.dtype)["smoother_backward"]}
+        out[tag] = {}
+        for k, t in ms.items():
+            _, _, bound, by = bound_ms(S, T, B, yss.dtype,
+                                       lambda *a, _c=costs[k]: _c)
+            out[tag][k] = dict(ms=t, bound_ms=bound, bound_by=by)
+        parts.append(f"{tag} T={T}: " + ", ".join(
+            f"{k} {v['ms']!r} ms (bound {v['bound_ms']!r} ms, {v['bound_by']},"
+            f" share {v['bound_ms'] / v['ms']:.4f})"
+            for k, v in out[tag].items()))
+        torch.cuda.empty_cache()
+    print(f"phase 6e fused kernels alone ({time.perf_counter() - t_phase:.3f}"
+          f" s; CUDA events, 1 warm-up + {TIMING_REPS} launches; {smi}; peaks "
+          f"67/34 TFLOP/s f32/f64, 3.35 TB/s): " + "; ".join(parts))
+    return out
 
 
 def lane_alone(ys_lane, theta, device):
@@ -3747,7 +4075,8 @@ def run() -> int:
     torch.cuda.empty_cache()
     phase_accuracy(device)
     phase_mle(device)
-    phase_fused(device, if_ref, t_ref)
+    fused = phase_fused(device, if_ref, t_ref)
+    fused_ms = phase_fused_timing(device, smi)
     phase_sweep(device, smi)
     family = phase_family(device, smi)
     phase_table_one(device, smi)
@@ -3800,7 +4129,15 @@ def run() -> int:
         "library_ms": None,
         "ms_b100": smoother["gh3/B=100/f32"]["phases"][kernel]["ms"],
         "ms_f64": smoother["gh3/B=4096/f64"]["phases"][kernel]["ms"]}
-        for kernel in smoother_kernels]}))
+        for kernel in smoother_kernels] + [dict({
+        # The fused filter+smoother's kernels on bench.py's slim headline
+        # (6d), each timed alone (6e): F in maps mode, G slim, E.
+        "name": kernel, "route": "cuda",
+        "source": SMOOTHER_SOURCE if kernel == "smoother_expect_var"
+        else FUSED_SOURCE, "replaces": FUSED_REPLACES[kernel],
+        "launches": launches_, "max_abs_err": err, "plain_ms": plain_ms,
+        "library_ms": None}, **fused_entry(fused_ms, kernel))
+        for kernel, (launches_, err, plain_ms) in fused.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -243,9 +243,46 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
     if out_index is not None and return_factors:
         raise ValueError("out_index (slim output) requires "
                          "return_factors=False")
+    T = yss.shape[1]
+    nlls, steps, m, L = _fused_forward(cond_m_cov, sgps, H, Xi, m0, P0, dt,
+                                       yss, return_factors)
+
+    # The maps emitted at filter iteration t smooth time t-1 given time t:
+    # backward element k pairs step k's filtered mean with step k+1's maps.
+    if return_factors:
+        ms, Ls = m, L
+        mss, Lss = [ms], [Ls]
+        for k in range(T - 2, -1, -1):
+            mf_prev = steps[k][0]
+            _, _, mp, X, R22 = steps[k + 1]
+            G = X.transpose(0, 1)
+            ms = mf_prev + torch.einsum("ijb,jb->ib", G, ms - mp)
+            GLs = torch.einsum("ijb,jkb->ikb", G, Ls)
+            Ls = tria_cf(torch.cat([GLs.transpose(0, 1), R22], dim=0)
+                         ).transpose(0, 1)
+            mss.append(ms)
+            Lss.append(Ls)
+        return torch.stack(mss[::-1]), torch.stack(Lss[::-1]), nlls
+
+    ms, Ps = _affine_backward(m, torch.einsum("ikb,jkb->ijb", L, L),
+                              steps[1:], out_index)
+    return ms, Ps, nlls
+
+
+def _fused_forward(cond_m_cov, sgps: SigmaPoints, H, Xi, m0, P0, dt,
+                   yss: torch.Tensor, factors: bool):
+    """The forward scan of ``sqrt_sgp_filter_smoother_batched``: per step
+    the filter's prediction through the projected joint triangularization,
+    its measurement update and nll, and what the backward pass reads.
+
+    Returns ``(nlls (T, B), steps, m, L)``, with ``m``, ``L`` the last
+    filtered moments.  ``steps[t]`` is iteration t's ``(mf, Lf, mp, X,
+    R22)`` when ``factors``, else the maps ``(u, G, D)`` of the affine
+    recursion, which smooth time t-1 given time t (``u = mf_{t-1} - G mp``,
+    ``G = X^T``, ``D = R22^T R22``)."""
     trans = as_transition(cond_m_cov)
     h_idx = _one_hot_index(H)
-    B, T = yss.shape
+    B = yss.shape[0]
     like = dict(dtype=yss.dtype, device=yss.device)
     d = m0.shape[-1]
 
@@ -287,35 +324,14 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
         nll = nll + inc
         nlls.append(nll)
         R22 = R[d:, d:]
-        if return_factors:
-            steps.append((m, mp, X, R22))
+        if factors:
+            steps.append((m, L, mp, X, R22))
             continue
         G = X.transpose(0, 1)
         u = m_prev - torch.einsum("ijb,jb->ib", G, mp)
         D = torch.einsum("kib,kjb->ijb", R22, R22)
         steps.append((u, G, D))
-    nlls = torch.stack(nlls)
-
-    # The maps emitted at filter iteration t smooth time t-1 given time t:
-    # backward element k pairs step k's filtered mean with step k+1's maps.
-    if return_factors:
-        ms, Ls = m, L
-        mss, Lss = [ms], [Ls]
-        for k in range(T - 2, -1, -1):
-            mf_prev = steps[k][0]
-            _, mp, X, R22 = steps[k + 1]
-            G = X.transpose(0, 1)
-            ms = mf_prev + torch.einsum("ijb,jb->ib", G, ms - mp)
-            GLs = torch.einsum("ijb,jkb->ikb", G, Ls)
-            Ls = tria_cf(torch.cat([GLs.transpose(0, 1), R22], dim=0)
-                         ).transpose(0, 1)
-            mss.append(ms)
-            Lss.append(Ls)
-        return torch.stack(mss[::-1]), torch.stack(Lss[::-1]), nlls
-
-    ms, Ps = _affine_backward(m, torch.einsum("ikb,jkb->ijb", L, L),
-                              steps[1:], out_index)
-    return ms, Ps, nlls
+    return torch.stack(nlls), steps, m, L
 
 
 def _affine_backward(ms, Ps, maps, out_index=None):

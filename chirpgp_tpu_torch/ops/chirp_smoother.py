@@ -26,6 +26,13 @@ Ls)^T; R22])^T``.  Phase E takes the expectation of every step at once.
 :func:`smoother_rows_reference` and :func:`smoother_backward_reference`
 are the plain twins of phases A and B, and ``smoothed_expectation_batched``
 is phase E's plain version: the kernels' oracle.
+
+:func:`gaussian_expectation_g` is phase E's second input mode: the same
+expectation from a ``(T, B)`` mean and variance of V, as the fused
+filter+smoother's slim output gives them (``ops/chirp_fused.py``); on the
+CPU it is ``gaussian_expectation_batched(v_mean, sqrt(max(v_var, 0)), g)``,
+bench.py's pipeline, and on a CUDA device the kernel
+``smoother_expect_var``.
 """
 
 import ctypes
@@ -35,16 +42,19 @@ import numpy as np
 import torch
 
 from chirpgp_tpu_torch.infer.batched import (
-    _backsub_cf, _rule_tensors, smoothed_expectation_batched,
-    sqrt_sgp_smoother_batched, tria_cf)
+    _backsub_cf, _rule_tensors, gaussian_expectation_batched,
+    smoothed_expectation_batched, sqrt_sgp_smoother_batched, tria_cf)
 from chirpgp_tpu_torch.infer.sqrt import _require_nonneg_weights
+from chirpgp_tpu_torch.models.bijections import g
 from chirpgp_tpu_torch.ops.chirp_filter import (
     MAX_POINTS, _chirp_constants, _chirp_pack)
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints, gauss_hermite
 from chirpgp_tpu_torch.utils.numerics import psd_cholesky
 
 __all__ = ["KERNELS", "ROWS", "ROW_WORDS", "SCRATCH_CAP", "SmootherKernels",
-           "TEAM", "ghfs_chirp_smoother", "ghfs_chirp_smoother_kernel",
+           "TEAM", "expectation_g_cost", "expectation_launcher",
+           "gaussian_expectation_g", "ghfs_chirp_smoother",
+           "ghfs_chirp_smoother_kernel",
            "ghfs_chirp_smoother_reference", "ghfs_chirp_smoother_split",
            "load_smoother_kernel", "rows_per_member",
            "smoother_backward_reference", "smoother_cost",
@@ -276,7 +286,9 @@ def load_smoother_kernel():
         back.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 3
         expect = getattr(lib, f"smoother_expect_{dt}")
         expect.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
-        for fn in (rows, back, expect):
+        expect_var = getattr(lib, f"smoother_expect_var_{dt}")
+        expect_var.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
+        for fn in (rows, back, expect, expect_var):
             fn.restype = i32
     for fn in (lib.ghfs_chirp_smoother_max_points,
                lib.ghfs_chirp_smoother_max_nodes,
@@ -411,14 +423,18 @@ class SmootherCost(NamedTuple):
     bytes: int   # each input read once, each output written once
 
 
+def _householder_column_flop(n: int, c: int) -> int:
+    """Flop of one Householder column as the kernels do it, over its n live
+    rows with c columns left: the Gram row, 2nc; alpha, |v|^2, beta, M_jj -
+    alpha, 6; w_k, 2c; row j of R, 1 + 2c; beta w_k and the rank-one update
+    of the columns k > j of the rows below j, (c-1)(1 + 2(n-1))."""
+    return 2 * n * c + 6 + 4 * c + 1 + (c - 1) * (1 + 2 * (n - 1))
+
+
 def _householder_flop(n: int, m: int) -> int:
     """Flop of the Householder triangularization of a dense n x m array
-    (n >= m) as the kernel does it: column j, c = m - j columns left: the
-    Gram row, 2(n-j)c; alpha, |v|^2, beta, M_jj - alpha, 6; w_k, 2c; row j
-    of R, 1 + 2c; beta w_k and the rank-one update of the columns k > j of
-    the rows below j, (c-1)(1 + 2(n-j-1))."""
-    return sum(2 * (n - j) * (m - j) + 6 + 4 * (m - j) + 1
-               + (m - j - 1) * (1 + 2 * (n - j - 1)) for j in range(m))
+    (n >= m): column j over n - j rows with m - j columns left."""
+    return sum(_householder_column_flop(n - j, m - j) for j in range(m))
 
 
 def smoother_cost(S: int, T: int, B: int, dtype=torch.float32,
@@ -487,6 +503,96 @@ def smoother_phase_costs(S: int, T: int, B: int, dtype=torch.float32,
                                         itemsize * 5 * T * B)}
 
 
+def _check_expectation(v_mean, v_var, order):
+    """The inputs both versions of :func:`gaussian_expectation_g` take;
+    raises ``ValueError`` otherwise."""
+    if v_mean.dtype not in (torch.float32, torch.float64) \
+            or v_var.dtype != v_mean.dtype:
+        raise ValueError(f"v_mean and v_var must both be float32 or float64, "
+                         f"got {v_mean.dtype} and {v_var.dtype}")
+    if v_mean.dim() != 2 or v_var.shape != v_mean.shape:
+        raise ValueError(f"v_mean and v_var must be (T, B) of one shape, got "
+                         f"{tuple(v_mean.shape)} and {tuple(v_var.shape)}")
+    if v_mean.device != v_var.device:
+        raise ValueError(f"v_mean on {v_mean.device}, v_var on {v_var.device}")
+    if v_mean.requires_grad or v_var.requires_grad:
+        raise ValueError("gaussian_expectation_g has no gradient; pass inputs "
+                         "that do not require grad")
+    if not 1 <= order <= MAX_NODES:
+        raise ValueError(f"order must be in 1..{MAX_NODES}, got {order}")
+
+
+def gaussian_expectation_g(v_mean: torch.Tensor, v_var: torch.Tensor,
+                           order: int = 10) -> torch.Tensor:
+    """E[g(V)], V ~ N(v_mean, max(v_var, 0)), by the order-K Gauss-Hermite
+    rule, for ``(T, B)`` means and variances (the fused filter+smoother's
+    slim output): the counterpart of bench.py's
+    ``gaussian_expectation_batched(v_mean, sqrt(max(v_var, 0)), g)``.
+    Returns ``(T, B)`` in ``v_mean.dtype`` on its device.  CPU tensors run
+    that plain expression; CUDA tensors launch phase E's kernel in its
+    second input mode (built on first use) or raise;
+    ``gaussian_expectation_g.launches`` counts the launches."""
+    _check_expectation(v_mean, v_var, order)
+    if v_mean.device.type == "cpu":
+        return gaussian_expectation_batched(v_mean, v_var.clamp_min(0.0).sqrt(),
+                                            g, order)
+    if v_mean.device.type != "cuda":
+        raise ValueError(f"gaussian_expectation_g runs on cpu or cuda tensors, "
+                         f"got {v_mean.device}")
+    launch, out = expectation_launcher(v_mean, v_var, order)
+    launch()
+    return out
+
+
+def expectation_launcher(v_mean: torch.Tensor, v_var: torch.Tensor,
+                         order: int = 10):
+    """Check the inputs of :func:`gaussian_expectation_g` for the kernel,
+    build it, the GH rule's tables and the output, and return ``(launch,
+    if_mean)``: each ``launch()`` runs ``smoother_expect_var`` once on the
+    current stream and counts it; it does no host work besides the ctypes
+    call."""
+    _check_expectation(v_mean, v_var, order)
+    if v_mean.device.type != "cuda":
+        raise ValueError(f"the smoother_expect_var kernel runs on cuda "
+                         f"tensors; a cpu tensor takes the plain version; got "
+                         f"{v_mean.device}")
+    if not (v_mean.is_contiguous() and v_var.is_contiguous()):
+        raise ValueError("the expectation kernel takes contiguous v_mean and "
+                         "v_var")
+    lib = load_smoother_kernel().lib
+    T, B = v_mean.shape
+    like = dict(dtype=v_mean.dtype, device=v_mean.device)
+    gh = gauss_hermite(1, order)
+    ghx = torch.as_tensor(np.ascontiguousarray(gh.xi[:, 0]), **like)
+    ghw = torch.as_tensor(np.asarray(gh.w), **like)
+    if_mean = torch.empty((T, B), **like)
+    entry = getattr(lib, "smoother_expect_var_"
+                    + ("f32" if v_mean.dtype == torch.float32 else "f64"))
+
+    def launch():
+        with torch.cuda.device(v_mean.device):
+            rc = entry(v_mean.data_ptr(), v_var.data_ptr(), ghx.data_ptr(),
+                       ghw.data_ptr(), order, T, B, if_mean.data_ptr(),
+                       torch.cuda.current_stream(v_mean.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"smoother_expect_var kernel launch failed: "
+                               f"CUDA error {rc}")
+        gaussian_expectation_g.launches += 1
+
+    return launch, if_mean
+
+
+def expectation_g_cost(T: int, B: int, dtype=torch.float32,
+                       order: int = 10) -> SmootherCost:
+    """Least work of one :func:`gaussian_expectation_g` call: per element
+    the clamp and sqrt, 2, and per GH node the point, 2, softplus, 2, and
+    the weighted sum, 2 (softplus's 2 transcendentals are not counted);
+    the mean and variance read and the expectation written, 3 words."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return SmootherCost((2 + 6 * order) * T * B, itemsize * 3 * T * B)
+
+
+gaussian_expectation_g.launches = 0
 ghfs_chirp_smoother.launches = 0
 # Launches of each CUDA kernel of the smoother (phases A and B once per
 # slab, phase E once per call).

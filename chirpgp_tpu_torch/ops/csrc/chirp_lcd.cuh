@@ -1,8 +1,12 @@
-// Device code shared by the chirp filter and smoother kernels: the math
-// wrappers of both precisions, the stable softplus, the model constants in
-// the layout of ops/chirp_filter.py::_chirp_constants, and the chirp-LCD
-// transition mean (rotation with decay at the frozen frequency softplus(V),
-// exact Matern-3/2 step).
+// Device code shared by the chirp filter, smoother and fused
+// filter+smoother kernels: the math wrappers of both precisions, the stable
+// softplus, the model constants in the layout of
+// ops/chirp_filter.py::_chirp_constants, the chirp-LCD transition mean
+// (rotation with decay at the frozen frequency softplus(V), exact
+// Matern-3/2 step), the filter step's parts that a team of P threads per
+// lane computes (sigma-point rows, the team's Householder, the 1-D
+// measurement update), the packed row of the smoother's maps, and the
+// cp.async copies of the backward recursions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,6 +19,14 @@ constexpr int kMaxPoints = 81;   // cap on S (GH-3 at d = 4)
 constexpr int kMaxThreads = 256;   // threads per block
 constexpr int kWords = kD + kD * kD + 1;   // output words per lane-step
 constexpr int kNumConsts = 4 + 16 + 16 + 4 + 3;
+constexpr int kH = 1;            // measured state component
+constexpr double kLog2Pi = 1.8378770664093454835606594728112;
+// The packed row of a smoothing step, per lane, B minor: m_p or u (kD),
+// X = R11^-1 R12 or G = X^T (kD * kD, row-major), then the upper triangle
+// of R22 or of D = R22^T R22 (row by row).
+constexpr int kXWord = kD;
+constexpr int kR22Word = kD + kD * kD;
+constexpr int kRowWords = kR22Word + kD * (kD + 1) / 2;
 
 template <typename Real>
 struct ChirpConsts {
@@ -86,6 +98,226 @@ __device__ __forceinline__ void lcd_mean(const ChirpConsts<Real>& c,
   mu[1] = sn * chi[0] + cs * chi[1];
   mu[2] = c.F[0][0] * chi[2] + c.F[0][1] * chi[3];
   mu[3] = c.F[1][0] * chi[2] + c.F[1][1] * chi[3];
+}
+
+// Word of entry (r, c), c >= r, of the upper triangle in a packed row.
+__host__ __device__ constexpr int r22_word(int r, int c) {
+  return kR22Word + r * kD - r * (r - 1) / 2 + (c - r);
+}
+
+// The shuffle mask of the calling thread's team of P threads (P divides
+// 32; a team never straddles a warp).
+template <int P>
+__device__ __forceinline__ unsigned team_mask() {
+  return P == 32 ? 0xffffffffu
+                 : ((1u << P) - 1u) << ((threadIdx.x & 31u) & ~unsigned(P - 1));
+}
+
+// Member `member`'s rows r = member + P i of a step's sigma points: chi =
+// m + L xi_r (L lower), the chirp-LCD mean into mu[i], and the partial
+// weighted mean mp.  Every row slot is computed, without a branch, so that
+// the rows' independent chains interleave; a slot past S computes point
+// S-1 at weight 0.  xi_s is xi transposed, kD x S.
+template <typename Real, int P, int kRows>
+__device__ __forceinline__ void predict_rows(
+    const ChirpConsts<Real>& c, const Real (&xi_s)[kD][kMaxPoints],
+    const Real (&w_s)[kMaxPoints], const int S, const int member,
+    const Real (&m)[kD], const Real (&L)[kD][kD], Real (&mu)[kRows][kD],
+    Real (&mp)[kD]) {
+#pragma unroll
+  for (int k = 0; k < kD; ++k) mp[k] = Real(0);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = member + P * i;
+    const int s = r < S ? r : S - 1;
+    Real chi[kD];
+#pragma unroll
+    for (int a = 0; a < kD; ++a) {
+      Real acc = Real(0);
+#pragma unroll
+      for (int j = 0; j <= a; ++j) acc += xi_s[j][s] * L[a][j];
+      chi[a] = m[a] + acc;
+    }
+    lcd_mean(c, chi, mu[i]);
+    const Real wgt = r < S ? w_s[s] : Real(0);
+#pragma unroll
+    for (int k = 0; k < kD; ++k) mp[k] += wgt * mu[i][k];
+  }
+}
+
+// Sum of x over the team: a __shfl_xor_sync butterfly over log2 P levels,
+// after which every member holds the sum (IEEE addition commutes, so every
+// member gets the same bits).
+template <int P, int N, typename Real>
+__device__ __forceinline__ void team_sum(const unsigned mask, Real (&x)[N]) {
+#pragma unroll
+  for (int o = P / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[k] += __shfl_xor_sync(mask, x[k], o, P);
+  }
+}
+
+// Householder triangularization of an n x kD array spread over the team:
+// member p owns rows p, p + P, ... (pre[i], i < kRows); row j < kD is owned
+// by member j (i = 0).  Column j needs the partial Gram row G_jk = sum_{r
+// >= j} M_rj M_rk (k >= j): one team reduction of kD - j values.  With
+// alpha = -sign(M_jj) |x| (tria_cf's sign rule; M_jj broadcast from its
+// owner), |v|^2 = 2 (G_jj - alpha M_jj), with no cancellation since -alpha
+// M_jj >= 0, and w_k = G_jk - alpha M_jk; each member then reflects the
+// columns k > j of its own rows (column j is not read again).  Reflections
+// with |v|^2 <= 1e-30 are skipped, as in tria_cf.  Row j of R is computed
+// by every member from the broadcast row j and the reduced w, the owner's
+// own arithmetic: R (upper) ends on every member.
+template <typename Real, int P, int kRows>
+__device__ __forceinline__ void team_tria(const unsigned mask, const int member,
+                                          Real (&pre)[kRows][kD],
+                                          Real (&R)[kD][kD]) {
+#pragma unroll
+  for (int j = 0; j < kD; ++j) {
+    Real g[kD], Mj[kD];
+#pragma unroll
+    for (int k = j; k < kD; ++k) g[k] = Real(0);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const Real x = (i > 0 || member >= j) ? pre[i][j] : Real(0);
+#pragma unroll
+      for (int k = j; k < kD; ++k) g[k] += x * pre[i][k];
+    }
+#pragma unroll
+    for (int k = j; k < kD; ++k) Mj[k] = __shfl_sync(mask, pre[0][k], j, P);
+#pragma unroll
+    for (int o = P / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = j; k < kD; ++k) g[k] += __shfl_xor_sync(mask, g[k], o, P);
+    }
+    const Real norm = dsqrt(g[j]);
+    const Real alpha = Mj[j] >= Real(0) ? -norm : norm;
+    const Real vn2 = Real(2) * (g[j] - alpha * Mj[j]);
+    const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
+    const Real vj = Mj[j] - alpha;
+    Real wk[kD];
+#pragma unroll
+    for (int k = j; k < kD; ++k) {
+      wk[k] = g[k] - alpha * Mj[k];
+      R[j][k] = Mj[k] - beta * vj * wk[k];
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const Real v = (i > 0 || member > j) ? pre[i][j] : Real(0);
+#pragma unroll
+      for (int k = j + 1; k < kD; ++k) pre[i][k] -= beta * v * wk[k];
+    }
+  }
+}
+
+// One Householder reflection of column J of the N x N array M, over rows
+// J..Last: the rows below Last hold exact zeros in column J, so the dense
+// reflection would leave them as they are.  Columns J..N-1 are updated.
+// Over one row (J == Last) the reflection is x -> alpha = -x: the row is
+// negated, exactly, where the dense arithmetic would round -x by an ulp
+// or two; it is skipped where |v|^2 = (2x)^2 <= 1e-30, as there.
+template <int J, int Last, int N, typename Real>
+__device__ __forceinline__ void reflect(Real (&M)[N][N]) {
+  if constexpr (J == Last) {
+    const Real v = M[J][J] + M[J][J];
+    if (v * v > Real(1e-30)) {
+#pragma unroll
+      for (int k = J; k < N; ++k) M[J][k] = -M[J][k];
+    }
+    return;
+  }
+  Real nrm2 = Real(0);
+#pragma unroll
+  for (int r = J; r <= Last; ++r) nrm2 += M[r][J] * M[r][J];
+  const Real norm = dsqrt(nrm2);
+  const Real alpha = M[J][J] >= Real(0) ? -norm : norm;
+  Real v[N];
+  Real vn2 = Real(0);
+#pragma unroll
+  for (int r = J; r <= Last; ++r) {
+    v[r] = r == J ? M[r][J] - alpha : M[r][J];
+    vn2 += v[r] * v[r];
+  }
+  const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
+#pragma unroll
+  for (int k = J; k < N; ++k) {
+    Real wk = Real(0);
+#pragma unroll
+    for (int r = J; r <= Last; ++r) wk += v[r] * M[r][k];
+#pragma unroll
+    for (int r = J; r <= Last; ++r) M[r][k] -= beta * v[r] * wk;
+  }
+}
+
+// The 1-D measurement update of y on state kH, from the predicted mean mp
+// and upper factor Up: the (kD+1) x (kD+1) array [[sqrt(Xi), 0], [Up[:,
+// kH], Up]] triangularized in registers (its structural zeros skipped:
+// they add exact zeros, so the result is that of the dense reflections),
+// then the innovation, the filtered m and lower L, and the cumulative nll.
+template <typename Real>
+__device__ __forceinline__ void measurement_update(
+    const ChirpConsts<Real>& c, const Real (&Up)[kD][kD], const Real (&mp)[kD],
+    const Real y, Real (&m)[kD], Real (&L)[kD][kD], Real& nll) {
+  Real U[kD + 1][kD + 1];
+  U[0][0] = c.sqrt_xi;
+#pragma unroll
+  for (int k = 0; k < kD; ++k) U[0][1 + k] = Real(0);
+#pragma unroll
+  for (int r = 0; r < kD; ++r) {
+    U[1 + r][0] = r <= kH ? Up[r][kH] : Real(0);
+#pragma unroll
+    for (int k = 0; k < kD; ++k) U[1 + r][1 + k] = r <= k ? Up[r][k] : Real(0);
+  }
+  // Column 0 is nonzero in rows 0..2 only, column 1 (after the first
+  // reflection) in rows 1..2, and columns 2..4 on the diagonal only.
+  reflect<0, 2>(U);
+  reflect<1, 2>(U);
+  reflect<2, 2>(U);
+  reflect<3, 3>(U);
+  reflect<4, 4>(U);
+
+  const Real sS = U[0][0];
+  const Real innov = y - mp[kH];
+  const Real ratio = innov / sS;
+#pragma unroll
+  for (int k = 0; k < kD; ++k) m[k] = mp[k] + U[0][1 + k] * ratio;
+  // Lf = Uf^T: Lf[i][j] = U[1+j][1+i] for j <= i.
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) L[i][j] = U[1 + j][1 + i];
+  }
+  nll += Real(0.5) * (Real(kLog2Pi) + dlog(sS * sS) + innov * innov / (sS * sS));
+}
+
+// One word of global memory into shared memory, asynchronously (cp.async,
+// sm_80 and later); the copy compiled for a host is the same copy, done at
+// once.  Each asm names memory as clobbered, so the compiler keeps the
+// loads of a slot between the wait for its copies and the next copies
+// into it: with no barrier after the wait, nothing else orders them.
+template <typename Real>
+__device__ __forceinline__ void copy_async(Real* dst, const Real* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(saddr),
+               "l"(src), "n"(sizeof(Real)) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
 }
 
 }  // namespace

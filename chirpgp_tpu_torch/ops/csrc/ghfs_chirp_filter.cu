@@ -91,48 +91,6 @@
 
 namespace {
 
-constexpr int kH = 1;            // measured state component
-constexpr double kLog2Pi = 1.8378770664093454835606594728112;
-
-// One Householder reflection of column J of the N x N array M, over rows
-// J..Last: the rows below Last hold exact zeros in column J, so the dense
-// reflection would leave them as they are.  Columns J..N-1 are updated.
-// Over one row (J == Last) the reflection is x -> alpha = -x: the row is
-// negated, exactly, where the dense arithmetic would round -x by an ulp
-// or two; it is skipped where |v|^2 = (2x)^2 <= 1e-30, as there.
-template <int J, int Last, int N, typename Real>
-__device__ __forceinline__ void reflect(Real (&M)[N][N]) {
-  if constexpr (J == Last) {
-    const Real v = M[J][J] + M[J][J];
-    if (v * v > Real(1e-30)) {
-#pragma unroll
-      for (int k = J; k < N; ++k) M[J][k] = -M[J][k];
-    }
-    return;
-  }
-  Real nrm2 = Real(0);
-#pragma unroll
-  for (int r = J; r <= Last; ++r) nrm2 += M[r][J] * M[r][J];
-  const Real norm = dsqrt(nrm2);
-  const Real alpha = M[J][J] >= Real(0) ? -norm : norm;
-  Real v[N];
-  Real vn2 = Real(0);
-#pragma unroll
-  for (int r = J; r <= Last; ++r) {
-    v[r] = r == J ? M[r][J] - alpha : M[r][J];
-    vn2 += v[r] * v[r];
-  }
-  const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
-#pragma unroll
-  for (int k = J; k < N; ++k) {
-    Real wk = Real(0);
-#pragma unroll
-    for (int r = J; r <= Last; ++r) wk += v[r] * M[r][k];
-#pragma unroll
-    for (int r = J; r <= Last; ++r) M[r][k] -= beta * v[r] * wk;
-  }
-}
-
 // kRows: pre-array rows a member owns, with P kRows >= S + kD.
 template <typename Real, int P, int kRows>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -165,9 +123,7 @@ ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
   const int member = threadIdx.x % P;
   const int b = blockIdx.x * lanes_per_block + static_cast<int>(threadIdx.x) / P;
   if (b >= B) return;
-  const unsigned mask =
-      P == 32 ? 0xffffffffu
-              : ((1u << P) - 1u) << ((threadIdx.x & 31u) & ~unsigned(P - 1));
+  const unsigned mask = team_mask<P>();
   const size_t Bs = static_cast<size_t>(B);
   const int n = S + kD;
 
@@ -184,34 +140,10 @@ ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
   for (int t = 0; t < T; ++t) {
     const Real y = ys[t * Bs + b];
 
-    // Own sigma points, chirp-LCD mean, partial weighted mean.  Every row
-    // slot is computed, without a branch, so that the rows' independent
-    // chains interleave; a slot past S computes point S-1 at weight 0.
+    // Own sigma points, chirp-LCD mean, weighted mean over the team.
     Real mp[kD];
-#pragma unroll
-    for (int k = 0; k < kD; ++k) mp[k] = Real(0);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = member + P * i;
-      const int s = r < S ? r : S - 1;
-      Real chi[kD];
-#pragma unroll
-      for (int a = 0; a < kD; ++a) {
-        Real acc = Real(0);
-#pragma unroll
-        for (int j = 0; j <= a; ++j) acc += xi_s[j][s] * L[a][j];
-        chi[a] = m[a] + acc;
-      }
-      lcd_mean(c, chi, pre[i]);
-      const Real wgt = r < S ? w_s[s] : Real(0);
-#pragma unroll
-      for (int k = 0; k < kD; ++k) mp[k] += wgt * pre[i][k];
-    }
-#pragma unroll
-    for (int o = P / 2; o > 0; o >>= 1) {
-#pragma unroll
-      for (int k = 0; k < kD; ++k) mp[k] += __shfl_xor_sync(mask, mp[k], o, P);
-    }
+    predict_rows<Real, P, kRows>(c, xi_s, w_s, S, member, m, L, pre, mp);
+    team_sum<P>(mask, mp);
 
     // Own rows of the pre-array [sqrt(w)(mu - mp); Lq^T; 0].
 #pragma unroll
@@ -226,78 +158,12 @@ ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
       }
     }
 
-    // Householder triangularization, one team reduction per column.  Row
-    // j is owned by member j (i = 0); rows r < j are finished and masked.
-    Real R[kD][kD];   // upper triangle, on every member
-#pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      Real g[kD], Mj[kD];
-#pragma unroll
-      for (int k = j; k < kD; ++k) g[k] = Real(0);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const Real x = (i > 0 || member >= j) ? pre[i][j] : Real(0);
-#pragma unroll
-        for (int k = j; k < kD; ++k) g[k] += x * pre[i][k];
-      }
-#pragma unroll
-      for (int k = j; k < kD; ++k) Mj[k] = __shfl_sync(mask, pre[0][k], j, P);
-#pragma unroll
-      for (int o = P / 2; o > 0; o >>= 1) {
-#pragma unroll
-        for (int k = j; k < kD; ++k) g[k] += __shfl_xor_sync(mask, g[k], o, P);
-      }
-      const Real norm = dsqrt(g[j]);
-      const Real alpha = Mj[j] >= Real(0) ? -norm : norm;
-      const Real vn2 = Real(2) * (g[j] - alpha * Mj[j]);
-      const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
-      const Real vj = Mj[j] - alpha;
-      Real wk[kD];
-#pragma unroll
-      for (int k = j; k < kD; ++k) {
-        wk[k] = g[k] - alpha * Mj[k];
-        R[j][k] = Mj[k] - beta * vj * wk[k];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const Real v = (i > 0 || member > j) ? pre[i][j] : Real(0);
-#pragma unroll
-        for (int k = j + 1; k < kD; ++k) pre[i][k] -= beta * v * wk[k];
-      }
-    }
-
-    // Update array: column 0 = [sqrt(Xi); Up[:, kH]], column 1+k =
-    // [0; Up[:, k]], with Up = R the upper factor of the prediction.
-    Real U[kD + 1][kD + 1];
-    U[0][0] = c.sqrt_xi;
-#pragma unroll
-    for (int k = 0; k < kD; ++k) U[0][1 + k] = Real(0);
-#pragma unroll
-    for (int r = 0; r < kD; ++r) {
-      U[1 + r][0] = r <= kH ? R[r][kH] : Real(0);
-#pragma unroll
-      for (int k = 0; k < kD; ++k) U[1 + r][1 + k] = r <= k ? R[r][k] : Real(0);
-    }
-    // Column 0 is nonzero in rows 0..2 only, column 1 (after the first
-    // reflection) in rows 1..2, and columns 2..4 on the diagonal only.
-    reflect<0, 2>(U);
-    reflect<1, 2>(U);
-    reflect<2, 2>(U);
-    reflect<3, 3>(U);
-    reflect<4, 4>(U);
-
-    const Real sS = U[0][0];
-    const Real innov = y - mp[kH];
-    const Real ratio = innov / sS;
-#pragma unroll
-    for (int k = 0; k < kD; ++k) m[k] = mp[k] + U[0][1 + k] * ratio;
-    // Lf = Uf^T: Lf[i][j] = U[1+j][1+i] for j <= i.
-#pragma unroll
-    for (int i = 0; i < kD; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) L[i][j] = U[1 + j][1 + i];
-    }
-    nll += Real(0.5) * (Real(kLog2Pi) + dlog(sS * sS) + innov * innov / (sS * sS));
+    // Householder triangularization, one team reduction per column: Up =
+    // R, the upper factor of the prediction, on every member; then the
+    // measurement update.
+    Real R[kD][kD];
+    team_tria<Real, P>(mask, member, pre, R);
+    measurement_update(c, R, mp, y, m, L, nll);
 
     // Member p writes the words w with w % P == p.
     const size_t ts = static_cast<size_t>(t);

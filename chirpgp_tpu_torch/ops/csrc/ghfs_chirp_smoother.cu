@@ -33,7 +33,11 @@
 //      factor branch's bstep (infer/batched.py:349-365), writing mss and
 //      Lss;
 //   E. smoother_expect_kernel, parallel over (t, lane): E[g(V)] from the
-//      stored ms[kV] and row kV of Ls.
+//      stored ms[kV] and row kV of Ls.  Its second input mode,
+//      smoother_expect_var_kernel, reads a (T, B) mean and variance of V
+//      as they are (the fused filter+smoother's slim output,
+//      ghfs_chirp_fused.cu): the counterpart of bench.py's
+//      gaussian_expectation_batched(v_mean, sqrt(max(v_var, 0)), g).
 // The wrapper (ops/chirp_smoother.py) allocates the scratch with
 // torch.empty and, where (T-1) x 30 x B words pass its cap, runs A and B
 // over slabs of lanes.
@@ -112,22 +116,14 @@ namespace {
 
 constexpr int kD2 = 2 * kD;      // columns of the joint pre-array
 constexpr int kMaxNodes = 32;    // cap on the GH nodes of the expectation
-// Words of phase A's row per lane-step: m_p, X (row-major), R22's upper
-// triangle (row by row).
-constexpr int kXWord = kD;
-constexpr int kR22Word = kD + kD * kD;
-constexpr int kRowWords = kR22Word + kD * (kD + 1) / 2;
+// Phase A's row per lane-step is chirp_lcd.cuh's packed row: m_p, X
+// (row-major), R22's upper triangle (row by row).
 constexpr int kStepWords = kD + kRowWords;   // phase B's words per step
 constexpr int kStages = 4;                   // phase B's ring of steps
 constexpr int kTeam = 8;                     // phase A's threads per lane-step
 constexpr int kRowsThreads = 64;             // phase A's threads per block
 constexpr int kBackLanes = 32;               // phase B's lanes per block
 constexpr int kExpectThreads = 256;          // phase E's threads per block
-
-// Word of R22[r][c] (c >= r) in a row.
-__host__ __device__ constexpr int r22_word(int r, int c) {
-  return kR22Word + r * kD - r * (r - 1) / 2 + (c - r);
-}
 
 // Householder triangularization of the Rows x Cols array M (Rows >= Cols)
 // in registers, with tria_cf's arithmetic: per column j, norm over rows
@@ -344,36 +340,6 @@ smoother_rows_kernel(const Real* __restrict__ mfs,   // (T, kD, ld)
   }
 }
 
-// One word of global memory into shared memory, asynchronously (cp.async,
-// sm_80 and later); the copy compiled for a host is the same copy, done at
-// once.  Each asm names memory as clobbered, so the compiler keeps the
-// loads of a slot between the wait for its copies and the next copies
-// into it: with no barrier after the wait, nothing else orders them.
-template <typename Real>
-__device__ __forceinline__ void copy_async(Real* dst, const Real* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(saddr),
-               "l"(src), "n"(sizeof(Real)) : "memory");
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void copy_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
 // Phase B: one thread per lane of a slab of nb lanes (mfs, lfs, mss and
 // lss with ld lanes per row, the rows of phase A with nb).
 template <typename Real>
@@ -480,6 +446,30 @@ smoother_backward_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
   }
 }
 
+// The GH nodes and weights into shared memory, once per block.
+template <typename Real>
+__device__ __forceinline__ void load_nodes(const Real* __restrict__ ghx_g,
+                                           const Real* __restrict__ ghw_g,
+                                           const int K, Real (&ghx_s)[kMaxNodes],
+                                           Real (&ghw_s)[kMaxNodes]) {
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    ghx_s[i] = ghx_g[i];
+    ghw_s[i] = ghw_g[i];
+  }
+  __syncthreads();
+}
+
+// The order-K Gauss-Hermite sum E[softplus(V)], V ~ N(m, sd^2).
+template <typename Real>
+__device__ __forceinline__ Real gh_softplus(const Real m, const Real sd,
+                                            const int K,
+                                            const Real (&ghx_s)[kMaxNodes],
+                                            const Real (&ghw_s)[kMaxNodes]) {
+  Real acc = Real(0);
+  for (int q = 0; q < K; ++q) acc += ghw_s[q] * softplus(m + sd * ghx_s[q]);
+  return acc;
+}
+
 // Phase E: E[softplus(V)], V ~ N(mss[t, kV], sum_{j <= kV} Lss[t, kV, j]^2),
 // one thread per (t, lane) of n = T x B, lanes minor.
 template <typename Real>
@@ -492,11 +482,7 @@ smoother_expect_kernel(const Real* __restrict__ mss,    // (T, kD, B)
                        Real* __restrict__ if_out) {     // (T, B)
   __shared__ Real ghx_s[kMaxNodes];
   __shared__ Real ghw_s[kMaxNodes];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    ghx_s[i] = ghx_g[i];
-    ghw_s[i] = ghw_g[i];
-  }
-  __syncthreads();
+  load_nodes(ghx_g, ghw_g, K, ghx_s, ghw_s);
   const size_t Bs = static_cast<size_t>(B);
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -509,10 +495,32 @@ smoother_expect_kernel(const Real* __restrict__ mss,    // (T, kD, B)
       const Real l = lss[(ts * kD * kD + kV * kD + j) * Bs + b];
       vv += l * l;
     }
-    const Real sd = dsqrt(vv);
-    Real acc = Real(0);
-    for (int q = 0; q < K; ++q) acc += ghw_s[q] * softplus(m + sd * ghx_s[q]);
-    if_out[ts * Bs + b] = acc;
+    if_out[ts * Bs + b] = gh_softplus(m, dsqrt(vv), K, ghx_s, ghw_s);
+  }
+}
+
+// Phase E's second input mode, for the fused filter+smoother's slim output
+// (ops/chirp_fused.py): E[softplus(V)], V ~ N(v_mean, max(v_var, 0)), from
+// the (T, B) means and variances as they are, one thread per element.  The
+// standard deviation is sqrt(max(v_var, 0)), as bench.py's pipeline takes
+// it (the affine recursion's variance may round below 0), so no clamp or
+// sqrt launch sits between the recursion and the expectation.
+template <typename Real>
+__global__ void __launch_bounds__(kExpectThreads)
+smoother_expect_var_kernel(const Real* __restrict__ v_mean,  // (n,)
+                           const Real* __restrict__ v_var,   // (n,)
+                           const Real* __restrict__ ghx_g,   // (K,)
+                           const Real* __restrict__ ghw_g,   // (K,)
+                           const int K, const long long n,
+                           Real* __restrict__ if_out) {      // (n,)
+  __shared__ Real ghx_s[kMaxNodes];
+  __shared__ Real ghw_s[kMaxNodes];
+  load_nodes(ghx_g, ghw_g, K, ghx_s, ghw_s);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const Real var = v_var[i];
+    const Real sd = dsqrt(var > Real(0) ? var : Real(0));
+    if_out[i] = gh_softplus(v_mean[i], sd, K, ghx_s, ghw_s);
   }
 }
 
@@ -582,6 +590,17 @@ int launch_backward(const Real* mfs, const Real* lfs, const Real* rows, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grid of a phase-E kernel over n elements: as many blocks as the
+// card holds at once, fewer where n needs fewer.
+template <typename Kernel>
+int expect_blocks(Kernel kernel, long long n, int* blocks) {
+  int cap = 0;
+  const int err = resident_blocks(kernel, kExpectThreads, &cap);
+  const long long need = (n + kExpectThreads - 1) / kExpectThreads;
+  *blocks = static_cast<int>(need < cap ? need : cap);
+  return err;
+}
+
 template <typename Real>
 int launch_expect(const Real* mss, const Real* lss, const Real* ghx,
                   const Real* ghw, int K, int T, int B, Real* if_out,
@@ -590,15 +609,29 @@ int launch_expect(const Real* mss, const Real* lss, const Real* ghx,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(T) * B;
   if (n == 0) return 0;
-  int cap = 0;
-  const int err = resident_blocks(smoother_expect_kernel<Real>,
-                                  kExpectThreads, &cap);
+  int blocks = 0;
+  const int err = expect_blocks(smoother_expect_kernel<Real>, n, &blocks);
   if (err != 0) return err;
-  const long long need = (n + kExpectThreads - 1) / kExpectThreads;
-  const int blocks = static_cast<int>(need < cap ? need : cap);
   smoother_expect_kernel<Real><<<blocks, kExpectThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       mss, lss, ghx, ghw, K, n, B, if_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Real>
+int launch_expect_var(const Real* v_mean, const Real* v_var, const Real* ghx,
+                      const Real* ghw, int K, int T, int B, Real* if_out,
+                      void* stream) {
+  if (K < 1 || K > kMaxNodes || T < 0 || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(T) * B;
+  if (n == 0) return 0;
+  int blocks = 0;
+  const int err = expect_blocks(smoother_expect_var_kernel<Real>, n, &blocks);
+  if (err != 0) return err;
+  smoother_expect_var_kernel<Real><<<blocks, kExpectThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      v_mean, v_var, ghx, ghw, K, n, if_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,6 +685,20 @@ int smoother_expect_f64(const double* mss, const double* lss,
                         const double* ghx, const double* ghw, int K, int T,
                         int B, double* if_out, void* stream) {
   return launch_expect<double>(mss, lss, ghx, ghw, K, T, B, if_out, stream);
+}
+
+int smoother_expect_var_f32(const float* v_mean, const float* v_var,
+                            const float* ghx, const float* ghw, int K, int T,
+                            int B, float* if_out, void* stream) {
+  return launch_expect_var<float>(v_mean, v_var, ghx, ghw, K, T, B, if_out,
+                                  stream);
+}
+
+int smoother_expect_var_f64(const double* v_mean, const double* v_var,
+                            const double* ghx, const double* ghw, int K, int T,
+                            int B, double* if_out, void* stream) {
+  return launch_expect_var<double>(v_mean, v_var, ghx, ghw, K, T, B, if_out,
+                                   stream);
 }
 
 }  // extern "C"

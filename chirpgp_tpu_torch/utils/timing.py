@@ -11,7 +11,7 @@ import contextlib
 import os
 import statistics
 import time
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,6 +94,7 @@ class DeviceProfile(NamedTuple):
     kernel_s: float        # their summed durations
     wall_s: float          # the call's wall time, not profiled
     profiled_wall_s: float
+    names: Tuple[str, ...] = ()   # the kernels' names, in launch order
 
     @property
     def busy(self) -> float:
@@ -120,4 +121,5 @@ def profile_device(fn: Callable) -> DeviceProfile:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     return DeviceProfile(len(kernels),
                          sum(e.time_range.elapsed_us() for e in kernels)
-                         * 1e-6, wall, profiled)
+                         * 1e-6, wall, profiled,
+                         tuple(e.name for e in kernels))

@@ -285,19 +285,21 @@ def test_projected_form_has_the_same_gram(rule):
 def test_kernel_source_matches_wrapper():
     """The kernels are built from ``csrc`` with phase A's team and its
     rows-per-member instances (which ``rows_per_member`` picks), the
-    wrapper's node cap and row width; their symbols are the ones the
-    wrapper binds, and each kernel the wrapper counts is a kernel of the
-    source."""
+    wrapper's node cap and row width (the packed row of ``chirp_lcd.cuh``);
+    their symbols are the ones the wrapper binds, and each kernel the
+    wrapper counts is a kernel of the source, phase E's second input mode
+    (``gaussian_expectation_g``) among them."""
     src = (_build.CSRC / "ghfs_chirp_smoother.cu").read_text()
+    lcd = (_build.CSRC / "chirp_lcd.cuh").read_text()
     cases = re.findall(r"case (\d+): return SMOOTHER_ROWS_LAUNCH\((\d+)\);",
                        src)
     assert sorted(int(r) for _, r in cases) == list(ROWS)
     assert all(c == r for c, r in cases)
     assert f"constexpr int kTeam = {TEAM};" in src
     assert f"constexpr int kMaxNodes = {MAX_NODES};" in src
-    assert "constexpr int kRowWords = kR22Word + kD * (kD + 1) / 2;" in src
+    assert "constexpr int kRowWords = kR22Word + kD * (kD + 1) / 2;" in lcd
     assert ROW_WORDS == 30
-    for name in KERNELS:
+    for name in KERNELS + ("smoother_expect_var",):
         assert re.search(rf"__global__ void __launch_bounds__\(\w+\)\n"
                          rf"{name}_kernel\(", src), name
         for dt in ("f32", "f64"):
@@ -306,7 +308,6 @@ def test_kernel_source_matches_wrapper():
         assert re.search(rf"\bint ghfs_chirp_smoother_{sym}\(", src), sym
     assert '#include "chirp_lcd.cuh"' in src
     # The expectation's V is the state the wrapper takes it from.
-    lcd = (_build.CSRC / "chirp_lcd.cuh").read_text()
     assert "constexpr int kV = 2;" in lcd and "softplus(chi[kV])" in lcd
     assert tp.IFEstimationConfig(model="chirp").v_index() == 2
     assert tp.IFEstimationConfig(model="lascala").v_index() == 2

@@ -22,11 +22,16 @@ from chirpgp_tpu_torch.models import build_chirp_model, g_inv
 from chirpgp_tpu_torch.ops.chirp_filter import (
     TEAMS, ghfs_chirp_filter, ghfs_chirp_filter_kernel,
     ghfs_chirp_filter_reference, lascala_chirp_params, launch_geometry)
-from chirpgp_tpu_torch.ops import chirp_smoother
+from chirpgp_tpu_torch.ops import chirp_fused, chirp_smoother
+from chirpgp_tpu_torch.ops.chirp_fused import (
+    FusedKernels, affine_backward_reference, fused_forward_reference,
+    fused_kernel_launcher, ghfs_chirp_filter_smoother,
+    ghfs_chirp_filter_smoother_reference)
 from chirpgp_tpu_torch.ops.chirp_smoother import (
-    ROW_WORDS, SmootherKernels, ghfs_chirp_smoother,
+    ROW_WORDS, SmootherKernels, gaussian_expectation_g, ghfs_chirp_smoother,
     ghfs_chirp_smoother_kernel, ghfs_chirp_smoother_reference,
-    smoother_kernel_launcher, smoother_rows_reference)
+    smoother_backward_reference, smoother_kernel_launcher,
+    smoother_rows_reference)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
@@ -681,7 +686,7 @@ def test_profile_device_counts_the_card_kernels(cuda):
 
     fn()
     prof = profile_device(fn)
-    assert prof.launches == 50 and prof.kernel_s > 0.0
+    assert prof.launches == 50 == len(prof.names) and prof.kernel_s > 0.0
     assert prof.wall_s > 0.0 and prof.profiled_wall_s > 0.0
     assert 0.0 < prof.busy
 
@@ -729,3 +734,197 @@ def test_sharded_paths_on_one_nccl_rank(cuda):
             npt.assert_allclose(_np(g_), _np(w_), rtol=1e-12, atol=1e-14)
     finally:
         dist.destroy_process_group()
+
+
+# The fused filter+smoother's kernels (ops/chirp_fused.py) against their
+# plain twins.  Bounds: max |d| over (1 + max |twin|), 1e-4 in float32 (the
+# filter kernel's scaled bound at the benchmark's shape, chip_smoke.py
+# FULL_BOUNDS) and 1e-9 in float64.  Factors and R22 are compared by their
+# Grams: a row of R may change sign with the rounding of a near-zero pivot.
+FUSED_SCALED = {"float32": 1e-4, "float64": 1e-9}
+# (rule, B, T): ragged and one-lane batches, T = 1 (the last filtered
+# moments only) and 2, and the benchmark's T=3141 with GH-3 (the twins'
+# eager loops take ~25 s a case there; cubature is held at T=29 too, in
+# test_fused_wrapper_matches_reference).
+FUSED_CASES = [(rule, B, T) for rule in ("gh3", "cubature")
+               for B, T in ((3, 1), (3, 2), (100, 2), (4096, 2))] + [
+                   ("gh3", 100, 3141)]
+
+
+def _scaled(a, b):
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    return float(np.abs(a - b).max() / (1.0 + np.abs(b).max())) if a.size \
+        else 0.0
+
+
+def _fused_inputs(cuda, dtype, B, T, seed):
+    ts = 1e-3 * np.arange(1, T + 1)
+    ys = np.sin(2 * np.pi * 8.0 * ts)[None] + np.sqrt(0.1) * \
+        np.random.default_rng(seed).standard_normal((B, T))
+    return torch.tensor(ys, dtype=getattr(torch, dtype), device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,B,T", FUSED_CASES)
+@pytest.mark.parametrize("factors", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_kernels_match_twins(cuda, dtype, rule, factors, B, T):
+    """Kernel F alone against its twin on the same measurements (maps: u,
+    G, D; factors: m_p, X, R22 by its Gram, every filtered mean and factor
+    by its Gram; the nll), then kernel G (full and slim) or the smoother's
+    phase B on F's own rows against their twins."""
+    bound = FUSED_SCALED[dtype]
+    sgps = RULES[rule]()
+    ys = _fused_inputs(cuda, dtype, B, T, B + T)
+    like = dict(dtype=ys.dtype, device=cuda)
+    kernels = FusedKernels(PARAMS, 0.1, 1e-3, sgps, ys.dtype, cuda)
+    rows = torch.empty((T - 1, ROW_WORDS, B), **like)
+    n = T if factors else 1
+    mfs, lfs = torch.empty((n, 4, B), **like), torch.empty((n, 16, B), **like)
+    nll = torch.empty((T, B), **like)
+    before = dict(ghfs_chirp_filter_smoother.kernel_launches)
+    kernels.forward(ys.T.contiguous(), rows, mfs, lfs, nll, factors)
+    want = fused_forward_reference(PARAMS, 0.1, 1e-3, sgps, ys,
+                                   factors=factors)
+    got = [_np(x) for x in (rows, mfs, lfs.view(n, 4, 4, B), nll)]
+    exp = [_np(x) for x in want]
+    assert [g.shape for g in got] == [e.shape for e in exp]
+    assert _scaled(got[0][:, :20], exp[0][:, :20]) <= bound
+    if factors:
+        assert _scaled(_upper_gram(got[0][:, 20:]),
+                       _upper_gram(exp[0][:, 20:])) <= bound
+    else:
+        assert _scaled(got[0][:, 20:], exp[0][:, 20:]) <= bound
+    assert _scaled(got[1], exp[1]) <= bound
+    assert _scaled(_gram(got[2]), _gram(exp[2])) <= bound
+    assert _scaled(got[3], exp[3]) <= bound
+
+    if factors:
+        mss, lss = torch.empty_like(mfs), torch.empty_like(lfs)
+        kernels.rows_backward(mfs, lfs, rows, mss, lss)
+        ms_t, Ls_t = smoother_backward_reference(mfs, lfs.view(T, 4, 4, B),
+                                                 rows)
+        assert _scaled(_np(mss), _np(ms_t)) <= bound
+        assert _scaled(_gram(_np(lss.view(T, 4, 4, B))), _gram(_np(Ls_t))) \
+            <= bound
+        launched = {"fused_forward": 1, "smoother_backward": 1}
+    else:
+        outs = {}
+        for oi in (None, 2):
+            shape = ((T, 4, B), (T, 16, B)) if oi is None else ((T, B),) * 2
+            o_m, o_p = (torch.empty(sh, **like) for sh in shape)
+            kernels.backward(rows, mfs, lfs, o_m, o_p, oi)
+            w_m, w_p = affine_backward_reference(rows, mfs[0],
+                                                 lfs[0].view(4, 4, B), oi)
+            assert _scaled(_np(o_m), _np(w_m)) <= bound
+            assert _scaled(_np(o_p.view(w_p.shape)), _np(w_p)) <= bound
+            outs[oi] = (o_m, o_p.view(w_p.shape))
+        # Slim is the full output's slices, bit for bit: the same carry.
+        assert torch.equal(outs[2][0], outs[None][0][:, 2])
+        assert torch.equal(outs[2][1], outs[None][1][:, 2, 2])
+        launched = {"fused_forward": 1, "affine_backward": 2}
+    assert ghfs_chirp_filter_smoother.kernel_launches == {
+        k: v + launched.get(k, 0) for k, v in before.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rule", ["gh3", "cubature"])
+def test_fused_wrapper_matches_reference(cuda, rule, dtype):
+    """The wrapper on CUDA tensors in its three modes against its plain
+    version (B=37, T=29), one launch each; the factor mode's rows against
+    phase A's kernel on F's filtered moments (m_p and X, R22 by its Gram);
+    La Scala through ``lascala_chirp_params``."""
+    bound = FUSED_SCALED[dtype]
+    sgps = RULES[rule]()
+    ys = _fused_inputs(cuda, dtype, 37, 29, 5)
+    for params in (PARAMS, lascala_chirp_params(torch.tensor(PARAMS[2:]))):
+        for mode in (dict(), dict(return_factors=False),
+                     dict(return_factors=False, out_index=2)):
+            before = ghfs_chirp_filter_smoother.launches
+            got = ghfs_chirp_filter_smoother(params, 0.1, 1e-3, sgps, ys,
+                                             **mode)
+            assert ghfs_chirp_filter_smoother.launches == before + 1
+            want = ghfs_chirp_filter_smoother_reference(params, 0.1, 1e-3,
+                                                        sgps, ys, **mode)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert g.shape == w.shape and g.dtype == ys.dtype
+                assert g.device == ys.device
+                g, w = _np(g), _np(w)
+                if not mode and i == 1:
+                    g, w = _gram(g), _gram(w)
+                assert _scaled(g, w) <= bound, (mode, i)
+    kernels = FusedKernels(PARAMS, 0.1, 1e-3, sgps, ys.dtype, cuda)
+    like = dict(dtype=ys.dtype, device=cuda)
+    rows = torch.empty((28, ROW_WORDS, 37), **like)
+    mfs, lfs = torch.empty((29, 4, 37), **like), torch.empty((29, 16, 37),
+                                                             **like)
+    kernels.forward(ys.T.contiguous(), rows, mfs, lfs,
+                    torch.empty((29, 37), **like), True)
+    rows_a = torch.empty_like(rows)
+    SmootherKernels(PARAMS, 1e-3, sgps, 10, ys.dtype, cuda).rows(
+        mfs, lfs.view(29, 4, 4, 37), rows_a)
+    assert _scaled(_np(rows[:, :20]), _np(rows_a[:, :20])) <= bound
+    assert _scaled(_upper_gram(_np(rows[:, 20:])),
+                   _upper_gram(_np(rows_a[:, 20:]))) <= bound
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
+    """A CUDA tensor never reaches the plain version: with the loader made
+    to fail, the wrapper raises, and the plain twins are not called."""
+    def fail():
+        raise RuntimeError("nvcc failed (made to fail)")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(chirp_fused, "load_fused_kernel", fail)
+    monkeypatch.setattr(chirp_fused, "ghfs_chirp_filter_smoother_reference",
+                        plain)
+    monkeypatch.setattr(chirp_fused, "fused_forward_reference", plain)
+    ys = _fused_inputs(cuda, "float32", 4, 8, 1)
+    before = ghfs_chirp_filter_smoother.launches
+    with pytest.raises(RuntimeError, match="made to fail"):
+        ghfs_chirp_filter_smoother(PARAMS, 0.1, 1e-3, gauss_hermite(4, 3), ys,
+                                   return_factors=False, out_index=2)
+    assert ghfs_chirp_filter_smoother.launches == before
+
+
+@pytest.mark.cuda
+def test_fused_launch_keeps_its_tensors(cuda):
+    """A bare ``launch`` whose caller keeps only the slim outputs writes the
+    same bits at every repeat, other tensors taking the freed memory."""
+    import gc
+    ys = _fused_inputs(cuda, "float32", 64, 150, 6)
+    launch, (vm, vv, nll) = fused_kernel_launcher(
+        PARAMS, 0.1, 1e-3, gauss_hermite(4, 3), ys, return_factors=False,
+        out_index=2)
+    gc.collect()
+    launch()
+    first = [x.clone() for x in (vm, vv, nll)]
+    for k in range(4):
+        junk = [torch.full((n,), float(k + 1), device=cuda)
+                for n in (149 * ROW_WORDS * 64, 150 * 64, 81 * 4)]
+        launch()
+        del junk
+        assert all(torch.equal(a, b) for a, b in zip((vm, vv, nll), first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gaussian_expectation_g_matches_plain(cuda, dtype):
+    """Phase E's second input mode against its plain version, a variance
+    below 0 clamped to 0 as bench.py's pipeline clamps it; one launch."""
+    rng = np.random.default_rng(8)
+    vm = torch.tensor(rng.normal(7.0, 1.0, (33, 70)),
+                      dtype=getattr(torch, dtype), device=cuda)
+    vv = torch.tensor(rng.uniform(-1e-6, 0.5, (33, 70)),
+                      dtype=getattr(torch, dtype), device=cuda)
+    before = gaussian_expectation_g.launches
+    got = gaussian_expectation_g(vm, vv, 10)
+    assert gaussian_expectation_g.launches == before + 1
+    want = gaussian_expectation_g(vm.cpu(), vv.cpu(), 10)
+    assert gaussian_expectation_g.launches == before + 1
+    assert got.shape == (33, 70) and got.dtype == vm.dtype
+    assert _scaled(_np(got), _np(want)) <= FUSED_SCALED[dtype] * 1e-1

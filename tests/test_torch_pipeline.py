@@ -305,6 +305,7 @@ def test_port_never_imports_jax():
     assert len(files) > 15
     assert {PORT / "models/kpt.py", PORT / "apps/kpt.py",
             PORT / "ops/chirp_filter.py", PORT / "ops/chirp_smoother.py",
+            PORT / "ops/chirp_fused.py",
             PORT / "quad/integrators.py",
             PORT / "fit/gauss_newton.py", PORT / "baselines/classical.py",
             PORT / "baselines/__init__.py", PORT / "utils/lti.py",
