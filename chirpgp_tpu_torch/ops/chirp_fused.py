@@ -23,7 +23,11 @@ The kernels split the function where its two scans meet:
   writes the last filtered moments; in factor mode a row holds m_p, X and
   R22's upper triangle, the row the smoother's phase B reads
   (``ops/chirp_smoother.py``), and F writes every filtered mean and
-  factor.
+  factor.  A team of threads per lane runs the carry's chain and hands
+  each step off to consumer warps, one thread per lane, that build and
+  store the row; the team takes the sigma points in groups that share
+  ``xi[0..2]`` (:func:`group_points`, :func:`fused_layout`) and its
+  launch geometry from :func:`fused_geometry`.
 - ``affine_backward`` (kernel G), the covariance branch's reverse scan:
   ``ms <- u + G ms``, ``Ps <- D + G Ps G^T`` from the last filtered
   moments, full or slim.  The factor branch's reverse scan is the
@@ -44,35 +48,129 @@ import torch
 from chirpgp_tpu_torch.infer.batched import _affine_backward, _fused_forward
 from chirpgp_tpu_torch.infer.sqrt import _require_nonneg_weights
 from chirpgp_tpu_torch.ops.chirp_filter import (
-    MAX_POINTS, _chirp_constants, _chirp_pack, launch_geometry)
+    MAX_POINTS, _chirp_constants, _chirp_pack)
 from chirpgp_tpu_torch.ops.chirp_smoother import (
     ROW_WORDS, SmootherCost, _householder_column_flop, _householder_flop,
     load_smoother_kernel, smoother_backward_reference)
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
 
-__all__ = ["FusedKernels", "KERNELS", "ROWS", "ForwardOut",
-           "affine_backward_reference", "fused_cost", "fused_forward_reference",
-           "fused_kernel_launcher", "fused_rows", "ghfs_chirp_filter_smoother",
-           "ghfs_chirp_filter_smoother_reference", "load_fused_kernel"]
+__all__ = ["FusedGeometry", "FusedKernels", "GROUP", "GROUPS", "KERNELS",
+           "ForwardOut", "affine_backward_reference", "fused_cost",
+           "fused_forward_reference", "fused_geometry", "fused_groups",
+           "fused_kernel_launcher", "fused_layout",
+           "ghfs_chirp_filter_smoother",
+           "ghfs_chirp_filter_smoother_reference", "group_points",
+           "load_fused_kernel"]
 
 _D = 4
 _KERNEL = "ghfs_chirp_fused"
 # The CUDA kernels a wrapper call launches: F, then G (maps) or the
 # smoother's phase B (factors).
 KERNELS = ("fused_forward", "affine_backward", "smoother_backward")
-# F's rows of dev per team member, for each team it is built for (those of
-# cubature and GH-3 at d = 4): P rows >= S.
-ROWS = {8: (1, 11), 32: (1, 3)}
+# F's sigma points come in groups of at most GROUP points that share
+# xi[0..2] (their transition's angle); GROUPS lists, for each team size
+# it is built for, the groups per member of its instances (cubature's 7
+# and GH-3's 27 groups at P = 8; up to 96 groups at P = 32, which holds
+# any rule of MAX_POINTS singletons).  A block holds at most
+# FORWARD_LANES lanes (a consumer warp's threads) and FORWARD_THREADS
+# threads: the team's and FORWARD_CONSUMERS consumer warps.
+GROUP = 3
+GROUPS = {8: (1, 4), 32: (1, 3)}
+FORWARD_LANES = 32
+FORWARD_CONSUMERS = 4
+FORWARD_THREADS = 384
+_WARP = 32
 _IU = torch.triu_indices(_D, _D)
 
 
-def fused_rows(team: int, S: int) -> int:
-    """F's rows per member for ``S`` sigma points and a team of ``team``:
-    the fewest of ``ROWS[team]`` that hold the S rows of dev."""
-    if not 1 <= S <= MAX_POINTS:
-        raise ValueError(f"the kernel takes 1..{MAX_POINTS} sigma points, "
-                         f"got S={S}")
-    return min(r for r in ROWS[team] if team * r >= S)
+def group_points(sgps: SigmaPoints) -> list:
+    """The rule's point indices in groups that share ``xi[0..2]`` (equal
+    values), in the order of their first points, each group cut into runs
+    of at most ``GROUP`` points.  GH-3 at d=4 gives 27 consecutive
+    triples, cubature 7 groups (the two points on the last axis share
+    one); a rule whose prefixes all differ gives one group per point."""
+    groups = {}
+    for s, row in enumerate(np.asarray(sgps.xi, np.float64)):
+        groups.setdefault(tuple(row[:_D - 1].tolist()), []).append(s)
+    return [pts[i:i + GROUP] for pts in groups.values()
+            for i in range(0, len(pts), GROUP)]
+
+
+def fused_groups(team: int, n_groups: int) -> int:
+    """F's groups per member for ``n_groups`` groups and a team of
+    ``team``: the fewest of ``GROUPS[team]`` that hold them (a member owns
+    ``GROUP`` point rows per group)."""
+    if team not in GROUPS:
+        raise ValueError(f"team must be one of {tuple(GROUPS)}, got {team}")
+    fits = [g for g in GROUPS[team] if team * g >= n_groups]
+    if not 1 <= n_groups or not fits:
+        raise ValueError(f"a team of {team} takes 1..{team * GROUPS[team][-1]}"
+                         f" groups of sigma points, got {n_groups}")
+    return min(fits)
+
+
+def fused_layout(sgps: SigmaPoints, team: Optional[int] = None,
+                 groups_per_member: Optional[int] = None) -> SigmaPoints:
+    """The rule in F's order: the groups of :func:`group_points` one after
+    another, each padded to ``GROUP`` point slots, and with ``team`` the
+    groups padded to ``team * groups_per_member`` (by default
+    :func:`fused_groups`'s); group g in slots ``GROUP g ..``, member ``g %
+    team``'s.  A padding slot repeats its group's first point (or point
+    0) at weight 0, which adds exact zeros to every sum of the step.
+    Without ``team`` it is the unpadded permutation of the rule, whose
+    plain filter+smoother is the same to round-off."""
+    groups = group_points(sgps)
+    if team is None:
+        order = [s for g in groups for s in g]
+        return sgps._replace(xi=np.asarray(sgps.xi)[order],
+                             w=np.asarray(sgps.w)[order],
+                             n_points=len(order))
+    gpm = groups_per_member or fused_groups(team, len(groups))
+    slots = team * gpm * GROUP
+    order, w = np.zeros(slots, np.int64), np.zeros(slots)
+    for g, pts in enumerate(groups):
+        order[GROUP * g:GROUP * (g + 1)] = pts[0]
+        order[GROUP * g:GROUP * g + len(pts)] = pts
+        w[GROUP * g:GROUP * g + len(pts)] = np.asarray(sgps.w)[pts]
+    return sgps._replace(xi=np.asarray(sgps.xi)[order], w=w, n_points=slots)
+
+
+class FusedGeometry(NamedTuple):
+    team: int              # team threads per lane
+    groups: int            # point groups per team member
+    lanes_per_block: int   # a consumer warp's active threads
+    blocks: int
+
+
+def fused_geometry(B: int, n_groups: int, num_sms: int = 132,
+                   team: Optional[int] = None,
+                   lanes: Optional[int] = None) -> FusedGeometry:
+    """F's launch geometry for ``B`` lanes and a rule of ``n_groups``
+    groups on a card with ``num_sms`` SMs (``launch_geometry`` stays the
+    filter's).
+
+    The team is 32 threads up to 16 lanes per SM, where the step's chain
+    sets the time (the Table-I width, B = 100), and 8 beyond (the
+    benchmark's B = 4096); 32 also where 8 would need more groups per
+    member than it is built for.  Up to one lane per SM every lane gets a
+    block of its own; beyond, a block takes ``ceil(B / num_sms)`` lanes,
+    whole team warps, up to a consumer warp's 32 (``FORWARD_THREADS`` in
+    all): at B = 4096, 128 blocks of 32, and no SM can hold fewer than 32
+    lanes.  ``lanes`` overrides the lanes per block."""
+    if team is None:
+        team = 32 if B <= 16 * max(num_sms, 1) else 8
+        if n_groups > 8 * GROUPS[8][-1]:
+            team = 32
+    groups = fused_groups(team, n_groups)
+    per_warp = _WARP // team
+    most = (FORWARD_THREADS - _WARP * FORWARD_CONSUMERS) // team
+    if lanes is None:
+        lanes = 1 if B <= num_sms else min(most, -(-B // num_sms))
+        lanes = -(-lanes // per_warp) * per_warp
+    if not 1 <= lanes <= most or (team * lanes) % _WARP:
+        raise ValueError(f"a team of {team} takes 1..{most} lanes per block "
+                         f"in whole warps, got {lanes}")
+    return FusedGeometry(team, groups, lanes, -(-B // lanes))
 
 
 class ForwardOut(NamedTuple):
@@ -232,11 +330,13 @@ def load_fused_kernel():
         for fn in (fwd, back):
             fn.restype = i32
     for fn in (lib.ghfs_chirp_fused_max_points,
+               lib.ghfs_chirp_fused_max_slots,
                lib.ghfs_chirp_fused_num_consts,
                lib.ghfs_chirp_fused_row_words):
         fn.argtypes = []
         fn.restype = i32
     if (lib.ghfs_chirp_fused_max_points() != MAX_POINTS
+            or lib.ghfs_chirp_fused_max_slots() != 32 * GROUPS[32][-1] * GROUP
             or lib.ghfs_chirp_fused_row_words() != ROW_WORDS):
         raise RuntimeError("the fused kernels' limits do not match the "
                            "wrapper's")
@@ -261,13 +361,21 @@ class FusedKernels:
                                "layout")
         self.consts = (ctypes.c_double * consts.size)(*consts.tolist())
         like = dict(dtype=dtype, device=device)
-        self.device, self.S = device, sgps.n_points
+        self.device, self.n_groups = device, len(group_points(sgps))
         self.num_sms = torch.cuda.get_device_properties(
             device).multi_processor_count
-        w = np.asarray(sgps.w, np.float64)
-        self.xi = torch.as_tensor(np.ascontiguousarray(sgps.xi), **like)
-        self.w = torch.as_tensor(w, **like)
-        self.sw = torch.as_tensor(np.sqrt(w), **like)
+        # F's grouped rule for each (team, groups per member) it may launch,
+        # on the card before any launch.
+        self.tables = {}
+        for team in GROUPS:
+            try:
+                gpm = fused_groups(team, self.n_groups)
+            except ValueError:
+                continue
+            rule = fused_layout(sgps, team, gpm)
+            w = np.asarray(rule.w, np.float64)
+            self.tables[team, gpm] = tuple(torch.as_tensor(a, **like) for a in (
+                np.ascontiguousarray(rule.xi), w, np.sqrt(w)))
         self.suffix = "f32" if dtype == torch.float32 else "f64"
         self._smoother = None
 
@@ -281,17 +389,18 @@ class FusedKernels:
     def forward(self, ys_t, rows, mfs, lfs, nll, factors: bool):
         """F on the (T, B) measurements ``ys_t``: the (T-1, 30, B) ``rows``,
         the nll (T, B), and ``mfs`` (T, 4, B), ``lfs`` (T, 16, B) in factor
-        mode, else their row 0 at time T-1; the team size and blocks are
-        ``launch_geometry``'s."""
+        mode, else their row 0 at time T-1; the team size, groups and
+        blocks are ``fused_geometry``'s."""
         T, B = ys_t.shape
-        geo = launch_geometry(B, self.S, self.num_sms)
+        geo = fused_geometry(B, self.n_groups, self.num_sms)
+        xi, w, sw = self.tables[geo.team, geo.groups]
         self._run("fused_forward", getattr(self.lib,
                                            f"fused_forward_{self.suffix}"),
-                  ys_t.data_ptr(), self.xi.data_ptr(), self.w.data_ptr(),
-                  self.sw.data_ptr(), self.consts, self.S, T, B, geo.team,
-                  fused_rows(geo.team, self.S), geo.lanes_per_block,
-                  int(factors), rows.data_ptr(), mfs.data_ptr(),
-                  lfs.data_ptr(), nll.data_ptr())
+                  ys_t.data_ptr(), xi.data_ptr(), w.data_ptr(),
+                  sw.data_ptr(), self.consts, w.numel(), T, B, geo.team,
+                  geo.groups, geo.lanes_per_block, int(factors),
+                  rows.data_ptr(), mfs.data_ptr(), lfs.data_ptr(),
+                  nll.data_ptr())
 
     def backward(self, rows, mf, lf, out_m, out_p,
                  out_index: Optional[int] = None):

@@ -16,6 +16,7 @@ namespace {
 constexpr int kD = 4;            // state dimension
 constexpr int kV = 2;            // the state V whose softplus is the frequency
 constexpr int kMaxPoints = 81;   // cap on S (GH-3 at d = 4)
+constexpr int kGroup = 3;        // point slots of a group of one xi[0..2]
 constexpr int kMaxThreads = 256;   // threads per block
 constexpr int kWords = kD + kD * kD + 1;   // output words per lane-step
 constexpr int kNumConsts = 4 + 16 + 16 + 4 + 3;
@@ -142,6 +143,58 @@ __device__ __forceinline__ void predict_rows(
     const Real wgt = r < S ? w_s[s] : Real(0);
 #pragma unroll
     for (int k = 0; k < kD; ++k) mp[k] += wgt * mu[i][k];
+  }
+}
+
+// Member `member`'s groups g = member + P i (i < kGroups) of a step's
+// sigma points in the grouped layout (ops/chirp_fused.py::fused_layout):
+// point slot s = kGroup g + k holds point k of group g, and the kGroup
+// points of a group share xi[0..2] (a slot of weight 0 pads a group or
+// the rule).  chi[0..2] and the part of chi[3] from xi[0..2] are the
+// group's, and with them the angle's softplus and sincospi and mu[0..1];
+// chi[3], mu[2..3] and the weighted mean are per slot.  This is
+// lcd_mean's arithmetic, in its order, so each point's mu has the bits it
+// would have alone.  base = kGroup member; mu[kGroup i + k] is slot base +
+// kGroup P i + k.  xi_s is xi transposed, kD x N.
+template <typename Real, int P, int kGroups, int N>
+__device__ __forceinline__ void predict_groups(
+    const ChirpConsts<Real>& c, const Real (&xi_s)[kD][N],
+    const Real (&w_s)[N], const int base, const Real (&m)[kD],
+    const Real (&L)[kD][kD], Real (&mu)[kGroups * kGroup][kD],
+    Real (&mp)[kD]) {
+#pragma unroll
+  for (int k = 0; k < kD; ++k) mp[k] = Real(0);
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int s0 = base + kGroup * P * g;
+    Real chi[kD], part = Real(0);
+#pragma unroll
+    for (int a = 0; a < kD - 1; ++a) {
+      Real acc = Real(0);
+#pragma unroll
+      for (int j = 0; j <= a; ++j) acc += xi_s[j][s0] * L[a][j];
+      chi[a] = m[a] + acc;
+      part += xi_s[a][s0] * L[kD - 1][a];
+    }
+    Real sn, cs;
+    dsincospi(Real(2) * c.dt * softplus(chi[kV]), &sn, &cs);
+    cs *= c.decay;
+    sn *= c.decay;
+    const Real mu0 = cs * chi[0] - sn * chi[1];
+    const Real mu1 = sn * chi[0] + cs * chi[1];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const int i = kGroup * g + k;
+      const int s = s0 + k;
+      chi[kD - 1] = m[kD - 1] + (part + xi_s[kD - 1][s] * L[kD - 1][kD - 1]);
+      mu[i][0] = mu0;
+      mu[i][1] = mu1;
+      mu[i][2] = c.F[0][0] * chi[2] + c.F[0][1] * chi[3];
+      mu[i][3] = c.F[1][0] * chi[2] + c.F[1][1] * chi[3];
+      const Real wgt = w_s[s];
+#pragma unroll
+      for (int j = 0; j < kD; ++j) mp[j] += wgt * mu[i][j];
+    }
   }
 }
 

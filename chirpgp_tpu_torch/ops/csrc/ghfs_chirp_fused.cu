@@ -41,42 +41,76 @@
 // nll written).  At B = 4096, T = 3141 that is ~173 GFLOP: compute-bound,
 // ~2.6 ms at the 67 TFLOP/s float32 peak.  The T recursion is sequential,
 // so below ~16k lanes the latency of one step's dependent chain, not the
-// card's rate, sets the time, as for the filter kernel.  G: ~250 flop and
-// 30 words read, 2 (slim) or 20 (full) written per seed-step: bound by its
-// bytes, and in fact by the latency of its recursion (B lanes give B / 32
-// warps).
+// card's rate, sets the time, as for the filter kernel.  In practice F is
+// bound by instruction issue at B = 4096 (about two team warps per
+// scheduler) and by the step's chain at B = 100 (one lane per SM).  A
+// design in which the team also built the joint array's columns 4..7, the
+// maps and the stores, each member repeating the lane's scalar work under
+// branches on its index, spent ~8k warp instructions per team warp and
+// step; timing-only variants of it (time_fused.py) put 3.9 ms of its 25.5
+// ms at B = 4096 f32 in what no later step reads, 3.2 ms in the
+// transcendentals (2/3 of them repeats: see the groups below) and 1.5 ms
+// in the member-specific stores.  G: ~250 flop and 30 words read, 2 (slim)
+// or 20 (full) written per seed-step: bound by its bytes, and in fact by
+// the latency of its recursion (B lanes give B / 32 warps).
 //
-// Design of F: the filter kernel's team (ghfs_chirp_filter.cu, whose note
-// explains each choice).  A team of P = 8 or 32 threads per lane (a
-// template constant; ops/chirp_filter.py::launch_geometry picks it and the
-// blocks); member p owns the S rows p, p + P, ... of dev in registers
-// (kRows of them, a template constant: those of cubature and GH-3, 1 and
-// 11 at P = 8, 1 and 3 at P = 32) and computes chi, mu and dev of its own
-// sigma points; m_p and the 16 sums of A are team reductions (__shfl_xor_
-// sync butterflies); E is the filter's team Householder of dev - Q A
-// (team_tria in chirp_lcd.cuh), so every member holds E.
-// - The 12 x 8 joint array is spread over the team by columns, not rows:
-//   member k < 8 holds column k (12 values), so nothing of it is held
-//   whole by any thread (96 values: ~192 registers in float64).  For
-//   column j, every member receives the column's live entries from member
-//   j by __shfl_sync, computes the same norm, alpha = -sign(M_jj) |x|, v
-//   and beta = 2 / |v|^2 (tria_cf's sign rule and arithmetic; skipped at
-//   |v|^2 <= 1e-30), and reflects its own column: w_k = v^T M_k, M_k -=
-//   beta v w_k.  No reduction is needed.  A member whose column is already
-//   finished reflects only entries below its diagonal, which are never
-//   read again, so the reflection needs no mask.  The structural zeros are
-//   skipped with compile-time row sets (joint_row): E and Lq^T are upper
-//   triangular (Lq is psd_cholesky's lower factor), so column j < 4 of the
-//   array is live in rows j, 4..7 and 8..8+j only until its reflection,
-//   and the zeros add exact zeros, so the result is that of the dense
-//   reflections.
-// - Afterwards member k holds column k of R: the 10 words of R11 are
-//   broadcast (every member runs the measurement update on Up = R11, as the
-//   filter kernel does), member 4 + c solves for column c of X by
-//   back-substitution and, in maps mode, receives R22's columns for its
-//   column of D, and stores its words of the row.
-// - The last filtered moments (maps mode) or every step's (factor mode),
-//   and the nll, are stored by member w % P for word w, as in the filter.
+// Design of F: the step splits where the carry leaves it, into warps of
+// two roles in one block.
+// - The team (producer): P = 8 or 32 threads per lane, the filter's team
+//   (ghfs_chirp_filter.cu, whose note explains its choices), runs only
+//   what the next step reads: the sigma points, m_p, A, dev - Q A and its
+//   factor E (team_tria), R11 = Up from the first four columns of the joint
+//   array, [E; A; Lq^T] (12 x 4, on every member, in registers:
+//   joint_tria), the measurement update and the nll.  Every member runs
+//   the same code, with no branch on its index, and it stores nothing to
+//   device memory: m_p and the 16 sums of A are team reductions
+//   (__shfl_xor_sync butterflies), E ends on every member.
+// - The sigma points come grouped (ops/chirp_fused.py::fused_layout): the
+//   kGroup = 3 point slots of a group share xi[0..2], so chi[0..2], the
+//   part of chi[3] from them, the angle's softplus and sincospi and
+//   mu[0..1] are computed once per group (predict_groups; GH-3: 27 groups
+//   of 3; cubature: 7 groups, one of 2), with the same arithmetic as per
+//   point, so sharing it changes no bit.  The rule is padded with points
+//   of weight 0 to P kGroups groups; member p owns groups p, p + P, ...,
+//   and its slots' offsets are compile-time constants from one base.
+// - The hand-off: per lane-step the team writes the previous step's m and
+//   L, m_p, E, A and the nll (kHandWords = 45 words, every member the same
+//   values) into a ring of kRing steps in shared memory, [step][word]
+//   [lane], and arrives on the slot's `full` mbarrier; before it writes a
+//   slot it waits on the slot's `empty` mbarrier, so it runs up to kRing
+//   steps ahead of the consumers.  After the last step one more hand-off
+//   carries the last filtered m and L.
+// - The consumers: kConsumers = 4 warps, one thread per lane (up to kLanes
+//   = 32 lanes per block); warp c takes the steps t = c mod 4, since a
+//   step's row depends on its hand-off alone.  A consumer waits on `full`,
+//   reads its lane's words into registers, releases the slot on `empty`,
+//   then builds the 12 x 8 joint array in its area of shared memory and
+//   triangularizes it (joint_tria_shared: tria_cf's sign rule and skip,
+//   dense over the rows below the pivot, whose structural zeros add exact
+//   zeros), solves X = R11^-1 R12 by back-substitution and forms u, G and
+//   D (maps) or m_p, X and R22 (factors) into its staging words, and
+//   stores the row, the nll and, in factor mode, the previous step's
+//   filtered m and L.  A store of one word by a warp covers 32
+//   consecutive lanes: whole 128-byte lines in float32.
+// - Code size.  Team and consumers share the SM's instruction caches, and
+//   the consumer's code, more than its work, slows the team.  So the
+//   consumer runs in loops that are not unrolled (over the columns, the
+//   words it stores) on shared memory, at about twice the instructions of
+//   an unrolled form, while the team's rows stay unrolled in registers.
+//   On an H100 (time_fused.py's variants, f32 maps, B = 4096 / B = 100):
+//   F 13.4 / 8.7 ms; 15.4 / 11.8 ms with the consumer's Householder
+//   unrolled in registers (~1.3k instructions more), 12.4 / 7.6 ms without
+//   the consumers' work.  Four consumer warps, since one warp of the loop
+//   form took 33.3 / 27.2 ms; with 12 warps a scheduler holds 2 team
+//   warps and 1 consumer, and the registers per thread are those of 9
+//   warps (3 on a scheduler): 168, which the float64 team's 12 point rows
+//   exceed (spills).
+// - Geometry (ops/chirp_fused.py::fused_geometry): P = 8 with 32 lanes per
+//   block (8 team warps and the 4 consumers) at the benchmark's B = 4096,
+//   128 blocks (one SM must hold 32 lanes whatever the blocks, ceil(4096 /
+//   132) = 32, so the four idle SMs cost nothing; blocks of 16 lanes took
+//   22.7 ms, teams of 32 with 8 lanes 40.2 ms); P = 32 with one lane per
+//   block up to one lane per SM, where the step's chain sets the time.
 // Design of G: one thread per lane, blocks of one warp, so that a small
 // batch spreads over the SMs; the 30 words of a step are copied kStages - 1
 // steps ahead with cp.async into a ring in shared memory, so that no step
@@ -87,11 +121,12 @@
 //
 // What is not used, and why: tensor cores (the per-lane products are 4
 // wide; TF32 is barred by the port's precision policy), a Cholesky of the
-// Gram in place of the Householder (it squares the condition number).
-// Model constants in the filter's layout (ops/chirp_filter.py::
+// Gram in place of the Householder (it squares the condition number), a
+// TMA bulk store of the rows (the consumer's stores are whole lines
+// already).  Model constants in the filter's layout (ops/chirp_filter.py::
 // _chirp_constants, float64 on the host).  No fast math.  Templated on
 // float and double.  Registers and spills of each instance: phase 1 of
-// chip_smoke.py prints ptxas's report.
+// chip_smoke.py prints ptxas's report (one count for both roles).
 
 #include <cuda_runtime.h>
 
@@ -103,9 +138,41 @@ namespace {
 
 constexpr int kJ = 3 * kD;        // rows of the joint array
 constexpr int kJCols = 2 * kD;    // its columns
+constexpr int kTri = kD * (kD + 1) / 2;    // words of a triangle
 constexpr int kLastWords = kD + kD * kD;   // the last filtered m and L
 constexpr int kStages = 4;        // G's ring of steps
 constexpr int kBackLanes = 32;    // G's lanes per block
+
+// F: lanes per block (a consumer warp's threads), consumer warps per block
+// (warp c takes the steps t = c mod kConsumers), threads per block (8 team
+// warps of 32 lanes and the consumers), steps of the hand-off ring, point
+// slots of the padded rule (a team of 32 with 3 groups per member).
+constexpr int kLanes = 32;
+constexpr int kConsumers = 4;
+constexpr int kForwardThreads = 8 * kLanes + 32 * kConsumers;
+constexpr int kRing = 4;
+constexpr int kMaxSlots = 32 * 3 * kGroup;
+// A wait on an mbarrier's phase parity cannot tell that phase from the one
+// two before it: a consumer may wait on a slot's round only once the
+// slot's previous round was written, which the step it took before
+// (kConsumers steps back) ensures only if kRing >= kConsumers.
+static_assert(kRing >= kConsumers, "a consumer would wait two rounds ahead");
+// The words of a hand-off, per lane: m and L (lower, row by row) of the
+// previous step, m_p, E (upper, row by row), A (row-major), the nll.
+constexpr int kHandM = 0;
+constexpr int kHandL = kHandM + kD;
+constexpr int kHandMp = kHandL + kTri;
+constexpr int kHandE = kHandMp + kD;
+constexpr int kHandA = kHandE + kTri;
+constexpr int kHandNll = kHandA + kD * kD;
+constexpr int kHandWords = kHandNll + 1;
+
+__host__ __device__ constexpr int lower_word(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+__host__ __device__ constexpr int upper_word(int r, int c) {
+  return r * kD - r * (r - 1) / 2 + (c - r);
+}
 
 // Whether row r of the joint array [[E, 0], [A, L^T], [Lq^T, 0]] may be
 // nonzero in column j when column j is reflected.  Before its own
@@ -118,45 +185,177 @@ __host__ __device__ constexpr bool joint_row(int j, int r) {
                 : r >= j;
 }
 
-// kRows: rows of dev a member owns, with P kRows >= S.  factors: write the
-// factor mode's rows, mfs and lfs at every step; else the maps, and mfs
-// and lfs at t = T-1 only (into their row 0).
-template <typename Real, int P, int kRows>
-__global__ void __launch_bounds__(kMaxThreads)
-fused_forward_kernel(const Real* __restrict__ ys,    // (T, B)
-                     const Real* __restrict__ xi_g,  // (S, kD)
-                     const Real* __restrict__ w_g,   // (S,)
-                     const Real* __restrict__ sw_g,  // (S,)
-                     const ChirpConsts<Real> c, const int S, const int T,
-                     const int B, const int lanes_per_block, const bool factors,
-                     Real* __restrict__ rows,        // (T-1, kRowWords, B)
-                     Real* __restrict__ mfs,         // (T or 1, kD, B)
-                     Real* __restrict__ lfs,         // (T or 1, kD*kD, B)
-                     Real* __restrict__ nll_out) {   // (T, B)
-  __shared__ Real xi_s[kD][kMaxPoints];
-  __shared__ Real q_s[kD][kMaxPoints];   // Q = sqrt(w) xi, transposed
-  __shared__ Real w_s[kMaxPoints];
-  __shared__ Real sw_s[kMaxPoints];
-  __shared__ Real lqt_s[kD][kD];
-  for (int i = threadIdx.x; i < S * kD; i += blockDim.x) {
-    xi_s[i % kD][i / kD] = xi_g[i];
-    q_s[i % kD][i / kD] = sw_g[i / kD] * xi_g[i];
-  }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    w_s[i] = w_g[i];
-    sw_s[i] = sw_g[i];
-  }
-  if (threadIdx.x == 0) {   // constant indices: c stays in parameter space
+// The first kD columns of the joint array, [E; A; Lq^T], from the words of
+// E (upper) and A and the model's Lq^T.
+template <typename Real>
+__device__ __forceinline__ void joint_left(const ChirpConsts<Real>& c,
+                                           const Real (&E)[kTri],
+                                           const Real (&A)[kD * kD],
+                                           Real (&M)[kJ][kD]) {
 #pragma unroll
-    for (int i = 0; i < kD * kD; ++i) lqt_s[i / kD][i % kD] = c.LqT[i / kD][i % kD];
+  for (int r = 0; r < kD; ++r) {
+#pragma unroll
+    for (int k = 0; k < kD; ++k) {
+      M[kD + r][k] = A[r * kD + k];
+      M[r][k] = k >= r ? E[upper_word(r, k)] : Real(0);
+      M[2 * kD + r][k] = k >= r ? c.LqT[r][k] : Real(0);
+    }
   }
-  __syncthreads();
+}
 
+// Householder triangularization of the first NC columns of the joint
+// array, held whole by one thread in registers: NC = kD gives R11 (the
+// team).  Column j over its live rows
+// (joint_row): alpha = -sign(M_jj) |x| (tria_cf's sign rule), v, beta = 2
+// / |v|^2 (skipped at |v|^2 <= 1e-30), then w_k = v^T M_k and M_k -= beta
+// v w_k for every column k >= j.  The structural zeros add exact zeros, so
+// the result is that of the dense reflections; row j of R is M's row j.
+// Columns 0..kD-1 get the same arithmetic at any NC, and in
+// joint_tria_shared.
+template <int NC, typename Real>
+__device__ __forceinline__ void joint_tria(Real (&M)[kJ][NC]) {
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    Real v[kJ];
+    Real nrm2 = Real(0);
+#pragma unroll
+    for (int r = 0; r < kJ; ++r) {
+      if (joint_row(j, r)) {
+        v[r] = M[r][j];
+        nrm2 += v[r] * v[r];
+      }
+    }
+    const Real norm = dsqrt(nrm2);
+    const Real alpha = v[j] >= Real(0) ? -norm : norm;
+    v[j] -= alpha;
+    Real vn2 = Real(0);
+#pragma unroll
+    for (int r = 0; r < kJ; ++r) {
+      if (joint_row(j, r)) vn2 += v[r] * v[r];
+    }
+    const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
+#pragma unroll
+    for (int k = j; k < NC; ++k) {
+      Real wk = Real(0);
+#pragma unroll
+      for (int r = 0; r < kJ; ++r) {
+        if (joint_row(j, r)) wk += v[r] * M[r][k];
+      }
+#pragma unroll
+      for (int r = 0; r < kJ; ++r) {
+        if (joint_row(j, r)) M[r][k] -= beta * v[r] * wk;
+      }
+    }
+  }
+}
+
+// The hand-off's mbarriers (sm_90): an arrival count set once, arrive
+// (release at CTA scope), and wait for the completion of the phase of the
+// given parity (acquire).
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_address(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(
+          smem_address(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done) : "r"(smem_address(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A consumer's joint array in shared memory, word r kJCols + k of row r,
+// column k, lane minor; after its triangularization rows kJ - 4.. stage
+// the packed row.
+constexpr int kWork = kJ * kJCols;
+constexpr int kStage = (kJ - kD) * kJCols;
+static_assert(kWork - kStage >= kRowWords, "the row must fit in rows 8..11");
+
+template <typename Real>
+struct ForwardShared {
+  Real ring[kRing][kHandWords][kLanes];
+  Real work[kConsumers][kWork][kLanes];
+  unsigned long long full[kRing], empty[kRing];
+};
+
+// The Householder triangularization of joint_tria on the dense array W
+// (W[(r kJCols + k) kLanes], one lane's), in loops that are not unrolled
+// over the columns: the consumer's code stays small.  Column j reflects
+// rows j.. (the rows above are R's finished rows); the structural zeros
+// among them are exact zeros, so the dense sums and updates give
+// joint_tria's values.
+template <typename Real>
+__device__ __forceinline__ void joint_tria_shared(Real* __restrict__ W) {
+#pragma unroll 1
+  for (int j = 0; j < kJCols; ++j) {
+    Real v[kJ];
+    Real nrm2 = Real(0);
+#pragma unroll
+    for (int r = 0; r < kJ; ++r) {
+      v[r] = r >= j ? W[(r * kJCols + j) * kLanes] : Real(0);
+      nrm2 += v[r] * v[r];
+    }
+    const Real norm = dsqrt(nrm2);
+    const Real pivot = W[(j * kJCols + j) * kLanes];
+    const Real alpha = pivot >= Real(0) ? -norm : norm;
+    Real vn2 = Real(0);
+#pragma unroll
+    for (int r = 0; r < kJ; ++r) {
+      if (r == j) v[r] = pivot - alpha;
+      vn2 += v[r] * v[r];
+    }
+    const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
+#pragma unroll 1
+    for (int k = j; k < kJCols; ++k) {
+      Real col[kJ];
+      Real wk = Real(0);
+#pragma unroll
+      for (int r = 0; r < kJ; ++r) {
+        col[r] = W[(r * kJCols + k) * kLanes];
+        wk += v[r] * col[r];
+      }
+#pragma unroll
+      for (int r = 0; r < kJ; ++r)
+        W[(r * kJCols + k) * kLanes] = col[r] - beta * v[r] * wk;
+    }
+  }
+}
+
+// The team: threads [0, P lanes) of the block, member threadIdx % P of lane
+// threadIdx / P.  Per step it hands off the words that the consumer needs
+// (its ring slot, waited on `empty` and published on `full`); after the
+// last step, the last filtered m and L.
+template <typename Real, int P, int kGroups, int N>
+__device__ __forceinline__ void forward_team(
+    const ChirpConsts<Real>& c, const Real* __restrict__ ys,
+    const Real (&xi_s)[kD][N], const Real (&w_s)[N], const Real (&sw_s)[N],
+    ForwardShared<Real>& sh, const int T, const int B, const int lanes) {
+  constexpr int kRows = kGroups * kGroup;   // point slots of a member
   const int member = threadIdx.x % P;
-  const int b = blockIdx.x * lanes_per_block + static_cast<int>(threadIdx.x) / P;
-  if (b >= B) return;
+  const int lane = threadIdx.x / P;
+  // A lane past B filters lane B-1's measurements; nothing of it is
+  // stored.
+  const int b = min(static_cast<int>(blockIdx.x) * lanes + lane, B - 1);
   const unsigned mask = team_mask<P>();
   const size_t Bs = static_cast<size_t>(B);
+  const int base = kGroup * member;
 
   Real m[kD], L[kD][kD];   // L: lower triangle only
 #pragma unroll
@@ -166,189 +365,272 @@ fused_forward_kernel(const Real* __restrict__ ys,    // (T, B)
     for (int j = 0; j <= i; ++j) L[i][j] = c.L0[i][j];
   }
   Real nll = Real(0);
-  Real dev[kRows][kD];   // rows member + P*i of dev, then of dev - Q A
+  Real dev[kRows][kD];   // the member's point slots: mu, dev, dev - Q A
+  int slot = 0;
+  unsigned parity = 0;
 
   for (int t = 0; t < T; ++t) {
     const Real y = ys[t * Bs + b];
-
-    // Own sigma points and LCD means; m_p over the team.
     Real mp[kD];
-    predict_rows<Real, P, kRows>(c, xi_s, w_s, S, member, m, L, dev, mp);
+    predict_groups<Real, P, kGroups>(c, xi_s, w_s, base, m, L, dev, mp);
     team_sum<P>(mask, mp);
 
-    // dev = sqrt(w) (mu - m_p) (rows past S: zero), and A = Q^T dev over
-    // the team: A[p][k] = sum_s Q[s][p] dev[s][k].
+    // dev = sqrt(w) (mu - m_p) (padding slots: zero), and A = Q^T dev over
+    // the team, Q = sqrt(w) xi: A[p][k] = sum_s Q[s][p] dev[s][k].
     Real A[kD * kD];
 #pragma unroll
     for (int k = 0; k < kD * kD; ++k) A[k] = Real(0);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int r = member + P * i;
-      const int s = r < S ? r : S - 1;
+      const int s = base + kGroup * P * (i / kGroup) + i % kGroup;
 #pragma unroll
-      for (int k = 0; k < kD; ++k)
-        dev[i][k] = r < S ? sw_s[s] * (dev[i][k] - mp[k]) : Real(0);
+      for (int k = 0; k < kD; ++k) dev[i][k] = sw_s[s] * (dev[i][k] - mp[k]);
 #pragma unroll
       for (int p = 0; p < kD; ++p) {
-        const Real q = r < S ? q_s[p][s] : Real(0);
+        const Real q = sw_s[s] * xi_s[p][s];
 #pragma unroll
         for (int k = 0; k < kD; ++k) A[p * kD + k] += q * dev[i][k];
       }
     }
     team_sum<P>(mask, A);
 
-    // dev - Q A on the own rows, and its triangular factor E (every
+    // dev - Q A on the own slots, and its triangular factor E (every
     // member).
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int r = member + P * i;
-      const int s = r < S ? r : S - 1;
+      const int s = base + kGroup * P * (i / kGroup) + i % kGroup;
+      Real q[kD];
+#pragma unroll
+      for (int p = 0; p < kD; ++p) q[p] = sw_s[s] * xi_s[p][s];
 #pragma unroll
       for (int k = 0; k < kD; ++k) {
         Real qa = Real(0);
 #pragma unroll
-        for (int p = 0; p < kD; ++p) qa += (r < S ? q_s[p][s] : Real(0)) * A[p * kD + k];
+        for (int p = 0; p < kD; ++p) qa += q[p] * A[p * kD + k];
         dev[i][k] -= qa;
       }
     }
-    Real E[kD][kD];
-    team_tria<Real, P>(mask, member, dev, E);
-
-    // Member k < 8 takes column k of [[E, 0], [A, L^T], [Lq^T, 0]].
-    Real col[kJ];
+    Real R[kD][kD];
+    team_tria<Real, P, kRows>(mask, member, dev, R);
+    Real E[kTri], Lw[kTri], m_prev[kD];
 #pragma unroll
-    for (int r = 0; r < kJ; ++r) col[r] = Real(0);
+    for (int r = 0; r < kD; ++r) {
+      m_prev[r] = m[r];
 #pragma unroll
-    for (int cc = 0; cc < kD; ++cc) {
-      if (member == cc) {
+      for (int k = r; k < kD; ++k) E[upper_word(r, k)] = R[r][k];
 #pragma unroll
-        for (int r = 0; r <= cc; ++r) col[r] = E[r][cc];
-#pragma unroll
-        for (int r = 0; r < kD; ++r) col[kD + r] = A[r * kD + cc];
-#pragma unroll
-        for (int r = 0; r <= cc; ++r) col[2 * kD + r] = lqt_s[r][cc];
-      } else if (member == kD + cc) {
-#pragma unroll
-        for (int r = 0; r <= cc; ++r) col[kD + r] = L[cc][r];
-      }
+      for (int k = 0; k <= r; ++k) Lw[lower_word(r, k)] = L[r][k];
     }
 
-    // Householder triangularization of the joint array by columns.
+    // Up = R11 from [E; A; Lq^T], then the update.
+    Real M[kJ][kD], Up[kD][kD];
+    joint_left(c, E, A, M);
+    joint_tria<kD>(M);
 #pragma unroll
-    for (int j = 0; j < kJCols; ++j) {
-      Real v[kJ];
-      Real nrm2 = Real(0);
+    for (int r = 0; r < kD; ++r) {
 #pragma unroll
-      for (int r = 0; r < kJ; ++r) {
-        if (joint_row(j, r)) {
-          v[r] = __shfl_sync(mask, col[r], j, P);
-          nrm2 += v[r] * v[r];
-        }
-      }
-      const Real norm = dsqrt(nrm2);
-      const Real alpha = v[j] >= Real(0) ? -norm : norm;
-      v[j] -= alpha;
-      Real vn2 = Real(0), wk = Real(0);
-#pragma unroll
-      for (int r = 0; r < kJ; ++r) {
-        if (joint_row(j, r)) {
-          vn2 += v[r] * v[r];
-          wk += v[r] * col[r];
-        }
-      }
-      const Real beta = vn2 > Real(1e-30) ? two_over(vn2) : Real(0);
-#pragma unroll
-      for (int r = 0; r < kJ; ++r) {
-        if (joint_row(j, r)) col[r] -= beta * v[r] * wk;
-      }
+      for (int k = r; k < kD; ++k) Up[r][k] = M[r][k];
     }
+    measurement_update(c, Up, mp, y, m, L, nll);
 
-    // Up = R11 on every member; member 4 + c solves R11 x = column c of
-    // R12 (x = column c of X).
-    Real R11[kD][kD];
+    mbar_wait(&sh.empty[slot], parity ^ 1u);
+    Real(*h)[kLanes] = sh.ring[slot];
 #pragma unroll
-    for (int cc = 0; cc < kD; ++cc) {
-#pragma unroll
-      for (int r = 0; r <= cc; ++r) R11[r][cc] = __shfl_sync(mask, col[r], cc, P);
+    for (int k = 0; k < kD; ++k) {
+      h[kHandM + k][lane] = m_prev[k];
+      h[kHandMp + k][lane] = mp[k];
     }
-    Real x[kD];
 #pragma unroll
-    for (int i = kD - 1; i >= 0; --i) {
-      Real acc = col[i];
-#pragma unroll
-      for (int k = i + 1; k < kD; ++k) acc = acc - R11[i][k] * x[k];
-      x[i] = acc / R11[i][i];
+    for (int k = 0; k < kTri; ++k) {
+      h[kHandL + k][lane] = Lw[k];
+      h[kHandE + k][lane] = E[k];
     }
+#pragma unroll
+    for (int k = 0; k < kD * kD; ++k) h[kHandA + k][lane] = A[k];
+    h[kHandNll][lane] = nll;
+    mbar_arrive(&sh.full[slot]);
+    if (++slot == kRing) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
 
-    Real m_prev[kD];
+  mbar_wait(&sh.empty[slot], parity ^ 1u);
+  Real(*h)[kLanes] = sh.ring[slot];
 #pragma unroll
-    for (int k = 0; k < kD; ++k) m_prev[k] = m[k];
-    measurement_update(c, R11, mp, y, m, L, nll);
+  for (int i = 0; i < kD; ++i) {
+    h[kHandM + i][lane] = m[i];
+#pragma unroll
+    for (int j = 0; j <= i; ++j) h[kHandL + lower_word(i, j)][lane] = L[i][j];
+  }
+  mbar_arrive(&sh.full[slot]);
+}
 
-    const size_t ts = static_cast<size_t>(t);
-    if (t > 0) {   // the row that smooths time t-1
-      Real* out = rows + (ts - 1) * kRowWords * Bs + b;
-      if (factors) {
-        // m_p, X (X[i][c] from member 4 + c), R22's upper triangle.
+// A consumer: warp `consumer` of the block's last kConsumers warps, thread
+// `lane` for lane `lane`, takes the hand-offs t = consumer mod kConsumers.
+// Hand-off t < T gives the nll of step t and, for t > 0, the row that
+// smooths time t-1 and (factor mode) the filtered m and L of time t-1;
+// hand-off T the last filtered m and L.  The joint array, its
+// triangularization, the row and the stores run in shared memory and in
+// loops that are not unrolled: the consumer's code, not its work, is what
+// slowed the team (a copy of its work in a loop of a few instructions
+// cost F 0.3 ms where its unrolled form cost 2.6 ms at B = 4096 f32 on an
+// H100; time_fused.py), since team and consumer share the SM's
+// instruction caches.
+template <typename Real>
+__device__ __forceinline__ void forward_consumer(
+    const ChirpConsts<Real>& c, ForwardShared<Real>& sh, const int consumer,
+    const int T, const int B, const int lanes, const bool factors,
+    Real* __restrict__ rows, Real* __restrict__ mfs, Real* __restrict__ lfs,
+    Real* __restrict__ nll_out) {
+  const int lane = static_cast<int>(threadIdx.x % 32u);
+  const int b = static_cast<int>(blockIdx.x) * lanes + lane;
+  const bool active = lane < lanes && b < B;
+  const size_t Bs = static_cast<size_t>(B);
+  Real* __restrict__ W = &sh.work[consumer][0][lane];
+  Real* __restrict__ stage = W + kStage * kLanes;
+  for (int t = consumer; t <= T; t += kConsumers) {
+    const int slot = t % kRing;
+    const unsigned parity = static_cast<unsigned>(t / kRing) & 1u;
+    mbar_wait(&sh.full[slot], parity);
+    const Real(*h)[kLanes] = sh.ring[slot];
+    Real m_prev[kD], mp[kD], Lw[kTri], E[kTri], A[kD * kD];
 #pragma unroll
-        for (int w = 0; w < kD; ++w)
-          if (member == w) out[w * Bs] = mp[w];
+    for (int k = 0; k < kD; ++k) {
+      m_prev[k] = h[kHandM + k][lane];
+      mp[k] = h[kHandMp + k][lane];
+    }
 #pragma unroll
-        for (int cc = 0; cc < kD; ++cc) {
-          if (member == kD + cc) {
+    for (int k = 0; k < kTri; ++k) {
+      Lw[k] = h[kHandL + k][lane];
+      E[k] = h[kHandE + k][lane];
+    }
 #pragma unroll
-            for (int i = 0; i < kD; ++i) out[(kXWord + i * kD + cc) * Bs] = x[i];
+    for (int k = 0; k < kD * kD; ++k) A[k] = h[kHandA + k][lane];
+    const Real nll = h[kHandNll][lane];
+    mbar_arrive(&sh.empty[slot]);
+
+    if (active) {   // the consumer's work
+      const size_t ts = static_cast<size_t>(t);
+      if (t < T) nll_out[ts * Bs + b] = nll;
+      if (t > 0 && t < T) {
+        // The joint array [[E, 0], [A, L^T], [Lq^T, 0]], then R.
+#pragma unroll 1
+        for (int i = 0; i < kWork; ++i) W[i * kLanes] = Real(0);
 #pragma unroll
-            for (int r = 0; r <= cc; ++r) out[r22_word(r, cc) * Bs] = col[kD + r];
+        for (int r = 0; r < kD; ++r) {
+#pragma unroll
+          for (int k = 0; k < kD; ++k) {
+            W[((kD + r) * kJCols + k) * kLanes] = A[r * kD + k];
+            if (k < r) continue;
+            W[(r * kJCols + k) * kLanes] = E[upper_word(r, k)];
+            W[((kD + r) * kJCols + kD + k) * kLanes] = Lw[lower_word(k, r)];
+            W[((2 * kD + r) * kJCols + k) * kLanes] = c.LqT[r][k];
           }
         }
-      } else {
-        // R22's columns, r22[i][k] = R22[k][i] for k <= i, on every member.
-        Real r22[kD][kD];
+        joint_tria_shared(W);
+        // X = R11^-1 R12, column by column, into the row's X or G words.
+#pragma unroll 1
+        for (int cc = 0; cc < kD; ++cc) {
+          Real x[kD];
+#pragma unroll
+          for (int i = kD - 1; i >= 0; --i) {
+            Real acc = W[(i * kJCols + kD + cc) * kLanes];
+#pragma unroll
+            for (int k = i + 1; k < kD; ++k)
+              acc = acc - W[(i * kJCols + k) * kLanes] * x[k];
+            x[i] = acc / W[(i * kJCols + i) * kLanes];
+            stage[(kXWord + (factors ? i * kD + cc : cc * kD + i)) * kLanes] = x[i];
+          }
+          // u[cc] = m_prev[cc] - sum_j G[cc][j] m_p[j], G[cc][j] = x[j].
+          Real gm = Real(0);
+#pragma unroll
+          for (int j = 0; j < kD; ++j) gm += x[j] * mp[j];
+          stage[cc * kLanes] = factors ? mp[cc] : m_prev[cc] - gm;
+        }
+        // R22's upper triangle (factors) or D = R22^T R22's (maps).
 #pragma unroll
         for (int i = 0; i < kD; ++i) {
 #pragma unroll
-          for (int k = 0; k <= i; ++k) r22[i][k] = __shfl_sync(mask, col[kD + k], kD + i, P);
+          for (int j = i; j < kD; ++j) {
+            Real d = Real(0);
+#pragma unroll
+            for (int k = 0; k <= i; ++k)
+              d += W[((kD + k) * kJCols + kD + i) * kLanes] *
+                   W[((kD + k) * kJCols + kD + j) * kLanes];
+            stage[r22_word(i, j) * kLanes] =
+                factors ? W[((kD + i) * kJCols + kD + j) * kLanes] : d;
+          }
         }
-        // Member 4 + c: u[c] = m_prev[c] - sum_j G[c][j] m_p[j], row c of
-        // G (= x), column c of D's upper triangle.
+        Real* out = rows + (ts - 1) * kRowWords * Bs + b;
+#pragma unroll 1
+        for (int w = 0; w < kRowWords; ++w) out[w * Bs] = stage[w * kLanes];
+      }
+      if (factors ? t > 0 : t == T) {
+        const size_t to = factors ? ts - 1 : 0;
 #pragma unroll
-        for (int cc = 0; cc < kD; ++cc) {
-          if (member == kD + cc) {
-            Real gm = Real(0);
+        for (int i = 0; i < kD; ++i) {
+          stage[i * kLanes] = m_prev[i];
 #pragma unroll
-            for (int j = 0; j < kD; ++j) gm += x[j] * mp[j];
-            out[cc * Bs] = m_prev[cc] - gm;
-#pragma unroll
-            for (int j = 0; j < kD; ++j) out[(kXWord + cc * kD + j) * Bs] = x[j];
-#pragma unroll
-            for (int i = 0; i <= cc; ++i) {
-              Real d = Real(0);
-#pragma unroll
-              for (int k = 0; k <= i; ++k) d += r22[i][k] * col[kD + k];
-              out[r22_word(i, cc) * Bs] = d;
-            }
+          for (int j = 0; j < kD; ++j)
+            stage[(kD + i * kD + j) * kLanes] = j <= i ? Lw[lower_word(i, j)] : Real(0);
+        }
+#pragma unroll 1
+        for (int w = 0; w < kLastWords; ++w) {
+          if (w < kD) {
+            mfs[(to * kD + w) * Bs + b] = stage[w * kLanes];
+          } else {
+            lfs[(to * kD * kD + w - kD) * Bs + b] = stage[w * kLanes];
           }
         }
       }
     }
+  }
+}
 
-    // Member p writes the words w with w % P == p: m and L of this step
-    // (factor mode) or of the last (maps mode, into row 0), and the nll.
-    const bool moments = factors || t == T - 1;
-    const size_t to = factors ? ts : 0;
-#pragma unroll
-    for (int w = 0; w < kLastWords + 1; ++w) {
-      if (w % P != member) continue;
-      if (w < kD) {
-        if (moments) mfs[(to * kD + w) * Bs + b] = m[w];
-      } else if (w < kLastWords) {
-        const int i = (w - kD) / kD, j = (w - kD) % kD;
-        if (moments) lfs[(to * kD * kD + (w - kD)) * Bs + b] = j <= i ? L[i][j] : Real(0);
-      } else {
-        nll_out[ts * Bs + b] = nll;
-      }
+// F.  xi_g, w_g, sw_g: the grouped rule of P kGroups groups of kGroup
+// point slots (ops/chirp_fused.py::fused_layout).  factors: write the
+// factor mode's rows, mfs and lfs at every step; else the maps, and mfs
+// and lfs at t = T-1 only (into their row 0).  Blocks of P lanes + 32
+// kConsumers threads: the team, then the consumer warps; the ring and its
+// mbarriers in dynamic shared memory (ForwardShared).
+template <typename Real, int P, int kGroups>
+__global__ void __launch_bounds__(kForwardThreads)
+fused_forward_kernel(const Real* __restrict__ ys,    // (T, B)
+                     const Real* __restrict__ xi_g,  // (slots, kD)
+                     const Real* __restrict__ w_g,   // (slots,)
+                     const Real* __restrict__ sw_g,  // (slots,)
+                     const ChirpConsts<Real> c, const int T, const int B,
+                     const int lanes, const bool factors,
+                     Real* __restrict__ rows,        // (T-1, kRowWords, B)
+                     Real* __restrict__ mfs,         // (T or 1, kD, B)
+                     Real* __restrict__ lfs,         // (T or 1, kD*kD, B)
+                     Real* __restrict__ nll_out) {   // (T, B)
+  constexpr int kSlots = P * kGroups * kGroup;
+  __shared__ Real xi_s[kD][kSlots];
+  __shared__ Real w_s[kSlots];
+  __shared__ Real sw_s[kSlots];
+  extern __shared__ __align__(16) unsigned char forward_smem[];
+  ForwardShared<Real>& sh = *reinterpret_cast<ForwardShared<Real>*>(forward_smem);
+  const int team_threads = P * lanes;
+  for (int i = threadIdx.x; i < kSlots * kD; i += blockDim.x)
+    xi_s[i % kD][i / kD] = xi_g[i];
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
+    w_s[i] = w_g[i];
+    sw_s[i] = sw_g[i];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&sh.full[s], static_cast<unsigned>(team_threads));
+      mbar_init(&sh.empty[s], 32u);
     }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < team_threads) {
+    forward_team<Real, P, kGroups>(c, ys, xi_s, w_s, sw_s, sh, T, B, lanes);
+  } else {
+    forward_consumer<Real>(c, sh, (threadIdx.x - team_threads) / 32, T, B,
+                           lanes, factors, rows, mfs, lfs, nll_out);
   }
 }
 
@@ -478,41 +760,45 @@ affine_backward_kernel(const Real* __restrict__ rows,    // (T-1, kRowWords, B)
   }
 }
 
-template <typename Real, int P, int kRows>
+template <typename Real, int P, int kGroups>
 int launch_forward_team(const Real* ys, const Real* xi, const Real* w,
-                        const Real* sw, const ChirpConsts<Real>& c, int S,
-                        int T, int B, int lanes_per_block, bool factors,
-                        Real* rows, Real* mfs, Real* lfs, Real* nll,
-                        cudaStream_t stream) {
-  if (lanes_per_block < 1 || P * lanes_per_block > kMaxThreads ||
-      S > P * kRows)
+                        const Real* sw, const ChirpConsts<Real>& c, int slots,
+                        int T, int B, int lanes, bool factors, Real* rows,
+                        Real* mfs, Real* lfs, Real* nll, cudaStream_t stream) {
+  if (lanes < 1 || lanes > kLanes || (P * lanes) % 32 != 0 ||
+      P * lanes + 32 * kConsumers > kForwardThreads ||
+      slots != P * kGroups * kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const int blocks = (B + lanes_per_block - 1) / lanes_per_block;
-  fused_forward_kernel<Real, P, kRows><<<blocks, P * lanes_per_block, 0, stream>>>(
-      ys, xi, w, sw, c, S, T, B, lanes_per_block, factors, rows, mfs, lfs, nll);
+  const int blocks = (B + lanes - 1) / lanes;
+  constexpr int kBytes = static_cast<int>(sizeof(ForwardShared<Real>));
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_forward_kernel<Real, P, kGroups>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_forward_kernel<Real, P, kGroups>
+      <<<blocks, P * lanes + 32 * kConsumers, kBytes, stream>>>(
+          ys, xi, w, sw, c, T, B, lanes, factors, rows, mfs, lfs, nll);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Real>
 int launch_forward(const Real* ys, const Real* xi, const Real* w,
-                   const Real* sw, const double* consts, int S, int T, int B,
-                   int team, int rows_per_member, int lanes_per_block,
-                   int factors, Real* rows, Real* mfs, Real* lfs, Real* nll,
-                   void* stream) {
-  if (S < 1 || S > kMaxPoints || T < 1 || B < 0)
+                   const Real* sw, const double* consts, int slots, int T,
+                   int B, int team, int groups, int lanes, int factors,
+                   Real* rows, Real* mfs, Real* lfs, Real* nll, void* stream) {
+  if (slots < 1 || slots > kMaxSlots || T < 1 || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const ChirpConsts<Real> c = load_consts<Real>(consts);
   const auto s = static_cast<cudaStream_t>(stream);
-  // The instantiated (team, rows) pairs; ops/chirp_fused.py::ROWS lists
-  // the same.
-#define FUSED_LAUNCH(P, ROWS)                                                  \
-  launch_forward_team<Real, P, ROWS>(ys, xi, w, sw, c, S, T, B,               \
-                                     lanes_per_block, factors != 0, rows, mfs, \
-                                     lfs, nll, s)
-  switch (team * 100 + rows_per_member) {
+  // The instantiated (team, groups per member) pairs; ops/chirp_fused.py::
+  // GROUPS lists the same.
+#define FUSED_LAUNCH(P, GROUPS)                                                \
+  launch_forward_team<Real, P, GROUPS>(ys, xi, w, sw, c, slots, T, B, lanes,   \
+                                       factors != 0, rows, mfs, lfs, nll, s)
+  switch (team * 100 + groups) {
     case 801: return FUSED_LAUNCH(8, 1);
-    case 811: return FUSED_LAUNCH(8, 11);
+    case 804: return FUSED_LAUNCH(8, 4);
     case 3201: return FUSED_LAUNCH(32, 1);
     case 3203: return FUSED_LAUNCH(32, 3);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -545,28 +831,30 @@ extern "C" {
 
 int ghfs_chirp_fused_max_points() { return kMaxPoints; }
 
+int ghfs_chirp_fused_max_slots() { return kMaxSlots; }
+
 int ghfs_chirp_fused_num_consts() { return kNumConsts; }
 
 int ghfs_chirp_fused_row_words() { return kRowWords; }
 
 int fused_forward_f32(const float* ys, const float* xi, const float* w,
-                      const float* sw, const double* consts, int S, int T,
-                      int B, int team, int rows_per_member, int lanes_per_block,
-                      int factors, float* rows, float* mfs, float* lfs,
-                      float* nll, void* stream) {
-  return launch_forward<float>(ys, xi, w, sw, consts, S, T, B, team,
-                               rows_per_member, lanes_per_block, factors, rows,
-                               mfs, lfs, nll, stream);
+                      const float* sw, const double* consts, int slots, int T,
+                      int B, int team, int groups, int lanes, int factors,
+                      float* rows, float* mfs, float* lfs, float* nll,
+                      void* stream) {
+  return launch_forward<float>(ys, xi, w, sw, consts, slots, T, B, team,
+                               groups, lanes, factors, rows, mfs, lfs, nll,
+                               stream);
 }
 
 int fused_forward_f64(const double* ys, const double* xi, const double* w,
-                      const double* sw, const double* consts, int S, int T,
-                      int B, int team, int rows_per_member, int lanes_per_block,
-                      int factors, double* rows, double* mfs, double* lfs,
-                      double* nll, void* stream) {
-  return launch_forward<double>(ys, xi, w, sw, consts, S, T, B, team,
-                                rows_per_member, lanes_per_block, factors, rows,
-                                mfs, lfs, nll, stream);
+                      const double* sw, const double* consts, int slots, int T,
+                      int B, int team, int groups, int lanes, int factors,
+                      double* rows, double* mfs, double* lfs, double* nll,
+                      void* stream) {
+  return launch_forward<double>(ys, xi, w, sw, consts, slots, T, B, team,
+                                groups, lanes, factors, rows, mfs, lfs, nll,
+                                stream);
 }
 
 int affine_backward_f32(const float* rows, const float* mf, const float* lf,

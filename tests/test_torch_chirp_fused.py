@@ -3,7 +3,9 @@
 plain twins of kernels F and G (and of the smoother's phase B), against
 the JAX package's ``sqrt_sgp_filter_smoother_batched`` in its three modes,
 La Scala through the chirp params, short records, F's factor rows against
-phase A's twin, phase E's variance mode against the JAX package's
+phase A's twin, F's grouped order of the sigma points (the groups, the
+padded layout through the twins against the JAX package) and launch
+geometry, phase E's variance mode against the JAX package's
 ``gaussian_expectation_batched``, the work counts, the refusals and the
 routing.  The CUDA kernels themselves are tested on a card by
 tests/test_torch_cuda.py.
@@ -32,9 +34,11 @@ import chirpgp_tpu_torch.quad as tq
 from chirpgp_tpu_torch.ops import _build, chirp_fused
 from chirpgp_tpu_torch.ops.chirp_filter import TEAMS, lascala_chirp_params
 from chirpgp_tpu_torch.ops.chirp_fused import (
-    KERNELS, ROWS, affine_backward_reference, fused_cost,
-    fused_forward_reference, fused_kernel_launcher, fused_rows,
-    ghfs_chirp_filter_smoother, ghfs_chirp_filter_smoother_reference)
+    FORWARD_CONSUMERS, FORWARD_LANES, FORWARD_THREADS, GROUP, GROUPS, KERNELS,
+    affine_backward_reference, fused_cost, fused_forward_reference,
+    fused_geometry, fused_kernel_launcher, fused_layout, fused_groups,
+    ghfs_chirp_filter_smoother, ghfs_chirp_filter_smoother_reference,
+    group_points)
 from chirpgp_tpu_torch.ops.chirp_smoother import (
     ROW_WORDS, expectation_g_cost, expectation_launcher,
     gaussian_expectation_g, smoother_backward_reference,
@@ -82,10 +86,10 @@ def _jax(rule, dtype, return_factors, model="chirp", n_t=T):
     return tuple(np.asarray(x) for x in out)
 
 
-def _assert_mode_close(got, want, mode, dtype):
+def _assert_mode_close(got, want, mode, dtype, tol=None):
     """``got`` (the port, in ``mode``) against ``want`` (the JAX package's
-    factors or full covariances)."""
-    tol = TOLS[dtype]
+    factors or full covariances), at ``tol`` or the dtype's ``TOLS``."""
+    tol = tol or TOLS[dtype]
     m, P, nll = want
     if mode == "slim":
         m, P = m[:, 2], P[:, 2, 2]
@@ -289,25 +293,173 @@ def test_fused_cost_matches_hand_count():
 
 
 def test_fused_rows():
-    """F's rows of dev per member: the fewest built that hold S rows
-    (GH-3 81, cubature 8) over a team of 8 or 32."""
-    assert TEAMS == tuple(ROWS) == (8, 32)
-    assert [fused_rows(8, s) for s in (81, 16, 9, 8, 1)] == [11, 11, 11, 1, 1]
-    assert [fused_rows(32, s) for s in (81, 33, 32, 8)] == [3, 3, 1, 1]
-    with pytest.raises(ValueError, match="sigma points"):
-        fused_rows(8, 82)
+    """F's groups per member (GROUP point rows each): the fewest built
+    that hold the rule's groups (GH-3 27, cubature 7, up to 81 single
+    points) over a team of 8 or 32."""
+    assert TEAMS == tuple(GROUPS) == (8, 32)
+    assert GROUP == 3
+    assert [fused_groups(8, n) for n in (27, 9, 8, 7, 1)] == [4, 4, 1, 1, 1]
+    assert [fused_groups(32, n) for n in (81, 33, 32, 27, 7)] == [3, 3, 1, 1, 1]
+    with pytest.raises(ValueError, match="groups"):
+        fused_groups(8, 33)
+    with pytest.raises(ValueError, match="groups"):
+        fused_groups(32, 97)
+    with pytest.raises(ValueError, match="team"):
+        fused_groups(16, 8)
+
+
+def _rotated_gh3():
+    """GH-3 turned in the plane of its last two axes: a valid rule (the
+    same weights, orthonormal moments) in which no two points share
+    xi[0..2]."""
+    c, s = np.cos(0.6), np.sin(0.6)
+    rot = np.eye(4)
+    rot[2:, 2:] = [[c, -s], [s, c]]
+    gh = tq.gauss_hermite(4, 3)
+    return gh._replace(xi=np.asarray(gh.xi) @ rot.T)
+
+
+def test_group_points():
+    """GH-3 at d=4: 27 consecutive triples (the last coordinate fastest),
+    each of one xi[0..2]; cubature: 7 groups, the two points on the last
+    axis together; a rule of single points: 81 groups; GH-2: 8 pairs.
+    Every point once, in groups of at most GROUP of equal xi[0..2]."""
+    cases = {"gh3": (tq.gauss_hermite(4, 3), [3] * 27),
+             "cubature": (tq.cubature(4), [1, 1, 1, 2, 1, 1, 1]),
+             "single": (_rotated_gh3(), [1] * 81),
+             "gh2": (tq.gauss_hermite(4, 2), [2] * 8)}
+    for name, (rule, sizes) in cases.items():
+        groups = group_points(rule)
+        assert [len(g) for g in groups] == sizes, name
+        assert sorted(s for g in groups for s in g) == list(range(
+            rule.n_points)), name
+        xi = np.asarray(rule.xi)
+        for g in groups:
+            assert (xi[g, :3] == xi[g[0], :3]).all(), name
+    assert group_points(tq.gauss_hermite(4, 3))[:2] == [[0, 1, 2], [3, 4, 5]]
+    assert group_points(tq.cubature(4))[3] == [3, 7]
+    # A prefix shared by more than GROUP points is cut into runs.
+    rule = tq.gauss_hermite(4, 3)
+    many = rule._replace(xi=np.where(np.arange(4) < 3, 0.0,
+                                     np.asarray(rule.xi))[:9],
+                         w=np.asarray(rule.w)[:9], n_points=9)
+    assert [len(g) for g in group_points(many)] == [3, 3, 3]
+
+
+@pytest.mark.parametrize("team", [8, 32])
+def test_fused_layout(team):
+    """The kernel's order: group g in slots GROUP g.., padded with slots
+    of weight 0 (a copy of the group's first point, or of point 0) to
+    team x groups per member groups; the weights and the points of
+    weight > 0 are the rule's."""
+    for rule in (tq.gauss_hermite(4, 3), tq.cubature(4), _rotated_gh3()):
+        groups = group_points(rule)
+        try:
+            gpm = fused_groups(team, len(groups))
+        except ValueError:
+            assert team == 8 and len(groups) == 81
+            continue
+        lay = fused_layout(rule, team)
+        assert lay.n_points == team * gpm * GROUP == len(lay.w)
+        xi, w = np.asarray(lay.xi), np.asarray(lay.w)
+        npt.assert_allclose(w.sum(), 1.0, rtol=1e-14)
+        for g, pts in enumerate(groups):
+            sl = slice(GROUP * g, GROUP * (g + 1))
+            npt.assert_array_equal(w[sl][:len(pts)], np.asarray(rule.w)[pts])
+            npt.assert_array_equal(xi[sl][:len(pts)], np.asarray(rule.xi)[pts])
+            assert (w[sl][len(pts):] == 0).all()
+            assert (xi[sl, :3] == xi[GROUP * g, :3]).all()
+        assert (w[GROUP * len(groups):] == 0).all()
+        unpadded = fused_layout(rule)
+        assert unpadded.n_points == rule.n_points
+        assert sorted(map(tuple, unpadded.xi)) == sorted(map(tuple, rule.xi))
+
+
+@pytest.mark.parametrize("team", [8, 32])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_grouped_order_through_twins_matches_jax(rule, dtype, team):
+    """The sigma points in F's order (``fused_layout``, padded for a team
+    of 8 or 32, and unpadded) fed to the plain twins of F and of G or
+    phase B, against the JAX package's ``sqrt_sgp_filter_smoother_batched``
+    on the rule as it is: float64 1e-9, float32 at the file's levels."""
+    tdt = getattr(torch, dtype)
+    ys = torch.tensor(_ys(), dtype=tdt)
+    tol = TOLS[dtype] if dtype == "float32" else dict(m=1e-9, P=1e-9)
+    sgps = RULES[rule][0]()
+    for lay in (fused_layout(sgps, team), fused_layout(sgps)):
+        for factors in (True, False):
+            fwd = fused_forward_reference(PARAMS, XI, DT, lay, ys,
+                                          factors=factors)
+            if factors:
+                got = (*smoother_backward_reference(fwd.mfs, fwd.Lfs,
+                                                    fwd.rows), fwd.nll)
+            else:
+                got = (*affine_backward_reference(fwd.rows, fwd.mfs[0],
+                                                  fwd.Lfs[0]), fwd.nll)
+            _assert_mode_close(got, _jax(rule, dtype, factors),
+                               "factors" if factors else "full", dtype, tol)
+
+
+def test_fused_geometry():
+    """F's geometry: at B=4096 on 132 SMs a team of 8, 4 groups per member
+    of GH-3, 32 lanes per block, 128 blocks; at B=100 a team of 32, one
+    lane per block; whole team warps per block and FORWARD_CONSUMERS
+    consumer warps (at most FORWARD_LANES lanes, FORWARD_THREADS threads);
+    a rule of more groups than a team of 8 holds takes a team of 32."""
+    assert (FORWARD_LANES, FORWARD_CONSUMERS, FORWARD_THREADS) == (32, 4,
+                                                                   384)
+    assert fused_geometry(4096, 27) == (8, 4, 32, 128)
+    assert fused_geometry(4097, 27) == (8, 4, 32, 129)
+    assert fused_geometry(100, 27) == (32, 1, 1, 100)
+    assert fused_geometry(1, 7) == (32, 1, 1, 1)
+    assert fused_geometry(133, 27) == (32, 1, 2, 67)
+    assert fused_geometry(2112, 27) == (32, 1, 8, 264)
+    assert fused_geometry(2113, 27) == (8, 4, 20, 106)
+    assert fused_geometry(4096, 7) == (8, 1, 32, 128)
+    assert fused_geometry(4096, 81) == (32, 3, 8, 512)
+    assert fused_geometry(100, 27, num_sms=66) == (32, 1, 2, 50)
+    assert fused_geometry(4096, 27, team=8, lanes=16) == (8, 4, 16, 256)
+    assert fused_geometry(5, 27, team=8) == (8, 4, 4, 2)
+    for B in (1, 7, 100, 132, 133, 1000, 2112, 2113, 4096, 4097, 20000):
+        for n_groups in (7, 27, 81):
+            geo = fused_geometry(B, n_groups)
+            threads = geo.team * geo.lanes_per_block
+            assert threads % 32 == 0
+            assert threads + 32 * FORWARD_CONSUMERS <= FORWARD_THREADS
+            assert geo.lanes_per_block <= FORWARD_LANES
+            assert geo.team * geo.groups >= n_groups
+            assert geo.blocks * geo.lanes_per_block >= B
+            assert (geo.blocks - 1) * geo.lanes_per_block < B
+    for bad in (dict(team=8, lanes=2), dict(team=8, lanes=36),
+                dict(team=32, lanes=9), dict(team=16)):
+        with pytest.raises(ValueError):
+            fused_geometry(4096, 27, **bad)
+    with pytest.raises(ValueError, match="groups"):
+        fused_geometry(4096, 97)
 
 
 def test_kernel_source_matches_wrapper():
-    """The kernels are built from ``csrc`` with the (team, rows) instances
-    that ``fused_rows`` picks, the packed row of ``chirp_lcd.cuh``; their
-    symbols are the ones the wrapper binds."""
+    """The kernels are built from ``csrc`` with the (team, groups per
+    member) instances that ``fused_groups`` picks, the group of
+    ``chirp_lcd.cuh`` and the block limits of ``fused_geometry``, the
+    packed row of ``chirp_lcd.cuh``; their symbols are the ones the
+    wrapper binds."""
     src = (_build.CSRC / "ghfs_chirp_fused.cu").read_text()
+    lcd = (_build.CSRC / "chirp_lcd.cuh").read_text()
     cases = re.findall(r"case (\d+): return FUSED_LAUNCH\((\d+), (\d+)\);",
                        src)
     assert {(int(p), int(r)) for _, p, r in cases} == {
-        (p, r) for p in TEAMS for r in ROWS[p]}
+        (p, r) for p in TEAMS for r in GROUPS[p]}
     assert all(int(c) == 100 * int(p) + int(r) for c, p, r in cases)
+    assert f"constexpr int kGroup = {GROUP};" in lcd
+    assert f"constexpr int kLanes = {FORWARD_LANES};" in src
+    assert f"constexpr int kConsumers = {FORWARD_CONSUMERS};" in src
+    assert ("constexpr int kForwardThreads = 8 * kLanes + 32 * kConsumers;"
+            in src)
+    assert 8 * FORWARD_LANES + 32 * FORWARD_CONSUMERS == FORWARD_THREADS
+    assert "constexpr int kMaxSlots = 32 * 3 * kGroup;" in src
+    assert max(GROUPS[32]) == 3
     assert '#include "chirp_lcd.cuh"' in src
     for name in KERNELS[:2]:
         assert re.search(rf"__global__ void __launch_bounds__\(\w+\)\n"

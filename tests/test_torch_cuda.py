@@ -742,13 +742,15 @@ def test_sharded_paths_on_one_nccl_rank(cuda):
 # FULL_BOUNDS) and 1e-9 in float64.  Factors and R22 are compared by their
 # Grams: a row of R may change sign with the rounding of a near-zero pivot.
 FUSED_SCALED = {"float32": 1e-4, "float64": 1e-9}
-# (rule, B, T): ragged and one-lane batches, T = 1 (the last filtered
-# moments only) and 2, and the benchmark's T=3141 with GH-3 (the twins'
-# eager loops take ~25 s a case there; cubature is held at T=29 too, in
+# (rule, B, T): one lane, the Table-I width, a block of 2 lanes (B=133 on
+# 132 SMs), the benchmark's width and one lane more (a ragged last block),
+# at T = 1 (the last filtered moments only) and 2, a short odd batch, and
+# the benchmark's T=3141 with GH-3 at B=100 and 4097 (the twins' eager
+# loops take ~25-35 s a case there; cubature is held at T=29 too, in
 # test_fused_wrapper_matches_reference).
 FUSED_CASES = [(rule, B, T) for rule in ("gh3", "cubature")
-               for B, T in ((3, 1), (3, 2), (100, 2), (4096, 2))] + [
-                   ("gh3", 100, 3141)]
+               for B in (1, 100, 133, 4096, 4097) for T in (1, 2)] + [
+                   ("gh3", 3, 2), ("gh3", 100, 3141), ("gh3", 4097, 3141)]
 
 
 def _scaled(a, b):
@@ -825,6 +827,105 @@ def test_fused_kernels_match_twins(cuda, dtype, rule, factors, B, T):
         launched = {"fused_forward": 1, "affine_backward": 2}
     assert ghfs_chirp_filter_smoother.kernel_launches == {
         k: v + launched.get(k, 0) for k, v in before.items()}
+
+
+def _forward_outputs(ys, T, B, factors):
+    like = dict(dtype=ys.dtype, device=ys.device)
+    n = T if factors else 1
+    return (torch.empty((T - 1, ROW_WORDS, B), **like),
+            torch.empty((n, 4, B), **like), torch.empty((n, 16, B), **like),
+            torch.empty((T, B), **like))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_forward_every_instance_matches_twin(cuda, dtype):
+    """Every (team, groups per member) instance of F on GH-3 and cubature
+    laid out for it (``fused_layout``), launched at ``fused_geometry``'s
+    lanes for that team, against the twin on the rule as it is, maps and
+    factors (B=37, T=6)."""
+    bound = FUSED_SCALED[dtype]
+    B, T = 37, 6
+    ys = _fused_inputs(cuda, dtype, B, T, 12)
+    suffix = "f32" if dtype == "float32" else "f64"
+    for rule in ("gh3", "cubature"):
+        sgps = RULES[rule]()
+        n_groups = len(chirp_fused.group_points(sgps))
+        kernels = FusedKernels(PARAMS, 0.1, 1e-3, sgps, ys.dtype, cuda)
+        for team, per_member in chirp_fused.GROUPS.items():
+            for groups in per_member:
+                if team * groups < n_groups:
+                    continue
+                layout = chirp_fused.fused_layout(sgps, team, groups)
+                w = np.asarray(layout.w, np.float64)
+                xi, w, sw = (torch.as_tensor(a, dtype=ys.dtype, device=cuda)
+                             for a in (np.ascontiguousarray(layout.xi), w,
+                                       np.sqrt(w)))
+                lanes = chirp_fused.fused_geometry(B, n_groups,
+                                                   team=team).lanes_per_block
+                for factors in (False, True):
+                    rows, mfs, lfs, nll = _forward_outputs(ys, T, B, factors)
+                    rc = getattr(kernels.lib, f"fused_forward_{suffix}")(
+                        ys.T.contiguous().data_ptr(), xi.data_ptr(),
+                        w.data_ptr(), sw.data_ptr(), kernels.consts,
+                        layout.n_points, T, B, team, groups, lanes,
+                        int(factors), rows.data_ptr(), mfs.data_ptr(),
+                        lfs.data_ptr(), nll.data_ptr(),
+                        torch.cuda.current_stream(cuda).cuda_stream)
+                    assert rc == 0, (rule, team, groups)
+                    torch.cuda.synchronize()
+                    want = fused_forward_reference(PARAMS, 0.1, 1e-3, sgps,
+                                                   ys, factors=factors)
+                    case = (rule, team, groups, factors)
+                    assert _scaled(_np(rows[:, :20]),
+                                   _np(want.rows[:, :20])) <= bound, case
+                    got_22, want_22 = _np(rows[:, 20:]), _np(want.rows[:, 20:])
+                    if factors:
+                        got_22, want_22 = (_upper_gram(x) for x in
+                                           (got_22, want_22))
+                    assert _scaled(got_22, want_22) <= bound, case
+                    n = T if factors else 1
+                    assert _scaled(_np(mfs), _np(want.mfs)) <= bound, case
+                    assert _scaled(_gram(_np(lfs.view(n, 4, 4, B))),
+                                   _gram(_np(want.Lfs))) <= bound, case
+                    assert _scaled(_np(nll), _np(want.nll)) <= bound, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [5, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_forward_runs_a_rule_of_single_point_groups(cuda, dtype, B):
+    """GH-3 turned in the plane of its last two axes: no two points share
+    xi[0..2], so F takes 81 groups of one point, a team of 32 with 3 groups
+    per member whatever B.  Such a rule is not symmetric under the sign of
+    a factor's column, and round-off picks those signs (the Householders'
+    pivots), so its filter is defined only to that: the twin itself moves
+    by ~2e-7 of scale when two of its points swap places.  F is held to
+    the twin within the float32 bound, 1e-4 of scale, in both dtypes, and
+    its nll within FUSED_SCALED (the nll hardly feels the signs)."""
+    c, s = np.cos(0.6), np.sin(0.6)
+    rot = np.eye(4)
+    rot[2:, 2:] = [[c, -s], [s, c]]
+    gh = gauss_hermite(4, 3)
+    sgps = gh._replace(xi=np.asarray(gh.xi) @ rot.T)
+    assert len(chirp_fused.group_points(sgps)) == 81
+    geo = chirp_fused.fused_geometry(B, 81)
+    assert (geo.team, geo.groups) == (32, 3)
+    T = 5
+    ys = _fused_inputs(cuda, dtype, B, T, 11)
+    kernels = FusedKernels(PARAMS, 0.1, 1e-3, sgps, ys.dtype, cuda)
+    for factors in (False, True):
+        rows, mfs, lfs, nll = _forward_outputs(ys, T, B, factors)
+        kernels.forward(ys.T.contiguous(), rows, mfs, lfs, nll, factors)
+        want = fused_forward_reference(PARAMS, 0.1, 1e-3, sgps, ys,
+                                       factors=factors)
+        n = T if factors else 1
+        for got, exp in ((rows[:, :20], want.rows[:, :20]), (mfs, want.mfs)):
+            assert bool(torch.isfinite(got).all())
+            assert _scaled(_np(got), _np(exp)) <= 1e-4
+        assert _scaled(_gram(_np(lfs.view(n, 4, 4, B))),
+                       _gram(_np(want.Lfs))) <= 1e-4
+        assert _scaled(_np(nll), _np(want.nll)) <= FUSED_SCALED[dtype]
 
 
 @pytest.mark.cuda

@@ -301,7 +301,8 @@ def _imported_modules(path: Path):
 
 def test_port_never_imports_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "time_smoother.py"]
+                                          ROOT / "time_smoother.py",
+                                          ROOT / "time_fused.py"]
     assert len(files) > 15
     assert {PORT / "models/kpt.py", PORT / "apps/kpt.py",
             PORT / "ops/chirp_filter.py", PORT / "ops/chirp_smoother.py",
@@ -323,7 +324,7 @@ def test_port_never_imports_jax():
             PORT / "utils/jax_keys.py", PORT / "experiments/__init__.py",
             PORT / "experiments/_common.py",
             PORT / "demos/__init__.py", ROOT / "chip_smoke.py",
-            ROOT / "time_smoother.py"} \
+            ROOT / "time_smoother.py", ROOT / "time_fused.py"} \
         | {PORT / f"experiments/{name}.py" for name in (
             "gen_toymodel_data", "run_rmse_table", "print_table", "run_kpt",
             "run_classical", "run_fhc", "run_fastnls", "run_crlb",
