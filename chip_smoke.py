@@ -4,9 +4,10 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds the hand-written CUDA kernels (the chirp filter, the chirp
-smoother's three: phase A's rows, phase B's recursion, phase E's
-expectation in its two input modes, and the fused filter+smoother's two:
-F's forward scan, G's affine backward recursion) from
+smoother's: phase A's rows, phase B's chunked scan over time as Compose,
+Carry and Apply, phase E's expectation in its two input modes, and the
+fused filter+smoother's two: F's forward scan, G's affine backward
+recursion with a team of four threads per lane) from
 ``chirpgp_tpu_torch/ops/csrc`` on first use, one ``nvcc`` per source,
 started together, and drives the batched IF-estimation path (one filter
 and one smoother wrapper launch), the single-record MLE path, the fused
@@ -35,27 +36,35 @@ Phases, one line each:
    float64 (1e-9), and a scratch cap that forces slabs of 32 lanes
    against one slab, bit for bit; then at B=4096, T=3141 on phase 2's
    filter outputs, float64 and float32 (scaled bounds below), each
-   float32 version against the float64 kernel, and in float32 each
-   kernel against its own plain counterpart (phase A's rows against
-   ``smoother_rows_reference``, phase B against
-   ``smoother_backward_reference`` over the kernel's rows, phase E
-   against ``smoothed_expectation_batched``; each launched alone through
+   float32 version against the float64 kernel, and in both dtypes and on
+   the first 100 lanes in float32 each kernel against its own plain
+   counterpart (phase A's rows against ``smoother_rows_reference``, phase
+   B in ``backward_chunks``' C chunks, Compose, Carry and Apply against
+   ``smoother_compose_reference``, ``smoother_carry_reference`` and
+   ``smoother_apply_reference`` on the same inputs, and phase B's outputs
+   against ``smoother_backward_chunked_reference`` and the sequential
+   ``smoother_backward_reference`` over the kernel's rows, factors up to
+   their columns' signs; phase E against
+   ``smoothed_expectation_batched``; each launched alone through
    ``SmootherKernels``), each timed and held to the scaled bound;
 3. ``estimate_if_batched`` at B=4096, T=3141, dt=1e-3, Xi=0.1, GH-3,
    float32: finite outputs, one filter and one smoother launch by the
-   main path and the smoother's three kernels launched exactly as its
-   slabs ask (phases A and B once per slab, E once), the
+   main path and the smoother's kernels launched exactly as its slabs
+   ask (phase A and phase B's Compose, Carry and Apply once per slab, E
+   once), the
    call's CUDA kernel count under ``torch.profiler`` (the
    same small count at T=64 as at T=3141), wall times of the filter
-   kernel, of the plain filter (in turns: plain, kernel, kernel, plain)
-   and of the whole estimate, and its steps/s;
+   kernel and of the plain filter (one call each, both warm from phase
+   2) and of the whole estimate, and its steps/s;
    3b. the kernel's CUDA-event time (the bare launch) at every team size:
    GH-3 at B=4096, T=3141 (float32 and float64), GH-3 and cubature at the
    Table-I width (the 100 records of ``toydata_const`` at the GHFS and
    CKFS reference optima, float32), cubature at B=4096 (float32), beside
    its flop and byte counts, its bound and its share of the bound; and
-   the smoother's (its three kernels, with the GH-10 expectation) and
-   each phase alone (A and B slab by slab, B on its own slab's rows), at
+   the smoother's (its kernels, with the GH-10 expectation) and each
+   kernel alone (A, Compose, Carry and Apply slab by slab, phase B on its
+   own slab's rows, and phase B's three together, with its chunk count),
+   at
    B=4096, T=3141 (float32 and float64) and at the Table-I width
    (float32), beside its bound and each phase's, and its ratio to the
    filter's bare launch on the same records; where the cap of the
@@ -63,6 +72,14 @@ Phases, one line each:
    that cap too;
 4. accuracy gate: seed 0 of ``results/data/toydata_const.npz`` at the
    reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32;
+   then 6e (below), and the bare launches that 8b, 10a and 12b report,
+   each timed here while this process has the card to itself.  Phases
+   5-13 then run in the three lanes of ``LANES``, beside each other on
+   the card: this process runs 8, 12 and 13, one spawned process 5, 11
+   and 10, another 6 (6a-6d), 9 and 7, each lane its phases in order,
+   giving its cached blocks back to the card as each phase ends;
+   a spawned lane's phase prints through this process as it ends, and
+   every phase's lines are followed by its lane and its span of the run;
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
    float64) value and gradient on the card against the host CPU; the
    float32 sqrt objective against the CUDA kernel's nll; ``fit_mle``
@@ -78,9 +95,10 @@ Phases, one line each:
    same CUDA kernel count per call at T=64 as at T=3141), each kernel
    alone against its plain twin (scaled 1e-4), the IF mean against phase
    3's; 6e each fused kernel's CUDA-event time alone (F in maps and factor
-   mode, G slim and full, E, phase B on F's rows) at B=4096 float32 and
-   float64 and at the Table-I width, beside its bound, and F beside the
-   filter kernel's bare launch on the same records;
+   mode, G slim and full with its geometry, E, phase B on F's rows with
+   its chunk count) at B=4096 float32 and float64 and at
+   the Table-I width, beside its bound, and F beside the filter kernel's
+   bare launch on the same records;
 7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
    magnitude of ``results/data`` (B=300): 7a one vmapped value-and-grad
    of the objective at T=785, timed, with its peak memory, lanes 0 and
@@ -200,17 +218,21 @@ no single PyTorch call computes it), ``ms_b100`` and ``bound_ms_b100``,
 ``ms_f64`` and ``bound_ms_f64``, the ratios to the filter's bare launch,
 and the launches of La Scala's path (8b), of the sharded sweep (12b) and
 of the scaling harness (13h); then one entry for each of the smoother's
-kernels (``smoother_rows``, ``smoother_backward``, ``smoother_expect``)
+kernels (``smoother_rows``, phase B's ``smoother_compose``,
+``smoother_carry`` and ``smoother_backward`` (Apply), ``smoother_expect``)
 with the contract's keys (its launches in phase 3, its time alone, its
 plain counterpart's and its deviation from it in phase 2b) and
-``ms_b100`` and ``ms_f64``; then one entry for each kernel of the fused
+``ms_b100`` and ``ms_f64``, phase B's with its chunk counts and its
+three kernels' time together (``ms_phase_b`` beside ``bound_ms_phase_b``,
+the one-pass recursion's least bytes); then one entry for each kernel of
+the fused
 filter+smoother's slim path (``fused_forward``, ``affine_backward``,
 ``smoother_expect_var``; ``replaces`` the JAX package's compiled forward
 scan, ``chirpgp_tpu/infer/batched.py:297``, reverse scan, ``:383``, and
 ``gaussian_expectation_batched``, ``:546``): its launches and deviation
 from its plain twin in 6d, its time alone and its bound in 6e at B=4096
 float32 in 6d's mode, ``ms_b100``, ``ms_f64``, and F's factor mode and
-G's full output beside (``ms_factors``, ``ms_full``).  The smoother's ``bound_ms`` counts the
+G's full output beside (``ms_factors``, ``ms_full``), and G's geometry.  The smoother's ``bound_ms`` counts the
 least work of the function (``ops/chirp_smoother.py::smoother_cost``:
 the smoother's step in the lesser of two square-root forms); each
 kernel's, its own work and bytes, its phase A's rows included
@@ -342,8 +364,9 @@ SWEEP_SEEDS, SWEEP_T = 100, 3141
 SWEEP_VG_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
 SWEEP_7A_T = 785
 # 7a ran T=1571 and then 1047, 7b's budget was 100 s, 30 s and 20 s, and 7c
-# ran 2 seeds per magnitude at T=60, until phases 8-10 needed the time.
-SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 15.0, 8
+# ran 2 seeds per magnitude at T=60, until phases 8-10 needed the time;
+# the budget was 15 s until 2b held phase B's chunked kernels alone.
+SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 10.0, 8
 # 7b's T is cut no lower than SWEEP_7B_MIN_T (100 before phase 13).
 SWEEP_7B_MIN_T = 50
 SWEEP_SMALL = (1, 40, 6)
@@ -386,8 +409,9 @@ CD_RMSE_ATOL, CD_REF_ATOL, CD_NLL_RTOL = 1e-7, 0.005, 1e-6
 # 9b: one vmapped value-and-grad of each cd sweep objective at B=300, T cut
 # to CD_VG_BUDGET_S by a first call at FAMILY_SHORT_T.  9c: the whole
 # cd_ekfs sweep at CD_SMALL = (seeds per magnitude, T, max_iters).  (The
-# budget was 20 s before phase 10, and 15 s before phase 12.)
-CD_VG_BUDGET_S = 10.0
+# budget was 20 s before phase 10, 15 s before phase 12, and 10 s until 2b
+# held phase B's chunked kernels alone.)
+CD_VG_BUDGET_S = 7.0
 CD_SMALL = (1, 40, 3)
 # 9d: the classical columns, float64.  The card against the host CPU on the
 # same inputs, per-record IF-RMSE relative: 1e-9, but the polynomial LM's
@@ -415,8 +439,9 @@ CLASSICAL_REF_RTOL = (("hilbert", "reference", 1e-5),
                       ("poly", "JAX package", 1e-4),
                       ("anf", "reference", 1e-9))
 # (FAMILY_VG_BUDGET_S was 75 s, then 45 s and 30 s, before phase 9, and 20 s
-# before phase 10, and 15 s before phase 12.)
-FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 10.0
+# before phase 10, 15 s before phase 12, and 10 s until 2b held phase B's
+# chunked kernels alone.)
+FAMILY_SHORT_T, FAMILY_VG_BUDGET_S = 64, 7.0
 FAMILY_PROFILE_T = 16
 # (8e ran T=40 before phase 13.)
 FAMILY_SMALL = (1, 20, 3)
@@ -630,6 +655,27 @@ ENTRY_PLOTS_T, ENTRY_PLOTS_RTOL = 785, 1e-4
 ENTRY_SCALING = dict(ranks=4, seeds=1024, T=64)
 ENTRY_SCALING_RTOL, SCALING_SWEEPS = 1e-5, 4
 
+# Phases 5-13 run in LANES once the timed phases (1-4, 6e and the bare
+# launches that 8b, 10a and 12b report) are done: the main process runs
+# the first lane, a spawned process each other one, beside each other on
+# the one card.  Each lane runs its phases in order; every phase that
+# runs there has no CUDA-event time, so only its host-clock times (6d's
+# plain twins' among them) and busy shares are taken with the card and
+# the host shared.  A lane's phases print
+# through this process, each phase's lines together as it ends.  The
+# phases that print from a child of their own (12b's rank 0) and the
+# entry points' children (the subreaper) stay in the main process.  Each
+# lane empties its allocator's cache as a phase ends: the lanes' phases
+# share the card's memory (13e's run_fhc ran out of it while another lane
+# held 6d's cached blocks through 10e's harmonic FHC).
+# (All of phases 5-13 ran in turn, one after another, before the run
+# reached the 1200 s limit on a slower host.)
+LANES = (("family", "sharded", "entry_points"),
+         ("mle", "parallel_posterior", "analysis"),
+         ("fused", "table_one", "sweep"))
+LANE_JOIN_S = 900
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -793,11 +839,24 @@ def phase_kernel_vs_plain(device):
     return max(dev["mfs"], dev["Lfs"], dev["nll"]), kern
 
 
+def signs_of(L, like):
+    """The lower factors L (T, 4, 4, B) with each column's sign made that
+    of ``like``'s: two lower factors of one Gram differ by column signs
+    only, which the Householder pivots pick (phase B's chunks pick other
+    pivots than the plain recursion), so a factor is compared entry by
+    entry once they agree (sign of the diagonals; 0 counts as +)."""
+    d = torch.where(torch.diagonal(L, dim1=1, dim2=2) >= 0, 1.0, -1.0)
+    w = torch.where(torch.diagonal(like, dim1=1, dim2=2) >= 0, 1.0, -1.0)
+    return L * (d * w).transpose(1, 2)[:, None].to(L.dtype)
+
+
 def smoother_deviations(kern, plain):
-    """max |d mss|, |d Ls Ls^T|, |d Lss|, |d if_mean|, and the scales
-    max |mss|, max |Ls Ls^T|, max |if_mean| of the plain version."""
+    """max |d mss|, |d Ls Ls^T|, |d Lss| (up to its columns' signs, as
+    ``signs_of`` aligns them), |d if_mean|, and the scales max |mss|, max
+    |Ls Ls^T|, max |if_mean| of the plain version."""
     (mk, lk, ik), (mp, lp, ip) = [[x.double() for x in out]
                                   for out in (kern, plain)]
+    lk = signs_of(lk, lp)
     Pk = torch.einsum("tikb,tjkb->tijb", lk, lk)
     Pp = torch.einsum("tikb,tjkb->tijb", lp, lp)
     return dict(
@@ -817,48 +876,99 @@ def upper_gram(words):
     return torch.einsum("...kib,...kjb->...ijb", up, up)
 
 
+def lower_words(words):
+    """The (n, 4, 4, B) lower factors of (n, 10, B) words of their lower
+    triangles, row by row (phase B's carries)."""
+    il = torch.tril_indices(4, 4)
+    L = words.new_zeros(words.shape[:-2] + (4, 4, words.shape[-1]))
+    L[..., il[0], il[1], :] = words
+    return L
+
+
 def smoother_phase_deviations(args, outputs):
     """Each smoother kernel against its own plain counterpart on the same
     inputs, all lanes as one slab, its deviation over (1 + max |plain|)
     held to SMOOTHER_FULL_BOUNDS: phase A's rows against
-    ``smoother_rows_reference`` (m_p and X, and R22 by its Gram), phase B's
-    mss and Lss against ``smoother_backward_reference`` over the kernel's
-    own rows, phase E's IF mean against ``smoothed_expectation_batched`` of
-    the wrapper's mss and Lss (``outputs``).  Returns {kernel: (max |d|,
-    plain seconds)}."""
+    ``smoother_rows_reference`` (m_p and X, and R22 by its Gram); phase B
+    in ``backward_chunks``' C chunks, Compose's aggregates against
+    ``smoother_compose_reference`` (c, x_ref and A^T, and S^T by its
+    Gram), Carry's carries against ``smoother_carry_reference`` on
+    Compose's aggregates (ms, and Ls up to its columns' signs) and Apply's
+    mss and Lss against ``smoother_apply_reference`` on Carry's carries;
+    then phase B's outputs against the whole chunked twin and the
+    sequential recursion ``smoother_backward_reference`` over the
+    kernel's own rows; phase E's IF mean against
+    ``smoothed_expectation_batched`` of the wrapper's mss and Lss
+    (``outputs``).  Returns ({kernel: (max |d|, plain seconds)}, C, {twin:
+    scaled |d| of phase B's outputs})."""
     from chirpgp_tpu_torch.infer.batched import smoothed_expectation_batched
     from chirpgp_tpu_torch.ops.chirp_smoother import (
-        ROW_WORDS, SmootherKernels, smoother_backward_reference,
+        ROW_WORDS, SmootherKernels, smoother_apply_reference,
+        smoother_backward_chunked_reference, smoother_backward_reference,
+        smoother_carry_reference, smoother_compose_reference,
         smoother_rows_reference)
     from chirpgp_tpu_torch.utils.timing import timed
     params, dt, rule, mfs, Lfs, order = args
     T, _, B = mfs.shape
+    tag = f"{str(mfs.dtype)[6:]} B={B}"
+    bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][0]
     kernels = SmootherKernels(params, dt, rule, order, mfs.dtype, mfs.device)
     rows = mfs.new_empty((T - 1, ROW_WORDS, B))
     kernels.rows(mfs, Lfs, rows)
     want, t_rows = timed(smoother_rows_reference, params, dt, rule, mfs, Lfs)
     gram, gram_p = (upper_gram(x[:, 20:].double()) for x in (rows, want))
     devs = {"smoother_rows": [(rows[:, :20], want[:, :20]), (gram, gram_p)]}
+    times = {"smoother_rows": t_rows}
     del want, gram, gram_p
+    back = kernels.back
+    C = back.chunks(T, B)
+    agg, bounds = back.scratch(B, C)
+    back.compose(mfs, rows, agg, C)
+    want, times["smoother_compose"] = timed(smoother_compose_reference, mfs,
+                                            rows, C)
+    devs["smoother_compose"] = [
+        (agg[:, :24], want[:, :24]),
+        tuple(upper_gram(x[:, 24:].double()) for x in (agg, want))]
+    back.carry(mfs, Lfs, agg, bounds, C)
+    want, times["smoother_carry"] = timed(smoother_carry_reference, mfs, Lfs,
+                                          agg, C)
+    Lb = lower_words(want[:, 4:])
+    devs["smoother_carry"] = [(bounds[:, :4], want[:, :4]),
+                              (signs_of(lower_words(bounds[:, 4:]), Lb), Lb)]
     mss = torch.empty_like(mfs)
     lss = mfs.new_empty((T, 16, B))
-    kernels.backward(mfs, Lfs, rows, mss, lss)
-    (ms_p, Ls_p), t_back = timed(smoother_backward_reference, mfs, Lfs, rows)
-    devs["smoother_backward"] = [(mss, ms_p), (lss.view(T, 4, 4, B), Ls_p)]
-    del rows
+    back.apply(mfs, Lfs, rows, bounds, mss, lss, C)
+    (ms_p, Ls_p), times["smoother_backward"] = timed(
+        smoother_apply_reference, mfs, Lfs, rows, bounds, C)
+    Lss = lss.view(T, 4, 4, B)
+    devs["smoother_backward"] = [(mss, ms_p), (signs_of(Lss, Ls_p), Ls_p)]
+    del agg, bounds, ms_p, Ls_p, want, Lb
+    whole = {}
+    for twin, fn in (("chunked twin", lambda: smoother_backward_chunked_reference(
+            mfs, Lfs, rows, C)), ("sequential twin", lambda:
+                                  smoother_backward_reference(mfs, Lfs,
+                                                              rows))):
+        ms_w, Ls_w = fn()
+        whole[twin] = max(scaled_dev(mss, ms_w),
+                          scaled_dev(signs_of(Lss, Ls_w), Ls_w))
+        check(whole[twin] <= bound, f"2b {tag}: phase B (C={C}) vs the "
+                                    f"{twin}: scaled |d| {whole[twin]} > "
+                                    f"{bound}")
+        del ms_w, Ls_w
+    del rows, mss, lss, Lss
     if_mean = mfs.new_empty((T, B))
     kernels.expect(outputs[0], outputs[1].view(T, 16, B), if_mean)
-    if_p, t_exp = timed(smoothed_expectation_batched, *outputs[:2], 2, order)
+    if_p, times["smoother_expect"] = timed(smoothed_expectation_batched,
+                                           *outputs[:2], 2, order)
     devs["smoother_expect"] = [(if_mean, if_p)]
-    bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][0]
     out = {}
-    for (kernel, pairs), t in zip(devs.items(), (t_rows, t_back, t_exp)):
+    for kernel, pairs in devs.items():
         d = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
         scaled = max(scaled_dev(a, b) for a, b in pairs)
-        check(scaled <= bound, f"2b {kernel} vs its plain counterpart: "
-                               f"scaled |d| {scaled} > {bound}")
-        out[kernel] = (d, t)
-    return out
+        check(scaled <= bound, f"2b {tag} {kernel} vs its plain counterpart:"
+                               f" scaled |d| {scaled} > {bound}")
+        out[kernel] = (d, times[kernel])
+    return out, C, whole
 
 
 @contextlib.contextmanager
@@ -949,12 +1059,26 @@ def phase_smoother_vs_plain(device, filtered):
         if tag == "float32":
             plain_ms, plain32 = 1e3 * t_plain, plain
             max_err = max(dev["mss"], dev["Lss"], dev["if_mean"])
-            del plain
-            phases = {k: (err, 1e3 * t) for k, (err, t) in
-                      smoother_phase_deviations(args, kern[tag]).items()}
-            parts.append("float32 each kernel vs its plain counterpart: " +
-                         ", ".join(f"{k} max|d| {err!r}, plain {t:.3f} ms"
-                                   for k, (err, t) in phases.items()))
+        del plain
+        # Each kernel against its own plain counterpart, at B=4096 in both
+        # dtypes and on the first 100 lanes in float32.
+        cases = [(tag, args, kern[tag])]
+        if tag == "float32":
+            cases.append(("float32 B=100", args[:3] + tuple(
+                x[..., :100].contiguous() for x in args[3:5]) + args[5:],
+                tuple(x[..., :100].contiguous() for x in kern[tag])))
+        for what, a, outputs in cases:
+            each, C, whole = smoother_phase_deviations(a, outputs)
+            each = {k: (err, 1e3 * t) for k, (err, t) in each.items()}
+            if what == "float32":
+                phases = each
+            parts.append(
+                f"{what} each kernel vs its plain counterpart (phase B in C="
+                f"{C} chunks): " + ", ".join(
+                    f"{k} max|d| {err!r}, plain {t:.3f} ms"
+                    for k, (err, t) in each.items())
+                + "; phase B's outputs vs " + ", ".join(
+                    f"the {twin} scaled {d:.3g}" for twin, d in whole.items()))
     # Each float32 version against the float64 kernel, the on-card oracle.
     for name, out in (("kernel", kern["float32"]), ("plain", plain32)):
         dev = smoother_deviations(out, kern["float64"])
@@ -973,14 +1097,16 @@ def phase_slice(device):
     from chirpgp_tpu_torch.ops.chirp_filter import (
         ghfs_chirp_filter, ghfs_chirp_filter_reference)
     from chirpgp_tpu_torch.ops.chirp_smoother import (
-        KERNELS, ghfs_chirp_smoother, smoother_slabs)
+        KERNELS, backward_chunks, ghfs_chirp_smoother, smoother_slabs)
     cfg = IFEstimationConfig()
     params = g(cfg.default_init_theta()).to(torch.float32).to(device)
     yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
     rule = cfg.sigma_points()
     args = (params, cfg.Xi, cfg.dt, rule, yss)
+    # One call of each, both warm from phase 2 (the plain version's second
+    # call, once in turns, was cut to make room for later phases).
     times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    for which in ("kernel", "plain"):
         fn = ghfs_chirp_filter if which == "kernel" else ghfs_chirp_filter_reference
         times[which].append(timed(fn, *args)[1])
 
@@ -992,10 +1118,14 @@ def phase_slice(device):
     check(launches == (1, 1), f"estimate_if_batched launched the filter and "
                               f"the smoother {launches} times, not once each")
     slabs = len(smoother_slabs(T_FULL, B_FULL, yss.element_size()))
-    want = dict(zip(KERNELS, (slabs, slabs, 1)))
+    chunks = backward_chunks(T_FULL, B_FULL, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    chained = slabs if chunks > 1 else 0
+    want = dict(zip(KERNELS, (slabs, chained, chained, slabs, 1)))
     check(kernel_launches == want,
           f"estimate_if_batched launched the smoother's kernels "
-          f"{kernel_launches}, not {want} (phases A and B once per slab)")
+          f"{kernel_launches}, not {want} (phase A and phase B's Compose, "
+          f"Carry (C = {chunks} > 1) and Apply once per slab)")
     for key in ("if_mean", "nell", "mss", "Lss"):
         check(bool(torch.isfinite(est[key]).all()), f"non-finite {key}")
     check(tuple(est["if_mean"].shape) == (B_FULL, T_FULL), "if_mean shape")
@@ -1010,16 +1140,17 @@ def phase_slice(device):
           f"estimate_if_batched ran {counts} CUDA kernels at T = "
           f"{list(counts)}, not one count of at most {SLICE_MAX_KERNELS}")
     prof = profs[T_FULL]
-    ms_p = 1e3 * sum(times["plain"]) / 2
+    ms_p = 1e3 * times["plain"][0]
     print(f"phase 3 slice: estimate_if_batched B={B_FULL} T={T_FULL} GH-3 "
           f"float32: finite, filter and smoother launches {launches}, the "
-          f"smoother's kernels {kernel_launches}; "
+          f"smoother's kernels {kernel_launches} (phase B in C={chunks} "
+          f"chunks); "
           f"{counts[T_FULL]} CUDA kernels per call at T={T_FULL} and "
           f"{counts[SLICE_SHORT_T]} at T={SLICE_SHORT_T} (torch.profiler), "
           f"device busy {100 * prof.busy:.2f}% of {1e3 * prof.wall_s:.3f} ms;"
           f" filter kernel {[round(1e3 * t, 3) for t in times['kernel']]} ms,"
           f" plain filter {[round(1e3 * t, 3) for t in times['plain']]} ms "
-          f"(order plain, kernel, kernel, plain); whole estimate "
+          f"(one call each, warm from phase 2); whole estimate "
           f"{1e3 * t_est:.3f} ms = {B_FULL * T_FULL / t_est:.1f} steps/s")
     return launches, kernel_launches, ms_p, est["if_mean"], t_est
 
@@ -1175,30 +1306,47 @@ def phase_smoother_timing(device, smi, filtered, filter_timing):
         bound = SMOOTHER_FULL_BOUNDS[str(mfs.dtype)[6:]][2]
         check(bool(torch.isfinite(if_mean).all()) and dev <= bound,
               f"3b smoother {tag}: IF mean of the timed launches {dev}")
-        # Each phase alone: phases A and B slab by slab, phase B on the
-        # rows phase A has just written for its own slab.
+        # Each kernel alone: phase A and phase B's Compose, Carry and Apply
+        # slab by slab, on the rows phase A has just written for its own
+        # slab, in the chunks of the whole B; and phase B's three together.
         kernels = SmootherKernels(params, DT, rule, order, mfs.dtype, device)
+        back = kernels.back
+        chunks = back.chunks(T, B)
         slabs = smoother_slabs(T, B, mfs.element_size())
         mss, lss = torch.empty_like(mfs), mfs.new_empty((T, 16, B))
-        slab_ms = {"smoother_rows": [], "smoother_backward": []}
+        slab_ms = {k: [] for k in KERNELS[:-1] + ("phase_b",)}
         for b0, nb in slabs:
             rows = mfs.new_empty((T - 1, ROW_WORDS, nb))
+            agg, bounds = back.scratch(nb, chunks)
             slab_ms["smoother_rows"].append(event_ms(
                 lambda: kernels.rows(mfs, Lfs, rows, b0)))
+            if chunks > 1:
+                slab_ms["smoother_compose"].append(event_ms(
+                    lambda: back.compose(mfs, rows, agg, chunks, b0)))
+                slab_ms["smoother_carry"].append(event_ms(
+                    lambda: back.carry(mfs, Lfs, agg, bounds, chunks, b0)))
             slab_ms["smoother_backward"].append(event_ms(
-                lambda: kernels.backward(mfs, Lfs, rows, mss, lss, b0)))
-            del rows
+                lambda: back.apply(mfs, Lfs, rows, bounds, mss, lss, chunks,
+                                   b0)))
+            slab_ms["phase_b"].append(event_ms(
+                lambda: kernels.backward(mfs, Lfs, rows, mss, lss, b0, chunks,
+                                         (agg, bounds))))
+            del rows, agg, bounds
         if_e = torch.empty_like(if_mean)
         slab_ms["smoother_expect"] = [event_ms(
             lambda: kernels.expect(mss, lss, if_e))]
         check(torch.equal(if_e, if_mean),
-              f"3b smoother {tag}: the phases alone differ from the launch")
-        del kernels, mss, lss, if_e
+              f"3b smoother {tag}: the kernels alone differ from the launch")
+        del kernels, back, mss, lss, if_e
         phases = {}
-        for kernel in KERNELS:
+        for kernel in KERNELS + ("phase_b",):
+            # Phase B's three together against the least work and bytes of
+            # the recursion (the one-pass phase B, inputs read once).
             _, _, pbound, pby = bound_ms(
                 rule.n_points, T, B, mfs.dtype,
-                lambda *a, _k=kernel: smoother_phase_costs(*a, order)[_k])
+                lambda *a, _k=kernel: smoother_phase_costs(
+                    *a, order, chunks if _k != "phase_b" else 1)[
+                    "smoother_backward" if _k == "phase_b" else _k])
             phases[kernel] = dict(ms=sum(slab_ms[kernel]), bound_ms=pbound,
                                   bound_by=pby, slab_ms=slab_ms[kernel])
         # The whole launch at the other cap, where it gives other slabs.
@@ -1217,17 +1365,20 @@ def phase_smoother_timing(device, smi, filtered, filter_timing):
                                                  mfs.dtype, smoother_cost)
         ratio = ms / filter_timing[tag]["ms"]
         out[tag] = dict(ms=ms, bound_ms=bound, bound_by=bound_by,
-                        ratio=ratio, phases=phases, slabs=len(slabs))
+                        ratio=ratio, phases=phases, slabs=len(slabs),
+                        chunks=chunks)
         parts.append(
             f"{tag} T={T}: rows={rows_per_member(rule.n_points)} "
-            f"({len(slabs)} slab(s)) {ms!r} ms; {flop} flop, {nbytes} "
+            f"({len(slabs)} slab(s)), phase B in C={chunks} chunks (Compose "
+            f"{chunks - 1} x {-(-B // 32)} warps, Apply {chunks} x "
+            f"{-(-B // 32)}) {ms!r} ms; {flop} flop, {nbytes} "
             f"B, bound {bound!r} ms ({bound_by}), share {bound / ms:.4f}; "
             f"filter {filter_timing[tag]['ms']!r} ms, smoother/filter "
             f"{ratio:.3f}; phases alone: " + ", ".join(
                 f"{k} {v['ms']!r} ms (bound {v['bound_ms']!r} ms, "
                 f"{v['bound_by']}, share {v['bound_ms'] / v['ms']:.4f}"
                 + (f"; slabs {v['slab_ms']!r} ms" if len(slabs) > 1 else "")
-                + ")" for k, v in phases.items())
+                + ")" for k, v in phases.items() if v["slab_ms"])
             + ("" if ms_other is None else
                f"; the whole launch at a {OTHER_SCRATCH_CAP} B cap, "
                f"{len(other)} slabs: {ms_other!r} ms"))
@@ -1516,8 +1667,8 @@ def phase_fused(device, if_ref, t_ref):
     (if_mean, nll), t_call = timed(fused_headline, yss)
     launches = {**ghfs_chirp_filter_smoother.kernel_launches,
                 "smoother_expect_var": gaussian_expectation_g.launches}
-    want = dict(fused_forward=1, affine_backward=1, smoother_backward=0,
-                smoother_expect_var=1)
+    want = dict(fused_forward=1, affine_backward=1, smoother_compose=0,
+                smoother_carry=0, smoother_backward=0, smoother_expect_var=1)
     check(ghfs_chirp_filter_smoother.launches == 1 and launches == want,
           f"6d: the call launched {launches}, not {want}")
     for name, x in (("if_mean", if_mean), ("nll", nll)):
@@ -1666,6 +1817,9 @@ def fused_entry(timing, kernel):
         entry.update({f"ms_{other[1]}": f32[other[0]]["ms"],
                       f"bound_ms_{other[1]}": f32[other[0]]["bound_ms"],
                       f"ms_{other[1]}_f64": f64[other[0]]["ms"]})
+    if kernel == "affine_backward":
+        entry.update(ms_full_b100=b100["affine_backward"]["ms"],
+                     geometry=f32["geometry"], geometry_b100=b100["geometry"])
     return entry
 
 
@@ -1683,7 +1837,7 @@ def phase_fused_timing(device, smi):
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import kernel_launcher
     from chirpgp_tpu_torch.ops.chirp_fused import (
-        ROW_WORDS, FusedKernels, fused_cost)
+        BACK_STAGES, ROW_WORDS, FusedKernels, affine_geometry, fused_cost)
     from chirpgp_tpu_torch.ops.chirp_smoother import (
         expectation_g_cost, expectation_launcher, smoother_phase_costs)
     cfg = IFEstimationConfig()
@@ -1699,7 +1853,7 @@ def phase_fused_timing(device, smi):
     cases = {"B=4096/f32": (g(cfg.default_init_theta()), bench.float()),
              "B=4096/f64": (g(cfg.default_init_theta()), bench),
              "B=100/f32": (opt, y100)}
-    out, parts = {}, []
+    out, parts, geos = {}, [], {}
     for tag, (params, yss) in cases.items():
         B, T = yss.shape
         like = dict(dtype=yss.dtype, device=device)
@@ -1719,6 +1873,9 @@ def phase_fused_timing(device, smi):
             lambda: kernels.backward(rows, mf, lf, om, op))
         check(torch.equal(om[:, 2], vm) and torch.equal(op[:, 10], vv),
               f"6e {tag}: G's slim output differs from its full one")
+        geo = affine_geometry(B, kernels.num_sms)
+        geos[tag] = (f"G team {geo.team}, {geo.lanes_per_block} lanes x "
+                     f"{geo.blocks} blocks, ring of {BACK_STAGES} steps")
         del om, op
         launch, if_mean = expectation_launcher(vm, vv, order)
         ms["smoother_expect_var"] = event_ms(launch)
@@ -1729,9 +1886,12 @@ def phase_fused_timing(device, smi):
         ms["fused_forward_factors"] = event_ms(
             lambda: kernels.forward(ys_t, rows, mfs, lfs, nll, True))
         mss, lss = torch.empty_like(mfs), torch.empty_like(lfs)
-        ms["smoother_backward"] = event_ms(
-            lambda: kernels.rows_backward(mfs, lfs, rows, mss, lss))
+        chain = kernels.back.scratch(B, kernels.back.chunks(T, B))
+        ms["phase_b"] = event_ms(
+            lambda: kernels.rows_backward(mfs, lfs, rows, mss, lss, chain))
         check(bool(torch.isfinite(mss).all()), f"6e {tag}: non-finite mss")
+        geos[tag] += f"; phase B in C={kernels.back.chunks(T, B)} chunks"
+        del chain
         del mfs, lfs, mss, lss, rows, kernels
         launch, _ = kernel_launcher(params.to(torch.float64).cpu(), XI, DT,
                                     rule, yss)
@@ -1740,17 +1900,18 @@ def phase_fused_timing(device, smi):
         costs = {**fused_cost(S, T, B, yss.dtype),
                  "smoother_expect_var": expectation_g_cost(T, B, yss.dtype,
                                                            order),
-                 "smoother_backward": smoother_phase_costs(
+                 "phase_b": smoother_phase_costs(
                      S, T, B, yss.dtype)["smoother_backward"]}
-        out[tag] = {}
+        out[tag] = {"geometry": geos[tag]}
         for k, t in ms.items():
             _, _, bound, by = bound_ms(S, T, B, yss.dtype,
                                        lambda *a, _c=costs[k]: _c)
             out[tag][k] = dict(ms=t, bound_ms=bound, bound_by=by)
-        parts.append(f"{tag} T={T}: " + ", ".join(
+        parts.append(f"{tag} T={T} ({geos[tag]}): " + ", ".join(
             f"{k} {v['ms']!r} ms (bound {v['bound_ms']!r} ms, {v['bound_by']},"
             f" share {v['bound_ms'] / v['ms']:.4f})"
-            for k, v in out[tag].items()) + f"; the filter kernel "
+            for k, v in out[tag].items() if k != "geometry")
+            + f"; the filter kernel "
             f"{filter_ms!r} ms: F maps / filter "
             f"{ms['fused_forward'] / filter_ms:.3f}")
         torch.cuda.empty_cache()
@@ -2071,11 +2232,42 @@ def family_vg_report(rec, alone):
             f"GiB at T={rec['t_full']}); {'; '.join(devs)}; {prof}")
 
 
-def phase_family(device, smi):
+def lascala_inputs(device):
+    """8b's La Scala parameters, rule and records: the Table-I width, the
+    100 records of ``toydata_const`` in float64, and their true IFs."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.convert import params_from_jax
+    cfg = IFEstimationConfig(model="lascala")
+    data = np.load(ROOT / "results/data/toydata_const.npz")
+    y64 = torch.as_tensor(data["ys"], dtype=torch.float64, device=device)
+    tf = torch.as_tensor(data["true_freqs"], dtype=torch.float64,
+                         device=device)
+    las = params_from_jax(np.load(
+        ROOT / "results/reference/lascala_ghfs_const.npz")["params"][0])
+    return cfg, las, y64, tf
+
+
+def lascala_bare_launches(device):
+    """8b's bare launches of La Scala's filter at the Table-I width,
+    {dtype name: CUDA-event ms}, timed before the lanes start, while this
+    process has the card to itself."""
+    from chirpgp_tpu_torch.ops.chirp_filter import (
+        kernel_launcher, lascala_chirp_params)
+    cfg, las, y64, _ = lascala_inputs(device)
+    out = {}
+    for yss in (y64.float(), y64):
+        launch, _ = kernel_launcher(lascala_chirp_params(las.to(yss.dtype)),
+                                    XI, DT, cfg.sigma_points(), yss)
+        out[str(yss.dtype)[6:]] = event_ms(launch)
+    return out
+
+
+def phase_family(device, smi, bare_ms):
     """8a seed-0 gates of the six columns (child processes, beside the
-    rest), 8b La Scala through the filter kernel, 8c/8d the harmonic CKFS
-    and KPT sweep objectives at B=300, 8e the whole harmonic-EKFS and KPT
-    sweeps at a small depth."""
+    rest), 8b La Scala through the filter kernel (its bare launches
+    ``bare_ms`` timed by ``lascala_bare_launches``), 8c/8d the harmonic
+    CKFS and KPT sweep objectives at B=300, 8e the whole harmonic-EKFS and
+    KPT sweeps at a small depth."""
     from chirpgp_tpu_torch.utils.timing import timed
     import concurrent.futures
     import multiprocessing
@@ -2084,7 +2276,6 @@ def phase_family(device, smi):
     from chirpgp_tpu_torch.apps import (
         IFEstimationConfig, estimate_if_batched, make_nll_fn,
         mle_sweep_on_measurements)
-    from chirpgp_tpu_torch.convert import params_from_jax
     from chirpgp_tpu_torch.ops.chirp_filter import (
         ghfs_chirp_filter, ghfs_chirp_filter_reference, kernel_launcher,
         lascala_chirp_params)
@@ -2094,23 +2285,17 @@ def phase_family(device, smi):
     parts, out = [], {}
     t_phase = time.perf_counter()
 
-    # 8b, first: the bare launch of La Scala's filter at the Table-I width
-    # while this process has the card to itself (the child processes'
-    # kernels would share its time).
-    cfg = IFEstimationConfig(model="lascala")
+    # 8b: the kernel's outputs on La Scala's records (its bare launches
+    # were timed before the lanes, with the card to itself).
+    cfg, las, y64, tf = lascala_inputs(device)
     rule = cfg.sigma_points()
-    data = np.load(ROOT / "results/data/toydata_const.npz")
-    y64 = torch.as_tensor(data["ys"], dtype=torch.float64, device=device)
-    tf = torch.as_tensor(data["true_freqs"], dtype=torch.float64,
-                         device=device)
-    las = params_from_jax(np.load(
-        ROOT / "results/reference/lascala_ghfs_const.npz")["params"][0])
     kern = {}
     for yss in (y64.float(), y64):
         tag = str(yss.dtype)[6:]
         launch, kern[tag] = kernel_launcher(
             lascala_chirp_params(las.to(yss.dtype)), XI, DT, rule, yss)
-        out[tag] = dict(ms=event_ms(launch))
+        launch()  # writes kern[tag]
+        out[tag] = dict(ms=bare_ms[tag])
 
     gate_jobs = [(name, "float64") for name in FAMILY_GATES] + [
         ("harmonic_ckfs", "float32")]
@@ -2168,7 +2353,7 @@ def phase_family(device, smi):
                 f"x10 {r10!r}, nll {nll0!r}; kernel vs plain: max|d mfs| "
                 f"{dev['mfs']!r}, max|d LLT| {dev['LLT']!r}, max rel|d "
                 f"nll[-1]| {dev['nll_last_rel']!r}; bare launch {ms!r} ms "
-                f"(CUDA events, before the child processes), plain filter "
+                f"(CUDA events, before the lanes), plain filter "
                 f"{1e3 * t_plain:.3f} ms; {flop} flop, {nbytes} B, bound "
                 f"{bound!r} ms ({bound_by}), share {bound / ms:.4f}")
         del kern
@@ -2651,8 +2836,39 @@ def myotis_check(device):
             f"{MYOTIS_FULL}-sample record")
 
 
-def phase_analysis(device, smi):
-    """10a the kernel against its plain version on one CRLB chunk, 10b the
+def crlb_chunk(device):
+    """10a's simulated CRLB chunk, float32: (params, Xi, m0, rule, ys, xs)."""
+    from chirpgp_tpu_torch.apps.crlb import _reference_sim_setup, _simulate
+    from chirpgp_tpu_torch.quad import gauss_hermite
+    lam, b, delta, ell, sigma, Xi = CRLB_ARGS
+    trans, m0, P0, H, chol_P0, chol_Q = _reference_sim_setup(
+        lam, b, delta, ell, sigma, CRLB_DT, torch.float32, device)
+    gen = torch.Generator(device=device).manual_seed(10)
+    z = [torch.randn(shape, generator=gen, device=device)
+         for shape in ((CRLB_CHUNK, 4), (CRLB_CHUNK, CRLB_T, 4),
+                       (CRLB_CHUNK, CRLB_T))]
+    with torch.no_grad():
+        _, xs, ys = _simulate(trans, m0, chol_P0, chol_Q, H, math.sqrt(Xi),
+                              CRLB_DT, *z)
+    return (lam, b, delta, ell, sigma, 0.0), Xi, m0, gauss_hermite(4, 3), ys, xs
+
+
+def crlb_bare_launches(device):
+    """10a's bare launches of the kernel on the CRLB chunk and on the last,
+    shorter chunk, {lanes: CUDA-event ms}, timed before the lanes start."""
+    from chirpgp_tpu_torch.ops.chirp_filter import kernel_launcher
+    params, Xi, m0, gh3, ys, _ = crlb_chunk(device)
+    n_last = CRLB_N - (CRLB_LAUNCHES - 1) * CRLB_CHUNK
+    ms = {}
+    for n in (CRLB_CHUNK, n_last):
+        launch, _ = kernel_launcher(params, Xi, CRLB_DT, gh3, ys[:n], m0=m0)
+        ms[n] = event_ms(launch)
+    return ms
+
+
+def phase_analysis(device, smi, crlb_ms):
+    """10a the kernel against its plain version on one CRLB chunk (its bare
+    launches ``crlb_ms`` timed by ``crlb_bare_launches``), 10b the
     1e6-trajectory filter-error Monte Carlo through the kernel, 10c the
     EKF's, 10d the PCRLB, 10e the FHC columns, 10f the fastF0NLS columns
     (host, child process), 10g the real-data pipelines on synthetic
@@ -2662,12 +2878,10 @@ def phase_analysis(device, smi):
     import multiprocessing
     from chirpgp_tpu_torch.apps import (
         filter_error_mc_chunked, pcrlb_chirp_mc)
-    from chirpgp_tpu_torch.apps.crlb import _reference_sim_setup, _simulate
     from chirpgp_tpu_torch.baselines import (
         fhc_pitch_track_batch, force_odd, median_smooth)
     from chirpgp_tpu_torch.ops.chirp_filter import (
-        ghfs_chirp_filter, ghfs_chirp_filter_reference, kernel_launcher)
-    from chirpgp_tpu_torch.quad import gauss_hermite
+        ghfs_chirp_filter, ghfs_chirp_filter_reference)
     from chirpgp_tpu_torch.toymodels import meow_freq
     spawn = multiprocessing.get_context("spawn")
     out = {}
@@ -2680,7 +2894,6 @@ def phase_analysis(device, smi):
         print(f"phase {line} ({now - t_sub:.3f} s)", flush=True)
         t_sub = now
 
-    lam, b, delta, ell, sigma, Xi = CRLB_ARGS
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=spawn) as host, \
             concurrent.futures.ProcessPoolExecutor(
@@ -2688,17 +2901,7 @@ def phase_analysis(device, smi):
         nls_fut = host.submit(fastnls_columns, NLS_SEEDS)
 
         # 10a: one simulated CRLB chunk, the kernel against plain.
-        trans, m0, P0, H, chol_P0, chol_Q = _reference_sim_setup(
-            lam, b, delta, ell, sigma, CRLB_DT, torch.float32, device)
-        gen = torch.Generator(device=device).manual_seed(10)
-        z = [torch.randn(shape, generator=gen, device=device)
-             for shape in ((CRLB_CHUNK, 4), (CRLB_CHUNK, CRLB_T, 4),
-                           (CRLB_CHUNK, CRLB_T))]
-        with torch.no_grad():
-            _, xs, ys = _simulate(trans, m0, chol_P0, chol_Q, H,
-                                  math.sqrt(Xi), CRLB_DT, *z)
-        gh3 = gauss_hermite(4, 3)
-        params = (lam, b, delta, ell, sigma, 0.0)
+        params, Xi, m0, gh3, ys, xs = crlb_chunk(device)
         kern, plain, sums, plain_s = {}, {}, {}, {}
         for y in (ys.double(), ys):
             tag = str(y.dtype)[6:]
@@ -2737,22 +2940,18 @@ def phase_analysis(device, smi):
               f"10a: per-step error sums kernel vs plain rel {sum_rel} > "
               f"{CRLB_SUM_RTOL}")
         n_last = CRLB_N - (CRLB_LAUNCHES - 1) * CRLB_CHUNK
-        ms = {}
-        for n in (CRLB_CHUNK, n_last):
-            launch, _ = kernel_launcher(params, Xi, CRLB_DT, gh3, ys[:n],
-                                        m0=m0)
-            ms[n] = event_ms(launch)
+        ms = crlb_ms
         flop, nbytes, bound, bound_by = bound_ms(gh3.n_points, CRLB_T,
                                                  CRLB_CHUNK, torch.float32)
         out.update(ms_crlb_chunk=ms[CRLB_CHUNK], bound_ms_crlb_chunk=bound)
-        del kern, plain, xs, ys, z
+        del kern, plain, xs, ys
         say(
             f"10a CRLB chunk B={CRLB_CHUNK} T={CRLB_T} GH-3 m0=[0,1,0,0]: "
             + "; ".join(a_parts) + f" (f64 bounds {FULL_BOUNDS['float64']});"
             f" f32 per-step error sums (x2, V) kernel vs plain rel "
             f"{sum_rel:.3g} (bound {CRLB_SUM_RTOL}), kernel / plain vs the "
             f"f64 kernel {rel['kernel']:.3g} / {rel['plain']:.3g}; bare "
-            f"launch f32 "
+            f"launch f32 (CUDA events, before the lanes) "
             f"{ms[CRLB_CHUNK]!r} ms (B={n_last}: {ms[n_last]!r} ms), {flop} "
             f"flop, {nbytes} B, bound {bound!r} ms ({bound_by}), share "
             f"{bound / ms[CRLB_CHUNK]:.4f}; plain version f32 "
@@ -2760,7 +2959,7 @@ def phase_analysis(device, smi):
             f"{1e3 * plain_s['float64']:.1f} ms (host clock)")
 
         # 10g runs in two child processes on the card from here on, beside
-        # 10b-10e (after 10a's CUDA-event times).
+        # 10b-10e.
         ligo_fut = real.submit(ligo_check, str(device))
         myotis_fut = real.submit(myotis_check, str(device))
 
@@ -3250,8 +3449,7 @@ def shard_checks(mesh, sizes, smi, say):
     from chirpgp_tpu_torch.infer.nuts import NUTSDraws, nuts_draws
     from chirpgp_tpu_torch.infer.smc import SMCDraws, smc_draws
     from chirpgp_tpu_torch.models import disc_m32, g
-    from chirpgp_tpu_torch.ops.chirp_filter import (
-        ghfs_chirp_filter, kernel_launcher)
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
     from chirpgp_tpu_torch.parallel.mesh import Mesh, all_reduce
     from chirpgp_tpu_torch.parallel import sharded_seed_sweep
@@ -3290,17 +3488,8 @@ def shard_checks(mesh, sizes, smi, say):
           f"12 sharded sweep: IF mean {tuple(if_mean.shape)}, not finite")
     rep["launches"], rep["smoother_launches"] = all_reduce(
         torch.tensor([launches, smoother_launches]), mesh).tolist()
-    barrier()
     if lead:
-        local = rows(yss)
-        launch, _ = kernel_launcher(params.double().cpu(), XI, DT,
-                                    cfg.sigma_points(), local)
-        rep["ms"] = event_ms(launch)
-        rep["bound_ms"], rep["bound_by"] = bound_ms(
-            cfg.sigma_points().n_points, T, local.shape[0],
-            torch.float32)[2:]
         rep["if_mean"] = if_mean.cpu().numpy()
-    barrier()
     say(f"sharded seed sweep of estimate_if_batched, B={B} "
         f"({B // mesh.size} lanes per rank), T={T}, GH-3 f32: "
         f"{t_est:.3f} s, filter and smoother kernel launches "
@@ -3532,9 +3721,28 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_sharded(device, smi, if_ref, backend="nccl"):
+def shard_bare_launch(device):
+    """12b's bare launch of the kernel on rank 0's share of the sharded
+    sweep (its first B / SHARD_RANKS records), timed before the lanes
+    start: (CUDA-event ms, bound ms, bound by)."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter import kernel_launcher
+    cfg = IFEstimationConfig()
+    B, T = SHARD_RANKS_SIZES["B"], SHARD_RANKS_SIZES["T"]
+    local = measurements(B, T, 999, torch.float32, device)[:B // SHARD_RANKS]
+    launch, _ = kernel_launcher(
+        g(cfg.default_init_theta()).to(torch.float32).double(), XI, DT,
+        cfg.sigma_points(), local)
+    return (event_ms(launch),) + bound_ms(
+        cfg.sigma_points().n_points, T, local.shape[0], torch.float32)[2:]
+
+
+def phase_sharded(device, smi, if_ref, bare, backend="nccl"):
     """12a the sharded entry points on one ``backend`` rank in this
-    process, 12b on SHARD_RANKS spawned gloo ranks sharing ``device``."""
+    process, 12b on SHARD_RANKS spawned gloo ranks sharing ``device``
+    (the bare launch on rank 0's share, ``bare``, timed by
+    ``shard_bare_launch``)."""
     import datetime
     import multiprocessing
     import queue as queue_module
@@ -3615,15 +3823,15 @@ def phase_sharded(device, smi, if_ref, backend="nccl"):
           f"{SHARD_RANKS_SIZES['B']} vs phase 3's {dev_if:.3g} (gate "
           f"{SHARD_IF_BOUND}); filter and smoother kernel launches "
           f"{launches}, {smoother_launches}, one each per rank; the "
-          f"bare launch at B={SHARD_RANKS_SIZES['B'] // SHARD_RANKS} "
-          f"{rep['ms']!r} ms on rank 0 alone, bound "
-          f"{rep['bound_ms']!r} ms ({rep['bound_by']})", flush=True)
+          f"bare launch on rank 0's share, B="
+          f"{SHARD_RANKS_SIZES['B'] // SHARD_RANKS}, {bare[0]!r} ms (CUDA "
+          f"events, alone before the lanes), bound {bare[1]!r} ms "
+          f"({bare[2]})", flush=True)
     print(f"phase 12 scale-out: {time.perf_counter() - t_phase:.3f} s; {smi}",
           flush=True)
     return {"launches_sharded": launches,
             "smoother_launches_sharded": smoother_launches,
-            "ms_sharded_b1024": rep["ms"],
-            "bound_ms_sharded_b1024": rep["bound_ms"]}
+            "ms_sharded_b1024": bare[0], "bound_ms_sharded_b1024": bare[1]}
 
 
 def kill_group(pgid: int):
@@ -4042,6 +4250,103 @@ def _is_zombie(pid: int) -> bool:
         return True
 
 
+# Each phase of a lane, called with the lane's context: the device, the
+# nvidia-smi line, phase 3's IF mean and time, the hoisted bare launches.
+LANE_PHASES = {
+    "mle": lambda c: phase_mle(c["device"]),
+    "fused": lambda c: phase_fused(
+        c["device"], c["if_ref"].to(c["device"]), c["t_ref"]),
+    "sweep": lambda c: phase_sweep(c["device"], c["smi"]),
+    "family": lambda c: phase_family(c["device"], c["smi"],
+                                     c["lascala_ms"]),
+    "table_one": lambda c: phase_table_one(c["device"], c["smi"]),
+    "analysis": lambda c: phase_analysis(c["device"], c["smi"],
+                                         c["crlb_ms"]),
+    "parallel_posterior": lambda c: phase_parallel_posterior(c["device"],
+                                                             c["smi"]),
+    "sharded": lambda c: phase_sharded(
+        c["device"], c["smi"], c["if_ref"].to(c["device"]), c["shard_ms"]),
+    "entry_points": lambda c: phase_entry_points(c["device"], c["smi"]),
+}
+
+
+def lane_stamp(lane: int, name: str, t0: float, t_run: float) -> str:
+    now = time.time()
+    return (f"lane {lane}: {name} ran from {t0 - t_run:.1f} s to "
+            f"{now - t_run:.1f} s of the run ({now - t0:.1f} s)\n")
+
+
+def run_lane(lane: int, ctx: dict, t_run: float, queue):
+    """Lane ``lane``'s phases in a spawned process, in order; each phase's
+    printed lines, its result or its traceback go to ``queue``."""
+    import io
+    import traceback
+    device = torch.device(ctx["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    ctx = dict(ctx, device=device)
+    for name in LANES[lane]:
+        t0, buf = time.time(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = LANE_PHASES[name](ctx)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        except BaseException:
+            queue.put((lane, name, buf.getvalue(), None,
+                       traceback.format_exc()))
+            raise
+        queue.put((lane, name, buf.getvalue()
+                   + lane_stamp(lane, name, t0, t_run), result, None))
+
+
+def start_lanes(ctx: dict, t_run: float):
+    """Spawn lanes 1.. of LANES on ``ctx`` (tensors on the host)."""
+    import multiprocessing
+    spawn = multiprocessing.get_context("spawn")
+    queue = spawn.Queue()
+    procs = [spawn.Process(target=run_lane, args=(lane, ctx, t_run, queue),
+                           name=f"chip_smoke lane {lane}")
+             for lane in range(1, len(LANES))]
+    for proc in procs:
+        proc.start()
+    return queue, procs, {}
+
+
+def drain_lanes(lanes, wait: bool = False) -> dict:
+    """Print what the spawned lanes' phases have reported, fail on a
+    phase that failed; with ``wait``, until every phase has reported and
+    the lanes have exited.  Returns {phase: result} so far."""
+    import queue as queue_module
+    queue, procs, results = lanes
+    want = sum(len(names) for names in LANES[1:])
+    deadline = time.monotonic() + LANE_JOIN_S
+    while len(results) < want:
+        try:
+            lane, name, text, result, error = queue.get(
+                timeout=5.0 if wait else 0.01)
+        except queue_module.Empty:
+            if not wait:
+                break
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            check(not dead, f"a lane exited with {dead} before its phases "
+                            f"reported")
+            check(time.monotonic() < deadline,
+                  f"the lanes reported {sorted(results)} of their phases in "
+                  f"{LANE_JOIN_S} s")
+            continue
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        check(error is None, f"lane {lane}, phase {name} failed:\n{error}")
+        results[name] = result
+    if wait:
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * len(procs), f"the lanes exited with {codes}")
+    return results
+
+
 def main() -> int:
     become_subreaper()
     try:
@@ -4070,6 +4375,7 @@ def run() -> int:
               f"{chirpgp_tpu_torch.__file__}, not from beside this script",
               file=sys.stderr)
         return 2
+    t_run = time.time()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     smi = phase_environment(device)
@@ -4085,16 +4391,41 @@ def run() -> int:
     # later phases' child processes and ranks share.
     torch.cuda.empty_cache()
     phase_accuracy(device)
-    phase_mle(device)
-    fused = phase_fused(device, if_ref, t_ref)
     fused_ms = phase_fused_timing(device, smi)
-    phase_sweep(device, smi)
-    family = phase_family(device, smi)
-    phase_table_one(device, smi)
-    analysis = phase_analysis(device, smi)
-    phase_parallel_posterior(device, smi)
-    sharded = phase_sharded(device, smi, if_ref)
-    scaling = phase_entry_points(device, smi)
+    # The later phases' CUDA-event times, while this process has the card
+    # to itself; then the lanes.
+    ctx = dict(device=str(device), smi=smi, if_ref=if_ref.cpu(), t_ref=t_ref,
+               lascala_ms=lascala_bare_launches(device),
+               crlb_ms=crlb_bare_launches(device),
+               shard_ms=shard_bare_launch(device))
+    torch.cuda.empty_cache()
+    print(f"phases 5-13 in {len(LANES)} lanes from {time.time() - t_run:.1f}"
+          f" s of the run: " + "; ".join(
+              f"lane {i} ({'this process' if i == 0 else 'spawned'}) "
+              + ", ".join(names) for i, names in enumerate(LANES)),
+          flush=True)
+    lanes = start_lanes(ctx, t_run)
+    ctx = dict(ctx, device=device)
+    results = {}
+    try:
+        for name in LANES[0]:
+            t0 = time.time()
+            results[name] = LANE_PHASES[name](ctx)
+            torch.cuda.empty_cache()
+            print(lane_stamp(0, name, t0, t_run), end="", flush=True)
+            drain_lanes(lanes)
+    except BaseException:
+        # What the other lanes have reported, before this failure ends
+        # the run.
+        with contextlib.suppress(BaseException):
+            drain_lanes(lanes)
+        raise
+    results.update(drain_lanes(lanes, wait=True))
+    print(f"phases 5-13 ended at {time.time() - t_run:.1f} s of the run",
+          flush=True)
+    fused, family, analysis, sharded, scaling = (results[name] for name in (
+        "fused", "family", "analysis", "sharded", "entry_points"))
+    from chirpgp_tpu_torch.ops.chirp_smoother import BACKWARD_KERNELS
     full = timing["gh3/B=4096/f32"]
     smoother_sharded = sharded.pop("smoother_launches_sharded")
     smoother_scaling = scaling.pop("smoother_launches_scaling")
@@ -4139,7 +4470,17 @@ def run() -> int:
         "bound_by": smoother["gh3/B=4096/f32"]["phases"][kernel]["bound_by"],
         "library_ms": None,
         "ms_b100": smoother["gh3/B=100/f32"]["phases"][kernel]["ms"],
-        "ms_f64": smoother["gh3/B=4096/f64"]["phases"][kernel]["ms"]}
+        "ms_f64": smoother["gh3/B=4096/f64"]["phases"][kernel]["ms"],
+        **({"chunks": smoother["gh3/B=4096/f32"]["chunks"],
+            "chunks_b100": smoother["gh3/B=100/f32"]["chunks"],
+            "ms_phase_b": smoother["gh3/B=4096/f32"]["phases"]["phase_b"]["ms"],
+            "bound_ms_phase_b":
+                smoother["gh3/B=4096/f32"]["phases"]["phase_b"]["bound_ms"],
+            "ms_phase_b_b100":
+                smoother["gh3/B=100/f32"]["phases"]["phase_b"]["ms"],
+            "ms_phase_b_f64":
+                smoother["gh3/B=4096/f64"]["phases"]["phase_b"]["ms"]}
+           if kernel in BACKWARD_KERNELS else {})}
         for kernel in smoother_kernels] + [dict({
         # The fused filter+smoother's kernels on bench.py's slim headline
         # (6d), each timed alone (6e): F in maps mode, G slim, E.

@@ -30,8 +30,11 @@ The kernels split the function where its two scans meet:
   launch geometry from :func:`fused_geometry`.
 - ``affine_backward`` (kernel G), the covariance branch's reverse scan:
   ``ms <- u + G ms``, ``Ps <- D + G Ps G^T`` from the last filtered
-  moments, full or slim.  The factor branch's reverse scan is the
-  smoother's phase B (``smoother_backward``), unchanged.
+  moments, full or slim, a team of ``BACK_TEAM`` threads per lane sharing
+  each step by columns, in blocks of :func:`affine_geometry`.  The factor
+  branch's reverse scan is the smoother's phase B, its chunked scan over
+  time (``smoother_compose``, ``smoother_carry``, ``smoother_backward``;
+  ``ops/chirp_smoother.py::BackwardKernels``).
 
 :func:`fused_forward_reference` and :func:`affine_backward_reference` are
 the plain twins of F and G (the loops of ``infer/batched.py`` in the
@@ -50,13 +53,16 @@ from chirpgp_tpu_torch.infer.sqrt import _require_nonneg_weights
 from chirpgp_tpu_torch.ops.chirp_filter import (
     MAX_POINTS, _chirp_constants, _chirp_pack)
 from chirpgp_tpu_torch.ops.chirp_smoother import (
-    ROW_WORDS, SmootherCost, _householder_column_flop, _householder_flop,
-    load_smoother_kernel, smoother_backward_reference)
+    BACKWARD_KERNELS, ROW_WORDS, BackwardKernels,
+    SmootherCost, _householder_column_flop, _householder_flop,
+    smoother_backward_reference)
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
 
-__all__ = ["FusedGeometry", "FusedKernels", "GROUP", "GROUPS", "KERNELS",
-           "ForwardOut", "affine_backward_reference", "fused_cost",
-           "fused_forward_reference", "fused_geometry", "fused_groups",
+__all__ = ["AffineGeometry", "BACK_LANES", "BACK_STAGES", "BACK_TEAM",
+           "FusedGeometry", "FusedKernels", "GROUP", "GROUPS", "KERNELS",
+           "ForwardOut", "affine_backward_reference", "affine_geometry",
+           "fused_cost", "fused_forward_reference", "fused_geometry",
+           "fused_groups",
            "fused_kernel_launcher", "fused_layout",
            "ghfs_chirp_filter_smoother",
            "ghfs_chirp_filter_smoother_reference", "group_points",
@@ -65,8 +71,13 @@ __all__ = ["FusedGeometry", "FusedKernels", "GROUP", "GROUPS", "KERNELS",
 _D = 4
 _KERNEL = "ghfs_chirp_fused"
 # The CUDA kernels a wrapper call launches: F, then G (maps) or the
-# smoother's phase B (factors).
-KERNELS = ("fused_forward", "affine_backward", "smoother_backward")
+# smoother's phase B (factors: Compose, Carry and Apply).
+KERNELS = ("fused_forward", "affine_backward") + BACKWARD_KERNELS
+# G: threads per lane, steps of its ring, most lanes per block (kBackTeam,
+# kGStages, kGLanes in csrc/ghfs_chirp_fused.cu).
+BACK_TEAM = 4
+BACK_STAGES = 8
+BACK_LANES = 32
 # F's sigma points come in groups of at most GROUP points that share
 # xi[0..2] (their transition's angle); GROUPS lists, for each team size
 # it is built for, the groups per member of its instances (cubature's 7
@@ -171,6 +182,31 @@ def fused_geometry(B: int, n_groups: int, num_sms: int = 132,
         raise ValueError(f"a team of {team} takes 1..{most} lanes per block "
                          f"in whole warps, got {lanes}")
     return FusedGeometry(team, groups, lanes, -(-B // lanes))
+
+
+class AffineGeometry(NamedTuple):
+    team: int              # threads per lane
+    lanes_per_block: int
+    blocks: int
+
+
+def affine_geometry(B: int, num_sms: int = 132,
+                    lanes: Optional[int] = None) -> AffineGeometry:
+    """G's launch geometry for ``B`` lanes on a card of ``num_sms`` SMs:
+    blocks of ``BACK_TEAM`` warps, one per member of the lanes' teams,
+    each warp holding the block's lanes; a block takes ``ceil(B /
+    num_sms)`` lanes in multiples of 8 (a warp's copy of a word then fills
+    whole 32-byte sectors), up to ``BACK_LANES`` (at B = 4096: 128 blocks
+    of 32 lanes, one warp per scheduler; at B = 100: 13 blocks of 8,
+    spread over the SMs).  ``lanes`` overrides the lanes per block: the
+    tests and ``time_fused.py``'s sweep of it use that, the main path
+    does not."""
+    if lanes is None:
+        lanes = min(BACK_LANES, -(-max(-(-B // max(num_sms, 1)), 1) // 8) * 8)
+    if not 1 <= lanes <= BACK_LANES or lanes % 8:
+        raise ValueError(f"G takes 8..{BACK_LANES} lanes per block in "
+                         f"multiples of 8, got {lanes}")
+    return AffineGeometry(BACK_TEAM, lanes, -(-B // lanes))
 
 
 class ForwardOut(NamedTuple):
@@ -326,18 +362,24 @@ def load_fused_kernel():
         fwd.argtypes = ([ptr] * 4 + [ctypes.POINTER(ctypes.c_double)]
                         + [i32] * 7 + [ptr] * 5)
         back = getattr(lib, f"affine_backward_{dt}")
-        back.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 3
+        back.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 3
         for fn in (fwd, back):
             fn.restype = i32
     for fn in (lib.ghfs_chirp_fused_max_points,
                lib.ghfs_chirp_fused_max_slots,
                lib.ghfs_chirp_fused_num_consts,
-               lib.ghfs_chirp_fused_row_words):
+               lib.ghfs_chirp_fused_row_words,
+               lib.ghfs_chirp_fused_back_team,
+               lib.ghfs_chirp_fused_back_stages,
+               lib.ghfs_chirp_fused_back_lanes):
         fn.argtypes = []
         fn.restype = i32
     if (lib.ghfs_chirp_fused_max_points() != MAX_POINTS
             or lib.ghfs_chirp_fused_max_slots() != 32 * GROUPS[32][-1] * GROUP
-            or lib.ghfs_chirp_fused_row_words() != ROW_WORDS):
+            or lib.ghfs_chirp_fused_row_words() != ROW_WORDS
+            or lib.ghfs_chirp_fused_back_team() != BACK_TEAM
+            or lib.ghfs_chirp_fused_back_stages() != BACK_STAGES
+            or lib.ghfs_chirp_fused_back_lanes() != BACK_LANES):
         raise RuntimeError("the fused kernels' limits do not match the "
                            "wrapper's")
     return built
@@ -377,7 +419,8 @@ class FusedKernels:
             self.tables[team, gpm] = tuple(torch.as_tensor(a, **like) for a in (
                 np.ascontiguousarray(rule.xi), w, np.sqrt(w)))
         self.suffix = "f32" if dtype == torch.float32 else "f64"
-        self._smoother = None
+        self.dtype = dtype
+        self._back = None
 
     def _run(self, kernel, fn, *args):
         rc = fn(*args, torch.cuda.current_stream(self.device).cuda_stream)
@@ -403,27 +446,35 @@ class FusedKernels:
                   nll.data_ptr())
 
     def backward(self, rows, mf, lf, out_m, out_p,
-                 out_index: Optional[int] = None):
+                 out_index: Optional[int] = None,
+                 lanes: Optional[int] = None):
         """G over the maps ``rows`` from the last filtered ``mf`` (4, B) and
         ``lf`` (16, B): ``out_m`` (T, 4, B) and ``out_p`` (T, 16, B), or
-        with ``out_index`` that state's (T, B) mean and variance."""
+        with ``out_index`` that state's (T, B) mean and variance; in blocks
+        of ``affine_geometry``'s lanes (or ``lanes``, which only the tests
+        and ``time_fused.py``'s sweep pass)."""
         T, B = rows.shape[0] + 1, mf.shape[-1]
+        geo = affine_geometry(B, self.num_sms, lanes)
         self._run("affine_backward", getattr(self.lib,
                                              f"affine_backward_{self.suffix}"),
                   rows.data_ptr(), mf.data_ptr(), lf.data_ptr(), T, B,
-                  -1 if out_index is None else out_index, out_m.data_ptr(),
-                  out_p.data_ptr())
+                  geo.lanes_per_block, -1 if out_index is None else out_index,
+                  out_m.data_ptr(), out_p.data_ptr())
 
-    def rows_backward(self, mfs, lfs, rows, mss, lss):
-        """The smoother's phase B over F's factor rows: ``mss`` (T, 4, B)
-        and ``lss`` (T, 16, B) from ``mfs``, ``lfs`` and ``rows``."""
-        if self._smoother is None:
-            self._smoother = load_smoother_kernel().lib
-        T, _, B = mfs.shape
-        self._run("smoother_backward",
-                  getattr(self._smoother, f"smoother_backward_{self.suffix}"),
-                  mfs.data_ptr(), lfs.data_ptr(), rows.data_ptr(), T, B, B,
-                  mss.data_ptr(), lss.data_ptr())
+    @property
+    def back(self) -> BackwardKernels:
+        """The smoother's phase B kernels, counted as this wrapper's."""
+        if self._back is None:
+            self._back = BackwardKernels(self.dtype, self.device,
+                                         ghfs_chirp_filter_smoother)
+        return self._back
+
+    def rows_backward(self, mfs, lfs, rows, mss, lss, scratch=None):
+        """The smoother's phase B over F's factor rows, Compose, Carry and
+        Apply in ``backward_chunks`` chunks: ``mss`` (T, 4, B) and ``lss``
+        (T, 16, B) from ``mfs``, ``lfs`` and ``rows``; ``scratch`` as
+        ``BackwardKernels.scratch`` gives it (allocated if None)."""
+        self.back.run(mfs, lfs, rows, mss, lss, scratch=scratch)
 
 
 def fused_kernel_launcher(params, Xi, dt, sgps: SigmaPoints,
@@ -433,9 +484,9 @@ def fused_kernel_launcher(params, Xi, dt, sgps: SigmaPoints,
     """Check the inputs of :func:`ghfs_chirp_filter_smoother` for the
     kernels, build them (:class:`FusedKernels`), the transposed
     measurements, F's rows and every output, and return ``(launch,
-    outputs)``: each ``launch()`` runs F, then G (maps) or phase B
-    (factors), on the current stream, writes the outputs and counts one
-    launch.  It does no host work besides the ctypes calls, so CUDA events
+    outputs)``: each ``launch()`` runs F, then G (maps) or phase B's
+    kernels (factors, with their scratch), on the current stream, writes
+    the outputs and counts one launch.  It does no host work besides the ctypes calls, so CUDA events
     around it time the kernels alone."""
     _check(sgps, yss, return_factors, out_index)
     if yss.device.type != "cuda":
@@ -460,13 +511,17 @@ def fused_kernel_launcher(params, Xi, dt, sgps: SigmaPoints,
         out_p = torch.empty((T, B), **like)
         outputs = (out_m, out_p, nll)
 
+    chain = None
+    if return_factors:
+        chain = kernels.back.scratch(B, kernels.back.chunks(T, B))
+
     # The closure holds every tensor a kernel reads or writes, so that they
     # live as long as ``launch``, whatever the caller keeps.
     def launch():
         with torch.cuda.device(yss.device):
             kernels.forward(ys_t, rows, mfs, lfs, nll, return_factors)
             if return_factors:
-                kernels.rows_backward(mfs, lfs, rows, out_m, out_p)
+                kernels.rows_backward(mfs, lfs, rows, out_m, out_p, chain)
             else:
                 kernels.backward(rows, mfs, lfs, out_m, out_p, out_index)
         ghfs_chirp_filter_smoother.launches += 1
@@ -527,6 +582,7 @@ def fused_cost(S: int, T: int, B: int, dtype=torch.float32) -> dict:
 
 
 ghfs_chirp_filter_smoother.launches = 0
-# Launches of each CUDA kernel of the wrapper (F once per call, then G or
-# the smoother's phase B once).
+# Launches of each CUDA kernel of the wrapper (F once per call, then G once
+# or phase B's kernels: Apply once, Compose and Carry once where it takes
+# more than one chunk).
 ghfs_chirp_filter_smoother.kernel_launches = dict.fromkeys(KERNELS, 0)

@@ -21,11 +21,21 @@ every t < T-1 and lane at once, what depends on the filter's (mf_t, Lf_t)
 alone: ``ROW_WORDS`` = 30 words, m_p (4), the gain's ``X = R11^-1 R12``
 (16, row-major; G = X^T) and R22's upper triangle (10, row by row), into
 a ``(T-1, 30, B)`` scratch.  Phase B runs the short recursion over them,
-one thread per lane: ``ms <- mf + X^T (ms - m_p)``, ``Ls <- tria([(X^T
-Ls)^T; R22])^T``.  Phase E takes the expectation of every step at once.
-:func:`smoother_rows_reference` and :func:`smoother_backward_reference`
-are the plain twins of phases A and B, and ``smoothed_expectation_batched``
-is phase E's plain version: the kernels' oracle.
+``ms <- mf + X^T (ms - m_p)``, ``Ls <- tria([(X^T Ls)^T; R22])^T``, as a
+chunked scan over time (:class:`BackwardKernels`): the T-1 steps of a lane
+split into C chunks (:func:`backward_chunks`, :func:`chunk_starts`);
+Compose folds each chunk but the first into one step of the same packing,
+parallel over (chunk, lane); Carry runs the recursion over those C-1
+aggregates, one thread per lane, for the carry at each chunk's later end;
+Apply runs every chunk's steps from its carry, parallel over (chunk,
+lane).  With C = 1, Apply alone runs the whole recursion.  Phase E takes
+the expectation of every step at once.  :func:`smoother_rows_reference`
+and :func:`smoother_backward_reference` are the plain twins of phases A
+and B, :func:`smoother_backward_chunked_reference` that of phase B's
+chunked form (:func:`smoother_compose_reference`,
+:func:`smoother_carry_reference`, :func:`smoother_apply_reference`), and
+``smoothed_expectation_batched`` is phase E's plain version: the kernels'
+oracle.
 
 :func:`gaussian_expectation_g` is phase E's second input mode: the same
 expectation from a ``(T, B)`` mean and variance of V, as the fused
@@ -36,6 +46,7 @@ bench.py's pipeline, and on a CUDA device the kernel
 """
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -51,13 +62,18 @@ from chirpgp_tpu_torch.ops.chirp_filter import (
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints, gauss_hermite
 from chirpgp_tpu_torch.utils.numerics import psd_cholesky
 
-__all__ = ["KERNELS", "ROWS", "ROW_WORDS", "SCRATCH_CAP", "SmootherKernels",
-           "TEAM", "expectation_g_cost", "expectation_launcher",
+__all__ = ["BACKWARD_KERNELS", "BACK_WARPS_PER_SM", "BackwardKernels",
+           "CARRY_STEP_WEIGHT", "CARRY_WORDS", "KERNELS", "ROWS", "ROW_WORDS",
+           "SCRATCH_CAP",
+           "STEP_WORDS", "SmootherKernels", "TEAM", "backward_chunks",
+           "chunk_starts", "expectation_g_cost", "expectation_launcher",
            "gaussian_expectation_g", "ghfs_chirp_smoother",
            "ghfs_chirp_smoother_kernel",
            "ghfs_chirp_smoother_reference", "ghfs_chirp_smoother_split",
            "load_smoother_kernel", "rows_per_member",
-           "smoother_backward_reference", "smoother_cost",
+           "smoother_apply_reference", "smoother_backward_chunked_reference",
+           "smoother_backward_reference", "smoother_carry_reference",
+           "smoother_compose_reference", "smoother_cost",
            "smoother_kernel_launcher", "smoother_phase_costs",
            "smoother_rows_reference", "smoother_slabs"]
 
@@ -73,8 +89,25 @@ ROW_WORDS = _D + _D * _D + _D * (_D + 1) // 2
 # GH-3 at d = 4, the rules of Table I).
 TEAM = 8
 ROWS = (2, 11)
-# The CUDA kernels of csrc/ghfs_chirp_smoother.cu: phases A, B and E.
-KERNELS = ("smoother_rows", "smoother_backward", "smoother_expect")
+# The CUDA kernels of csrc/ghfs_chirp_smoother.cu: phase A, phase B's
+# Compose, Carry and Apply (``smoother_backward``), and phase E.
+BACKWARD_KERNELS = ("smoother_compose", "smoother_carry", "smoother_backward")
+KERNELS = ("smoother_rows",) + BACKWARD_KERNELS + ("smoother_expect",)
+# Words of a step of phase B's recursion (mf, then the row), of a chunk's
+# aggregate (the same packing), and of the carry at a chunk boundary (ms,
+# then Ls's lower triangle row by row).
+STEP_WORDS = _D + ROW_WORDS
+CARRY_WORDS = _D + _D * (_D + 1) // 2
+# The (chunk, lane) warps per SM that backward_chunks aims at: two on each
+# of an SM's four schedulers, whose one-warp blocks of 26 KB (float64,
+# kStages = 3) the SM holds at once.
+BACK_WARPS_PER_SM = 8
+# What one step of Carry (one thread per lane, in series over the chunks)
+# costs in steps of Compose or Apply (parallel over (chunk, lane)) in
+# backward_chunks' chain: chunks shorter than ~50 steps no longer shorten
+# Compose and Apply.  Measured on an H100 (time_smoother.py, B=100,
+# T=3141, float32): C=64 0.158 ms, C=79 (a weight of 1) 0.176 ms.
+CARRY_STEP_WEIGHT = 1.5
 # Bytes of phase A's scratch per slab of lanes: past it, phases A and B run
 # over slabs of lanes, one scratch reused.  A slab more runs phase B, which
 # is bound by its recursion's latency, once more in sequence; 4 GiB holds
@@ -137,27 +170,172 @@ def smoother_rows_reference(params, dt, sgps: SigmaPoints, mfs: torch.Tensor,
                      or [mfs.new_empty((0, ROW_WORDS, B))]).contiguous()
 
 
+def _bstep(mf, row, ms, Ls):
+    """Phase B's step on lanes (the last axis): ``ms <- mf + X^T (ms -
+    m_p)``, ``Ls <- tria([(X^T Ls)^T; R22])^T`` with the words of ``row``
+    (30, N): m_p, X (row-major), R22's upper triangle.  Returns ``(ms, Ls,
+    X)``."""
+    d, N = mf.shape
+    iu = torch.triu_indices(d, d)
+    mp, X = row[:d], row[d:d + d * d].reshape(d, d, N)
+    R22 = row.new_zeros((d, d, N))
+    R22[iu[0], iu[1]] = row[d + d * d:]
+    G = X.transpose(0, 1)
+    ms = mf + torch.einsum("ijb,jb->ib", G, ms - mp)
+    GLs = torch.einsum("ijb,jkb->ikb", G, Ls)
+    Ls = tria_cf(torch.cat([GLs.transpose(0, 1), R22], dim=0)).transpose(0, 1)
+    return ms, Ls, X
+
+
 def smoother_backward_reference(mfs: torch.Tensor, Lfs: torch.Tensor,
                                 rows: torch.Tensor):
     """Phase B's plain twin: the recursion over phase A's ``rows`` (the
     fused form's ``bstep``), from the filter's row T-1.  Returns ``(mss,
     Lss)``."""
-    T, d, B = mfs.shape
-    iu = torch.triu_indices(d, d)
+    T = mfs.shape[0]
     ms, Ls = mfs[-1], Lfs[-1]
     mss, Lss = [ms], [Ls]
     for t in range(T - 2, -1, -1):
-        mp, X = rows[t, :d], rows[t, d:d + d * d].reshape(d, d, B)
-        R22 = rows.new_zeros((d, d, B))
-        R22[iu[0], iu[1]] = rows[t, d + d * d:]
-        G = X.transpose(0, 1)
-        ms = mfs[t] + torch.einsum("ijb,jb->ib", G, ms - mp)
-        GLs = torch.einsum("ijb,jkb->ikb", G, Ls)
-        Ls = tria_cf(torch.cat([GLs.transpose(0, 1), R22], dim=0)
-                     ).transpose(0, 1)
+        ms, Ls, _ = _bstep(mfs[t], rows[t], ms, Ls)
         mss.append(ms)
         Lss.append(Ls)
     return torch.stack(mss[::-1]), torch.stack(Lss[::-1])
+
+
+def backward_chunks(T: int, B: int, num_sms: int = 132) -> int:
+    """Phase B's chunks C for ``B`` lanes of ``T`` steps on a card of
+    ``num_sms`` SMs: enough (chunk, lane) warps to give each SM
+    ``BACK_WARPS_PER_SM`` (B / 32 warps per chunk), and no more than the
+    C ~ sqrt(2 (T-1) / w) that makes the chain of Compose, Carry and
+    Apply, ~2 (T-1) / C + w C steps with w = ``CARRY_STEP_WEIGHT``,
+    shortest; at most T-1, and 1 below two steps (Apply alone, the plain
+    recursion)."""
+    steps = T - 1
+    if steps < 2 or B < 1:
+        return 1
+    fill = max(1, BACK_WARPS_PER_SM * max(num_sms, 1) // -(-B // _WARP))
+    chain = max(1, round(math.sqrt(2 * steps / CARRY_STEP_WEIGHT)))
+    return min(fill, chain, steps)
+
+
+def chunk_starts(T: int, chunks: int) -> list:
+    """The first step of each of ``chunks`` chunks of the T-1 steps, and
+    T-1: chunk k covers steps ``starts[k] .. starts[k+1] - 1`` (the
+    kernels' ``chunk_start``)."""
+    if not 1 <= chunks <= max(T - 1, 1):
+        raise ValueError(f"phase B takes 1..{max(T - 1, 1)} chunks at T={T}, "
+                         f"got {chunks}")
+    return [k * (T - 1) // chunks for k in range(chunks)] + [T - 1]
+
+
+def _walk_chunks(starts, ks, mfs, rows, carry, visit):
+    """Chunks ``ks`` of ``starts`` walked at once, their lanes side by side
+    (chunk-major, N = len(ks) B): step j of chunk k is t = starts[k+1] - 1
+    - j, and a chunk whose steps are done keeps its carry.  ``carry`` is a
+    tuple of (..., N) tensors whose first two are (ms, Ls); each step
+    calls ``visit(j, t, valid, carry, X)`` with the stepped (ms, Ls) and
+    X, and takes the tuple it returns."""
+    B = mfs.shape[2]
+    ends = torch.tensor([starts[k + 1] for k in ks])
+    lens = ends - torch.tensor([starts[k] for k in ks])
+    for j in range(int(lens.max()) if len(ks) else 0):
+        valid = j < lens
+        t = (ends - 1 - j).clamp_min(0)
+        mf = mfs[t].permute(1, 0, 2).reshape(-1, len(ks) * B)
+        row = rows[t].permute(1, 0, 2).reshape(-1, len(ks) * B)
+        ms, Ls, X = _bstep(mf, row, carry[0], carry[1])
+        new = visit(j, t, valid, (ms, Ls) + tuple(carry[2:]), X)
+        if not bool(valid.all()):
+            keep = valid.repeat_interleave(B).to(mfs.device)
+            new = tuple(torch.where(keep, a, b) for a, b in zip(new, carry))
+        carry = new
+    return carry
+
+
+def smoother_compose_reference(mfs: torch.Tensor, rows: torch.Tensor,
+                               chunks: int) -> torch.Tensor:
+    """Compose's plain twin: for each chunk k >= 1 of ``chunk_starts``, from
+    x_ref = mf at its later end t1, the mean c from x_ref, the factor S
+    from 0 and A <- X^T A from I over its steps t1-1 .. t0, as phase B's
+    step ``(chunks-1, STEP_WORDS, B)``: mf := c, m_p := x_ref, X := A^T,
+    R22 := S^T's upper triangle."""
+    T, d, B = mfs.shape
+    starts = chunk_starts(T, chunks)
+    ks = list(range(1, chunks))
+    N = len(ks) * B
+    x_ref = mfs[[starts[k + 1] for k in ks]].permute(1, 0, 2).reshape(d, N)
+    eye = torch.eye(d, dtype=mfs.dtype, device=mfs.device)[:, :, None]
+
+    def visit(j, t, valid, carry, X):
+        c, S, A = carry
+        return c, S, torch.einsum("jib,jkb->ikb", X, A)
+
+    c, S, A = _walk_chunks(starts, ks, mfs, rows,
+                           (x_ref, mfs.new_zeros((d, d, N)),
+                            eye.expand(d, d, N).contiguous()), visit)
+    iu = torch.triu_indices(d, d)
+    agg = torch.cat([c, x_ref, A.transpose(0, 1).reshape(d * d, N),
+                     S.transpose(0, 1)[iu[0], iu[1]]])
+    return agg.reshape(STEP_WORDS, len(ks), B).permute(1, 0, 2).contiguous()
+
+
+def smoother_carry_reference(mfs: torch.Tensor, Lfs: torch.Tensor,
+                             agg: torch.Tensor, chunks: int) -> torch.Tensor:
+    """Carry's plain twin: phase B's step over the aggregates of chunks
+    C-1 .. 1 from the filter's row T-1; the carry after chunk k, at the
+    later end of chunk k-1, as ``(chunks-1, CARRY_WORDS, B)``: ms, then
+    Ls's lower triangle row by row."""
+    T, d, B = mfs.shape
+    il = torch.tril_indices(d, d)
+    ms, Ls = mfs[-1], Lfs[-1]
+    out = [None] * (chunks - 1)
+    for k in range(chunks - 2, -1, -1):
+        ms, Ls, _ = _bstep(agg[k, :d], agg[k, d:], ms, Ls)
+        out[k] = torch.cat([ms, Ls[il[0], il[1]]])
+    return (torch.stack(out) if out
+            else mfs.new_empty((0, CARRY_WORDS, B)))
+
+
+def smoother_apply_reference(mfs: torch.Tensor, Lfs: torch.Tensor,
+                             rows: torch.Tensor, bounds: torch.Tensor,
+                             chunks: int):
+    """Apply's plain twin: every chunk's steps from its carry, the last
+    chunk from the filter's row T-1 and the others from ``bounds``
+    (Carry's).  Returns ``(mss, Lss)``; with one chunk it is
+    :func:`smoother_backward_reference`'s recursion, bit for bit."""
+    T, d, B = mfs.shape
+    starts = chunk_starts(T, chunks)
+    il = torch.tril_indices(d, d)
+    Ls0 = bounds.new_zeros((chunks - 1, d, d, B))
+    Ls0[:, il[0], il[1]] = bounds[:, d:]
+    ms = torch.cat([bounds[:, :d], mfs[-1:]]).permute(1, 0, 2)
+    Ls = torch.cat([Ls0, Lfs[-1:]]).permute(1, 2, 0, 3)
+    mss, Lss = torch.empty_like(mfs), torch.empty_like(Lfs)
+    mss[-1], Lss[-1] = mfs[-1], Lfs[-1]
+
+    def visit(j, t, valid, carry, X):
+        ms, Ls = carry
+        ks = valid.nonzero()[:, 0]
+        mss[t[ks]] = ms.reshape(d, chunks, B)[:, ks].permute(1, 0, 2)
+        Lss[t[ks]] = Ls.reshape(d, d, chunks, B)[:, :, ks].permute(2, 0, 1, 3)
+        return carry
+
+    _walk_chunks(starts, list(range(chunks)), mfs, rows,
+                 (ms.reshape(d, chunks * B), Ls.reshape(d, d, chunks * B)),
+                 visit)
+    return mss, Lss
+
+
+def smoother_backward_chunked_reference(mfs: torch.Tensor, Lfs: torch.Tensor,
+                                        rows: torch.Tensor, chunks: int):
+    """Phase B's chunked form, plain: Compose, Carry and Apply
+    (:func:`smoother_compose_reference`, :func:`smoother_carry_reference`,
+    :func:`smoother_apply_reference`) over phase A's ``rows`` in
+    ``chunks`` chunks of :func:`chunk_starts`.  Returns ``(mss, Lss)``, the
+    recursion's to round-off; with one chunk, bit for bit."""
+    agg = smoother_compose_reference(mfs, rows, chunks)
+    bounds = smoother_carry_reference(mfs, Lfs, agg, chunks)
+    return smoother_apply_reference(mfs, Lfs, rows, bounds, chunks)
 
 
 def ghfs_chirp_smoother_split(params, dt, sgps: SigmaPoints,
@@ -282,37 +460,128 @@ def load_smoother_kernel():
         rows = getattr(lib, f"smoother_rows_{dt}")
         rows.argtypes = ([ptr] * 5 + [ctypes.POINTER(ctypes.c_double)]
                          + [i32] * 5 + [ptr] * 2)
+        compose = getattr(lib, f"smoother_compose_{dt}")
+        compose.argtypes = [ptr] * 2 + [i32] * 4 + [ptr] * 2
+        carry = getattr(lib, f"smoother_carry_{dt}")
+        carry.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 2
         back = getattr(lib, f"smoother_backward_{dt}")
-        back.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 3
+        back.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 3
         expect = getattr(lib, f"smoother_expect_{dt}")
         expect.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
         expect_var = getattr(lib, f"smoother_expect_var_{dt}")
         expect_var.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
-        for fn in (rows, back, expect, expect_var):
+        for fn in (rows, compose, carry, back, expect, expect_var):
             fn.restype = i32
     for fn in (lib.ghfs_chirp_smoother_max_points,
                lib.ghfs_chirp_smoother_max_nodes,
                lib.ghfs_chirp_smoother_num_consts,
-               lib.ghfs_chirp_smoother_row_words):
+               lib.ghfs_chirp_smoother_row_words,
+               lib.ghfs_chirp_smoother_carry_words):
         fn.argtypes = []
         fn.restype = i32
     if (lib.ghfs_chirp_smoother_max_points() != MAX_POINTS
             or lib.ghfs_chirp_smoother_max_nodes() != MAX_NODES
-            or lib.ghfs_chirp_smoother_row_words() != ROW_WORDS):
+            or lib.ghfs_chirp_smoother_row_words() != ROW_WORDS
+            or lib.ghfs_chirp_smoother_carry_words() != CARRY_WORDS):
         raise RuntimeError("the smoother kernel's limits do not match the "
                            "wrapper's")
     return built
 
 
+def _at(x, b0):
+    """The address of lane ``b0`` of a lanes-minor tensor."""
+    return x.data_ptr() + b0 * x.element_size()
+
+
+class BackwardKernels:
+    """Phase B's CUDA kernels (Compose, Carry, Apply) for one dtype and
+    device, built on first use; each launch is counted in
+    ``owner.kernel_launches`` (the wrapper function whose kernels they
+    are, looked up at the launch).  Each method launches one kernel on the
+    current stream and does no host work besides the ctypes call, so CUDA
+    events around it time the kernel alone.  The tensors are contiguous,
+    on ``device``, in ``dtype``; a slab is the lanes ``b0 .. b0 + nb - 1``
+    of the filter's B, with ``nb = rows.shape[2]``."""
+
+    def __init__(self, dtype: torch.dtype, device: torch.device, owner):
+        self.lib = load_smoother_kernel().lib
+        self.device, self.dtype, self.owner = device, dtype, owner
+        self.num_sms = torch.cuda.get_device_properties(
+            device).multi_processor_count
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        self._fns = {k: getattr(self.lib, f"{k}_{suffix}")
+                     for k in BACKWARD_KERNELS}
+
+    def _run(self, kernel, *args):
+        rc = self._fns[kernel](
+            *args, torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"phase B kernel {kernel} launch failed: CUDA "
+                               f"error {rc}")
+        self.owner.kernel_launches[kernel] += 1
+
+    def chunks(self, T: int, B: int) -> int:
+        """:func:`backward_chunks` on this card."""
+        return backward_chunks(T, B, self.num_sms)
+
+    def scratch(self, nb: int, chunks: int, flat=None):
+        """``(agg (chunks-1, STEP_WORDS, nb), bounds (chunks-1,
+        CARRY_WORDS, nb))`` as views of ``flat`` (allocated where None; it
+        may hold more), phase B's scratch for a slab of nb lanes."""
+        n = chunks - 1
+        words = n * (STEP_WORDS + CARRY_WORDS) * nb
+        if flat is None:
+            flat = torch.empty(words, dtype=self.dtype, device=self.device)
+        return (flat[:n * STEP_WORDS * nb].view(n, STEP_WORDS, nb),
+                flat[n * STEP_WORDS * nb:words].view(n, CARRY_WORDS, nb))
+
+    def compose(self, mfs, rows, agg, chunks, b0=0):
+        """Compose: the slab's aggregates of chunks 1.. into ``agg``."""
+        T, _, B = mfs.shape
+        if chunks > 1 and rows.shape[2]:
+            self._run("smoother_compose", _at(mfs, b0), rows.data_ptr(), T, B,
+                      rows.shape[2], chunks, agg.data_ptr())
+
+    def carry(self, mfs, Lfs, agg, bounds, chunks, b0=0):
+        """Carry: the slab's carries at the chunks' later ends into
+        ``bounds``."""
+        T, _, B = mfs.shape
+        if chunks > 1 and agg.shape[2]:
+            self._run("smoother_carry", _at(mfs, b0), _at(Lfs, b0),
+                      agg.data_ptr(), T, B, agg.shape[2], chunks,
+                      bounds.data_ptr())
+
+    def apply(self, mfs, Lfs, rows, bounds, mss, lss, chunks, b0=0):
+        """Apply: the slab's recursion in its chunks, into ``mss`` (T, 4, B)
+        and ``lss`` (T, 16, B)."""
+        T, _, B = mfs.shape
+        self._run("smoother_backward", _at(mfs, b0), _at(Lfs, b0),
+                  rows.data_ptr(), bounds.data_ptr() if bounds.numel() else 0,
+                  T, B, rows.shape[2], chunks, _at(mss, b0), _at(lss, b0))
+
+    def run(self, mfs, Lfs, rows, mss, lss, b0=0, chunks=None, scratch=None):
+        """Phase B on a slab: Compose, Carry and Apply in ``chunks`` chunks
+        (by default :meth:`chunks` of the filter's T and B, whatever the
+        slab, so that slabs keep the bits of one), or Apply alone at one;
+        ``scratch`` as :meth:`scratch` gives it (allocated if None)."""
+        T, _, B = mfs.shape
+        chunks = self.chunks(T, B) if chunks is None else chunks
+        agg, bounds = scratch or self.scratch(rows.shape[2], chunks)
+        if chunks > 1:
+            self.compose(mfs, rows, agg, chunks, b0)
+            self.carry(mfs, Lfs, agg, bounds, chunks, b0)
+        self.apply(mfs, Lfs, rows, bounds, mss, lss, chunks, b0)
+
+
 class SmootherKernels:
-    """The smoother's three CUDA kernels for one model (``params``, ``dt``),
+    """The smoother's CUDA kernels for one model (``params``, ``dt``),
     rule, IF order, dtype and device, built on first use.  Each method
-    launches one kernel on the tensors it is given, on the current stream,
-    and counts it in ``ghfs_chirp_smoother.kernel_launches``; it does no
-    host work besides the ctypes call, so CUDA events around it time the
-    kernel alone.  The tensors are contiguous, on ``device``, in ``dtype``;
-    a slab is the lanes ``b0 .. b0 + nb - 1`` of the filter's B, with
-    ``nb = rows.shape[2]``."""
+    launches on the tensors it is given, on the current stream, and counts
+    each kernel in ``ghfs_chirp_smoother.kernel_launches``; it does no
+    host work besides the ctypes calls, so CUDA events around it time the
+    kernels alone.  The tensors are contiguous, on ``device``, in
+    ``dtype``; a slab is the lanes ``b0 .. b0 + nb - 1`` of the filter's B,
+    with ``nb = rows.shape[2]``.  ``back`` holds phase B's kernels."""
 
     def __init__(self, params, dt, sgps: SigmaPoints, if_order: int,
                  dtype: torch.dtype, device: torch.device):
@@ -333,7 +602,9 @@ class SmootherKernels:
         self.ghx = torch.as_tensor(np.ascontiguousarray(gh.xi[:, 0]), **like)
         self.ghw = torch.as_tensor(np.asarray(gh.w), **like)
         suffix = "f32" if dtype == torch.float32 else "f64"
-        self._fns = {k: getattr(self.lib, f"{k}_{suffix}") for k in KERNELS}
+        self._fns = {k: getattr(self.lib, f"{k}_{suffix}")
+                     for k in ("smoother_rows", "smoother_expect")}
+        self.back = BackwardKernels(dtype, device, ghfs_chirp_smoother)
 
     def _run(self, kernel, *args):
         rc = self._fns[kernel](
@@ -343,27 +614,24 @@ class SmootherKernels:
                                f"failed: CUDA error {rc}")
         ghfs_chirp_smoother.kernel_launches[kernel] += 1
 
-    @staticmethod
-    def _at(x, b0):
-        return x.data_ptr() + b0 * x.element_size()
-
     def rows(self, mfs, Lfs, rows, b0=0):
         """Phase A: the slab's ``(T-1, ROW_WORDS, nb)`` rows of the filter's
         ``mfs`` (T, 4, B) and ``Lfs`` (T, 4, 4, B) into ``rows``."""
         T, _, B = mfs.shape
         if T > 1 and rows.shape[2]:
-            self._run("smoother_rows", self._at(mfs, b0), self._at(Lfs, b0),
+            self._run("smoother_rows", _at(mfs, b0), _at(Lfs, b0),
                       self.xi.data_ptr(), self.w.data_ptr(),
                       self.sw.data_ptr(), self.consts, self.S, T, B,
                       rows.shape[2], self.rows_per_member, rows.data_ptr())
 
-    def backward(self, mfs, Lfs, rows, mss, lss, b0=0):
+    def backward(self, mfs, Lfs, rows, mss, lss, b0=0, chunks=None,
+                 scratch=None):
         """Phase B: the slab's recursion over its ``rows``, into ``mss``
-        (T, 4, B) and ``lss`` (T, 16, B)."""
-        T, _, B = mfs.shape
-        self._run("smoother_backward", self._at(mfs, b0), self._at(Lfs, b0),
-                  rows.data_ptr(), T, B, rows.shape[2], self._at(mss, b0),
-                  self._at(lss, b0))
+        (T, 4, B) and ``lss`` (T, 16, B) (:meth:`BackwardKernels.run`).
+        The launcher passes the whole B's ``chunks`` and its ``scratch``;
+        another ``chunks`` is for the tests and ``time_smoother.py``'s
+        sweep."""
+        self.back.run(mfs, Lfs, rows, mss, lss, b0, chunks, scratch)
 
     def expect(self, mss, lss, if_mean):
         """Phase E: the IF mean (T, B) of every step of ``mss``, ``lss``."""
@@ -379,11 +647,12 @@ def smoother_kernel_launcher(params, dt, sgps: SigmaPoints,
                              if_order: int):
     """Check the inputs of :func:`ghfs_chirp_smoother_kernel`, build the
     kernels (:class:`SmootherKernels`), the scratch and the outputs, and
-    return ``(launch, outputs)``: each ``launch()`` runs phases A and B over
-    each slab of lanes (:func:`smoother_slabs`), one scratch reused, then
-    phase E, on the current stream, writes the outputs and counts one
-    launch.  It does no host work besides the ctypes calls, so CUDA events
-    around it time the kernels alone."""
+    return ``(launch, outputs)``: each ``launch()`` runs phase A and phase
+    B's kernels over each slab of lanes (:func:`smoother_slabs`), one
+    scratch reused and phase B in the chunks of :func:`backward_chunks` at
+    the whole B, then phase E, on the current stream, writes the outputs
+    and counts one launch.  It does no host work besides the ctypes calls,
+    so CUDA events around it time the kernels alone."""
     _check(sgps, mfs, Lfs, if_order)
     if mfs.device.type != "cuda":
         raise ValueError(f"the ghfs_chirp_smoother kernel runs on cuda "
@@ -399,19 +668,24 @@ def smoother_kernel_launcher(params, dt, sgps: SigmaPoints,
     lss = torch.empty((T, _D * _D, B), **like)
     if_mean = torch.empty((T, B), **like)
     slabs = smoother_slabs(T, B, mfs.element_size())
-    scratch = torch.empty((T - 1) * ROW_WORDS * max(
-        [nb for _, nb in slabs], default=0), **like)
+    most = max([nb for _, nb in slabs], default=0)
+    scratch = torch.empty((T - 1) * ROW_WORDS * most, **like)
+    chunks = kernels.back.chunks(T, B)
+    chain = torch.empty((chunks - 1) * (STEP_WORDS + CARRY_WORDS) * most,
+                        **like)
     # The closure holds every tensor a kernel reads or writes, so that they
     # live as long as ``launch``, whatever the caller keeps.
     views = [(b0, scratch[:(T - 1) * ROW_WORDS * nb].view(T - 1, ROW_WORDS,
-                                                           nb))
+                                                           nb),
+              kernels.back.scratch(nb, chunks, chain))
              for b0, nb in slabs]
 
     def launch():
         with torch.cuda.device(mfs.device):
-            for b0, rows in views:
+            for b0, rows, slab_chain in views:
                 kernels.rows(mfs, Lfs, rows, b0)
-                kernels.backward(mfs, Lfs, rows, mss, lss, b0)
+                kernels.backward(mfs, Lfs, rows, mss, lss, b0, chunks,
+                                 slab_chain)
             kernels.expect(mss, lss, if_mean)
         ghfs_chirp_smoother.launches += 1
 
@@ -475,30 +749,47 @@ def smoother_cost(S: int, T: int, B: int, dtype=torch.float32,
 
 
 def smoother_phase_costs(S: int, T: int, B: int, dtype=torch.float32,
-                         if_order: int = 10) -> dict:
-    """:func:`smoother_cost`'s flop split over the kernels (``KERNELS``),
-    each with the bytes of its own inputs and outputs, phase A's rows
-    included: ``smoother_rows``, the lesser form's step up to the gain X,
-    reading 4 + 16 words and writing ``ROW_WORDS`` per seed-step but the
-    last; ``smoother_backward``, the mean update, G Ls and the 8 x 4
-    triangularization, reading 4 + ``ROW_WORDS`` words per step and the
-    filter's last row, writing 4 + 16 per seed-step; ``smoother_expect``,
-    the expectation, reading ms[2] and Ls[2, :3] and writing one word per
-    seed-step."""
+                         if_order: int = 10, chunks: int = 1) -> dict:
+    """Each kernel's work (``KERNELS``), with the bytes of its own inputs
+    and outputs, phase A's rows included; at ``chunks`` = 1 the flop split
+    :func:`smoother_cost`'s.  ``smoother_rows``, the lesser form's step up
+    to the gain X, reading 4 + 16 words and writing ``ROW_WORDS`` per
+    seed-step but the last; ``smoother_backward`` (Apply), the mean
+    update, G Ls and the 8 x 4 triangularization, ``step`` flop, reading 4
+    + ``ROW_WORDS`` words per step, the filter's last row and the
+    ``CARRY_WORDS`` of each chunk but the last, writing 4 + 16 per
+    seed-step; ``smoother_expect``, the expectation, reading ms[2] and
+    Ls[2, :3] and writing one word per seed-step.  With chunks > 1 the
+    chunked scan's own work (none at one chunk): ``smoother_compose``, per
+    step of the chunks but the first the step and A <- X^T A (128 flop),
+    reading ``STEP_WORDS`` and per chunk x_ref, writing ``STEP_WORDS``;
+    ``smoother_carry``, the step per chunk but the first, reading its
+    ``STEP_WORDS`` and the filter's last row, writing ``CARRY_WORDS``."""
     d = _D
     tria = sum(4 * (8 - j) + 3 + (4 - j) * 6 * (8 - j) for j in range(d))
+    step = 40 + 80 + tria
     full = 61 * S + _householder_flop(S + d, 2 * d)
     projected = (117 * S + _householder_flop(S, d)
                  + _householder_flop(3 * d, 2 * d))
     itemsize = torch.empty((), dtype=dtype).element_size()
     steps = (T - 1) * B
+    starts = chunk_starts(T, chunks)
+    folded = (T - 1 - starts[1]) * B   # steps of the chunks but the first
+    n = (chunks - 1) * B
     return {
         "smoother_rows": SmootherCost(
             (min(full, projected) + 64) * steps,
             itemsize * (d + d * d + ROW_WORDS) * steps),
+        "smoother_compose": SmootherCost(
+            (step + 128) * folded,
+            itemsize * (STEP_WORDS * folded + (d + STEP_WORDS) * n)),
+        "smoother_carry": SmootherCost(
+            step * n, itemsize * ((STEP_WORDS + CARRY_WORDS) * n
+                                  + (d + d * d) * B if n else 0)),
         "smoother_backward": SmootherCost(
-            (40 + 80 + tria) * steps,
-            itemsize * ((d + ROW_WORDS) * steps + (d + d * d) * (1 + T) * B)),
+            step * steps,
+            itemsize * ((d + ROW_WORDS) * steps + (d + d * d) * (1 + T) * B
+                        + CARRY_WORDS * n)),
         "smoother_expect": SmootherCost((9 + 6 * if_order) * T * B,
                                         itemsize * 5 * T * B)}
 

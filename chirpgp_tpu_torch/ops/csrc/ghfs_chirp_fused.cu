@@ -20,7 +20,7 @@
 //      branch (bstep_cov, batched.py:383-398): ms <- u + G ms, Ps <- D + G
 //      Ps G^T from the last filtered moments, full (mss, Pss) or slim (the
 //      mean and variance of one state).  The factor branch's backward pass
-//      is phase B of the smoother, unchanged.
+//      is phase B of the smoother (its Compose, Carry and Apply kernels).
 //
 // The step of F, per lane, with m, L the filtered moments carried from the
 // previous step: sigma points chi = m + L xi, the chirp-LCD means mu, m_p =
@@ -51,8 +51,9 @@
 // ms at B = 4096 f32 in what no later step reads, 3.2 ms in the
 // transcendentals (2/3 of them repeats: see the groups below) and 1.5 ms
 // in the member-specific stores.  G: ~250 flop and 30 words read, 2 (slim)
-// or 20 (full) written per seed-step: bound by its bytes, and in fact by
-// the latency of its recursion (B lanes give B / 32 warps).
+// or 20 (full) written per seed-step: bound by its bytes (0.49 ms slim at
+// B = 4096, T = 3141 in float32), and by the issue of its step's
+// instructions where one thread runs a lane.
 //
 // Design of F: the step splits where the carry leaves it, into warps of
 // two roles in one block.
@@ -111,13 +112,34 @@
 //   132) = 32, so the four idle SMs cost nothing; blocks of 16 lanes took
 //   22.7 ms, teams of 32 with 8 lanes 40.2 ms); P = 32 with one lane per
 //   block up to one lane per SM, where the step's chain sets the time.
-// Design of G: one thread per lane, blocks of one warp, so that a small
-// batch spreads over the SMs; the 30 words of a step are copied kStages - 1
-// steps ahead with cp.async into a ring in shared memory, so that no step
-// waits on device memory (phase B's scheme, ghfs_chirp_smoother.cu).  A
-// thread copies and then reads only its own lane's words, so no barrier is
-// needed.  Ps is carried as its upper triangle; W = Ps G^T, then the upper
-// triangle of G W.
+// Design of G.  Its chain from Ps to Ps is short (two layers of 4-deep FMA
+// sums), but one thread per lane issued all of a step, ~260 instructions
+// (30 shared-memory loads, ~120 FMAs, the copies and the stores), from one
+// warp per SM at B = 4096 (that design, in one-warp blocks, took 1.12 ms
+// at B = 4096 and at B = 100 on an H100: one lane's chain set the time).
+// So a step is shared by a team of kBackTeam = 4 threads per lane, one
+// warp per member: member p owns column j = p of the step (w_j = Ps g_j
+// and column j of D + G W, W = Ps G^T, each summed in the one-thread
+// order, so the outputs keep their bits), and every member updates ms
+// itself.  The member is the warp's index, so each warp runs code of its
+// own column with constant offsets and no branch inside a warp; the
+// members hand the new upper triangle to each other through shared
+// memory, one block barrier per step.  Measured on an H100 (time_fused.py;
+// f32 slim, B = 4096): four members of a lane in one warp, exchanging by
+// __shfl_sync, took 1.3-1.9 ms in four layouts, slower than one thread per
+// lane: every member loaded all 30 words and picked its column by selects
+// or runtime offsets, and a warp's 4-byte copies of 8 lanes of 4 words
+// touched 4 lines each.  Blocks of up to 32 lanes (4 warps, one per
+// scheduler at B = 4096; ops/chirp_fused.py::affine_geometry takes 8 at
+// small B, to spread the lanes over the SMs).  The block's threads copy
+// the rows kGStages - 1 steps ahead with cp.async into a ring in dynamic
+// shared memory, whole lines a warp instruction: 16 bytes a copy where
+// every block is whole and every line aligned, else 4 or 8 (4 or 8 bytes
+// everywhere took 1.12 ms slim f32 at B = 4096, against 0.82).  TMA bulk
+// copies of a step's 30 lines (one elected thread, mbarriers) took 4.3-4.6
+// ms at B = 4096: a line of 32 lanes is 128 bytes, too small a copy.  A
+// slim step stores from the member that owns out_index, a full one stores
+// each member's column, the lower triangle mirrored.
 //
 // What is not used, and why: tensor cores (the per-lane products are 4
 // wide; TF32 is barred by the port's precision policy), a Cholesky of the
@@ -140,8 +162,15 @@ constexpr int kJ = 3 * kD;        // rows of the joint array
 constexpr int kJCols = 2 * kD;    // its columns
 constexpr int kTri = kD * (kD + 1) / 2;    // words of a triangle
 constexpr int kLastWords = kD + kD * kD;   // the last filtered m and L
-constexpr int kStages = 4;        // G's ring of steps
-constexpr int kBackLanes = 32;    // G's lanes per block
+// G: threads per lane (its team), steps of its ring, most lanes per block
+// and threads per block.
+constexpr int kBackTeam = 4;
+constexpr int kGStages = 8;
+constexpr int kGLanes = 32;
+constexpr int kGThreads = kBackTeam * kGLanes;
+static_assert(kD % kBackTeam == 0 && kBackTeam <= 4,
+              "a member owns whole columns, a warp of its own");
+static_assert(kGStages >= 2, "a slot is refilled the step after it is read");
 
 // F: lanes per block (a consumer warp's threads), consumer warps per block
 // (warp c takes the steps t = c mod kConsumers), threads per block (8 team
@@ -634,129 +663,269 @@ fused_forward_kernel(const Real* __restrict__ ys,    // (T, B)
   }
 }
 
-// G: one thread per lane.  slim: write ms[out_index] and Ps[out_index]
-// [out_index] of every step into (T, B) out_m and out_p; else ms into
-// (T, kD, B) out_m and the whole Ps into (T, kD*kD, B) out_p.
-template <typename Real, bool kSlim>
-__global__ void __launch_bounds__(kBackLanes)
-affine_backward_kernel(const Real* __restrict__ rows,    // (T-1, kRowWords, B)
-                       const Real* __restrict__ mf,      // (kD, B), time T-1
-                       const Real* __restrict__ lf,      // (kD*kD, B), time T-1
-                       const int T, const int B, const int out_index,
-                       Real* __restrict__ out_m, Real* __restrict__ out_p) {
-  // Step t's row sits in ring[t % kStages].
-  __shared__ Real ring[kStages][kRowWords][kBackLanes];
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x * kBackLanes + lane;
-  if (b >= B || T < 1) return;
-  const size_t Bs = static_cast<size_t>(B);
+// G's shared memory (dynamic): a ring of kGStages steps of the kRowWords
+// words of kGLanes lanes, [step][word][lane] as the rows lie in device
+// memory, then the exchange of the new upper triangle, two buffers of kTri
+// words of kGLanes lanes.  A block of fewer lanes leaves the rest unused,
+// so that every offset in a step is a constant.
+template <typename Real>
+__host__ __device__ constexpr size_t g_smem_bytes() {
+  return (static_cast<size_t>(kGStages) * kRowWords + 2 * kTri) * kGLanes *
+         sizeof(Real);
+}
 
-  auto fetch = [&](int t) {
-    const size_t ts = static_cast<size_t>(t);
-    Real(*slot)[kBackLanes] = ring[t % kStages];
+// A 16-byte cp.async (L2 only) of V lanes of one word.
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_address(dst)), "l"(src) : "memory");
+}
+
+// A thread's cp.async copies of G's steps: pairs k = threadIdx.x + i
+// kGThreads of the kRowWords x (lanes / V) (word, V-lane chunk) pairs,
+// chunks fastest, so that a warp's copy of a word takes whole lines at
+// 32 lanes a block; V = 1 (4 or 8 bytes a copy; a lane past B copies lane
+// B-1's words) or 16 / sizeof(Real) (16 bytes a copy: whole blocks of
+// aligned lines only).  As offsets in the rows of a time and in a ring
+// slot.
+template <typename Real, int V>
+struct GCopies {
+  static constexpr int kPerThread = (kRowWords * kGLanes / V + kGThreads - 1) / kGThreads;
+  size_t src[kPerThread];
+  int dst[kPerThread];
+
+  __device__ __forceinline__ GCopies(const int lanes, const int b0, const int B) {
+    const int chunks = lanes / V;
 #pragma unroll
-    for (int w = 0; w < kRowWords; ++w)
-      copy_async(&slot[w][lane], &rows[(ts * kRowWords + w) * Bs + b]);
-  };
-  // Ps[i][j] for j >= i; the lower triangle mirrors it.
-  auto store = [&](int t, const Real(&ms)[kD], const Real(&Ps)[kD][kD]) {
-    const size_t ts = static_cast<size_t>(t);
-    if (kSlim) {
-      Real vm = Real(0), vv = Real(0);
+    for (int i = 0; i < kPerThread; ++i) {
+      const int k = static_cast<int>(threadIdx.x) + i * kGThreads;
+      const int w = k / chunks, l = k % chunks * V;
+      src[i] = w < kRowWords ? w * static_cast<size_t>(B) + min(b0 + l, B - 1) : 0;
+      dst[i] = w < kRowWords ? w * kGLanes + l : -1;
+    }
+  }
+  __device__ __forceinline__ void issue(Real* slot, const Real* rows_t) const {
 #pragma unroll
-      for (int k = 0; k < kD; ++k) {
-        if (k == out_index) {
-          vm = ms[k];
-          vv = Ps[k][k];
+    for (int i = 0; i < kPerThread; ++i) {
+      if (dst[i] >= 0) {
+        if (V == 1) {
+          copy_async(slot + dst[i], rows_t + src[i]);
+        } else {
+          copy_async16(slot + dst[i], rows_t + src[i]);
         }
       }
-      out_m[ts * Bs + b] = vm;
-      out_p[ts * Bs + b] = vv;
-    } else {
+    }
+  }
+};
+
+// The barrier of G's block: each warp reaches it from its own member's
+// code, so not __syncthreads (whose `.aligned` form needs every thread at
+// the same instruction): barrier 1, non-aligned, over the block's
+// threads.  It orders shared memory as __syncthreads does.
+__device__ __forceinline__ void g_barrier() {
+  asm volatile("barrier.sync 1, %0;\n" ::"n"(kGThreads) : "memory");
+}
+
+// The step of G's member `p`, columns j = p, p + kBackTeam, .. (compile
+// time), on lane `lane` of the block, for steps u = 0 .. T-2 (time T-2-u):
+// Ps_{u+1} = D + G Ps_u G^T by columns, each summed in the one-thread
+// order (W = Ps G^T, then D + G W), so that every entry keeps its bits, and
+// ms <- u + G ms on every member.  Each iteration: the thread's copies of
+// step u have landed and the block barrier shows every thread's, and the
+// upper triangle that the members wrote to the exchange before it; the
+// slot of step u-1 takes step u-1 + kGStages; the member loads G, its
+// columns of D, u and Ps_u, stores what it owns of time T-1-u, and writes
+// its columns of Ps_{u+1} (entries i <= j) to the other buffer.
+// (The shared-memory pointers carry no __restrict__: other threads write
+// what they point to between barriers.)
+template <typename Real, bool kSlim, int p, int V>
+__device__ __forceinline__ void affine_member(
+    const Real* __restrict__ rows, Real* ring, Real* xch, const int T,
+    const int B, const int lane, const int b, const bool active,
+    const int out_index, const GCopies<Real, V>& copies, Real (&ms)[kD],
+    Real* __restrict__ out_m, Real* __restrict__ out_p) {
+  constexpr int P = kBackTeam;
+  constexpr int kCols = kD / P;
+  constexpr int kSlot = kRowWords * kGLanes;
+  const size_t Bs = static_cast<size_t>(B);
+  const int steps = T - 1;
+  const size_t step_words = static_cast<size_t>(kRowWords) * Bs;
+  // Step u is time T-2-u, in slot u % kGStages.
+  auto fetch = [&](int u) {
+    copies.issue(ring + (u % kGStages) * kSlot,
+                 rows + static_cast<size_t>(steps - 1 - u) * step_words);
+  };
+  const size_t out_step = kSlim ? Bs : kD * Bs;
+  const size_t p_step = kSlim ? Bs : kD * kD * Bs;
+  Real* om = out_m + static_cast<size_t>(T - 1) * out_step + b;
+  Real* op = out_p + static_cast<size_t>(T - 1) * p_step + b;
+  // The outputs of one time from ms and the exchange's upper triangle.
+  auto store = [&](const Real* __restrict__ up) {
+    if (active) {
+      if (kSlim) {
+        if (p == out_index % P) {
 #pragma unroll
-      for (int i = 0; i < kD; ++i) {
-        out_m[(ts * kD + i) * Bs + b] = ms[i];
+          for (int q = 0; q < kCols; ++q) {
+            if (p + P * q == out_index) {
+              *om = ms[p + P * q];
+              *op = up[upper_word(p + P * q, p + P * q) * kGLanes];
+            }
+          }
+        }
+      } else {
 #pragma unroll
-        for (int j = 0; j < kD; ++j)
-          out_p[(ts * kD * kD + i * kD + j) * Bs + b] = j >= i ? Ps[i][j] : Ps[j][i];
+        for (int q = 0; q < kCols; ++q) {
+          const int j = p + P * q;
+          om[j * Bs] = ms[j];
+#pragma unroll
+          for (int i = 0; i < kD; ++i)
+            op[(i * kD + j) * Bs] = up[upper_word(i < j ? i : j, i < j ? j : i) * kGLanes];
+        }
       }
     }
+    om -= out_step;
+    op -= p_step;
   };
 
-  // The first kStages - 1 steps in flight, one group each (empty past t = 0).
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (T - 2 - s >= 0) fetch(T - 2 - s);
+  for (int u = 0; u < kGStages; ++u) {
+    if (u < steps) fetch(u);
     copy_commit();
   }
-
-  // The last filtered moments: ms = mf, Ps = Lf Lf^T.
-  Real ms[kD], Ps[kD][kD];
-  {
-    Real Lf[kD][kD];
+  for (int u = 0; u < steps; ++u) {
+    // Group g holds step g: the first kGStages, then one a step from u = 1,
+    // so that u + kGStages - 1 groups are committed here (u >= 1) and all
+    // but the newest kGStages - 2 make steps 0..u.
+    copy_wait<kGStages - 2>();   // this thread's copies of step u landed
+    g_barrier();                 // the block's, and the exchange of Ps_u
+    if (u > 0) {
+      if (u - 1 + kGStages < steps) fetch(u - 1 + kGStages);
+      copy_commit();
+    }
+    const Real* st = ring + (u % kGStages) * kSlot + lane;
+    const Real* up = xch + (u & 1) * kTri * kGLanes + lane;
+    Real G[kD][kD], Ps[kD][kD];
 #pragma unroll
     for (int i = 0; i < kD; ++i) {
-      ms[i] = mf[i * Bs + b];
 #pragma unroll
-      for (int j = 0; j <= i; ++j) Lf[i][j] = lf[(i * kD + j) * Bs + b];
+      for (int k = 0; k < kD; ++k) G[i][k] = st[(kXWord + i * kD + k) * kGLanes];
     }
 #pragma unroll
     for (int i = 0; i < kD; ++i) {
 #pragma unroll
-      for (int j = i; j < kD; ++j) {
-        Real acc = Real(0);
-#pragma unroll
-        for (int k = 0; k <= i; ++k) acc += Lf[i][k] * Lf[j][k];
-        Ps[i][j] = acc;
+      for (int k = i; k < kD; ++k) {
+        Ps[i][k] = up[upper_word(i, k) * kGLanes];
+        Ps[k][i] = Ps[i][k];
       }
     }
-  }
-  store(T - 1, ms, Ps);
-
-  for (int t = T - 2; t >= 0; --t) {
-    if (t - (kStages - 1) >= 0) fetch(t - (kStages - 1));
-    copy_commit();
-    copy_wait<kStages - 1>();   // step t's group has landed
-    const Real(*slot)[kBackLanes] = ring[t % kStages];
-    Real G[kD][kD];
-#pragma unroll
-    for (int i = 0; i < kD; ++i) {
-#pragma unroll
-      for (int j = 0; j < kD; ++j) G[i][j] = slot[kXWord + i * kD + j][lane];
-    }
+    store(up);
     // ms <- u + G ms.
     Real mn[kD];
 #pragma unroll
     for (int i = 0; i < kD; ++i) {
       Real acc = Real(0);
 #pragma unroll
-      for (int j = 0; j < kD; ++j) acc += G[i][j] * ms[j];
-      mn[i] = slot[i][lane] + acc;
+      for (int k = 0; k < kD; ++k) acc += G[i][k] * ms[k];
+      mn[i] = st[i * kGLanes] + acc;
     }
-    // W = Ps G^T, then Ps <- D + G W (upper triangle).
-    Real W[kD][kD];
 #pragma unroll
-    for (int i = 0; i < kD; ++i) {
+    for (int i = 0; i < kD; ++i) ms[i] = mn[i];
+    // The member's columns of D + G W, W = Ps G^T, into the other buffer.
+    Real* next = xch + ((u + 1) & 1) * kTri * kGLanes + lane;
 #pragma unroll
-      for (int j = 0; j < kD; ++j) {
-        Real acc = Real(0);
+    for (int q = 0; q < kCols; ++q) {
+      const int j = p + P * q;
+      Real w[kD];
 #pragma unroll
-        for (int k = 0; k < kD; ++k) acc += (k >= i ? Ps[i][k] : Ps[k][i]) * G[j][k];
-        W[i][j] = acc;
+      for (int i = 0; i < kD; ++i) {
+        Real a = Real(0);
+#pragma unroll
+        for (int k = 0; k < kD; ++k) a += Ps[i][k] * G[j][k];
+        w[i] = a;
+      }
+#pragma unroll
+      for (int i = 0; i <= j; ++i) {
+        Real a = Real(0);
+#pragma unroll
+        for (int k = 0; k < kD; ++k) a += G[i][k] * w[k];
+        next[upper_word(i, j) * kGLanes] = st[r22_word(i, j) * kGLanes] + a;
       }
     }
+  }
+  g_barrier();   // Ps of time 0
+  store(xch + (steps & 1) * kTri * kGLanes + lane);
+}
+
+// G: a team of kBackTeam threads per lane in as many warps, the member
+// index the warp's (so that each warp runs the code of its own columns,
+// with no branch inside a warp and every offset a constant): member p of
+// lane threadIdx.x % 32 owns the columns j = p, p + kBackTeam, .. of a
+// step (affine_member).  The members hand the new upper triangle to each
+// other through shared memory, one block barrier per step, which also
+// shows the block's cp.async copies of the rows, kGStages - 1 steps
+// ahead, shared out over the block's threads in whole lines.  slim: write
+// ms[out_index] and Ps[out_index][out_index] of every step into (T, B)
+// out_m and out_p (the member that owns column out_index); else ms into
+// (T, kD, B) out_m and the whole Ps into (T, kD*kD, B) out_p, each member
+// its columns, the lower triangle mirrored.  A lane past B runs lane
+// B-1's steps and stores nothing.
+template <typename Real, bool kSlim, int V>
+__global__ void __launch_bounds__(kGThreads)
+affine_backward_kernel(const Real* __restrict__ rows,    // (T-1, kRowWords, B)
+                       const Real* __restrict__ mf,      // (kD, B), time T-1
+                       const Real* __restrict__ lf,      // (kD*kD, B), time T-1
+                       const int T, const int B, const int lanes,
+                       const int out_index, Real* __restrict__ out_m,
+                       Real* __restrict__ out_p) {
+  extern __shared__ __align__(128) unsigned char backward_smem[];
+  Real* ring = reinterpret_cast<Real*>(backward_smem);
+  Real* xch = ring + kGStages * kRowWords * kGLanes;
+  const int lane = static_cast<int>(threadIdx.x % 32u);
+  const int member = static_cast<int>(threadIdx.x / 32u);
+  const int b0 = static_cast<int>(blockIdx.x) * lanes;
+  const bool active = lane < lanes && b0 + lane < B;
+  const int b = min(b0 + min(lane, lanes - 1), B - 1);
+  if (T < 1) return;
+
+  const GCopies<Real, V> copies(lanes, b0, B);
+
+  // The last filtered moments: ms = mf, Ps = Lf Lf^T, its upper triangle
+  // to the exchange (member 0).
+  Real ms[kD];
+  {
+    Real Lf[kD][kD];
+    const size_t Bs = static_cast<size_t>(B);
 #pragma unroll
     for (int i = 0; i < kD; ++i) {
-      ms[i] = mn[i];
+      ms[i] = mf[i * Bs + b];
 #pragma unroll
-      for (int j = i; j < kD; ++j) {
-        Real acc = Real(0);
+      for (int j = 0; j <= i; ++j) Lf[i][j] = lf[(i * kD + j) * Bs + b];
+    }
+    if (member == 0) {
 #pragma unroll
-        for (int k = 0; k < kD; ++k) acc += G[i][k] * W[k][j];
-        Ps[i][j] = slot[r22_word(i, j)][lane] + acc;
+      for (int i = 0; i < kD; ++i) {
+#pragma unroll
+        for (int j = i; j < kD; ++j) {
+          Real acc = Real(0);
+#pragma unroll
+          for (int k = 0; k <= i; ++k) acc += Lf[i][k] * Lf[j][k];
+          xch[upper_word(i, j) * kGLanes + lane] = acc;
+        }
       }
     }
-    store(t, ms, Ps);
+  }
+  // Warp-uniform: each warp runs its member's code.
+  switch (member) {
+#define G_MEMBER(M)                                                            \
+  case M:                                                                      \
+    if (M < kBackTeam)                                                         \
+      affine_member<Real, kSlim, M % kBackTeam, V>(rows, ring, xch, T, B,      \
+                                                   lane, b, active, out_index, \
+                                                   copies, ms, out_m, out_p);  \
+    break;
+    G_MEMBER(0)
+    G_MEMBER(1)
+    G_MEMBER(2)
+    G_MEMBER(3)
+#undef G_MEMBER
   }
 }
 
@@ -806,23 +975,43 @@ int launch_forward(const Real* ys, const Real* xi, const Real* w,
 #undef FUSED_LAUNCH
 }
 
+template <typename Real, bool kSlim, int V>
+int launch_backward_instance(const Real* rows, const Real* mf, const Real* lf,
+                             int T, int B, int lanes, int out_index,
+                             Real* out_m, Real* out_p, cudaStream_t stream) {
+  const int bytes = static_cast<int>(g_smem_bytes<Real>());
+  const cudaError_t err = cudaFuncSetAttribute(
+      affine_backward_kernel<Real, kSlim, V>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  affine_backward_kernel<Real, kSlim, V>
+      <<<(B + lanes - 1) / lanes, kGThreads, bytes, stream>>>(
+          rows, mf, lf, T, B, lanes, out_index, out_m, out_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// G over B lanes in blocks of `lanes` (ops/chirp_fused.py::
+// affine_geometry), each of kBackTeam warps.
 template <typename Real>
 int launch_backward(const Real* rows, const Real* mf, const Real* lf, int T,
-                    int B, int out_index, Real* out_m, Real* out_p,
+                    int B, int lanes, int out_index, Real* out_m, Real* out_p,
                     void* stream) {
-  if (T < 1 || B < 0 || out_index < -1 || out_index >= kD)
+  if (T < 1 || B < 0 || out_index < -1 || out_index >= kD || lanes < 1 ||
+      lanes > kGLanes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const int blocks = (B + kBackLanes - 1) / kBackLanes;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (out_index >= 0) {
-    affine_backward_kernel<Real, true><<<blocks, kBackLanes, 0, s>>>(
-        rows, mf, lf, T, B, out_index, out_m, out_p);
-  } else {
-    affine_backward_kernel<Real, false><<<blocks, kBackLanes, 0, s>>>(
-        rows, mf, lf, T, B, out_index, out_m, out_p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte copies where every block is whole and every line of V lanes
+  // 16-byte aligned.
+  constexpr int V = 16 / static_cast<int>(sizeof(Real));
+  const bool vec = B % lanes == 0 && lanes % V == 0 && B % V == 0 &&
+                   reinterpret_cast<size_t>(rows) % 16 == 0;
+#define G_LAUNCH(SLIM, W)                                                      \
+  launch_backward_instance<Real, SLIM, W>(rows, mf, lf, T, B, lanes,           \
+                                          out_index, out_m, out_p, s)
+  if (out_index >= 0) return vec ? G_LAUNCH(true, V) : G_LAUNCH(true, 1);
+  return vec ? G_LAUNCH(false, V) : G_LAUNCH(false, 1);
+#undef G_LAUNCH
 }
 
 }  // namespace
@@ -857,18 +1046,24 @@ int fused_forward_f64(const double* ys, const double* xi, const double* w,
                                 stream);
 }
 
+int ghfs_chirp_fused_back_team() { return kBackTeam; }
+
+int ghfs_chirp_fused_back_stages() { return kGStages; }
+
+int ghfs_chirp_fused_back_lanes() { return kGLanes; }
+
 int affine_backward_f32(const float* rows, const float* mf, const float* lf,
-                        int T, int B, int out_index, float* out_m,
+                        int T, int B, int lanes, int out_index, float* out_m,
                         float* out_p, void* stream) {
-  return launch_backward<float>(rows, mf, lf, T, B, out_index, out_m, out_p,
-                                stream);
+  return launch_backward<float>(rows, mf, lf, T, B, lanes, out_index, out_m,
+                                out_p, stream);
 }
 
 int affine_backward_f64(const double* rows, const double* mf, const double* lf,
-                        int T, int B, int out_index, double* out_m,
+                        int T, int B, int lanes, int out_index, double* out_m,
                         double* out_p, void* stream) {
-  return launch_backward<double>(rows, mf, lf, T, B, out_index, out_m, out_p,
-                                 stream);
+  return launch_backward<double>(rows, mf, lf, T, B, lanes, out_index, out_m,
+                                 out_p, stream);
 }
 
 }  // extern "C"

@@ -22,25 +22,32 @@
 // Ls_{t+1}): the mean update, G Ls and the 8 x 4 triangularization.  The
 // rest -- the sigma points, the LCD means, m_p, the (S+4) x 8 Householder,
 // X and R22, ~15.7k of the ~16.4k flop of a step at S = 81 -- depends on
-// the filter's (mf_t, Lf_t) alone.  So the smoother runs as three kernels
-// in one wrapper call, the count whatever T is:
+// the filter's (mf_t, Lf_t) alone.  So the smoother runs as three phases,
+// five kernels, in one wrapper call (three where C = 1 below), the count
+// whatever T is:
 //   A. smoother_rows_kernel, parallel over (t, lane): for t = 0..T-2 the
 //      30 words m_p (4), X (16, row-major) and R22's upper triangle (10,
 //      row by row) into a (T-1, 30, B) scratch, B minor (the packed rows
 //      of the JAX package's fused form, infer/batched.py:297-337);
-//   B. smoother_backward_kernel, one thread per lane: the short recursion
-//      ms <- mf + X^T (ms - m_p), Ls <- tria([(X^T Ls)^T; R22])^T, the
-//      factor branch's bstep (infer/batched.py:349-365), writing mss and
-//      Lss;
+//   B. the short recursion ms <- mf + X^T (ms - m_p), Ls <- tria([(X^T
+//      Ls)^T; R22])^T, the factor branch's bstep (infer/batched.py:
+//      349-365), writing mss and Lss, as a chunked square-root scan over
+//      time in three kernels: smoother_compose_kernel composes the steps
+//      of each of C chunks into one step of the same packing, parallel
+//      over (chunk, lane); smoother_carry_kernel runs the recursion over
+//      the C-1 aggregates, one thread per lane, for the carry at each
+//      chunk's later end; smoother_backward_kernel (Apply) runs each
+//      chunk's steps from its carry, parallel over (chunk, lane).  With
+//      C = 1 Apply alone is the whole recursion;
 //   E. smoother_expect_kernel, parallel over (t, lane): E[g(V)] from the
 //      stored ms[kV] and row kV of Ls.  Its second input mode,
 //      smoother_expect_var_kernel, reads a (T, B) mean and variance of V
 //      as they are (the fused filter+smoother's slim output,
 //      ghfs_chirp_fused.cu): the counterpart of bench.py's
 //      gaussian_expectation_batched(v_mean, sqrt(max(v_var, 0)), g).
-// The wrapper (ops/chirp_smoother.py) allocates the scratch with
-// torch.empty and, where (T-1) x 30 x B words pass its cap, runs A and B
-// over slabs of lanes.
+// The wrapper (ops/chirp_smoother.py) allocates the scratch (phase A's
+// rows, phase B's aggregates and carries) with torch.empty and, where (T-1)
+// x 30 x B words pass its cap, runs A and B over slabs of lanes.
 //
 // What bounds it.  The least work of a step (ops/chirp_smoother.py::
 // smoother_cost) is that of the projected form: a rule exact to degree two
@@ -80,17 +87,37 @@
 //   (t, lane) items with a grid stride, lanes minor, so a warp's loads and
 //   stores fall on neighbouring lanes.  The sigma table and Lq^T are
 //   loaded into shared memory once per block.
-// - Phase B is bound by the latency of one step's dependent chain (G Ls,
-//   then the 8 x 4 triangularization with its 4 sqrts and reciprocals),
-//   ~3140 times over, and B lanes give only B / 32 warps.  So the chain is
-//   kept short: the expectation, which reads nothing of the carry, is left
-//   to phase E, and the 34 words a step reads (mf_t and row t) are copied
-//   kStages - 1 steps ahead with cp.async into a ring in shared memory, so
-//   that no step waits on device memory.  A thread copies and then reads
-//   only its own lane's words, so no barrier is needed; a warp's copies of
-//   one word are 32 neighbouring lanes, 128 B in float32.  Blocks are one
-//   warp, so a small batch spreads over the SMs.  The triangularization is
-//   tria_dense below, tria_cf's arithmetic reflection for reflection.
+// - Phase B's step is a dependent chain (G Ls, then the 8 x 4
+//   triangularization with its 4 IEEE sqrts and divisions in series) that
+//   more threads per lane cannot shorten.  Run once per step over T, it
+//   took ~0.9 us a step on an H100 whatever B (2.8 ms at B = 100 and at B
+//   = 4096: B / 32 one-warp blocks keep one scheduler in four busy).  The
+//   time axis is the parallelism left: the step is an affine map with
+//   Gaussian noise, and two such maps compose into one of the same form
+//   (the JAX package's covariance-form _combine_smoother, infer/
+//   parallel_kf.py:229).  In square-root form the composition is phase
+//   B's own step: for a chunk of steps t0..t1-1, Compose walks t = t1-1 ..
+//   t0 with the mean c from x_ref = mf_t1 (the filtered mean, so that c
+//   stays on the smoothed mean's scale: from 0 the mean would form mf -
+//   X^T m_p, which cancels in float32), the factor S from 0 and A <- X^T
+//   A from I, and ms_t0 = c + A (ms_t1 - x_ref), Ls_t0 Ls_t0^T = A Ls_t1
+//   Ls_t1^T A^T + S S^T is phase B's step with mf := c, m_p := x_ref, X :=
+//   A^T, R22 := S^T.  Carry runs that step over the C-1 aggregates from
+//   the filter's row T-1; Apply runs each chunk's steps from its carry
+//   and writes them (its values at the chunk ends are the ones written).
+//   The chain is then ~2 (T-1) / C + C steps, with C B / 32 warps
+//   (ops/chirp_smoother.py::backward_chunks picks C from T, B and the SM
+//   count), at the cost of reading the 34 words of a step twice: 352 B
+//   per lane-step in float32 where one pass needs 216.  The expectation,
+//   which reads nothing of the carry, is left to phase E; the 34 words a
+//   step reads (mf_t and row t) are copied kStages - 1 steps ahead with
+//   cp.async into a ring in shared memory.  A thread copies and then
+//   reads only its own lane's words, so no barrier is needed; a warp's
+//   copies of one word are 32 neighbouring lanes, 128 B in float32.
+//   Blocks are one warp (one chunk of 32 lanes), so a small batch spreads
+//   over the SMs; a ring of 3 steps keeps a float64 block at 26 KB, so
+//   that 8 blocks fit an SM.  The triangularization is tria_dense below,
+//   tria_cf's arithmetic reflection for reflection.
 // - Phase E is a few dozen operations per (t, lane), bound by its bytes.
 //
 // What is not used, and why.  Tensor cores: the per-lane products are 4
@@ -119,7 +146,7 @@ constexpr int kMaxNodes = 32;    // cap on the GH nodes of the expectation
 // Phase A's row per lane-step is chirp_lcd.cuh's packed row: m_p, X
 // (row-major), R22's upper triangle (row by row).
 constexpr int kStepWords = kD + kRowWords;   // phase B's words per step
-constexpr int kStages = 4;                   // phase B's ring of steps
+constexpr int kStages = 3;                   // phase B's ring of steps
 constexpr int kTeam = 8;                     // phase A's threads per lane-step
 constexpr int kRowsThreads = 64;             // phase A's threads per block
 constexpr int kBackLanes = 32;               // phase B's lanes per block
@@ -340,32 +367,262 @@ smoother_rows_kernel(const Real* __restrict__ mfs,   // (T, kD, ld)
   }
 }
 
-// Phase B: one thread per lane of a slab of nb lanes (mfs, lfs, mss and
-// lss with ld lanes per row, the rows of phase A with nb).
+// Phase B's ring and its steps.  Where step s's kStepWords words lie, for
+// one lane: mf word i at mf + s mf_step + i mf_word, row word w at row + s
+// row_step + w row_word (the filter's mfs and phase A's rows, or the
+// aggregates of the chunks, whose 34 words have the same order).
+template <typename Real>
+struct StepSource {
+  const Real* mf;
+  size_t mf_step, mf_word;
+  const Real* row;
+  size_t row_step, row_word;
+};
+
+template <typename Real>
+using BackRing = Real[kStages][kStepWords][kBackLanes];
+
+template <typename Real>
+__device__ __forceinline__ void fetch_step(BackRing<Real>& ring, const int lane,
+                                           const StepSource<Real>& src,
+                                           const int s) {
+  const size_t ss = static_cast<size_t>(s);
+  Real(*slot)[kBackLanes] = ring[s % kStages];
+#pragma unroll
+  for (int i = 0; i < kD; ++i)
+    copy_async(&slot[i][lane], src.mf + ss * src.mf_step + i * src.mf_word);
+#pragma unroll
+  for (int w = 0; w < kRowWords; ++w)
+    copy_async(&slot[kD + w][lane], src.row + ss * src.row_step + w * src.row_word);
+}
+
+// Steps s = hi-1 down to lo of src, each once its words are in the ring:
+// body(s, slot), the next kStages - 1 steps in flight (one cp.async group
+// each, empty past lo).  A thread copies and then reads only its own
+// lane's words, so no barrier is needed.
+template <typename Real, typename Body>
+__device__ __forceinline__ void walk_steps(BackRing<Real>& ring, const int lane,
+                                           const StepSource<Real>& src,
+                                           const int lo, const int hi,
+                                           Body&& body) {
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (hi - 1 - i >= lo) fetch_step(ring, lane, src, hi - 1 - i);
+    copy_commit();
+  }
+  for (int s = hi - 1; s >= lo; --s) {
+    if (s - (kStages - 1) >= lo) fetch_step(ring, lane, src, s - (kStages - 1));
+    copy_commit();
+    copy_wait<kStages - 1>();   // step s's group has landed
+    body(s, ring[s % kStages]);
+  }
+}
+
+// The smoothing step of the factor branch on the carry (ms, Ls), Ls lower,
+// with a step's words (mf, m_p, X, R22's upper triangle): ms <- mf + X^T
+// (ms - m_p), Ls <- tria([(X^T Ls)^T; R22])^T.  X is returned.
+template <typename Real>
+__device__ __forceinline__ void smooth_step(const Real (*slot)[kBackLanes],
+                                            const int lane, Real (&X)[kD][kD],
+                                            Real (&ms)[kD], Real (&Ls)[kD][kD]) {
+  Real mf[kD], mp[kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    mf[i] = slot[i][lane];
+    mp[i] = slot[kD + i][lane];
+#pragma unroll
+    for (int col = 0; col < kD; ++col) X[i][col] = slot[kD + kXWord + i * kD + col][lane];
+  }
+  // The array [(G Ls)^T; R22], (G Ls)^T[r][col] = sum_j X[j][col] Ls[j][r]
+  // over j >= r (Ls lower), from the carried Ls.
+  Real A[kD2][kD];
+#pragma unroll
+  for (int r = 0; r < kD; ++r) {
+#pragma unroll
+    for (int col = 0; col < kD; ++col) {
+      Real acc = Real(0);
+#pragma unroll
+      for (int j = r; j < kD; ++j) acc += X[j][col] * Ls[j][r];
+      A[r][col] = acc;
+      A[kD + r][col] = col >= r ? slot[kD + r22_word(r, col)][lane] : Real(0);
+    }
+  }
+  // ms <- mf + G (ms - mp).
+  Real dm[kD];
+#pragma unroll
+  for (int j = 0; j < kD; ++j) dm[j] = ms[j] - mp[j];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    Real acc = Real(0);
+#pragma unroll
+    for (int j = 0; j < kD; ++j) acc += X[j][i] * dm[j];
+    ms[i] = mf[i] + acc;
+  }
+  // Ls <- tria([(G Ls)^T; R22])^T.
+  tria_dense(A);
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) Ls[i][j] = A[j][i];
+  }
+}
+
+// The first step of chunk k of C over the T-1 steps (chunk k covers steps
+// chunk_start(k) .. chunk_start(k+1) - 1; ops/chirp_smoother.py::
+// chunk_starts computes the same).
+__device__ __forceinline__ int chunk_start(const int k, const int T,
+                                           const int chunks) {
+  return static_cast<int>(static_cast<long long>(k) * (T - 1) / chunks);
+}
+
+// Phase B's pointers for lane b of a slab: mfs with ld lanes per row, the
+// rows of phase A with nb.
+template <typename Real>
+__device__ __forceinline__ StepSource<Real> filter_steps(const Real* mfs,
+                                                         const Real* rows,
+                                                         const int b,
+                                                         const size_t Ld,
+                                                         const size_t Ns) {
+  return {mfs + b, kD * Ld, Ld, rows + b, kRowWords * Ns, Ns};
+}
+
+// Phase B, Compose: block (x, k-1) of one warp runs chunk k >= 1 on lanes
+// 32x.., from the reference point x_ref = mf at the chunk's later end t1:
+// walking t = t1-1 .. t0, the mean c from x_ref, the factor S from 0 and
+// the product A = X_t0^T .. X_{t1-1}^T from I.  The chunk's aggregate,
+// ms_t0 = c + A (ms_t1 - x_ref), Ls_t0 Ls_t0^T = A Ls_t1 Ls_t1^T A^T + S
+// S^T, is one step in phase B's packing: mf := c, m_p := x_ref, X := A^T,
+// R22 := S^T (upper), into agg[k-1] (kStepWords words, lanes nb).
 template <typename Real>
 __global__ void __launch_bounds__(kBackLanes)
-smoother_backward_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
-                         const Real* __restrict__ lfs,    // (T, kD*kD, ld)
-                         const Real* __restrict__ rows,   // (T-1, kRowWords, nb)
+smoother_compose_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
+                        const Real* __restrict__ rows,   // (T-1, kRowWords, nb)
+                        const int T, const int ld, const int nb,
+                        const int chunks,
+                        Real* __restrict__ agg) {        // (chunks-1, kStepWords, nb)
+  __shared__ BackRing<Real> ring;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * kBackLanes + lane;
+  if (b >= nb) return;
+  const int k = blockIdx.y + 1;
+  const int t0 = chunk_start(k, T, chunks), t1 = chunk_start(k + 1, T, chunks);
+  const size_t Ld = static_cast<size_t>(ld), Ns = static_cast<size_t>(nb);
+  Real x_ref[kD], c[kD], S[kD][kD], A[kD][kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    x_ref[i] = mfs[(static_cast<size_t>(t1) * kD + i) * Ld + b];
+    c[i] = x_ref[i];
+#pragma unroll
+    for (int j = 0; j < kD; ++j) {
+      S[i][j] = Real(0);
+      A[i][j] = i == j ? Real(1) : Real(0);
+    }
+  }
+  walk_steps(ring, lane, filter_steps(mfs, rows, b, Ld, Ns), t0, t1,
+             [&](int, const Real (*slot)[kBackLanes]) {
+               Real X[kD][kD];
+               smooth_step(slot, lane, X, c, S);
+               // A <- X^T A.
+               Real An[kD][kD];
+#pragma unroll
+               for (int i = 0; i < kD; ++i) {
+#pragma unroll
+                 for (int j = 0; j < kD; ++j) {
+                   Real acc = Real(0);
+#pragma unroll
+                   for (int m = 0; m < kD; ++m) acc += X[m][i] * A[m][j];
+                   An[i][j] = acc;
+                 }
+               }
+#pragma unroll
+               for (int i = 0; i < kD; ++i) {
+#pragma unroll
+                 for (int j = 0; j < kD; ++j) A[i][j] = An[i][j];
+               }
+             });
+  Real* out = agg + static_cast<size_t>(k - 1) * kStepWords * Ns + b;
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    out[i * Ns] = c[i];
+    out[(kD + i) * Ns] = x_ref[i];
+#pragma unroll
+    for (int col = 0; col < kD; ++col) {
+      out[(kD + kXWord + i * kD + col) * Ns] = A[col][i];
+      if (col >= i) out[(kD + r22_word(i, col)) * Ns] = S[col][i];
+    }
+  }
+}
+
+// The carry words at a chunk boundary, per lane: ms (kD), then Ls's lower
+// triangle row by row.
+constexpr int kCarryWords = kD + kD * (kD + 1) / 2;
+
+// Phase B, Carry: one thread per lane walks the aggregates of chunks C-1 ..
+// 1 from the filter's row T-1, phase B's step on each, and writes the carry
+// after chunk k, at step t1 of chunk k-1, to bounds[k-1] (kCarryWords
+// words, lanes nb).
+template <typename Real>
+__global__ void __launch_bounds__(kBackLanes)
+smoother_carry_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
+                      const Real* __restrict__ lfs,    // (T, kD*kD, ld)
+                      const Real* __restrict__ agg,    // (chunks-1, kStepWords, nb)
+                      const int T, const int ld, const int nb,
+                      const int chunks,
+                      Real* __restrict__ bounds) {     // (chunks-1, kCarryWords, nb)
+  __shared__ BackRing<Real> ring;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * kBackLanes + lane;
+  if (b >= nb) return;
+  const size_t Ld = static_cast<size_t>(ld), Ns = static_cast<size_t>(nb);
+  Real ms[kD], Ls[kD][kD];
+  {
+    const size_t ts = static_cast<size_t>(T - 1);
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      ms[i] = mfs[(ts * kD + i) * Ld + b];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) Ls[i][j] = lfs[(ts * kD * kD + i * kD + j) * Ld + b];
+    }
+  }
+  const StepSource<Real> src{agg + b, kStepWords * Ns, Ns, agg + kD * Ns + b,
+                             kStepWords * Ns, Ns};
+  walk_steps(ring, lane, src, 0, chunks - 1,
+             [&](int s, const Real (*slot)[kBackLanes]) {
+               Real X[kD][kD];
+               smooth_step(slot, lane, X, ms, Ls);
+               Real* out = bounds + static_cast<size_t>(s) * kCarryWords * Ns + b;
+#pragma unroll
+               for (int i = 0; i < kD; ++i) {
+                 out[i * Ns] = ms[i];
+#pragma unroll
+                 for (int j = 0; j <= i; ++j) out[(kD + i * (i + 1) / 2 + j) * Ns] = Ls[i][j];
+               }
+             });
+}
+
+// Phase B, Apply: block (x, k) of one warp runs chunk k on lanes 32x..,
+// the recursion from its later end, writing mss and Lss of its steps: the
+// last chunk from the filter's row T-1 (which it writes as row T-1 of the
+// outputs), the others from Carry's bounds[k].  With one chunk it is the
+// whole recursion, as one thread per lane.
+template <typename Real>
+__global__ void __launch_bounds__(kBackLanes)
+smoother_backward_kernel(const Real* __restrict__ mfs,     // (T, kD, ld)
+                         const Real* __restrict__ lfs,     // (T, kD*kD, ld)
+                         const Real* __restrict__ rows,    // (T-1, kRowWords, nb)
+                         const Real* __restrict__ bounds,  // (chunks-1, kCarryWords, nb)
                          const int T, const int ld, const int nb,
-                         Real* __restrict__ mss,          // (T, kD, ld)
-                         Real* __restrict__ lss) {        // (T, kD*kD, ld)
-  // Step t's words sit in ring[t % kStages]: mf_t, then row t.
-  __shared__ Real ring[kStages][kStepWords][kBackLanes];
+                         const int chunks,
+                         Real* __restrict__ mss,           // (T, kD, ld)
+                         Real* __restrict__ lss) {         // (T, kD*kD, ld)
+  __shared__ BackRing<Real> ring;
   const int lane = threadIdx.x;
   const int b = blockIdx.x * kBackLanes + lane;
   if (b >= nb || T < 1) return;
+  const int k = blockIdx.y;
+  const int t0 = chunk_start(k, T, chunks), t1 = chunk_start(k + 1, T, chunks);
   const size_t Ld = static_cast<size_t>(ld), Ns = static_cast<size_t>(nb);
 
-  auto fetch = [&](int t) {
-    const size_t ts = static_cast<size_t>(t);
-    Real(*slot)[kBackLanes] = ring[t % kStages];
-#pragma unroll
-    for (int i = 0; i < kD; ++i) copy_async(&slot[i][lane], &mfs[(ts * kD + i) * Ld + b]);
-#pragma unroll
-    for (int w = 0; w < kRowWords; ++w)
-      copy_async(&slot[kD + w][lane], &rows[(ts * kRowWords + w) * Ns + b]);
-  };
   auto store = [&](int t, const Real(&m)[kD], const Real(&L)[kD][kD]) {
     const size_t ts = static_cast<size_t>(t);
 #pragma unroll
@@ -377,16 +634,8 @@ smoother_backward_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
     }
   };
 
-  // The first kStages - 1 steps in flight, one group each (empty past t = 0).
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (T - 2 - s >= 0) fetch(T - 2 - s);
-    copy_commit();
-  }
-
-  // Row T-1 is the filter's.
   Real ms[kD], Ls[kD][kD];   // the carry; Ls: lower triangle only
-  {
+  if (k == chunks - 1) {     // row T-1 is the filter's
     const size_t ts = static_cast<size_t>(T - 1);
 #pragma unroll
     for (int i = 0; i < kD; ++i) {
@@ -394,56 +643,22 @@ smoother_backward_kernel(const Real* __restrict__ mfs,    // (T, kD, ld)
 #pragma unroll
       for (int j = 0; j <= i; ++j) Ls[i][j] = lfs[(ts * kD * kD + i * kD + j) * Ld + b];
     }
+    store(T - 1, ms, Ls);
+  } else {
+    const Real* in = bounds + static_cast<size_t>(k) * kCarryWords * Ns + b;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      ms[i] = in[i * Ns];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) Ls[i][j] = in[(kD + i * (i + 1) / 2 + j) * Ns];
+    }
   }
-  store(T - 1, ms, Ls);
-
-  for (int t = T - 2; t >= 0; --t) {
-    if (t - (kStages - 1) >= 0) fetch(t - (kStages - 1));
-    copy_commit();
-    copy_wait<kStages - 1>();   // step t's group has landed
-    const Real(*slot)[kBackLanes] = ring[t % kStages];
-    Real mf[kD], mp[kD], X[kD][kD];
-#pragma unroll
-    for (int i = 0; i < kD; ++i) {
-      mf[i] = slot[i][lane];
-      mp[i] = slot[kD + i][lane];
-#pragma unroll
-      for (int col = 0; col < kD; ++col) X[i][col] = slot[kD + kXWord + i * kD + col][lane];
-    }
-    // The array [(G Ls)^T; R22], (G Ls)^T[r][col] = sum_j X[j][col] Ls[j][r]
-    // over j >= r (Ls lower), from the carried Ls.
-    Real A[kD2][kD];
-#pragma unroll
-    for (int r = 0; r < kD; ++r) {
-#pragma unroll
-      for (int col = 0; col < kD; ++col) {
-        Real acc = Real(0);
-#pragma unroll
-        for (int j = r; j < kD; ++j) acc += X[j][col] * Ls[j][r];
-        A[r][col] = acc;
-        A[kD + r][col] = col >= r ? slot[kD + r22_word(r, col)][lane] : Real(0);
-      }
-    }
-    // ms <- mf + G (ms - mp).
-    Real dm[kD];
-#pragma unroll
-    for (int j = 0; j < kD; ++j) dm[j] = ms[j] - mp[j];
-#pragma unroll
-    for (int i = 0; i < kD; ++i) {
-      Real acc = Real(0);
-#pragma unroll
-      for (int j = 0; j < kD; ++j) acc += X[j][i] * dm[j];
-      ms[i] = mf[i] + acc;
-    }
-    // Ls <- tria([(G Ls)^T; R22])^T.
-    tria_dense(A);
-#pragma unroll
-    for (int i = 0; i < kD; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) Ls[i][j] = A[j][i];
-    }
-    store(t, ms, Ls);
-  }
+  walk_steps(ring, lane, filter_steps(mfs, rows, b, Ld, Ns), t0, t1,
+             [&](int t, const Real (*slot)[kBackLanes]) {
+               Real X[kD][kD];
+               smooth_step(slot, lane, X, ms, Ls);
+               store(t, ms, Ls);
+             });
 }
 
 // The GH nodes and weights into shared memory, once per block.
@@ -578,15 +793,47 @@ int launch_rows(const Real* mfs, const Real* lfs, const Real* xi,
 #undef SMOOTHER_ROWS_LAUNCH
 }
 
+// Phase B's chunks: 1..T-1 (one at T = 1), at most a grid's y extent.
+int check_chunks(int T, int ld, int nb, int chunks) {
+  const int most = T > 1 ? T - 1 : 1;
+  return T < 1 || nb < 0 || ld < nb || chunks < 1 || chunks > most || chunks > 65535
+             ? static_cast<int>(cudaErrorInvalidValue)
+             : 0;
+}
+
 template <typename Real>
-int launch_backward(const Real* mfs, const Real* lfs, const Real* rows, int T,
-                    int ld, int nb, Real* mss, Real* lss, void* stream) {
-  if (T < 1 || nb < 0 || ld < nb) return static_cast<int>(cudaErrorInvalidValue);
+int launch_compose(const Real* mfs, const Real* rows, int T, int ld, int nb,
+                   int chunks, Real* agg, void* stream) {
+  if (const int err = check_chunks(T, ld, nb, chunks)) return err;
+  if (nb == 0 || chunks == 1) return 0;
+  const dim3 grid((nb + kBackLanes - 1) / kBackLanes, chunks - 1);
+  smoother_compose_kernel<Real><<<grid, kBackLanes, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      mfs, rows, T, ld, nb, chunks, agg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Real>
+int launch_carry(const Real* mfs, const Real* lfs, const Real* agg, int T,
+                 int ld, int nb, int chunks, Real* bounds, void* stream) {
+  if (const int err = check_chunks(T, ld, nb, chunks)) return err;
+  if (nb == 0 || chunks == 1) return 0;
+  smoother_carry_kernel<Real><<<(nb + kBackLanes - 1) / kBackLanes, kBackLanes,
+                                0, static_cast<cudaStream_t>(stream)>>>(
+      mfs, lfs, agg, T, ld, nb, chunks, bounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Real>
+int launch_backward(const Real* mfs, const Real* lfs, const Real* rows,
+                    const Real* bounds, int T, int ld, int nb, int chunks,
+                    Real* mss, Real* lss, void* stream) {
+  if (const int err = check_chunks(T, ld, nb, chunks)) return err;
   if (nb == 0) return 0;
-  const int blocks = (nb + kBackLanes - 1) / kBackLanes;
-  smoother_backward_kernel<Real><<<blocks, kBackLanes, 0,
+  const dim3 grid((nb + kBackLanes - 1) / kBackLanes, chunks);
+  smoother_backward_kernel<Real><<<grid, kBackLanes, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
-      mfs, lfs, rows, T, ld, nb, mss, lss);
+      mfs, lfs, rows, bounds, T, ld, nb, chunks, mss, lss);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -663,16 +910,44 @@ int smoother_rows_f64(const double* mfs, const double* lfs, const double* xi,
                              rows_per_member, rows, stream);
 }
 
+int ghfs_chirp_smoother_carry_words() { return kCarryWords; }
+
+int smoother_compose_f32(const float* mfs, const float* rows, int T, int ld,
+                         int nb, int chunks, float* agg, void* stream) {
+  return launch_compose<float>(mfs, rows, T, ld, nb, chunks, agg, stream);
+}
+
+int smoother_compose_f64(const double* mfs, const double* rows, int T, int ld,
+                         int nb, int chunks, double* agg, void* stream) {
+  return launch_compose<double>(mfs, rows, T, ld, nb, chunks, agg, stream);
+}
+
+int smoother_carry_f32(const float* mfs, const float* lfs, const float* agg,
+                       int T, int ld, int nb, int chunks, float* bounds,
+                       void* stream) {
+  return launch_carry<float>(mfs, lfs, agg, T, ld, nb, chunks, bounds, stream);
+}
+
+int smoother_carry_f64(const double* mfs, const double* lfs, const double* agg,
+                       int T, int ld, int nb, int chunks, double* bounds,
+                       void* stream) {
+  return launch_carry<double>(mfs, lfs, agg, T, ld, nb, chunks, bounds,
+                              stream);
+}
+
 int smoother_backward_f32(const float* mfs, const float* lfs, const float* rows,
-                          int T, int ld, int nb, float* mss, float* lss,
-                          void* stream) {
-  return launch_backward<float>(mfs, lfs, rows, T, ld, nb, mss, lss, stream);
+                          const float* bounds, int T, int ld, int nb,
+                          int chunks, float* mss, float* lss, void* stream) {
+  return launch_backward<float>(mfs, lfs, rows, bounds, T, ld, nb, chunks, mss,
+                                lss, stream);
 }
 
 int smoother_backward_f64(const double* mfs, const double* lfs,
-                          const double* rows, int T, int ld, int nb,
-                          double* mss, double* lss, void* stream) {
-  return launch_backward<double>(mfs, lfs, rows, T, ld, nb, mss, lss, stream);
+                          const double* rows, const double* bounds, int T,
+                          int ld, int nb, int chunks, double* mss, double* lss,
+                          void* stream) {
+  return launch_backward<double>(mfs, lfs, rows, bounds, T, ld, nb, chunks,
+                                 mss, lss, stream);
 }
 
 int smoother_expect_f32(const float* mss, const float* lss, const float* ghx,

@@ -28,10 +28,12 @@ from chirpgp_tpu_torch.ops.chirp_fused import (
     fused_kernel_launcher, ghfs_chirp_filter_smoother,
     ghfs_chirp_filter_smoother_reference)
 from chirpgp_tpu_torch.ops.chirp_smoother import (
-    ROW_WORDS, SmootherKernels, gaussian_expectation_g, ghfs_chirp_smoother,
-    ghfs_chirp_smoother_kernel, ghfs_chirp_smoother_reference,
-    smoother_backward_reference, smoother_kernel_launcher,
-    smoother_rows_reference)
+    ROW_WORDS, SmootherKernels, backward_chunks, gaussian_expectation_g,
+    ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
+    ghfs_chirp_smoother_reference, smoother_apply_reference,
+    smoother_backward_chunked_reference, smoother_backward_reference,
+    smoother_carry_reference, smoother_compose_reference,
+    smoother_kernel_launcher, smoother_rows_reference)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
 torch.set_num_threads(1)
@@ -58,6 +60,18 @@ def _np(x):
 
 def _gram(L):
     return np.einsum("tikb,tjkb->tijb", L, L)
+
+
+def _signs_of(L, like):
+    """The lower factors L (T, 4, 4, B) with each column's sign made that
+    of ``like``'s: two lower factors of one Gram differ by column signs
+    only, which the Householder pivots pick, so a factor is compared
+    entry by entry once they agree (sign of the diagonals; 0 counts as
+    +)."""
+    L, like = np.asarray(L), np.asarray(like)
+    d = np.where(np.diagonal(L, axis1=1, axis2=2) >= 0, 1.0, -1.0)
+    w = np.where(np.diagonal(like, axis1=1, axis2=2) >= 0, 1.0, -1.0)
+    return L * (d * w).transpose(0, 2, 1)[:, None]
 
 
 @pytest.mark.cuda
@@ -138,9 +152,11 @@ def test_chirp_filter_kernel_single_step(cuda, rule, dtype):
 def test_chirp_smoother_kernel_matches_plain(cuda, dtype, rule, B, T):
     """The smoother's kernels (phases A, B and E) against the plain
     version, on the filter kernel's outputs: mss and the IF mean within
-    atol_m, Lss and L L^T within atol_P; ragged B (past phase B's 32 lanes
-    per block), T = 1 (the filter's row), T = 2, and T = 50 and 83, past
-    phase B's ring of steps and not a multiple of it."""
+    atol_m, Lss (up to its columns' signs: phase B's chunks pick other
+    Householder pivots than the plain recursion) and L L^T within atol_P;
+    ragged B (past phase B's 32 lanes per block), T = 1 (the filter's
+    row), T = 2, and T = 50 and 83, past phase B's ring of steps and not a
+    multiple of it."""
     atol_m, atol_P = TOLS[dtype]
     sgps = RULES[rule]()
     ys = torch.tensor(
@@ -153,6 +169,7 @@ def test_chirp_smoother_kernel_matches_plain(cuda, dtype, rule, B, T):
     got = [_np(x) for x in ghfs_chirp_smoother_kernel(PARAMS, 1e-3, sgps, mfs,
                                                       Lfs, 10)]
     assert ghfs_chirp_smoother.launches == before + 1
+    got[1] = _signs_of(got[1], want[1])
     for g, w, atol in zip(got, want, (atol_m, atol_P, atol_m)):
         assert g.shape == w.shape
         npt.assert_allclose(g, w, atol=atol, rtol=0)
@@ -208,6 +225,10 @@ def test_chirp_smoother_slabs_give_the_same_bits(cuda, dtype, monkeypatch):
     mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
     whole = ghfs_chirp_smoother_kernel(PARAMS, 1e-3, sgps, mfs, Lfs, 10)
     per_lane = 40 * ROW_WORDS * mfs.element_size()
+    # Phase B's chunks come from the whole B, whatever the slab.
+    chunks = backward_chunks(41, 100, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert chunks > 1
     for cap, slabs in ((40 * per_lane, 4), (per_lane, 100)):
         before = dict(ghfs_chirp_smoother.kernel_launches)
         monkeypatch.setattr(chirp_smoother, "SCRATCH_CAP", cap)
@@ -216,6 +237,8 @@ def test_chirp_smoother_slabs_give_the_same_bits(cuda, dtype, monkeypatch):
         launch()
         assert ghfs_chirp_smoother.kernel_launches == {
             "smoother_rows": before["smoother_rows"] + slabs,
+            "smoother_compose": before["smoother_compose"] + slabs,
+            "smoother_carry": before["smoother_carry"] + slabs,
             "smoother_backward": before["smoother_backward"] + slabs,
             "smoother_expect": before["smoother_expect"] + 1}
         for a, b in zip(out, whole):
@@ -248,6 +271,100 @@ def test_chirp_smoother_phases_alone_match_the_launch(cuda, dtype,
     kernels.expect(mss, lss, if_mean)
     for a, b in zip((mss, lss.view(29, 4, 4, 100), if_mean), want):
         assert torch.equal(a, b)
+
+
+def _phase_b_inputs(cuda, dtype, B, T):
+    """The filter kernel's outputs on 0.1 N(0, 1) measurements and phase
+    A's rows of them, GH-3."""
+    sgps = gauss_hermite(4, 3)
+    ys = torch.tensor(
+        0.1 * np.random.default_rng(B + T).standard_normal((B, T)),
+        dtype=getattr(torch, dtype), device=cuda)
+    mfs, Lfs, _ = ghfs_chirp_filter(PARAMS, 0.1, 1e-3, sgps, ys)
+    kernels = SmootherKernels(PARAMS, 1e-3, sgps, 10, mfs.dtype, cuda)
+    rows = mfs.new_empty((T - 1, ROW_WORDS, B))
+    kernels.rows(mfs, Lfs, rows)
+    return kernels, mfs, Lfs, rows
+
+
+# (B, T, chunks): one lane, a ragged warp, the Table-I width, at T = 1, 2,
+# 3 and 64 with 1, 2, 5 and T - 1 chunks and backward_chunks' own (None);
+# at T = 3141 the Table-I width and the benchmark's B=4096.
+PHASE_B_CASES = [(B, T, c) for B in (1, 33, 100) for T in (1, 2, 3, 64)
+                 for c in sorted({1, 2, 5, T - 1} & set(range(1, max(T, 2))))
+                 + [None]] + [(100, 3141, 2), (100, 3141, None),
+                              (4096, 3141, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,chunks", PHASE_B_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_phase_b_kernels_match_chunked_twins(cuda, dtype, B, T, chunks):
+    """Phase B's Compose, Carry and Apply, each launched alone on the same
+    inputs as its plain twin (Carry on Compose's aggregates, Apply on
+    Carry's bounds), then the three against the chunked twin and the
+    sequential recursion: scaled 1e-4 (float32) or 1e-9 (float64); R22 of
+    an aggregate and every factor by its Gram."""
+    bound = FUSED_SCALED[dtype]
+    kernels, mfs, Lfs, rows = _phase_b_inputs(cuda, dtype, B, T)
+    back = kernels.back
+    C = back.chunks(T, B) if chunks is None else chunks
+    agg, bounds = back.scratch(B, C)
+    mss, lss = torch.empty_like(mfs), mfs.new_empty((T, 16, B))
+    before = dict(ghfs_chirp_smoother.kernel_launches)
+    back.compose(mfs, rows, agg, C)
+    back.carry(mfs, Lfs, agg, bounds, C)
+    back.apply(mfs, Lfs, rows, bounds, mss, lss, C)
+    torch.cuda.synchronize()
+    more = int(C > 1)
+    assert ghfs_chirp_smoother.kernel_launches == dict(
+        before, smoother_compose=before["smoother_compose"] + more,
+        smoother_carry=before["smoother_carry"] + more,
+        smoother_backward=before["smoother_backward"] + 1)
+    want = _np(smoother_compose_reference(mfs, rows, C))
+    got = _np(agg)
+    assert got.shape == want.shape == (C - 1, 34, B)
+    assert _scaled(got[:, :24], want[:, :24]) <= bound
+    assert _scaled(_upper_gram(got[:, 24:]), _upper_gram(want[:, 24:])) \
+        <= bound
+    assert np.isfinite(got).all()
+    il = np.tril_indices(4)
+
+    def lower(words):
+        L = np.zeros(words.shape[:-2] + (4, 4, words.shape[-1]))
+        L[..., il[0], il[1], :] = words
+        return L
+
+    want = _np(smoother_carry_reference(mfs, Lfs, agg, C))
+    got = _np(bounds)
+    assert _scaled(got[:, :4], want[:, :4]) <= bound
+    assert _scaled(_gram(lower(got[:, 4:])), _gram(lower(want[:, 4:]))) \
+        <= bound
+    Lss = lss.view(T, 4, 4, B)
+    for ms_w, Ls_w in (smoother_apply_reference(mfs, Lfs, rows, bounds, C),
+                       smoother_backward_chunked_reference(mfs, Lfs, rows,
+                                                           C),
+                       smoother_backward_reference(mfs, Lfs, rows)):
+        assert _scaled(_np(mss), _np(ms_w)) <= bound
+        assert _scaled(_gram(_np(Lss)), _gram(_np(Ls_w))) <= bound
+    assert torch.equal(mss[-1], mfs[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_phase_b_one_chunk_is_the_recursion(cuda, dtype):
+    """With one chunk, Apply alone runs the recursion: phase B through
+    ``BackwardKernels.run`` launches no Compose or Carry, and its outputs
+    are those of Apply at one chunk, bit for bit."""
+    kernels, mfs, Lfs, rows = _phase_b_inputs(cuda, dtype, 37, 50)
+    mss, lss = torch.empty_like(mfs), mfs.new_empty((50, 16, 37))
+    before = dict(ghfs_chirp_smoother.kernel_launches)
+    kernels.backward(mfs, Lfs, rows, mss, lss, chunks=1)
+    assert ghfs_chirp_smoother.kernel_launches == dict(
+        before, smoother_backward=before["smoother_backward"] + 1)
+    again = [torch.empty_like(x) for x in (mss, lss)]
+    kernels.back.apply(mfs, Lfs, rows, mfs.new_empty((0, 14, 37)), *again, 1)
+    assert torch.equal(mss, again[0]) and torch.equal(lss, again[1])
 
 
 @pytest.mark.cuda
@@ -307,8 +424,10 @@ def test_estimate_if_batched_on_card_matches_cpu(cuda):
         before[0] + 1, before[1] + 1)
     on_cpu = estimate_if_batched(cfg, params, torch.tensor(ys))
     for key in ("if_mean", "nell", "mss", "Lss"):
-        npt.assert_allclose(_np(on_card[key]), _np(on_cpu[key]), atol=1e-9,
-                            rtol=0)
+        got, want = _np(on_card[key]), _np(on_cpu[key])
+        if key == "Lss":   # up to its columns' signs (phase B's chunks)
+            got = _signs_of(got, want)
+        npt.assert_allclose(got, want, atol=1e-9, rtol=0)
 
 
 @pytest.mark.cuda
@@ -454,8 +573,10 @@ def test_lascala_estimate_if_batched_on_card_matches_cpu(cuda):
         before[0] + 1, before[1] + 1)
     on_cpu = estimate_if_batched(cfg, params, torch.tensor(ys))
     for key in ("if_mean", "nell", "mss", "Lss"):
-        npt.assert_allclose(_np(on_card[key]), _np(on_cpu[key]), atol=1e-9,
-                            rtol=0)
+        got, want = _np(on_card[key]), _np(on_cpu[key])
+        if key == "Lss":   # up to its columns' signs (phase B's chunks)
+            got = _signs_of(got, want)
+        npt.assert_allclose(got, want, atol=1e-9, rtol=0)
 
 
 @pytest.mark.cuda
@@ -809,7 +930,9 @@ def test_fused_kernels_match_twins(cuda, dtype, rule, factors, B, T):
         assert _scaled(_np(mss), _np(ms_t)) <= bound
         assert _scaled(_gram(_np(lss.view(T, 4, 4, B))), _gram(_np(Ls_t))) \
             <= bound
-        launched = {"fused_forward": 1, "smoother_backward": 1}
+        more = int(kernels.back.chunks(T, B) > 1)
+        launched = {"fused_forward": 1, "smoother_compose": more,
+                    "smoother_carry": more, "smoother_backward": 1}
     else:
         outs = {}
         for oi in (None, 2):
@@ -827,6 +950,47 @@ def test_fused_kernels_match_twins(cuda, dtype, rule, factors, B, T):
         launched = {"fused_forward": 1, "affine_backward": 2}
     assert ghfs_chirp_filter_smoother.kernel_launches == {
         k: v + launched.get(k, 0) for k, v in before.items()}
+
+
+# (B, T): one lane, a ragged team warp, the Table-I width, the benchmark's
+# width, at T = 1, 2, 3 and 64, and at T = 3141.
+AFFINE_CASES = [(B, T) for B in (1, 33, 100, 4096) for T in (1, 2, 3, 64)] \
+    + [(100, 3141), (4096, 3141)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", AFFINE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_affine_backward_team_matches_twin(cuda, dtype, B, T):
+    """G (a team of four threads per lane) on F's maps against its twin,
+    full and slim at every out_index, at ``affine_geometry``'s lanes per
+    block and at 8 and 32: scaled 1e-4 (float32) or 1e-9 (float64); the
+    slim output is the full output's slices and every geometry gives the
+    same bits."""
+    bound = FUSED_SCALED[dtype]
+    ys = _fused_inputs(cuda, dtype, B, T, 3 * B + T)
+    like = dict(dtype=ys.dtype, device=cuda)
+    kernels = FusedKernels(PARAMS, 0.1, 1e-3, gauss_hermite(4, 3), ys.dtype,
+                           cuda)
+    rows, mf, lf, nll = _forward_outputs(ys, T, B, False)
+    kernels.forward(ys.T.contiguous(), rows, mf, lf, nll, False)
+    w_m, w_p = affine_backward_reference(rows, mf[0], lf[0].view(4, 4, B))
+    full = torch.empty((T, 4, B), **like), torch.empty((T, 16, B), **like)
+    kernels.backward(rows, mf, lf, *full)
+    assert _scaled(_np(full[0]), _np(w_m)) <= bound
+    assert _scaled(_np(full[1].view(T, 4, 4, B)), _np(w_p)) <= bound
+    Pss = full[1].view(T, 4, 4, B)
+    assert torch.equal(Pss, Pss.transpose(1, 2))
+    for geo in (dict(), dict(lanes=8), dict(lanes=32)):
+        for oi in (None, 0, 1, 2, 3):
+            shape = ((T, 4, B), (T, 16, B)) if oi is None else ((T, B),) * 2
+            o_m, o_p = (torch.empty(sh, **like) for sh in shape)
+            kernels.backward(rows, mf, lf, o_m, o_p, oi, **geo)
+            if oi is None:
+                assert torch.equal(o_m, full[0]) and torch.equal(o_p, full[1])
+            else:
+                assert torch.equal(o_m, full[0][:, oi]), (geo, oi)
+                assert torch.equal(o_p, Pss[:, oi, oi]), (geo, oi)
 
 
 def _forward_outputs(ys, T, B, factors):

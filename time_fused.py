@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""CUDA-event times of the fused filter+smoother's forward kernel F
-(``fused_forward``) on one NVIDIA GPU, for the shipped kernel source and
-for timing-only variants of it, and the SASS instruction counts of every
-kernel instance of the shipped build.
+"""CUDA-event times of the fused filter+smoother's kernels F
+(``fused_forward``) and G (``affine_backward``) on one NVIDIA GPU, for the
+shipped kernel source and for timing-only variants of it, and the SASS
+instruction counts of every kernel instance of the shipped build.
 
     python3 time_fused.py [--root DIR] [--variants all|none|NAME,...]
-                          [--out DIR]
+                          [--g-variants all|none|NAME,...] [--out DIR]
 
 ``--root`` times the package of another checkout of this repository (for
 example the parent commit unpacked with ``git archive`` under the
@@ -46,6 +46,30 @@ For the consumer-warp design it also times F at B=4096 float32 in maps
 mode at other launch geometries than ``fused_geometry``'s: blocks of 16
 lanes (256 blocks, every SM busy) and a team of 32 with 8 lanes per
 block.
+
+G, a team of ``kBackTeam`` threads per lane with a ring of ``kGStages``
+steps, is timed slim and full on F's maps in each case (with ``--root``
+naming a checkout of the source it replaced, the one thread per lane of
+that source, whose ``FusedKernels.backward`` takes no geometry).  Its
+lanes per block are swept (8, 16, 32) at each case; its variants
+(``--g-variants``), each in every case, slim and full, 32 lanes per
+block where the team is not 4 (the old design's blocks at one thread per
+lane), and whether they keep the shipped bits:
+
+- ``team_1``, ``team_2``: one or two threads per lane (one or two warps
+  a block, each owning 4 or 2 columns);
+- ``team_1_ring_4``: one thread per lane and a ring of 4 steps, the old
+  design's ring;
+- ``ring_4``, ``ring_2``: the team of 4 with a ring of 4 or 2 steps;
+- ``g_no_stores``, ``g_no_refills``, ``g_no_barrier``: no stores in the
+  loop, no copies after the first ring (stale words), no block barrier
+  after the copies' wait (other threads' words and the exchange may not
+  have landed: wrong values): where a step's time goes;
+- ``g_word_copies``: the ring filled by copies of one word (4 or 8
+  bytes) everywhere, not by 16-byte copies where every block is whole and
+  aligned (the same bits).
+
+The shipped G is timed again after its variants.
 
 Each case of ``chip_smoke.py``'s 6e (GH-3 at B=4096 x T=3141 on its
 benchmark measurements, float32 and float64, and the 100 records of
@@ -115,12 +139,39 @@ VARIANTS = {
 }
 
 
+_TEAM = "constexpr int kBackTeam = 4;"
+_RING = "constexpr int kGStages = 8;"
+# G's variants: name -> ([(file, text, replacement), ...], lanes per block
+# or None for affine_geometry's).
+G_VARIANTS = {
+    "team_1": ([("ghfs_chirp_fused.cu", _TEAM, _TEAM.replace("4", "1"))], 32),
+    "team_2": ([("ghfs_chirp_fused.cu", _TEAM, _TEAM.replace("4", "2"))], 32),
+    "team_1_ring_4": ([("ghfs_chirp_fused.cu", _TEAM, _TEAM.replace("4", "1")),
+                       ("ghfs_chirp_fused.cu", _RING, _RING.replace("8", "4"))],
+                      32),
+    "ring_4": ([("ghfs_chirp_fused.cu", _RING, _RING.replace("8", "4"))],
+               None),
+    "ring_2": ([("ghfs_chirp_fused.cu", _RING, _RING.replace("8", "2"))],
+               None),
+    "g_no_stores": ([("ghfs_chirp_fused.cu", "    store(up);\n",
+                      "    if (T < 0) store(up);\n")], None),
+    "g_no_refills": ([("ghfs_chirp_fused.cu",
+                       "      if (u - 1 + kGStages < steps) "
+                       "fetch(u - 1 + kGStages);\n", "")], None),
+    "g_no_barrier": ([("ghfs_chirp_fused.cu",
+                       "landed\n    g_barrier();", "landed")], None),
+    "g_word_copies": ([("ghfs_chirp_fused.cu", "  const bool vec = B % lanes",
+                        "  const bool vec = false && B % lanes")], None),
+}
+
+
 def variant_sources(csrc: Path, name: str):
     """{file name: text} of the sources of variant ``name`` (``"shipped"``
     for the sources as they are), or None where a substitution finds
     nothing to replace in ``csrc``."""
     sources = {f: (csrc / f).read_text() for f in _FILES}
-    for file, text, replacement in VARIANTS.get(name, ()):
+    subs = VARIANTS.get(name) or G_VARIANTS.get(name, ((),))[0]
+    for file, text, replacement in subs:
         if text not in sources[file]:
             return None
         sources[file] = sources[file].replace(text, replacement)
@@ -181,6 +232,7 @@ def main(argv=None) -> int:
     parser.add_argument("--root", type=Path,
                         default=Path(__file__).resolve().parent)
     parser.add_argument("--variants", default="all")
+    parser.add_argument("--g-variants", default="all")
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
@@ -199,6 +251,12 @@ def main(argv=None) -> int:
     print(f"{nvidia_smi()} | timing the package of {ROOT}", flush=True)
     names = {"all": list(VARIANTS), "none": []}.get(
         args.variants, [n for n in args.variants.split(",") if n])
+    g_names = {"all": list(G_VARIANTS), "none": []}.get(
+        args.g_variants, [n for n in args.g_variants.split(",") if n])
+    g_team = hasattr(chirp_fused, "affine_geometry")
+    if not g_team:
+        g_names = []
+    names = names + g_names
     out = args.out or _build.BUILD_DIR / "variants"
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         shipped = pool.submit(load_fused_kernel)
@@ -207,10 +265,12 @@ def main(argv=None) -> int:
         shipped = shipped.result()
     for name, path in libs.items():
         if path is not None:
+            kernel = ("affine_backward f" if name in G_VARIANTS
+                      else "fused_forward f")
             print(f"SASS of {name}: " + ", ".join(
                 f"{func} {sum(count.values())}" for func, count in
                 sass_counts(_build.find_nvcc(), path).items()
-                if func.startswith("fused_forward f")), flush=True)
+                if func.startswith(kernel)), flush=True)
 
     cfg = IFEstimationConfig()
     rule = cfg.sigma_points()
@@ -238,6 +298,24 @@ def main(argv=None) -> int:
 
         ms = {"F maps": event_ms(maps)}
         ref = (rows.clone(), nll.clone())
+        vm, vv = (torch.empty((T, B), **like) for _ in range(2))
+        om, op = torch.empty((T, 4, B), **like), torch.empty((T, 16, B),
+                                                             **like)
+        g_modes = {"G slim": (vm, vv, 2), "G full": (om, op, None)}
+        for mode, (o_m, o_p, oi) in g_modes.items():
+            ms[mode] = event_ms(
+                lambda: kernels.backward(rows, mf, lf, o_m, o_p, oi))
+        g_ref = (vm.clone(), vv.clone())
+        if g_team:
+            geo = chirp_fused.affine_geometry(B, kernels.num_sms)
+            print(f"{tag}: G geometry team {geo.team}, {geo.lanes_per_block}"
+                  f" lanes x {geo.blocks} blocks, ring of "
+                  f"{chirp_fused.BACK_STAGES}; G slim at other lanes per "
+                  f"block: " + ", ".join(
+                      f"{n} lanes {event_ms(lambda: kernels.backward(rows, mf, lf, vm, vv, 2, lanes=n))!r} ms"
+                      for n in (8, 16, 32) if n != geo.lanes_per_block),
+                  flush=True)
+        g_ref += (om.clone(), op.clone())
         ms["F factors"] = event_ms(
             lambda: kernels.forward(ys_t, rows, mfs, lfs, nll, True))
         launch, _ = kernel_launcher(params.to(torch.float64).cpu(), XI, DT,
@@ -246,33 +324,66 @@ def main(argv=None) -> int:
         del launch, mfs, lfs
         print(f"{tag} T={T}: " + ", ".join(f"{k} {v!r} ms"
                                            for k, v in ms.items()), flush=True)
-        if yss.dtype != torch.float32:
-            continue
-        if B > 100 and hasattr(chirp_fused, "fused_geometry"):
-            shipped_geometry = chirp_fused.fused_geometry
-            for team, lanes in ((8, 16), (32, 8)):
-                chirp_fused.fused_geometry = functools.partial(
-                    shipped_geometry, team=team, lanes=lanes)
-                t = event_ms(maps)
-                print(f"  team {team}, {lanes} lanes per block: F maps {t!r} ms"
-                      f" ({t - ms['F maps']:+.3f} ms)", flush=True)
-            chirp_fused.fused_geometry = shipped_geometry
-        for name, path in libs.items():
-            if path is None:
-                print(f"  {name}: not in this source", flush=True)
+        if yss.dtype == torch.float32:
+            time_f_variants(B, kernels, maps, ms, ref, rows, nll, libs,
+                            shipped)
+        maps()   # F's maps again, for G's variants
+        for name in g_names:
+            if libs[name] is None:
                 continue
-            kernels.lib = _declare_like(ctypes.CDLL(str(path)), shipped.lib)
-            t = event_ms(maps)
-            same = (torch.equal(rows, ref[0]), torch.equal(nll, ref[1]))
-            print(f"  {name}: F maps {t!r} ms ({t - ms['F maps']:+.3f} ms); "
-                  f"bits of the shipped source: rows {same[0]}, nll "
-                  f"{same[1]}", flush=True)
-        del rows, kernels
+            kernels.lib = _declare_like(ctypes.CDLL(str(libs[name])),
+                                        shipped.lib)
+            lanes = G_VARIANTS[name][1]
+            t = {mode: event_ms(lambda: kernels.backward(
+                rows, mf, lf, o_m, o_p, oi, lanes=lanes))
+                for mode, (o_m, o_p, oi) in g_modes.items()}
+            same = all(torch.equal(a, b) for a, b in zip((vm, vv, om, op),
+                                                         g_ref))
+            print(f"  {name}: " + ", ".join(
+                f"{mode} {v!r} ms ({v - ms[mode]:+.3f} ms)"
+                for mode, v in t.items())
+                + f"; bits of the shipped source: {same}", flush=True)
+        kernels.lib = shipped.lib
+        if g_names:
+            print("  shipped G again: " + ", ".join(
+                f"{mode} {event_ms(lambda: kernels.backward(rows, mf, lf, o_m, o_p, oi))!r} ms"
+                for mode, (o_m, o_p, oi) in g_modes.items()), flush=True)
+        del rows, kernels, om, op, g_ref
         torch.cuda.empty_cache()
     for func, count in sass_counts(_build.find_nvcc(), shipped.path).items():
         print(f"SASS {func}: {sum(count.values())} instructions; " + ", ".join(
             f"{op} {n}" for op, n in count.most_common(14)), flush=True)
     return 0
+
+
+def time_f_variants(B, kernels, maps, ms, ref, rows, nll, libs, shipped):
+    """F in maps mode at other launch geometries and for each of F's
+    variants in ``libs``, beside the shipped source's times ``ms`` and
+    against its bits ``ref``."""
+    from chip_smoke import event_ms
+    from chirpgp_tpu_torch.ops import chirp_fused
+    if B > 100 and hasattr(chirp_fused, "fused_geometry"):
+        shipped_geometry = chirp_fused.fused_geometry
+        for team, lanes in ((8, 16), (32, 8)):
+            chirp_fused.fused_geometry = functools.partial(
+                shipped_geometry, team=team, lanes=lanes)
+            t = event_ms(maps)
+            print(f"  team {team}, {lanes} lanes per block: F maps {t!r} ms"
+                  f" ({t - ms['F maps']:+.3f} ms)", flush=True)
+        chirp_fused.fused_geometry = shipped_geometry
+    for name, path in libs.items():
+        if path is None:
+            print(f"  {name}: not in this source", flush=True)
+            continue
+        if name in G_VARIANTS:
+            continue
+        kernels.lib = _declare_like(ctypes.CDLL(str(path)), shipped.lib)
+        t = event_ms(maps)
+        same = (torch.equal(rows, ref[0]), torch.equal(nll, ref[1]))
+        print(f"  {name}: F maps {t!r} ms ({t - ms['F maps']:+.3f} ms); "
+              f"bits of the shipped source: rows {same[0]}, nll "
+              f"{same[1]}", flush=True)
+    kernels.lib = shipped.lib
 
 
 if __name__ == "__main__":

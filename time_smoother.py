@@ -1,9 +1,18 @@
 #!/usr/bin/env python3
 """CUDA-event times of the chirp smoother's phases A and B on one NVIDIA
-GPU, for the shipped kernel source and for timing-only variants of it, and
-the SASS instruction counts of every kernel instance of the shipped build.
+GPU, for the shipped kernel source and for timing-only variants of it, a
+sweep of phase B's chunk count, and the SASS instruction counts of every
+kernel instance of the shipped build.
 
-    python3 time_smoother.py [--out DIR]
+    python3 time_smoother.py [--root DIR] [--variants all|none|NAME,...]
+                             [--chunks C,...] [--out DIR]
+
+``--root`` times the package of another checkout of this repository (for
+example the parent commit unpacked with ``git archive`` under the
+git-ignored ``_checkout/``): its ``chirpgp_tpu_torch`` is imported and its
+``csrc`` built, and phase B runs through its own
+``SmootherKernels.backward``, so two designs are timed by one script in
+one process each.
 
 A variant is ``chirpgp_tpu_torch/ops/csrc/ghfs_chirp_smoother.cu`` (with
 ``csrc/chirp_lcd.cuh``) under one text substitution, built by ``nvcc``
@@ -19,36 +28,35 @@ variant is used by the port; each asks what bounds a phase:
   two arithmetic operations (wrong values, the same data flow);
 - ``no_shuffles``: the Householder's butterfly shuffles replaced by an
   addition each (wrong values, the same data flow);
-- ``stages_2``: phase B's ring two steps deep instead of four.
+- ``stages_2``, ``stages_4``: phase B's rings two or four steps deep
+  instead of three (at backward_chunks' C).
 
-Phase A with GH-3's 11 rows per member and phase B run alone, float32,
-on the filter kernel's outputs at ``chip_smoke.py``'s benchmark shape
-(B=4096, T=3141, its measurements and parameters): the mean over 6
-launches after one warm-up (``chip_smoke.event_ms``).  Prints the
-``nvidia-smi`` name and power limit, one line per variant (its times, and
-whether phase A's rows and phase B's means keep the shipped source's
-bits), and one line per kernel instance: its SASS instructions in all and
-by opcode (``cuobjdump -sass``).
+Phase A with GH-3's 11 rows per member and phase B run alone on the
+filter kernel's outputs at ``chip_smoke.py``'s benchmark shape (B=4096,
+T=3141, its measurements and parameters) in float32 and float64, and on
+its first 100 lanes (float32): the mean over 6 launches after one
+warm-up (``chip_smoke.event_ms``).  Phase B at ``backward_chunks``' C and
+at each C of ``--chunks`` (C = 1 is the one-thread-per-lane recursion of
+the design before the chunks, Apply alone), each of Compose, Carry and
+Apply alone and the three together, and its largest deviation from C = 1
+over (1 + max |mss|).  Prints the ``nvidia-smi`` name and power limit, one
+line per case and C, one line per variant (its times, and whether phase
+A's rows and phase B's means keep the shipped source's bits), and one
+line per kernel instance: its SASS instructions in all and by opcode
+(``cuobjdump -sass``).
 """
 
 import argparse
 import collections
 import concurrent.futures
 import ctypes
-import math
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
 import torch
-
-from chip_smoke import B_FULL as B, DT, T_FULL as T, XI, event_ms, nvidia_smi
-from chirpgp_tpu_torch.ops import _build
-from chirpgp_tpu_torch.ops.chirp_filter import (
-    _chirp_constants, ghfs_chirp_filter)
-from chirpgp_tpu_torch.ops.chirp_smoother import (
-    ROW_WORDS, load_smoother_kernel)
 
 _ROWS_KERNEL = ("__global__ void __launch_bounds__(kRowsThreads)\n"
                 "smoother_rows_kernel(")
@@ -75,16 +83,19 @@ VARIANTS = {
         "for (int k = j; k < kD2; ++k) g2[k] += __shfl_xor_sync(mask, g2[k], "
         "o, P);",
         "for (int k = j; k < kD2; ++k) g2[k] += g2[k] * Real(o);"),
-    "stages_2": ("ghfs_chirp_smoother.cu", "constexpr int kStages = 4;",
+    "stages_2": ("ghfs_chirp_smoother.cu", "constexpr int kStages = 3;",
                  "constexpr int kStages = 2;"),
+    "stages_4": ("ghfs_chirp_smoother.cu", "constexpr int kStages = 3;",
+                 "constexpr int kStages = 4;"),
 }
+_PHASE_B = ("smoother_compose", "smoother_carry", "smoother_backward")
 
 
-def variant_sources(name: str) -> dict:
+def variant_sources(build, name: str) -> dict:
     """{file name: text} of the sources of variant ``name`` (``"shipped"``
     for the sources as they are).  Raises if a substitution finds nothing
     to replace."""
-    sources = {f: (_build.CSRC / f).read_text()
+    sources = {f: (build.CSRC / f).read_text()
                for f in ("ghfs_chirp_smoother.cu", "chirp_lcd.cuh")}
     if name != "shipped":
         file, text, replacement = VARIANTS[name]
@@ -94,13 +105,13 @@ def variant_sources(name: str) -> dict:
     return sources
 
 
-def _build_variant(name: str, out: Path) -> Path:
+def _build_variant(build, name: str, out: Path) -> Path:
     d = out / name
     d.mkdir(parents=True, exist_ok=True)
-    for file, text in variant_sources(name).items():
+    for file, text in variant_sources(build, name).items():
         (d / file).write_text(text)
     lib = d / "lib.so"
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
                            str(lib), str(d / "ghfs_chirp_smoother.cu")],
                           capture_output=True, text=True)
     if proc.returncode:
@@ -108,28 +119,30 @@ def _build_variant(name: str, out: Path) -> Path:
     return lib
 
 
-def _bench_inputs(device):
-    """The filter kernel's float32 outputs on ``chip_smoke.py``'s benchmark
+def _bench_inputs(device, dtype, B_):
+    """The filter kernel's outputs on ``chip_smoke.py``'s benchmark
     measurements (``gen_chirp(meow_freq(offset=8))`` + sqrt(Xi) N(0, 1),
-    noise from ``default_rng(999)``) at the default parameters."""
+    noise from ``default_rng(999)``) at the default parameters, lanes
+    ``:B_``, and phase A's rows of them."""
+    from chip_smoke import DT, T_FULL, XI, measurements
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.models import g
-    from chirpgp_tpu_torch.toymodels import constant_mag, gen_chirp, meow_freq
+    from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    from chirpgp_tpu_torch.ops.chirp_smoother import ROW_WORDS, SmootherKernels
     cfg = IFEstimationConfig()
     params = g(cfg.default_init_theta()).to(torch.float32)
-    ts = torch.linspace(DT, DT * T, T, dtype=torch.float64, device=device)
-    base = gen_chirp(ts, constant_mag(1.0), meow_freq(offset=8.0)[1])
-    noise = np.random.default_rng(999).standard_normal((B, T))
-    ys = (base[None] + math.sqrt(XI) * torch.as_tensor(
-        noise, device=device)).float()
+    ys = measurements(4096, T_FULL, 999, torch.float64, device)[:B_]
     rule = cfg.sigma_points()
-    mfs, Lfs, _ = ghfs_chirp_filter(params, XI, DT, rule, ys)
-    return params, rule, mfs, Lfs
+    mfs, Lfs, _ = ghfs_chirp_filter(params, XI, DT, rule, ys.to(dtype))
+    kernels = SmootherKernels(params, DT, rule, 10, mfs.dtype, device)
+    rows = mfs.new_empty((T_FULL - 1, ROW_WORDS, B_))
+    kernels.rows(mfs, Lfs, rows)
+    return params, rule, kernels, mfs, Lfs, rows
 
 
-def sass_counts(path: Path) -> dict:
+def sass_counts(build, path: Path) -> dict:
     """{kernel instance: Counter of SASS opcodes} of a built library."""
-    sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"),
+    sass = subprocess.run([str(Path(build.find_nvcc()).parent / "cuobjdump"),
                            "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     counts, func = collections.defaultdict(collections.Counter), None
@@ -148,62 +161,143 @@ def sass_counts(path: Path) -> dict:
     return counts
 
 
+def time_phase_b(event_ms, kernels, mfs, Lfs, rows, sweep):
+    """Phase B's times: {C: {kernel: ms, "all": ms, "dev": scaled |d mss|
+    from C = 1}} for ``backward_chunks``' C (key "default") and each C of
+    ``sweep``; a package without chunks times its ``backward`` alone."""
+    T, _, B_ = mfs.shape
+    mss, lss = torch.empty_like(mfs), mfs.new_empty((T, 16, B_))
+    back = getattr(kernels, "back", None)
+    if back is None:
+        return {"old design": {"all": event_ms(
+            lambda: kernels.backward(mfs, Lfs, rows, mss, lss))}}
+    out, ref = {}, None
+    for C in [1, back.chunks(T, B_)] + [c for c in sweep if c < T]:
+        key = "default" if C == back.chunks(T, B_) and "default" not in out \
+            else C
+        agg, bounds = back.scratch(B_, C)
+        ms = {}
+        if C > 1:
+            ms["smoother_compose"] = event_ms(
+                lambda: back.compose(mfs, rows, agg, C))
+            ms["smoother_carry"] = event_ms(
+                lambda: back.carry(mfs, Lfs, agg, bounds, C))
+        ms["smoother_backward"] = event_ms(
+            lambda: back.apply(mfs, Lfs, rows, bounds, mss, lss, C))
+        ms["all"] = event_ms(lambda: back.run(mfs, Lfs, rows, mss, lss,
+                                              chunks=C,
+                                              scratch=(agg, bounds)))
+        if ref is None:
+            ref = mss.clone()
+        ms["dev"] = float((mss.double() - ref.double()).abs().max()
+                          / (1.0 + ref.double().abs().max()))
+        ms["C"] = C
+        out[key] = ms
+        del agg, bounds
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--out", type=Path,
-                        default=_build.BUILD_DIR / "variants")
+    parser.add_argument("--root", type=Path,
+                        default=Path(__file__).resolve().parent)
+    parser.add_argument("--variants", default="all")
+    parser.add_argument("--chunks", default="2,4,16,32,64,128")
+    parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args(argv)
+    sys.path.insert(0, str(args.root.resolve()))
+    from chip_smoke import T_FULL as T, event_ms, nvidia_smi
+    from chirpgp_tpu_torch.ops import _build
+    from chirpgp_tpu_torch.ops.chirp_filter import _chirp_constants
+    from chirpgp_tpu_torch.ops.chirp_smoother import load_smoother_kernel
     if not torch.cuda.is_available():
         raise SystemExit("time_smoother.py needs an NVIDIA GPU")
     device = torch.device("cuda", 0)
-    print(nvidia_smi(), flush=True)
-    names = ["shipped", *VARIANTS]
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    print(f"{nvidia_smi()} | timing the package of {_build.CSRC.parents[2]}",
+          flush=True)
+    names = {"all": list(VARIANTS), "none": []}.get(
+        args.variants, [n for n in args.variants.split(",") if n])
+    out = args.out or _build.BUILD_DIR / "variants"
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        shipped = pool.submit(load_smoother_kernel)
         libs = dict(zip(names, pool.map(
-            lambda n: _build_variant(n, args.out), names)))
+            lambda n: _build_variant(_build, n, out), names)))
+        shipped = shipped.result()
 
-    params, rule, mfs, Lfs = _bench_inputs(device)
-    S = rule.n_points
-    like = dict(dtype=mfs.dtype, device=device)
-    xi = torch.as_tensor(np.ascontiguousarray(rule.xi), **like)
-    w = torch.as_tensor(np.asarray(rule.w), **like)
-    sw = torch.sqrt(w)
-    consts = _chirp_constants(params, 1.0, DT)
-    c_consts = (ctypes.c_double * consts.size)(*consts.tolist())
-    rows = torch.empty((T - 1, ROW_WORDS, B), **like)
-    mss = torch.empty((T, 4, B), **like)
-    lss = torch.empty((T, 16, B), **like)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    shipped = None
-    for name, path in libs.items():
-        lib = ctypes.CDLL(str(path))
-        fa, fb = lib.smoother_rows_f32, lib.smoother_backward_f32
-        fa.argtypes = ([ptr] * 5 + [ctypes.POINTER(ctypes.c_double)]
-                       + [i32] * 5 + [ptr] * 2)
-        fb.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 3
-        fa.restype = fb.restype = i32
+    sweep = [int(c) for c in args.chunks.split(",") if c]
+    for tag, dtype, B_ in (("B=4096/f32", torch.float32, 4096),
+                           ("B=4096/f64", torch.float64, 4096),
+                           ("B=100/f32", torch.float32, 100)):
+        params, rule, kernels, mfs, Lfs, rows = _bench_inputs(device, dtype,
+                                                              B_)
+        for key, ms in time_phase_b(event_ms, kernels, mfs, Lfs, rows,
+                                    sweep).items():
+            print(f"{tag} T={T} phase B C={ms.get('C', 1)}"
+                  f"{' (backward_chunks)' if key == 'default' else ''}: "
+                  + ", ".join(f"{k} {v!r}" + ("" if k in ("dev", "C")
+                                              else " ms")
+                              for k, v in ms.items() if k != "C"),
+                  flush=True)
+        if (dtype != torch.float32 or B_ != 4096 or not libs
+                or not hasattr(kernels, "back")):
+            del kernels, mfs, Lfs, rows
+            torch.cuda.empty_cache()
+            continue
+        # The variants, float32 at B=4096, through ctypes with the shipped
+        # library's signatures.
+        S = rule.n_points
+        like = dict(dtype=mfs.dtype, device=device)
+        xi = torch.as_tensor(np.ascontiguousarray(rule.xi), **like)
+        w = torch.as_tensor(np.asarray(rule.w), **like)
+        sw = torch.sqrt(w)
+        consts = _chirp_constants(params, 1.0, 1e-3)
+        c_consts = (ctypes.c_double * consts.size)(*consts.tolist())
+        mss, lss = torch.empty_like(mfs), mfs.new_empty((T, 16, B_))
+        back = kernels.back
+        C = back.chunks(T, B_)
+        agg, bounds = back.scratch(B_, C)
+        base = None
+        for name, path in [("shipped", shipped.path), *libs.items()]:
+            lib = ctypes.CDLL(str(path))
+            for k in ("smoother_rows_f32",) + tuple(f"{k}_f32"
+                                                    for k in _PHASE_B):
+                fn, ref = getattr(lib, k), getattr(shipped.lib, k)
+                fn.argtypes, fn.restype = ref.argtypes, ref.restype
+            stream = None
 
-        def phase_a():
-            if fa(mfs.data_ptr(), Lfs.data_ptr(), xi.data_ptr(), w.data_ptr(),
-                  sw.data_ptr(), c_consts, S, T, B, B, 11, rows.data_ptr(),
-                  None):
-                raise RuntimeError(f"{name}: phase A launch failed")
+            def phase_a():
+                if lib.smoother_rows_f32(
+                        mfs.data_ptr(), Lfs.data_ptr(), xi.data_ptr(),
+                        w.data_ptr(), sw.data_ptr(), c_consts, S, T, B_, B_,
+                        11, rows.data_ptr(), stream):
+                    raise RuntimeError(f"{name}: phase A launch failed")
 
-        def phase_b():
-            if fb(mfs.data_ptr(), Lfs.data_ptr(), rows.data_ptr(), T, B, B,
-                  mss.data_ptr(), lss.data_ptr(), None):
-                raise RuntimeError(f"{name}: phase B launch failed")
+            def phase_b():
+                for rc in (lib.smoother_compose_f32(
+                               mfs.data_ptr(), rows.data_ptr(), T, B_, B_, C,
+                               agg.data_ptr(), stream),
+                           lib.smoother_carry_f32(
+                               mfs.data_ptr(), Lfs.data_ptr(), agg.data_ptr(),
+                               T, B_, B_, C, bounds.data_ptr(), stream),
+                           lib.smoother_backward_f32(
+                               mfs.data_ptr(), Lfs.data_ptr(),
+                               rows.data_ptr(), bounds.data_ptr(), T, B_, B_,
+                               C, mss.data_ptr(), lss.data_ptr(), stream)):
+                    if rc:
+                        raise RuntimeError(f"{name}: phase B launch failed")
 
-        phase_a()
-        phase_b()
-        torch.cuda.synchronize()
-        if shipped is None:
-            shipped = (rows.clone(), mss.clone())
-        same = (torch.equal(rows, shipped[0]), torch.equal(mss, shipped[1]))
-        print(f"{name}: phase A {event_ms(phase_a)!r} ms, phase B "
-              f"{event_ms(phase_b)!r} ms; bits of the shipped source: rows "
-              f"{same[0]}, mss {same[1]}", flush=True)
-    for func, count in sass_counts(load_smoother_kernel().path).items():
+            phase_a()
+            phase_b()
+            torch.cuda.synchronize()
+            if base is None:
+                base = (rows.clone(), mss.clone())
+            same = (torch.equal(rows, base[0]), torch.equal(mss, base[1]))
+            print(f"{name}: phase A {event_ms(phase_a)!r} ms, phase B (C={C}) "
+                  f"{event_ms(phase_b)!r} ms; bits of the shipped source: "
+                  f"rows {same[0]}, mss {same[1]}", flush=True)
+        del kernels, mfs, Lfs, rows, mss, lss, agg, bounds
+        torch.cuda.empty_cache()
+    for func, count in sass_counts(_build, shipped.path).items():
         print(f"SASS {func}: {sum(count.values())} instructions; " + ", ".join(
             f"{op} {n}" for op, n in count.most_common(14)), flush=True)
     return 0
