@@ -44,8 +44,9 @@ Phases, one line each:
    ``smoother_apply_reference`` on the same inputs, and phase B's outputs
    against ``smoother_backward_chunked_reference`` and the sequential
    ``smoother_backward_reference`` over the kernel's rows, factors up to
-   their columns' signs; phase E against
-   ``smoothed_expectation_batched``; each launched alone through
+   their columns' signs; phase E against its float64 pair-form twin
+   ``smoother_expect_reference``, within 1e-12 relative in float64 and 2e-6
+   max(1, |E|) in float32; each launched alone through
    ``SmootherKernels``), each timed and held to the scaled bound;
 3. ``estimate_if_batched`` at B=4096, T=3141, dt=1e-3, Xi=0.1, GH-3,
    float32: finite outputs, one filter and one smoother launch by the
@@ -93,10 +94,11 @@ Phases, one line each:
    GH-10 expectation of g(V) (``gaussian_expectation_g``): F, G and E
    launched once each (counted, and under ``torch.profiler``, with the
    same CUDA kernel count per call at T=64 as at T=3141), each kernel
-   alone against its plain twin (scaled 1e-4), the IF mean against phase
-   3's; 6e each fused kernel's CUDA-event time alone (F in maps and factor
-   mode, G slim and full with its geometry, E, phase B on F's rows with
-   its chunk count) at B=4096 float32 and float64 and at
+   alone against its plain twin (scaled 1e-4; E against its float64
+   pair-form twin ``smoother_expect_var_reference`` as in 2b), the IF mean
+   against phase 3's; 6e each fused kernel's CUDA-event time alone (F in
+   maps and factor mode, G slim and full with its geometry, E with its
+   float32 MUFU floor, phase B on F's rows with its chunk count) at B=4096 float32 and float64 and at
    the Table-I width, beside its bound, and F beside the filter kernel's
    bare launch on the same records;
 7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
@@ -251,6 +253,7 @@ phase passed or failed.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -318,6 +321,9 @@ KERNEL_REPLACES = "chirpgp_tpu/experimental/pallas_filter.py:248"
 # compiled reverse scan (and the expectation after it).
 SMOOTHER_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_smoother.cu"
 SMOOTHER_REPLACES = "chirpgp_tpu/infer/batched.py:152"
+# Phase E's first mode: the JAX package's gaussian_expectation_batched as
+# its estimate_if_batched calls it on the smoother's output.
+EXPECT_REPLACES = "chirpgp_tpu/infer/batched.py:546"
 # The fused filter+smoother's kernels replace the JAX package's compiled
 # scans of sqrt_sgp_filter_smoother_batched: F its forward scan, G the
 # covariance branch's reverse scan; E's variance mode bench.py's
@@ -325,7 +331,7 @@ SMOOTHER_REPLACES = "chirpgp_tpu/infer/batched.py:152"
 FUSED_SOURCE = "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_fused.cu"
 FUSED_REPLACES = {"fused_forward": "chirpgp_tpu/infer/batched.py:297",
                   "affine_backward": "chirpgp_tpu/infer/batched.py:383",
-                  "smoother_expect_var": "chirpgp_tpu/infer/batched.py:546"}
+                  "smoother_expect_var": EXPECT_REPLACES}
 # Phase 1: the instances whose register spills are reported and allowed,
 # (kernel, dtype, template integers): the float64 smoother's phase A with
 # GH-3's 11 rows of 8 values per member (255 registers, 116 B of spill
@@ -349,6 +355,14 @@ OTHER_SCRATCH_CAP = 2 << 30
 SWEEP_B = (528, 1056, 2112)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
+# Hopper's special-function units (ex2, lg2, rsqrt) issue 16 operations
+# per clock per SM: phase E's float32 floor beside its bound (3b, 6e).
+MUFU_PER_CLOCK_SM = 16
+# Phase E against its pair-form twin (2b, 6d): float64 within
+# EXPECT_RTOL_F64 of |twin|; float32 within EXPECT_ATOL_F32 max(1, |twin|)
+# of the float64 twin on the same inputs (its ex2 and lg2 on the
+# special-function unit); NaN where the twin has NaN, the same infinities.
+EXPECT_RTOL_F64, EXPECT_ATOL_F32 = 1e-12, 2e-6
 # Phase 7, the Table-I sweep: seeds 0-99 of each magnitude of
 # results/data (B=300) at SWEEP_7A_T, sqrt GHFS, GH-3, float32 (a quarter
 # of the full T=3141, to make room for phases 8-10).  7a holds
@@ -694,6 +708,47 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's largest SM clock, MHz (``nvidia-smi``'s clocks.max.sm)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+def mufu_floor(elements, per_element, device):
+    """Phase E's float32 floor: ``elements`` x ``per_element`` MUFU
+    operations at MUFU_PER_CLOCK_SM per clock on each SM of ``device`` at
+    its largest clock.  Returns (ms, a note of the count and rates)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = sm_clock_mhz()
+    ms = 1e-3 * elements * per_element / (MUFU_PER_CLOCK_SM * sms * mhz)
+    return ms, (f"MUFU {per_element} per element, floor {ms!r} ms at "
+                f"{MUFU_PER_CLOCK_SM}/clock/SM x {sms} SMs x {mhz:g} MHz")
+
+
+def expect_within(got, twin):
+    """Phase E's kernel output ``got`` against its pair-form twin ``twin``
+    (float64, same inputs): the largest |d| over its allowance (float64
+    EXPECT_RTOL_F64 |twin|, float32 EXPECT_ATOL_F32 max(1, |twin|)), at
+    most 1 to pass; inf where a NaN or an infinity differs."""
+    g, w = got.double(), twin.double()
+    inf = torch.isinf(w)
+    if not (torch.equal(torch.isnan(g), torch.isnan(w))
+            and torch.equal(g[inf], w[inf])):
+        return math.inf
+    fin = torch.isfinite(w)
+    if not bool(fin.any()):
+        return 0.0
+    allow = (EXPECT_RTOL_F64 * w[fin].abs() if got.dtype == torch.float64
+             else EXPECT_ATOL_F32 * w[fin].abs().clamp_min(1.0))
+    return float(((g[fin] - w[fin]).abs()
+                  / allow.clamp_min(torch.finfo(torch.float64).tiny)).max())
+
+
 def measurements(B, T, seed, dtype, device):
     """gen_chirp(meow_freq(offset=8)) + sqrt(Xi) N(0, 1), noise from a
     seeded NumPy generator -- the benchmark's data."""
@@ -898,15 +953,15 @@ def smoother_phase_deviations(args, outputs):
     then phase B's outputs against the whole chunked twin and the
     sequential recursion ``smoother_backward_reference`` over the
     kernel's own rows; phase E's IF mean against
-    ``smoothed_expectation_batched`` of the wrapper's mss and Lss
-    (``outputs``).  Returns ({kernel: (max |d|, plain seconds)}, C, {twin:
+    its pair-form twin ``smoother_expect_reference`` in float64 on the
+    wrapper's mss and Lss (``outputs``), within ``expect_within``'s
+    allowance.  Returns ({kernel: (max |d|, plain seconds)}, C, {twin:
     scaled |d| of phase B's outputs})."""
-    from chirpgp_tpu_torch.infer.batched import smoothed_expectation_batched
     from chirpgp_tpu_torch.ops.chirp_smoother import (
         ROW_WORDS, SmootherKernels, smoother_apply_reference,
         smoother_backward_chunked_reference, smoother_backward_reference,
         smoother_carry_reference, smoother_compose_reference,
-        smoother_rows_reference)
+        smoother_expect_reference, smoother_rows_reference)
     from chirpgp_tpu_torch.utils.timing import timed
     params, dt, rule, mfs, Lfs, order = args
     T, _, B = mfs.shape
@@ -958,8 +1013,12 @@ def smoother_phase_deviations(args, outputs):
     del rows, mss, lss, Lss
     if_mean = mfs.new_empty((T, B))
     kernels.expect(outputs[0], outputs[1].view(T, 16, B), if_mean)
-    if_p, times["smoother_expect"] = timed(smoothed_expectation_batched,
-                                           *outputs[:2], 2, order)
+    if_p, times["smoother_expect"] = timed(
+        smoother_expect_reference, outputs[0].double(), outputs[1].double(),
+        order)
+    within = expect_within(if_mean, if_p)
+    check(within <= 1.0, f"2b {tag} smoother_expect vs its float64 pair-form "
+                         f"twin: |d| at {within} of its allowance")
     devs["smoother_expect"] = [(if_mean, if_p)]
     out = {}
     for kernel, pairs in devs.items():
@@ -1278,7 +1337,7 @@ def phase_smoother_timing(device, smi, filtered, filter_timing):
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     from chirpgp_tpu_torch.ops.chirp_smoother import (
-        KERNELS, ROW_WORDS, SmootherKernels, ghfs_chirp_smoother,
+        KERNELS, ROW_WORDS, SmootherKernels, expect_mufu, ghfs_chirp_smoother,
         rows_per_member, smoother_cost, smoother_kernel_launcher,
         smoother_phase_costs, smoother_slabs)
     cfg = IFEstimationConfig()
@@ -1349,6 +1408,9 @@ def phase_smoother_timing(device, smi, filtered, filter_timing):
                     "smoother_backward" if _k == "phase_b" else _k])
             phases[kernel] = dict(ms=sum(slab_ms[kernel]), bound_ms=pbound,
                                   bound_by=pby, slab_ms=slab_ms[kernel])
+            if kernel == "smoother_expect" and mfs.dtype == torch.float32:
+                phases[kernel]["mufu_ms"], phases[kernel]["mufu"] = \
+                    mufu_floor(T * B, expect_mufu(order), device)
         # The whole launch at the other cap, where it gives other slabs.
         other = smoother_slabs(T, B, mfs.element_size(), OTHER_SCRATCH_CAP)
         ms_other = None
@@ -1377,6 +1439,7 @@ def phase_smoother_timing(device, smi, filtered, filter_timing):
             f"{ratio:.3f}; phases alone: " + ", ".join(
                 f"{k} {v['ms']!r} ms (bound {v['bound_ms']!r} ms, "
                 f"{v['bound_by']}, share {v['bound_ms'] / v['ms']:.4f}"
+                + (f"; {v['mufu']}" if "mufu" in v else "")
                 + (f"; slabs {v['slab_ms']!r} ms" if len(slabs) > 1 else "")
                 + ")" for k, v in phases.items() if v["slab_ms"])
             + ("" if ms_other is None else
@@ -1597,16 +1660,16 @@ def phase_fused(device, if_ref, t_ref):
     from chirpgp_tpu_torch.utils.timing import timed
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.infer.batched import (
-        cov_sgp_filter_smoother_batched, gaussian_expectation_batched,
-        sqrt_sgp_filter_batched, sqrt_sgp_filter_smoother_batched,
-        sqrt_sgp_smoother_batched)
+        cov_sgp_filter_smoother_batched, sqrt_sgp_filter_batched,
+        sqrt_sgp_filter_smoother_batched, sqrt_sgp_smoother_batched)
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
     from chirpgp_tpu_torch.ops.chirp_fused import (
         KERNELS, ROW_WORDS, FusedKernels, affine_backward_reference,
         fused_forward_reference, ghfs_chirp_filter_smoother,
         ghfs_chirp_filter_smoother_reference)
-    from chirpgp_tpu_torch.ops.chirp_smoother import gaussian_expectation_g
+    from chirpgp_tpu_torch.ops.chirp_smoother import (
+        gaussian_expectation_g, smoother_expect_var_reference)
     cfg = IFEstimationConfig()
     rule, order = cfg.sigma_points(), cfg.expectation_order
     parts = []
@@ -1719,8 +1782,11 @@ def phase_fused(device, if_ref, t_ref):
                       lf[0].view(4, 4, B_FULL), 2)
     pairs["affine_backward"] = list(zip((vm, vv), twin))
     ie = gaussian_expectation_g(vm, vv, order)
-    twin, t_e = timed(lambda: gaussian_expectation_batched(
-        vm, vv.clamp_min(0.0).sqrt(), g, order))
+    twin, t_e = timed(smoother_expect_var_reference, vm.double(), vv.double(),
+                      order)
+    within = expect_within(ie, twin)
+    check(within <= 1.0, f"6d smoother_expect_var vs its float64 pair-form "
+                         f"twin: |d| at {within} of its allowance")
     pairs["smoother_expect_var"] = [(ie, twin)]
     out, kparts = {}, []
     for kernel, t in zip(pairs, (t_f, t_g, t_e)):
@@ -1804,7 +1870,8 @@ def fused_entry(timing, kernel):
     """The ``kernels`` line's times of a fused kernel from 6e's ``timing``:
     ``ms``, ``bound_ms`` and ``bound_by`` at B=4096 f32 in the mode of
     6d's call (F maps, G slim), ``ms_b100``, ``ms_f64`` and its bound, and
-    F's factor mode and G's full output beside."""
+    F's factor mode and G's full output beside, and E's float32 MUFU
+    floor (``mufu_ms``)."""
     key = {"affine_backward": "affine_backward_slim"}.get(kernel, kernel)
     f32, f64, b100 = (timing[t] for t in ("B=4096/f32", "B=4096/f64",
                                           "B=100/f32"))
@@ -1820,6 +1887,8 @@ def fused_entry(timing, kernel):
     if kernel == "affine_backward":
         entry.update(ms_full_b100=b100["affine_backward"]["ms"],
                      geometry=f32["geometry"], geometry_b100=b100["geometry"])
+    if "mufu_ms" in f32[key]:
+        entry.update(mufu_ms=f32[key]["mufu_ms"])
     return entry
 
 
@@ -1839,7 +1908,8 @@ def phase_fused_timing(device, smi):
     from chirpgp_tpu_torch.ops.chirp_fused import (
         BACK_STAGES, ROW_WORDS, FusedKernels, affine_geometry, fused_cost)
     from chirpgp_tpu_torch.ops.chirp_smoother import (
-        expectation_g_cost, expectation_launcher, smoother_phase_costs)
+        expect_mufu, expectation_g_cost, expectation_launcher,
+        smoother_phase_costs)
     cfg = IFEstimationConfig()
     rule, order = cfg.sigma_points(), cfg.expectation_order
     S = rule.n_points
@@ -1907,9 +1977,14 @@ def phase_fused_timing(device, smi):
             _, _, bound, by = bound_ms(S, T, B, yss.dtype,
                                        lambda *a, _c=costs[k]: _c)
             out[tag][k] = dict(ms=t, bound_ms=bound, bound_by=by)
+        if yss.dtype == torch.float32:
+            e = out[tag]["smoother_expect_var"]
+            e["mufu_ms"], e["mufu"] = mufu_floor(T * B, expect_mufu(order),
+                                                 device)
         parts.append(f"{tag} T={T} ({geos[tag]}): " + ", ".join(
             f"{k} {v['ms']!r} ms (bound {v['bound_ms']!r} ms, {v['bound_by']},"
-            f" share {v['bound_ms'] / v['ms']:.4f})"
+            f" share {v['bound_ms'] / v['ms']:.4f}"
+            + (f"; {v['mufu']}" if "mufu" in v else "") + ")"
             for k, v in out[tag].items() if k != "geometry")
             + f"; the filter kernel "
             f"{filter_ms!r} ms: F maps / filter "
@@ -4462,7 +4537,8 @@ def run() -> int:
         "launches_scaling": smoother_scaling}] + [{
         # Each CUDA kernel of the smoother's launch, alone.
         "name": kernel, "route": "cuda", "source": SMOOTHER_SOURCE,
-        "replaces": SMOOTHER_REPLACES, "launches": smoother_kernels[kernel],
+        "replaces": EXPECT_REPLACES if kernel == "smoother_expect"
+        else SMOOTHER_REPLACES, "launches": smoother_kernels[kernel],
         "max_abs_err": smoother_phases[kernel][0],
         "ms": smoother["gh3/B=4096/f32"]["phases"][kernel]["ms"],
         "plain_ms": smoother_phases[kernel][1],
@@ -4471,6 +4547,8 @@ def run() -> int:
         "library_ms": None,
         "ms_b100": smoother["gh3/B=100/f32"]["phases"][kernel]["ms"],
         "ms_f64": smoother["gh3/B=4096/f64"]["phases"][kernel]["ms"],
+        **({"mufu_ms": smoother["gh3/B=4096/f32"]["phases"][kernel]["mufu_ms"]}
+           if kernel == "smoother_expect" else {}),
         **({"chunks": smoother["gh3/B=4096/f32"]["chunks"],
             "chunks_b100": smoother["gh3/B=100/f32"]["chunks"],
             "ms_phase_b": smoother["gh3/B=4096/f32"]["phases"]["phase_b"]["ms"],

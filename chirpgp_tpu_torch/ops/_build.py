@@ -23,7 +23,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # sm_90a: Hopper with its architecture-specific features.  No
-# --use_fast_math: the filter needs the accurate sin/cos/log.
+# --use_fast_math: the filter needs the accurate sin/cos/log (the
+# smoother's phase E asks for its float32 ex2 and lg2 approximations in
+# its own device code).
 # -Xptxas -v reports registers, shared memory and local-memory spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -34,18 +34,23 @@ and :func:`smoother_backward_reference` are the plain twins of phases A
 and B, :func:`smoother_backward_chunked_reference` that of phase B's
 chunked form (:func:`smoother_compose_reference`,
 :func:`smoother_carry_reference`, :func:`smoother_apply_reference`), and
-``smoothed_expectation_batched`` is phase E's plain version: the kernels'
-oracle.
+:func:`smoother_expect_reference` that of phase E, which sums the GH nodes
+in symmetric pairs with one logarithm a pair (:func:`gh_pairs_reference`;
+``smoothed_expectation_batched`` is the plain version the wrapper runs on
+the CPU).  Phase E takes the GH rule in the kernel's parameters, from the
+host's float64 nodes and weights (``_gh_rule``).
 
 :func:`gaussian_expectation_g` is phase E's second input mode: the same
 expectation from a ``(T, B)`` mean and variance of V, as the fused
 filter+smoother's slim output gives them (``ops/chirp_fused.py``); on the
 CPU it is ``gaussian_expectation_batched(v_mean, sqrt(max(v_var, 0)), g)``,
 bench.py's pipeline, and on a CUDA device the kernel
-``smoother_expect_var``.
+``smoother_expect_var``, whose twin is
+:func:`smoother_expect_var_reference`.
 """
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -66,14 +71,17 @@ __all__ = ["BACKWARD_KERNELS", "BACK_WARPS_PER_SM", "BackwardKernels",
            "CARRY_STEP_WEIGHT", "CARRY_WORDS", "KERNELS", "ROWS", "ROW_WORDS",
            "SCRATCH_CAP",
            "STEP_WORDS", "SmootherKernels", "TEAM", "backward_chunks",
-           "chunk_starts", "expectation_g_cost", "expectation_launcher",
-           "gaussian_expectation_g", "ghfs_chirp_smoother",
+           "chunk_starts", "expect_flop", "expect_mufu",
+           "expectation_g_cost", "expectation_launcher",
+           "gaussian_expectation_g", "gh_pairs_reference",
+           "ghfs_chirp_smoother",
            "ghfs_chirp_smoother_kernel",
            "ghfs_chirp_smoother_reference", "ghfs_chirp_smoother_split",
            "load_smoother_kernel", "rows_per_member",
            "smoother_apply_reference", "smoother_backward_chunked_reference",
            "smoother_backward_reference", "smoother_carry_reference",
            "smoother_compose_reference", "smoother_cost",
+           "smoother_expect_reference", "smoother_expect_var_reference",
            "smoother_kernel_launcher", "smoother_phase_costs",
            "smoother_rows_reference", "smoother_slabs"]
 
@@ -449,6 +457,16 @@ def smoother_slabs(T: int, B: int, itemsize: int, cap: int | None = None):
     return [(b0, min(lanes, B - b0)) for b0 in range(0, B, max(lanes, 1))]
 
 
+@functools.lru_cache(maxsize=None)
+def _gh_rule(order: int):
+    """The order-``order`` Gauss-Hermite rule of the expectation
+    (``gauss_hermite(1, order)``) as two float64 ctypes arrays, nodes and
+    weights, which phase E's launcher packs into the kernel's parameters."""
+    gh = gauss_hermite(1, order)
+    array = ctypes.c_double * order
+    return array(*gh.xi[:, 0].tolist()), array(*np.asarray(gh.w).tolist())
+
+
 def load_smoother_kernel():
     """Build (on first use) and load the kernel library, with the C
     signatures declared.  Returns ``_build.BuiltLibrary``."""
@@ -456,20 +474,22 @@ def load_smoother_kernel():
     built = load_library(_KERNEL)
     lib = built.lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    dptr = ctypes.POINTER(ctypes.c_double)
     for dt in ("f32", "f64"):
         rows = getattr(lib, f"smoother_rows_{dt}")
-        rows.argtypes = ([ptr] * 5 + [ctypes.POINTER(ctypes.c_double)]
-                         + [i32] * 5 + [ptr] * 2)
+        rows.argtypes = [ptr] * 5 + [dptr] + [i32] * 5 + [ptr] * 2
         compose = getattr(lib, f"smoother_compose_{dt}")
         compose.argtypes = [ptr] * 2 + [i32] * 4 + [ptr] * 2
         carry = getattr(lib, f"smoother_carry_{dt}")
         carry.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 2
         back = getattr(lib, f"smoother_backward_{dt}")
         back.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 3
+        # Phase E in its two input modes takes the GH rule as the host's
+        # float64 nodes and weights (``_gh_rule``).
         expect = getattr(lib, f"smoother_expect_{dt}")
-        expect.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
+        expect.argtypes = [ptr] * 2 + [dptr] * 2 + [i32] * 3 + [ptr] * 2
         expect_var = getattr(lib, f"smoother_expect_var_{dt}")
-        expect_var.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
+        expect_var.argtypes = expect.argtypes
         for fn in (rows, compose, carry, back, expect, expect_var):
             fn.restype = i32
     for fn in (lib.ghfs_chirp_smoother_max_points,
@@ -598,9 +618,7 @@ class SmootherKernels:
         self.xi = torch.as_tensor(np.ascontiguousarray(sgps.xi), **like)
         self.w = torch.as_tensor(np.asarray(sgps.w), **like)
         self.sw = torch.sqrt(self.w)
-        gh = gauss_hermite(1, if_order)
-        self.ghx = torch.as_tensor(np.ascontiguousarray(gh.xi[:, 0]), **like)
-        self.ghw = torch.as_tensor(np.asarray(gh.w), **like)
+        self.ghx, self.ghw = _gh_rule(if_order)
         suffix = "f32" if dtype == torch.float32 else "f64"
         self._fns = {k: getattr(self.lib, f"{k}_{suffix}")
                      for k in ("smoother_rows", "smoother_expect")}
@@ -638,8 +656,8 @@ class SmootherKernels:
         T, _, B = mss.shape
         if B:
             self._run("smoother_expect", mss.data_ptr(), lss.data_ptr(),
-                      self.ghx.data_ptr(), self.ghw.data_ptr(), self.if_order,
-                      T, B, if_mean.data_ptr())
+                      self.ghx, self.ghw, self.if_order, T, B,
+                      if_mean.data_ptr())
 
 
 def smoother_kernel_launcher(params, dt, sgps: SigmaPoints,
@@ -716,7 +734,8 @@ def smoother_cost(S: int, T: int, B: int, dtype=torch.float32,
     """Least work of one smoother call on ``B`` lanes of ``T`` steps with
     ``S`` sigma points: over the T - 1 smoothing steps, the lesser of the
     two square-root forms of the step below (an FMA is 2 flop; the 3
-    transcendentals per sigma point and 2 per GH node are not counted).
+    transcendentals per sigma point and 3 per pair of GH nodes are not
+    counted).
 
     Both forms: per sigma point chi = mf + xi Lf with Lf lower, 10 FMA,
     20; the chirp-LCD mean, 17 (as ``filter_cost``); its weighted mean, 8;
@@ -738,9 +757,9 @@ def smoother_cost(S: int, T: int, B: int, dtype=torch.float32,
     S = 81: 14251 flop per step against 16433); the kernel's at cubature's
     S = 8 (2636 against 3374).
 
-    The expectation, per step (T of them): the variance of V, 8, its
-    sqrt, 1; per GH node the point, 2, softplus, 2, and the weighted sum,
-    2.  Bytes: 4 + 16 words read and 4 + 16 + 1 written per seed-step."""
+    The expectation, per step (T of them): the variance of V from row 2
+    of Ls, 5, its sqrt, 1, and the pair form's :func:`expect_flop` (60 at
+    GH-10, so 66 a step).  Bytes: 4 + 16 words read and 4 + 16 + 1 written per seed-step."""
     phases = smoother_phase_costs(S, T, B, dtype, if_order)
     itemsize = torch.empty((), dtype=dtype).element_size()
     words = (_D + _D * _D) * 2 + 1
@@ -758,8 +777,9 @@ def smoother_phase_costs(S: int, T: int, B: int, dtype=torch.float32,
     update, G Ls and the 8 x 4 triangularization, ``step`` flop, reading 4
     + ``ROW_WORDS`` words per step, the filter's last row and the
     ``CARRY_WORDS`` of each chunk but the last, writing 4 + 16 per
-    seed-step; ``smoother_expect``, the expectation, reading ms[2] and
-    Ls[2, :3] and writing one word per seed-step.  With chunks > 1 the
+    seed-step; ``smoother_expect``, the expectation (6 +
+    :func:`expect_flop` per seed-step), reading ms[2] and Ls[2, :3] and
+    writing one word per seed-step.  With chunks > 1 the
     chunked scan's own work (none at one chunk): ``smoother_compose``, per
     step of the chunks but the first the step and A <- X^T A (128 flop),
     reading ``STEP_WORDS`` and per chunk x_ref, writing ``STEP_WORDS``;
@@ -790,8 +810,8 @@ def smoother_phase_costs(S: int, T: int, B: int, dtype=torch.float32,
             step * steps,
             itemsize * ((d + ROW_WORDS) * steps + (d + d * d) * (1 + T) * B
                         + CARRY_WORDS * n)),
-        "smoother_expect": SmootherCost((9 + 6 * if_order) * T * B,
-                                        itemsize * 5 * T * B)}
+        "smoother_expect": SmootherCost(
+            (6 + expect_flop(if_order)) * T * B, itemsize * 5 * T * B)}
 
 
 def _check_expectation(v_mean, v_var, order):
@@ -838,10 +858,10 @@ def gaussian_expectation_g(v_mean: torch.Tensor, v_var: torch.Tensor,
 def expectation_launcher(v_mean: torch.Tensor, v_var: torch.Tensor,
                          order: int = 10):
     """Check the inputs of :func:`gaussian_expectation_g` for the kernel,
-    build it, the GH rule's tables and the output, and return ``(launch,
-    if_mean)``: each ``launch()`` runs ``smoother_expect_var`` once on the
-    current stream and counts it; it does no host work besides the ctypes
-    call."""
+    build it and the output, and return ``(launch, if_mean)``: each
+    ``launch()`` runs ``smoother_expect_var`` once on the current stream
+    (the GH rule in the kernel's parameters) and counts it; it does no host
+    work besides the ctypes call."""
     _check_expectation(v_mean, v_var, order)
     if v_mean.device.type != "cuda":
         raise ValueError(f"the smoother_expect_var kernel runs on cuda "
@@ -852,18 +872,15 @@ def expectation_launcher(v_mean: torch.Tensor, v_var: torch.Tensor,
                          "v_var")
     lib = load_smoother_kernel().lib
     T, B = v_mean.shape
-    like = dict(dtype=v_mean.dtype, device=v_mean.device)
-    gh = gauss_hermite(1, order)
-    ghx = torch.as_tensor(np.ascontiguousarray(gh.xi[:, 0]), **like)
-    ghw = torch.as_tensor(np.asarray(gh.w), **like)
-    if_mean = torch.empty((T, B), **like)
+    ghx, ghw = _gh_rule(order)
+    if_mean = torch.empty((T, B), dtype=v_mean.dtype, device=v_mean.device)
     entry = getattr(lib, "smoother_expect_var_"
                     + ("f32" if v_mean.dtype == torch.float32 else "f64"))
 
     def launch():
         with torch.cuda.device(v_mean.device):
-            rc = entry(v_mean.data_ptr(), v_var.data_ptr(), ghx.data_ptr(),
-                       ghw.data_ptr(), order, T, B, if_mean.data_ptr(),
+            rc = entry(v_mean.data_ptr(), v_var.data_ptr(), ghx, ghw, order,
+                       T, B, if_mean.data_ptr(),
                        torch.cuda.current_stream(v_mean.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"smoother_expect_var kernel launch failed: "
@@ -873,14 +890,78 @@ def expectation_launcher(v_mean: torch.Tensor, v_var: torch.Tensor,
     return launch, if_mean
 
 
+def gh_pairs_reference(m: torch.Tensor, sd: torch.Tensor,
+                       order: int) -> torch.Tensor:
+    """Phase E's sum in the kernels' pair form, their plain twin: E[g(V)],
+    V ~ N(m, sd^2), by the order-K Gauss-Hermite rule (``gauss_hermite(1,
+    K)``, symmetric bit for bit), in ``m``'s dtype with the exact ``exp``
+    and ``log1p``.  Per pair of nodes +-x_q, outermost first, with a = sd
+    x_q, t = exp(-|m + a|), u = exp(-|m - a|): w_q [max(m + a, 0) + max(m
+    - a, 0) + log1p(t u + (t + u))], one logarithm for the two nodes; then
+    the centre node where K is odd.  NaN and +-inf go where
+    ``gaussian_expectation_batched`` takes them."""
+    gh = gauss_hermite(1, order)
+    x, w = gh.xi[:, 0], np.asarray(gh.w)
+    if not (np.array_equal(x, -x[::-1]) and np.array_equal(w, w[::-1])):
+        raise ValueError(f"the order-{order} rule is not symmetric")
+    like = dict(dtype=m.dtype, device=m.device)
+    acc = torch.zeros_like(m)
+    for q in range(order // 2):
+        a = sd * torch.tensor(x[order - 1 - q], **like)
+        p, r = m + a, m - a
+        t, u = torch.exp(-p.abs()), torch.exp(-r.abs())
+        acc = acc + torch.tensor(w[order - 1 - q], **like) * (
+            (p.clamp_min(0.0) + r.clamp_min(0.0)) + torch.log1p(t * u + (t + u)))
+    if order % 2:
+        c = m + sd * torch.tensor(x[order // 2], **like)
+        acc = acc + torch.tensor(w[order // 2], **like) * (
+            c.clamp_min(0.0) + torch.log1p(torch.exp(-c.abs())))
+    return acc
+
+
+def smoother_expect_reference(mss: torch.Tensor, Lss: torch.Tensor,
+                              order: int) -> torch.Tensor:
+    """The plain twin of ``smoother_expect``: :func:`gh_pairs_reference`
+    of V ~ N(mss[t, 2], sum_{j <= 2} Lss[t, 2, j]^2) for the smoother's
+    ``(T, 4, B)`` means and ``(T, 4, 4, B)`` lower factors: ``(T, B)``."""
+    L = Lss[:, _V]
+    var = L[:, 0] * L[:, 0] + L[:, 1] * L[:, 1] + L[:, 2] * L[:, 2]
+    return gh_pairs_reference(mss[:, _V], var.sqrt(), order)
+
+
+def smoother_expect_var_reference(v_mean: torch.Tensor, v_var: torch.Tensor,
+                                  order: int) -> torch.Tensor:
+    """The plain twin of ``smoother_expect_var``: :func:`gh_pairs_reference`
+    of V ~ N(v_mean, max(v_var, 0)) (a NaN variance stays NaN)."""
+    sd = torch.where(v_var < 0, torch.zeros_like(v_var), v_var).sqrt()
+    return gh_pairs_reference(v_mean, sd, order)
+
+
+def expect_flop(order: int) -> int:
+    """Flop of phase E's pair form per element, after the standard
+    deviation: per pair of nodes a = sd x, 1; m + a and m - a, 2; 1 + t
+    and the product's FMA, 3; the two max, 2; their sum and the
+    logarithm's, 2; the weighted sum, 2: 12; the centre node, 7 (its point
+    2, 1 + t 1, the max 1, the sum 1, the weighted sum 2)."""
+    return 12 * (order // 2) + 7 * (order % 2)
+
+
+def expect_mufu(order: int) -> int:
+    """Special-function-unit operations (MUFU) per element of phase E's
+    float32 kernels: ex2, ex2 and lg2 per pair of nodes, ex2 and lg2 for
+    the centre node, and the square root's reciprocal square root."""
+    return 3 * (order // 2) + 2 * (order % 2) + 1
+
+
 def expectation_g_cost(T: int, B: int, dtype=torch.float32,
                        order: int = 10) -> SmootherCost:
     """Least work of one :func:`gaussian_expectation_g` call: per element
-    the clamp and sqrt, 2, and per GH node the point, 2, softplus, 2, and
-    the weighted sum, 2 (softplus's 2 transcendentals are not counted);
-    the mean and variance read and the expectation written, 3 words."""
+    the clamp and sqrt, 2, and the pair form's :func:`expect_flop` (its
+    transcendentals are not counted: :func:`expect_mufu`); the mean and
+    variance read and the expectation written, 3 words."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return SmootherCost((2 + 6 * order) * T * B, itemsize * 3 * T * B)
+    return SmootherCost((2 + expect_flop(order)) * T * B,
+                        itemsize * 3 * T * B)
 
 
 gaussian_expectation_g.launches = 0

@@ -68,6 +68,8 @@ __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dabs(double x) { return fabs(x); }
+__device__ __forceinline__ float dfma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double dfma(double a, double b, double c) { return fma(a, b, c); }
 // 2 / x, correctly rounded: 2 rcp_rn(x) == rn(2 / x), doubling is exact.
 __device__ __forceinline__ float two_over(float x) { return 2.0f * __frcp_rn(x); }
 __device__ __forceinline__ double two_over(double x) { return 2.0 * __drcp_rn(x); }

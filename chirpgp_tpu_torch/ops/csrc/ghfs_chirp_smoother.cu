@@ -118,7 +118,44 @@
 //   over the SMs; a ring of 3 steps keeps a float64 block at 26 KB, so
 //   that 8 blocks fit an SM.  The triangularization is tria_dense below,
 //   tria_cf's arithmetic reflection for reflection.
-// - Phase E is a few dozen operations per (t, lane), bound by its bytes.
+// - Phase E is bound by the instructions it issues, not by its bytes
+//   (float32 at B = 4096, T = 3141: 20 B per element in the first mode,
+//   12 B in the second, 0.077 and 0.046 ms at 3.35 TB/s).  Its old form,
+//   a loop over K nodes from shared memory with an accurate expf and
+//   log1pf at each, issued some 500 instructions per element.  So:
+//   (1) the nodes in pairs.  The port's gauss_hermite(1, K) is symmetric
+//   bit for bit for every K of 1..32 (x_q = -x_{K-1-q}, w_q =
+//   w_{K-1-q}, the centre 0), so with a = sd x_q, softplus(m + a) +
+//   softplus(m - a) = max(m + a, 0) + max(m - a, 0) + ln((1 +
+//   e^-|m+a|)(1 + e^-|m-a|)): 2 exponentials and 1 logarithm a pair
+//   where there were 2 of each; an odd K adds its centre node.  NaN goes
+//   where the plain version takes it: through the logarithm (fmax drops
+//   it), and a NaN variance is not clamped to 0.
+//   (2) float32 on the special-function unit (the one exception to "no
+//   fast math" below, in E's device code alone): in units of ln 2, e^-|z|
+//   is ex2.approx(-|z| log2 e) and the logarithm lg2.approx times ln 2,
+//   one MUFU operation each; with the square root's rsqrt, 16 MUFU
+//   operations per element at K = 10, which Hopper issues at 16 per clock
+//   per SM (~0.05 ms at that shape).  Error: ex2's relative 2^-22.5 and
+//   lg2's absolute 2^-22.6 give each pair's logarithm ~5e-7 absolute,
+//   and the weights sum to 1, so E is within ~5e-7 + a few float32
+//   roundings of |E| of the exact sum; the card tests and chip_smoke.py
+//   hold it to 2e-6 max(1, |E|) of the float64 twin on the same inputs.
+//   float64 keeps the accurate exp and log1p (of t + u + t u, which keeps
+//   a tiny sum's relative precision), and holds 1e-12 of the twin.
+//   (3) the rule by value in the kernel's parameters (GhPairs, built by
+//   the launcher from the host's float64 arrays, as the model constants
+//   are): each FFMA reads its node or weight from constant bank 0, with
+//   no shared memory and no barrier.  An instance unrolled for the main
+//   path's K = 10, and one for any K of 1..32 (the same pair form,
+//   unrolled to 16 pairs and cut at K / 2), behind the same entry point.
+//   (4) a grid over (tile of lanes, step), so no index is divided; a
+//   thread takes 16 bytes of neighbouring lanes (4 in float32, 2 in
+//   float64) with 16-byte loads and stores where B and the pointers
+//   allow, one lane at a time where they do not, so a warp's accesses are
+//   whole 128-byte lines and each thread has several elements in flight.
+//   Blocks of up to 128 threads along the lanes (at B = 100, one warp or
+//   two a step).
 //
 // What is not used, and why.  Tensor cores: the per-lane products are 4
 // wide, and TF32 is barred by the port's precision policy (reduced-
@@ -130,12 +167,15 @@
 // Registers and spills of each instance: phase 1 of chip_smoke.py prints
 // ptxas's report.  Model constants in the filter's layout
 // (ops/chirp_filter.py::_chirp_constants, computed in float64 on the host;
-// only F, Lq^T, the decay and dt are read).  No fast math.  Templated on
-// float and double.
+// only F, Lq^T, the decay and dt are read).  No fast math (--use_fast_math
+// is not among the build's flags: the filter and phase A need the
+// accurate sin/cos/log), but for phase E's float32 ex2 and lg2 above.
+// Templated on float and double.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "chirp_lcd.cuh"
 
@@ -143,6 +183,8 @@ namespace {
 
 constexpr int kD2 = 2 * kD;      // columns of the joint pre-array
 constexpr int kMaxNodes = 32;    // cap on the GH nodes of the expectation
+constexpr int kMaxPairs = kMaxNodes / 2;
+constexpr int kMainOrder = 10;   // the main path's GH order, unrolled in E
 // Phase A's row per lane-step is chirp_lcd.cuh's packed row: m_p, X
 // (row-major), R22's upper triangle (row by row).
 constexpr int kStepWords = kD + kRowWords;   // phase B's words per step
@@ -150,7 +192,7 @@ constexpr int kStages = 3;                   // phase B's ring of steps
 constexpr int kTeam = 8;                     // phase A's threads per lane-step
 constexpr int kRowsThreads = 64;             // phase A's threads per block
 constexpr int kBackLanes = 32;               // phase B's lanes per block
-constexpr int kExpectThreads = 256;          // phase E's threads per block
+constexpr int kExpectThreads = 128;          // phase E's most threads a block
 
 // Householder triangularization of the Rows x Cols array M (Rows >= Cols)
 // in registers, with tria_cf's arithmetic: per column j, norm over rows
@@ -661,81 +703,216 @@ smoother_backward_kernel(const Real* __restrict__ mfs,     // (T, kD, ld)
              });
 }
 
-// The GH nodes and weights into shared memory, once per block.
+// Phase E's order-K Gauss-Hermite rule, by value in the kernel's
+// parameters (constant bank 0, which an FFMA reads as an operand: no
+// shared memory, no barrier): the K / 2 pairs of nodes +-x_q (x_q > 0,
+// outermost first) with their weights, and where K is odd the centre node
+// (+-0) and its weight.  gh_pairs builds it from the host's float64 rule.
 template <typename Real>
-__device__ __forceinline__ void load_nodes(const Real* __restrict__ ghx_g,
-                                           const Real* __restrict__ ghw_g,
-                                           const int K, Real (&ghx_s)[kMaxNodes],
-                                           Real (&ghw_s)[kMaxNodes]) {
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    ghx_s[i] = ghx_g[i];
-    ghw_s[i] = ghw_g[i];
+struct GhPairs {
+  Real x[kMaxPairs];
+  Real w[kMaxPairs];
+  Real x0;     // the centre node (odd K; 0 otherwise)
+  Real w0;     // its weight (odd K; 0 otherwise)
+  int pairs;   // K / 2
+  int odd;     // K % 2
+};
+
+// 2^x and log2(x) on the special-function unit (MUFU.EX2, MUFU.LG2):
+// relative error 2^-22.5 for ex2, absolute error 2^-22.6 for lg2 (PTX
+// ISA); subnormal results flush to 0.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softplus(m + a) + softplus(m - a) for a pair of nodes, as max(m + a, 0)
+// + max(m - a, 0) + ln((1 + e^-|m+a|)(1 + e^-|m-a|)): one logarithm for
+// the two nodes (the product lies in [1, 4]); and softplus(c) of the
+// centre node.  A NaN in m or a reaches the logarithm (fmax drops it).
+// float64 with the accurate exp and log1p (of t + u + t u, so that a
+// tiny sum keeps its relative precision); float32 in units of ln 2
+// (`scale` maps m and a there, `unscale` maps the sum back), with ex2 and
+// lg2 on the special-function unit.
+template <typename Real>
+struct PairSoftplus;
+
+template <>
+struct PairSoftplus<double> {
+  __device__ static double scale(double x) { return x; }
+  __device__ static double unscale(double x) { return x; }
+  __device__ static double pair(double m, double a) {
+    const double p = m + a, q = m - a;
+    const double t = exp(-fabs(p)), u = exp(-fabs(q));
+    return (fmax(p, 0.0) + fmax(q, 0.0)) + log1p(fma(t, u, t + u));
   }
-  __syncthreads();
-}
+  __device__ static double one(double c) {
+    return fmax(c, 0.0) + log1p(exp(-fabs(c)));
+  }
+};
 
-// The order-K Gauss-Hermite sum E[softplus(V)], V ~ N(m, sd^2).
-template <typename Real>
+template <>
+struct PairSoftplus<float> {
+  __device__ static float scale(float x) { return x * 1.4426950408889634f; }
+  __device__ static float unscale(float x) { return x * 0.6931471805599453f; }
+  __device__ static float pair(float m, float a) {
+    const float p = m + a, q = m - a;
+    const float e = 1.0f + ex2_approx(-fabsf(p));
+    return (fmaxf(p, 0.0f) + fmaxf(q, 0.0f))
+           + lg2_approx(fmaf(e, ex2_approx(-fabsf(q)), e));
+  }
+  __device__ static float one(float c) {
+    return fmaxf(c, 0.0f) + lg2_approx(1.0f + ex2_approx(-fabsf(c)));
+  }
+};
+
+// The order-K Gauss-Hermite sum E[softplus(V)], V ~ N(m, sd^2), in the
+// pair form: kOrder = K unrolled with K known (the main path's 10), or 0
+// for any K of the rule, the same sums unrolled to kMaxPairs and cut at
+// rule.pairs (a branch that the whole launch takes alike).  Pairs from the
+// outermost in, then the centre node.
+template <typename Real, int kOrder>
 __device__ __forceinline__ Real gh_softplus(const Real m, const Real sd,
-                                            const int K,
-                                            const Real (&ghx_s)[kMaxNodes],
-                                            const Real (&ghw_s)[kMaxNodes]) {
+                                            const GhPairs<Real>& rule) {
+  using SP = PairSoftplus<Real>;
+  const Real ms = SP::scale(m), ss = SP::scale(sd);
+  constexpr int kPairs = kOrder > 0 ? kOrder / 2 : kMaxPairs;
   Real acc = Real(0);
-  for (int q = 0; q < K; ++q) acc += ghw_s[q] * softplus(m + sd * ghx_s[q]);
-  return acc;
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    if (kOrder == 0 && q >= rule.pairs) break;
+    acc = dfma(rule.w[q], SP::pair(ms, ss * rule.x[q]), acc);
+  }
+  if (kOrder > 0 ? kOrder % 2 == 1 : rule.odd != 0)
+    acc = dfma(rule.w0, SP::one(ms + ss * rule.x0), acc);
+  return SP::unscale(acc);
 }
 
-// Phase E: E[softplus(V)], V ~ N(mss[t, kV], sum_{j <= kV} Lss[t, kV, j]^2),
-// one thread per (t, lane) of n = T x B, lanes minor.
+// Phase E's lanes per thread: 16 bytes of neighbouring lanes.
 template <typename Real>
+constexpr int kLanes = 16 / static_cast<int>(sizeof(Real));
+
+template <typename Real>
+struct Vec16;
+template <>
+struct Vec16<float> { using Type = float4; };
+template <>
+struct Vec16<double> { using Type = double2; };
+
+// N neighbouring lanes at p: one 16-byte access where `whole` (p is then
+// 16-byte aligned and all N lanes exist), else the `left` lanes that
+// exist one by one (0 past them on loads).
+template <int N, typename Real>
+__device__ __forceinline__ void load_lanes(const Real* __restrict__ p,
+                                           const bool whole, const int left,
+                                           Real (&x)[N]) {
+  if constexpr (N * sizeof(Real) == 16) {
+    if (whole) {
+      const auto v = *reinterpret_cast<const typename Vec16<Real>::Type*>(p);
+      x[0] = v.x;
+      x[1] = v.y;
+      if constexpr (N == 4) {
+        x[2] = v.z;
+        x[3] = v.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = i < left ? p[i] : Real(0);
+}
+
+template <int N, typename Real>
+__device__ __forceinline__ void store_lanes(Real* __restrict__ p,
+                                            const bool whole, const int left,
+                                            const Real (&x)[N]) {
+  if constexpr (N * sizeof(Real) == 16) {
+    if (whole) {
+      typename Vec16<Real>::Type v;
+      v.x = x[0];
+      v.y = x[1];
+      if constexpr (N == 4) {
+        v.z = x[2];
+        v.w = x[3];
+      }
+      *reinterpret_cast<typename Vec16<Real>::Type*>(p) = v;
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < left) p[i] = x[i];
+}
+
+// Phase E: E[softplus(V)], V ~ N(mss[t, kV], sum_{j <= kV} Lss[t, kV, j]^2).
+// The grid is (tiles of lanes, steps): thread x of a block takes lanes b
+// .. b + kLanes - 1 of step t, so no index is divided; steps past the
+// grid's y extent stride by it.  `whole`: B is a multiple of kLanes and
+// every pointer 16-byte aligned.
+template <typename Real, int kOrder>
 __global__ void __launch_bounds__(kExpectThreads)
 smoother_expect_kernel(const Real* __restrict__ mss,    // (T, kD, B)
                        const Real* __restrict__ lss,    // (T, kD*kD, B)
-                       const Real* __restrict__ ghx_g,  // (K,)
-                       const Real* __restrict__ ghw_g,  // (K,)
-                       const int K, const long long n, const int B,
+                       const GhPairs<Real> rule, const int T, const int B,
+                       const bool whole,
                        Real* __restrict__ if_out) {     // (T, B)
-  __shared__ Real ghx_s[kMaxNodes];
-  __shared__ Real ghw_s[kMaxNodes];
-  load_nodes(ghx_g, ghw_g, K, ghx_s, ghw_s);
+  constexpr int N = kLanes<Real>;
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) * N;
+  if (b >= B) return;
   const size_t Bs = static_cast<size_t>(B);
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const size_t ts = static_cast<size_t>(i / B);
-    const size_t b = static_cast<size_t>(i % B);
-    const Real m = mss[(ts * kD + kV) * Bs + b];
-    Real vv = Real(0);
+  for (int t = blockIdx.y; t < T; t += gridDim.y) {
+    const size_t ts = static_cast<size_t>(t);
+    Real m[N], l[kV + 1][N], out[N];
+    load_lanes(mss + (ts * kD + kV) * Bs + b, whole, B - b, m);
 #pragma unroll
-    for (int j = 0; j <= kV; ++j) {
-      const Real l = lss[(ts * kD * kD + kV * kD + j) * Bs + b];
-      vv += l * l;
+    for (int j = 0; j <= kV; ++j)
+      load_lanes(lss + (ts * kD * kD + kV * kD + j) * Bs + b, whole, B - b,
+                 l[j]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      Real vv = Real(0);
+#pragma unroll
+      for (int j = 0; j <= kV; ++j) vv += l[j][i] * l[j][i];
+      out[i] = gh_softplus<Real, kOrder>(m[i], dsqrt(vv), rule);
     }
-    if_out[ts * Bs + b] = gh_softplus(m, dsqrt(vv), K, ghx_s, ghw_s);
+    store_lanes(if_out + ts * Bs + b, whole, B - b, out);
   }
 }
 
 // Phase E's second input mode, for the fused filter+smoother's slim output
 // (ops/chirp_fused.py): E[softplus(V)], V ~ N(v_mean, max(v_var, 0)), from
-// the (T, B) means and variances as they are, one thread per element.  The
-// standard deviation is sqrt(max(v_var, 0)), as bench.py's pipeline takes
-// it (the affine recursion's variance may round below 0), so no clamp or
-// sqrt launch sits between the recursion and the expectation.
-template <typename Real>
+// the (T, B) means and variances as they are, on smoother_expect_kernel's
+// grid.  The standard deviation is sqrt(max(v_var, 0)), as bench.py's
+// pipeline takes it (the affine recursion's variance may round below 0),
+// so no clamp or sqrt launch sits between the recursion and the
+// expectation; a NaN variance stays NaN.
+template <typename Real, int kOrder>
 __global__ void __launch_bounds__(kExpectThreads)
-smoother_expect_var_kernel(const Real* __restrict__ v_mean,  // (n,)
-                           const Real* __restrict__ v_var,   // (n,)
-                           const Real* __restrict__ ghx_g,   // (K,)
-                           const Real* __restrict__ ghw_g,   // (K,)
-                           const int K, const long long n,
-                           Real* __restrict__ if_out) {      // (n,)
-  __shared__ Real ghx_s[kMaxNodes];
-  __shared__ Real ghw_s[kMaxNodes];
-  load_nodes(ghx_g, ghw_g, K, ghx_s, ghw_s);
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const Real var = v_var[i];
-    const Real sd = dsqrt(var > Real(0) ? var : Real(0));
-    if_out[i] = gh_softplus(v_mean[i], sd, K, ghx_s, ghw_s);
+smoother_expect_var_kernel(const Real* __restrict__ v_mean,  // (T, B)
+                           const Real* __restrict__ v_var,   // (T, B)
+                           const GhPairs<Real> rule, const int T,
+                           const int B, const bool whole,
+                           Real* __restrict__ if_out) {      // (T, B)
+  constexpr int N = kLanes<Real>;
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) * N;
+  if (b >= B) return;
+  const size_t Bs = static_cast<size_t>(B);
+  for (int t = blockIdx.y; t < T; t += gridDim.y) {
+    const size_t at = static_cast<size_t>(t) * Bs + b;
+    Real m[N], var[N], out[N];
+    load_lanes(v_mean + at, whole, B - b, m);
+    load_lanes(v_var + at, whole, B - b, var);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      out[i] = gh_softplus<Real, kOrder>(
+          m[i], dsqrt(var[i] < Real(0) ? Real(0) : var[i]), rule);
+    store_lanes(if_out + at, whole, B - b, out);
   }
 }
 
@@ -837,48 +1014,74 @@ int launch_backward(const Real* mfs, const Real* lfs, const Real* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The grid of a phase-E kernel over n elements: as many blocks as the
-// card holds at once, fewer where n needs fewer.
-template <typename Kernel>
-int expect_blocks(Kernel kernel, long long n, int* blocks) {
-  int cap = 0;
-  const int err = resident_blocks(kernel, kExpectThreads, &cap);
-  const long long need = (n + kExpectThreads - 1) / kExpectThreads;
-  *blocks = static_cast<int>(need < cap ? need : cap);
-  return err;
+// Phase E's rule from the host's float64 order-K Gauss-Hermite rule (x, w
+// of K nodes, ascending), which must be symmetric bit for bit: x_q =
+// -x_{K-1-q}, w_q = w_{K-1-q} (the port's gauss_hermite(1, K) is, for
+// every K of 1..kMaxNodes).  Cast to Real as the plain version casts it.
+template <typename Real>
+int gh_pairs(const double* x, const double* w, int K, GhPairs<Real>* rule) {
+  if (K < 1 || K > kMaxNodes || x == nullptr || w == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int q = 0; q < K; ++q)
+    if (x[q] != -x[K - 1 - q] || w[q] != w[K - 1 - q])
+      return static_cast<int>(cudaErrorInvalidValue);
+  *rule = GhPairs<Real>{};
+  rule->pairs = K / 2;
+  rule->odd = K % 2;
+  for (int q = 0; q < K / 2; ++q) {
+    rule->x[q] = static_cast<Real>(x[K - 1 - q]);
+    rule->w[q] = static_cast<Real>(w[K - 1 - q]);
+  }
+  if (K % 2) {
+    rule->x0 = static_cast<Real>(x[K / 2]);
+    rule->w0 = static_cast<Real>(w[K / 2]);
+  }
+  return 0;
 }
 
+// Phase E's geometry for B lanes and T steps: kLanes lanes a thread, the
+// ceil(B / kLanes) threads of a step in blocks of up to kExpectThreads
+// (whole warps), a row of blocks per step, at most 65535 rows.  At B =
+// 4096 a step is 8 (float32) or 16 (float64) blocks of 128 threads, ~12
+// (~6) waves of the blocks an SM holds at 40-60 registers; at B = 100 one
+// warp (two) a step, 3141 blocks that the card holds at once.
 template <typename Real>
-int launch_expect(const Real* mss, const Real* lss, const Real* ghx,
-                  const Real* ghw, int K, int T, int B, Real* if_out,
+void expect_geometry(int T, int B, dim3* grid, int* threads) {
+  const int groups = (B + kLanes<Real> - 1) / kLanes<Real>;
+  const int warps = (groups + 31) / 32;
+  *threads = 32 * (warps < kExpectThreads / 32 ? warps : kExpectThreads / 32);
+  *grid = dim3((groups + *threads - 1) / *threads, T < 65535 ? T : 65535);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// A phase-E kernel: two (T, B)-shaped inputs (mss and lss, or v_mean and
+// v_var), the rule, T, B, `whole`, the (T, B) output.
+template <typename Real>
+using ExpectKernel = void (*)(const Real*, const Real*, GhPairs<Real>, int,
+                              int, bool, Real*);
+
+// One launch of phase E in the mode of its two instances: `main_order`
+// (unrolled for kMainOrder) where K is that order, `any_order` otherwise.
+template <typename Real>
+int launch_expect(ExpectKernel<Real> main_order, ExpectKernel<Real> any_order,
+                  const Real* a, const Real* c, const double* ghx,
+                  const double* ghw, int K, int T, int B, Real* if_out,
                   void* stream) {
-  if (K < 1 || K > kMaxNodes || T < 0 || B < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(T) * B;
-  if (n == 0) return 0;
-  int blocks = 0;
-  const int err = expect_blocks(smoother_expect_kernel<Real>, n, &blocks);
-  if (err != 0) return err;
-  smoother_expect_kernel<Real><<<blocks, kExpectThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      mss, lss, ghx, ghw, K, n, B, if_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Real>
-int launch_expect_var(const Real* v_mean, const Real* v_var, const Real* ghx,
-                      const Real* ghw, int K, int T, int B, Real* if_out,
-                      void* stream) {
-  if (K < 1 || K > kMaxNodes || T < 0 || B < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(T) * B;
-  if (n == 0) return 0;
-  int blocks = 0;
-  const int err = expect_blocks(smoother_expect_var_kernel<Real>, n, &blocks);
-  if (err != 0) return err;
-  smoother_expect_var_kernel<Real><<<blocks, kExpectThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      v_mean, v_var, ghx, ghw, K, n, if_out);
+  GhPairs<Real> rule;
+  if (const int err = gh_pairs(ghx, ghw, K, &rule)) return err;
+  if (T < 0 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0 || B == 0) return 0;
+  dim3 grid;
+  int threads = 0;
+  expect_geometry<Real>(T, B, &grid, &threads);
+  const bool whole = B % kLanes<Real> == 0 && aligned16(a) && aligned16(c) &&
+                     aligned16(if_out);
+  const ExpectKernel<Real> kernel = K == kMainOrder ? main_order : any_order;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, c, rule, T, B, whole, if_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -950,30 +1153,36 @@ int smoother_backward_f64(const double* mfs, const double* lfs,
                                  mss, lss, stream);
 }
 
-int smoother_expect_f32(const float* mss, const float* lss, const float* ghx,
-                        const float* ghw, int K, int T, int B, float* if_out,
+int smoother_expect_f32(const float* mss, const float* lss, const double* ghx,
+                        const double* ghw, int K, int T, int B, float* if_out,
                         void* stream) {
-  return launch_expect<float>(mss, lss, ghx, ghw, K, T, B, if_out, stream);
+  return launch_expect<float>(smoother_expect_kernel<float, kMainOrder>,
+                              smoother_expect_kernel<float, 0>, mss, lss, ghx,
+                              ghw, K, T, B, if_out, stream);
 }
 
 int smoother_expect_f64(const double* mss, const double* lss,
                         const double* ghx, const double* ghw, int K, int T,
                         int B, double* if_out, void* stream) {
-  return launch_expect<double>(mss, lss, ghx, ghw, K, T, B, if_out, stream);
+  return launch_expect<double>(smoother_expect_kernel<double, kMainOrder>,
+                               smoother_expect_kernel<double, 0>, mss, lss,
+                               ghx, ghw, K, T, B, if_out, stream);
 }
 
 int smoother_expect_var_f32(const float* v_mean, const float* v_var,
-                            const float* ghx, const float* ghw, int K, int T,
+                            const double* ghx, const double* ghw, int K, int T,
                             int B, float* if_out, void* stream) {
-  return launch_expect_var<float>(v_mean, v_var, ghx, ghw, K, T, B, if_out,
-                                  stream);
+  return launch_expect<float>(smoother_expect_var_kernel<float, kMainOrder>,
+                              smoother_expect_var_kernel<float, 0>, v_mean,
+                              v_var, ghx, ghw, K, T, B, if_out, stream);
 }
 
 int smoother_expect_var_f64(const double* v_mean, const double* v_var,
                             const double* ghx, const double* ghw, int K, int T,
                             int B, double* if_out, void* stream) {
-  return launch_expect_var<double>(v_mean, v_var, ghx, ghw, K, T, B, if_out,
-                                   stream);
+  return launch_expect<double>(smoother_expect_var_kernel<double, kMainOrder>,
+                               smoother_expect_var_kernel<double, 0>, v_mean,
+                               v_var, ghx, ghw, K, T, B, if_out, stream);
 }
 
 }  // extern "C"

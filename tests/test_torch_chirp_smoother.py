@@ -9,6 +9,7 @@ tests/test_torch_cuda.py."""
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -33,8 +34,9 @@ from chirpgp_tpu_torch.ops.chirp_smoother import (
     KERNELS, MAX_NODES, ROW_WORDS, ROWS, SCRATCH_CAP, TEAM,
     ghfs_chirp_smoother, ghfs_chirp_smoother_kernel,
     ghfs_chirp_smoother_reference, ghfs_chirp_smoother_split, rows_per_member,
-    smoother_cost, smoother_kernel_launcher, smoother_phase_costs,
-    smoother_rows_reference, smoother_slabs)
+    smoother_cost, smoother_expect_reference, smoother_expect_var_reference,
+    smoother_kernel_launcher, smoother_phase_costs, smoother_rows_reference,
+    smoother_slabs)
 
 torch.set_num_threads(1)
 
@@ -238,25 +240,27 @@ def test_smoother_cost_matches_hand_count():
     point and the 85 x 8 Householder 10772.  Both have the tail: the gain
     64, the mean update 40, G Ls 80, the 8 x 4 triangularization 227 +
     157 + 99 + 53.  Cubature, S = 8, takes the kernel's form.  The GH-10
-    expectation 69 per row; 41 words of traffic per seed-step."""
+    expectation 66 per row in the pair form (the variance 5, its sqrt 1,
+    12 per pair of nodes), GH-3 25 (7 for the centre node); 41 words of
+    traffic per seed-step."""
     tail = 64 + 40 + 80 + (227 + 157 + 99 + 53)
     h12 = 392 + 315 + 246 + 185 + 132 + 87 + 50 + 21
     assert h12 == 1428
     step = 117 * 81 + (1154 + 817 + 488 + 167) + h12 + tail
     assert step == 14251 < 61 * 81 + 10772 + tail == 16433
     two = smoother_cost(81, 2, 1, torch.float32)
-    assert two.flop == step + 2 * (9 + 6 * 10)
+    assert two.flop == step + 2 * (6 + 12 * 5)
     assert two.bytes == 2 * 4 * 41
     assert smoother_cost(81, 2, 1, torch.float64, if_order=3) == (
-        step + 2 * (9 + 6 * 3), 2 * 8 * 41)
+        step + 2 * (6 + 12 + 7), 2 * 8 * 41)
     full = smoother_cost(81, 3141, 4096, torch.float32)
-    assert full.flop == (step * 3140 + 69 * 3141) * 4096
+    assert full.flop == (step * 3140 + 66 * 3141) * 4096
     assert full.bytes == 164 * 3141 * 4096
     # Cubature: 61 x 8 + the 12 x 8 Householder + the tail, 2636, is less
     # than the projected 117 x 8 + 290 + 1428 + the tail, 3374.
     cub = 61 * 8 + h12 + tail
     assert cub == 2636 < 117 * 8 + 290 + h12 + tail == 3374
-    assert smoother_cost(8, 2, 1).flop == cub + 2 * 69
+    assert smoother_cost(8, 2, 1).flop == cub + 2 * 66
 
 
 @pytest.mark.parametrize("rule", list(RULES))
@@ -306,6 +310,19 @@ def test_kernel_source_matches_wrapper():
             assert re.search(rf"\bint {name}_{dt}\(", src), (name, dt)
     for sym in ("max_points", "max_nodes", "num_consts", "row_words"):
         assert re.search(rf"\bint ghfs_chirp_smoother_{sym}\(", src), sym
+    # Phase E takes the rule as the host's float64 nodes and weights (the
+    # wrapper's ctypes.POINTER(c_double)), and unrolls the main path's
+    # order.
+    flat = re.sub(r"\s+", " ", src)
+    for name in ("smoother_expect", "smoother_expect_var"):
+        for dt, real in (("f32", "float"), ("f64", "double")):
+            assert re.search(rf"\bint {name}_{dt}\(const {real}\* \w+, "
+                             rf"const {real}\* \w+, const double\* ghx, "
+                             rf"const double\* ghw, int K, int T, int B, "
+                             rf"{real}\* if_out, void\* stream\)", flat), (
+                name, dt)
+    order = tp.IFEstimationConfig().expectation_order
+    assert f"constexpr int kMainOrder = {order};" in src
     assert '#include "chirp_lcd.cuh"' in src
     # The expectation's V is the state the wrapper takes it from.
     assert "constexpr int kV = 2;" in lcd and "softplus(chi[kV])" in lcd
@@ -463,7 +480,8 @@ def test_phase_costs_split_the_smoother_cost(dtype):
     """The kernels' flop add up to ``smoother_cost``'s; their bytes are each
     kernel's own reads and writes, phase A's rows among them.  GH-3, S=81:
     phase A 14251 - 720 + 64 flop per seed-step but the last, phase B the
-    mean update, G Ls and the 8 x 4 triangularization, 656."""
+    mean update, G Ls and the 8 x 4 triangularization, 656; phase E the
+    GH-10 expectation in the pair form, 66 per seed-step."""
     isz = torch.empty((), dtype=dtype).element_size()
     S, T, B = 81, 3141, 4096
     costs = smoother_phase_costs(S, T, B, dtype)
@@ -475,4 +493,92 @@ def test_phase_costs_split_the_smoother_cost(dtype):
                                       isz * 50 * steps)
     assert costs["smoother_backward"] == (
         (40 + 80 + 536) * steps, isz * (34 * steps + 20 * (T + 1) * B))
-    assert costs["smoother_expect"] == (69 * T * B, isz * 5 * T * B)
+    assert costs["smoother_expect"] == (66 * T * B, isz * 5 * T * B)
+
+
+# Phase E's inputs: the mean from -40 to 40 against standard deviations 0,
+# 1e-6 and 2 (variances 0, 1e-12, 4; below 0, clamped, in the variance
+# mode), then NaN and +-inf in either input.
+_E_MEANS = np.linspace(-40.0, 40.0, 33)
+_E_VARS = (0.0, 1e-12, 4.0)
+_E_SPECIAL = [(np.nan, 1.0), (np.inf, 1.0), (-np.inf, 4.0), (5.0, np.nan),
+              (1.0, np.inf), (np.inf, np.inf), (-np.inf, np.inf),
+              (np.nan, np.nan), (3.0, -np.inf)]
+
+
+def _expect_inputs(mode):
+    """(T, B) means and variances of V: the sweep (below 0 in the
+    variance mode), then the special pairs (the variance mode alone gets
+    -inf)."""
+    vars_ = _E_VARS + ((-1e-3, -4.0) if mode == "var" else ())
+    m, v = np.meshgrid(_E_MEANS, np.asarray(vars_), indexing="ij")
+    special = [p for p in _E_SPECIAL if mode == "var" or p[1] != -np.inf]
+    m = np.concatenate([m.ravel(), [p[0] for p in special]])
+    v = np.concatenate([v.ravel(), [p[1] for p in special]])
+    return m.reshape(1, -1), v.reshape(1, -1)
+
+
+def _assert_expectation(got, want, dtype):
+    """NaN where JAX gives NaN, the same infinities, finite values within
+    float64 1e-13 relative or float32 5e-5 of max(1, |E|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    npt.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    npt.assert_array_equal(got[inf], want[inf])
+    fin = np.isfinite(want)
+    assert np.isfinite(got[fin]).all()
+    err = np.abs(got[fin] - want[fin])
+    if dtype == "float64":
+        assert (err <= 1e-13 * np.abs(want[fin])).all(), err.max()
+    else:
+        assert (err <= 5e-5 * np.maximum(1.0, np.abs(want[fin]))).all(), \
+            err.max()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_expect_twins_match_jax(dtype):
+    """Phase E's pair form (the kernels' plain twins) against the JAX
+    package's ``gaussian_expectation_batched`` (jitted, one compile per
+    order) for every GH order 1..32, both input modes side by side in one
+    call: the smoother's, V ~ N(mss[2], |row 2 of Lss|^2), with JAX's
+    standard deviation sqrt(sum_k Lss[2, k]^2) as its pipeline takes it;
+    the variance mode with bench.py's sqrt(max(v_var, 0))."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    m1, var1 = _expect_inputs("mss")
+    m2, var2 = _expect_inputs("var")
+    # Row 2 of a lower factor whose squares sum to the variance.
+    T, B = m1.shape
+    sd = np.sqrt(var1)
+    Lss = np.zeros((T, 4, 4, B))
+    Lss[:, 2, 0], Lss[:, 2, 1], Lss[:, 2, 2] = 0.6 * sd, -0.48 * sd, 0.64 * sd
+    mss = np.zeros((T, 4, B))
+    mss[:, 2] = m1
+    mss_t, Lss_t = torch.tensor(mss, dtype=tdt), torch.tensor(Lss, dtype=tdt)
+    m2_t, var2_t = torch.tensor(m2, dtype=tdt), torch.tensor(var2, dtype=tdt)
+    L2 = jnp.asarray(Lss, jdt)[:, 2]
+    j_mean = jnp.concatenate([jnp.asarray(mss, jdt)[:, 2],
+                              jnp.asarray(m2, jdt)], axis=1)
+    j_std = jnp.concatenate([jnp.sqrt(jnp.einsum("tkb,tkb->tb", L2, L2)),
+                             jnp.sqrt(jnp.maximum(jnp.asarray(var2, jdt), 0))],
+                            axis=1)
+    expectation = jax.jit(jax_expectation, static_argnames=("func", "order"))
+    for order in range(1, MAX_NODES + 1):
+        want = np.asarray(expectation(j_mean, j_std, order=order))
+        got = torch.cat([smoother_expect_reference(mss_t, Lss_t, order),
+                         smoother_expect_var_reference(m2_t, var2_t, order)],
+                        dim=1)
+        assert got.dtype == tdt and got.shape == want.shape
+        _assert_expectation(_np(got), want, dtype)
+
+
+@pytest.mark.parametrize("order", range(1, MAX_NODES + 1))
+def test_gauss_hermite_rule_is_symmetric_bit_for_bit(order):
+    """The pair form of phase E rests on it: ``gauss_hermite(1, K)`` has
+    x_q = -x_{K-1-q} and w_q = w_{K-1-q} exactly, and a centre node of 0
+    where K is odd."""
+    rule = tq.gauss_hermite(1, order)
+    x, w = rule.xi[:, 0], np.asarray(rule.w)
+    assert np.array_equal(x, -x[::-1]) and np.array_equal(w, w[::-1])
+    assert (x[order - order // 2:] > 0).all()
+    if order % 2:
+        assert x[order // 2] == 0.0

@@ -33,6 +33,7 @@ from chirpgp_tpu_torch.ops.chirp_smoother import (
     ghfs_chirp_smoother_reference, smoother_apply_reference,
     smoother_backward_chunked_reference, smoother_backward_reference,
     smoother_carry_reference, smoother_compose_reference,
+    smoother_expect_reference, smoother_expect_var_reference,
     smoother_kernel_launcher, smoother_rows_reference)
 from chirpgp_tpu_torch.quad import cubature, gauss_hermite
 
@@ -1193,3 +1194,104 @@ def test_gaussian_expectation_g_matches_plain(cuda, dtype):
     assert gaussian_expectation_g.launches == before + 1
     assert got.shape == (33, 70) and got.dtype == vm.dtype
     assert _scaled(_np(got), _np(want)) <= FUSED_SCALED[dtype] * 1e-1
+
+
+# Phase E's inputs: the mean from -40 to 40 against variances 0, 1e-12 and
+# 4 (and, in the variance mode, below 0: clamped), then NaN and +-inf in
+# either input, cycled over (T, B) with T >= 3.
+_E_MEANS = np.linspace(-40.0, 40.0, 33)
+_E_SPECIAL = [(np.nan, 1.0), (np.inf, 1.0), (-np.inf, 4.0), (5.0, np.nan),
+              (1.0, np.inf), (np.inf, np.inf), (-np.inf, np.inf),
+              (np.nan, np.nan)]
+
+
+def _expect_inputs(mode, B):
+    vars_ = (0.0, 1e-12, 4.0) + ((-1e-3, -4.0, -np.inf) if mode == "var"
+                                 else ())
+    m, v = np.meshgrid(_E_MEANS, np.asarray(vars_), indexing="ij")
+    m = np.concatenate([m.ravel(), [p[0] for p in _E_SPECIAL]])
+    v = np.concatenate([v.ravel(), [p[1] for p in _E_SPECIAL]])
+    T = max(3, -(-m.size // B))
+    return np.resize(m, (T, B)), np.resize(v, (T, B))
+
+
+def _assert_expect_within(got, twin):
+    """Phase E's kernel against its float64 pair-form twin on the same
+    inputs: NaN where the twin has NaN, the same infinities; finite
+    values within 1e-12 relative (float64) or 2e-6 max(1, |E|)
+    (float32: ex2 and lg2 on the special-function unit)."""
+    g, w = _np(got).astype(np.float64), _np(twin)
+    npt.assert_array_equal(np.isnan(g), np.isnan(w))
+    inf = np.isinf(w)
+    npt.assert_array_equal(g[inf], w[inf])
+    fin = np.isfinite(w)
+    err = np.abs(g[fin] - w[fin])
+    allow = (1e-12 * np.abs(w[fin]) if got.dtype == torch.float64
+             else 2e-6 * np.maximum(1.0, np.abs(w[fin])))
+    assert (err <= allow).all(), float((err / np.maximum(allow, 1e-300)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 4, 10, 11, 32])
+@pytest.mark.parametrize("B", [1, 33, 100, 4096])
+@pytest.mark.parametrize("mode", ["mss", "var"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_expect_kernels_match_pair_twin(cuda, dtype, mode, B, order):
+    """Phase E in either input mode (``smoother_expect`` through
+    ``SmootherKernels.expect``, ``smoother_expect_var`` through
+    ``gaussian_expectation_g``) against its pair-form twin in float64 on
+    the same inputs, at ragged and whole widths (the scalar edge and the
+    16-byte path), the main path's unrolled order 10 and the loop's
+    others; one launch per call."""
+    tdt = getattr(torch, dtype)
+    m, var = _expect_inputs(mode, B)
+    T = m.shape[0]
+    if mode == "mss":
+        sd = np.sqrt(var)
+        lss = np.random.default_rng(B).standard_normal((T, 16, B))
+        lss[:, 8], lss[:, 9], lss[:, 10] = 0.6 * sd, -0.48 * sd, 0.64 * sd
+        mss = np.random.default_rng(B + 1).standard_normal((T, 4, B))
+        mss[:, 2] = m
+        mss, lss = (torch.tensor(x, dtype=tdt, device=cuda) for x in (mss, lss))
+        kernels = SmootherKernels(PARAMS, 1e-3, gauss_hermite(4, 3), order,
+                                  tdt, cuda)
+        got = mss.new_full((T, B), -7.0)
+        before = dict(ghfs_chirp_smoother.kernel_launches)
+        kernels.expect(mss, lss, got)
+        torch.cuda.synchronize()
+        before["smoother_expect"] += 1
+        assert ghfs_chirp_smoother.kernel_launches == before
+        twin = smoother_expect_reference(mss.double(),
+                                         lss.double().view(T, 4, 4, B), order)
+    else:
+        vm, vv = (torch.tensor(x, dtype=tdt, device=cuda) for x in (m, var))
+        before = gaussian_expectation_g.launches
+        got = gaussian_expectation_g(vm, vv, order)
+        torch.cuda.synchronize()
+        assert gaussian_expectation_g.launches == before + 1
+        twin = smoother_expect_var_reference(vm.double(), vv.double(), order)
+    assert got.shape == (T, B) and got.dtype == tdt
+    assert torch.isnan(got).any()
+    _assert_expect_within(got, twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_expect_var_kernel_takes_unaligned_tensors(cuda, dtype):
+    """Tensors that start 4 or 8 bytes past a 16-byte boundary take the
+    scalar edge where B alone would allow the 16-byte path, with the same
+    values."""
+    tdt = getattr(torch, dtype)
+    m, var = _expect_inputs("var", 4096)
+    T, B = m.shape
+    vm, vv = (torch.tensor(x, dtype=tdt, device=cuda) for x in (m, var))
+    aligned = gaussian_expectation_g(vm, vv, 10)
+    bufs = [torch.empty(T * B + 1, dtype=tdt, device=cuda) for _ in range(2)]
+    for buf, x in zip(bufs, (vm, vv)):
+        buf[1:].view(T, B).copy_(x)
+    shifted = gaussian_expectation_g(bufs[0][1:].view(T, B),
+                                     bufs[1][1:].view(T, B), 10)
+    assert bufs[0][1:].data_ptr() % 16 != 0
+    assert torch.equal(torch.isnan(shifted), torch.isnan(aligned))
+    ok = ~torch.isnan(aligned)
+    assert torch.equal(shifted[ok], aligned[ok])

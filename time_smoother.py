@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""CUDA-event times of the chirp smoother's phases A and B on one NVIDIA
-GPU, for the shipped kernel source and for timing-only variants of it, a
-sweep of phase B's chunk count, and the SASS instruction counts of every
-kernel instance of the shipped build.
+"""CUDA-event times of the chirp smoother's phases A, B and E on one
+NVIDIA GPU, for the shipped kernel source and for timing-only variants of
+it, a sweep of phase B's chunk count, and the SASS instruction counts of
+every kernel instance of the shipped build.
 
     python3 time_smoother.py [--root DIR] [--variants all|none|NAME,...]
                              [--chunks C,...] [--out DIR]
@@ -11,8 +11,9 @@ kernel instance of the shipped build.
 example the parent commit unpacked with ``git archive`` under the
 git-ignored ``_checkout/``): its ``chirpgp_tpu_torch`` is imported and its
 ``csrc`` built, and phase B runs through its own
-``SmootherKernels.backward``, so two designs are timed by one script in
-one process each.
+``SmootherKernels.backward``, and phase E through its own
+``SmootherKernels.expect`` and ``expectation_launcher``, so two designs
+are timed by one script in one process each.
 
 A variant is ``chirpgp_tpu_torch/ops/csrc/ghfs_chirp_smoother.cu`` (with
 ``csrc/chirp_lcd.cuh``) under one text substitution, built by ``nvcc``
@@ -29,7 +30,17 @@ variant is used by the port; each asks what bounds a phase:
 - ``no_shuffles``: the Householder's butterfly shuffles replaced by an
   addition each (wrong values, the same data flow);
 - ``stages_2``, ``stages_4``: phase B's rings two or four steps deep
-  instead of three (at backward_chunks' C).
+  instead of three (at backward_chunks' C);
+- ``e_accurate``: phase E's float32 ex2 and lg2 by the accurate exp2f and
+  log2f instead of the special-function unit's approximations;
+- ``e_no_pairs``: phase E's nodes one by one (two logarithms a pair);
+- ``e_loop``: phase E's order 10 through the instance for any order;
+- ``e_one_lane``: phase E's threads one lane each, 4- or 8-byte accesses;
+- ``e_threads_64``, ``e_threads_256``: phase E's blocks of at most 64 or
+  256 threads instead of 128.
+
+Variants named ``e_*`` time phase E alone, in both its input modes, in
+every case; the others time phases A and B at B=4096 float32.
 
 Phase A with GH-3's 11 rows per member and phase B run alone on the
 filter kernel's outputs at ``chip_smoke.py``'s benchmark shape (B=4096,
@@ -60,7 +71,9 @@ import torch
 
 _ROWS_KERNEL = ("__global__ void __launch_bounds__(kRowsThreads)\n"
                 "smoother_rows_kernel(")
-# name -> (file, text, replacement)
+_SOFTPLUS_ASM = 'asm("{0}.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
+# name -> (file, text, replacement): each replacement of ``text`` in
+# ``file``, and (``e_accurate``) a second pair.
 VARIANTS = {
     "launch_bounds_7": ("ghfs_chirp_smoother.cu", _ROWS_KERNEL,
                         _ROWS_KERNEL.replace("(kRowsThreads)",
@@ -87,6 +100,24 @@ VARIANTS = {
                  "constexpr int kStages = 2;"),
     "stages_4": ("ghfs_chirp_smoother.cu", "constexpr int kStages = 3;",
                  "constexpr int kStages = 4;"),
+    "e_accurate": ("ghfs_chirp_smoother.cu", _SOFTPLUS_ASM.format("ex2"),
+                   "y = exp2f(x);", _SOFTPLUS_ASM.format("lg2"),
+                   "y = log2f(x);"),
+    "e_no_pairs": ("ghfs_chirp_smoother.cu",
+                   "SP::pair(ms, ss * rule.x[q])",
+                   "(SP::one(ms + ss * rule.x[q]) + SP::one(ms - ss * "
+                   "rule.x[q]))"),
+    "e_loop": ("ghfs_chirp_smoother.cu",
+               "K == kMainOrder ? main_order : any_order", "any_order"),
+    "e_one_lane": ("ghfs_chirp_smoother.cu",
+                   "constexpr int kLanes = 16 / static_cast<int>(sizeof(Real));",
+                   "constexpr int kLanes = 1;"),
+    "e_threads_64": ("ghfs_chirp_smoother.cu",
+                     "constexpr int kExpectThreads = 128;",
+                     "constexpr int kExpectThreads = 64;"),
+    "e_threads_256": ("ghfs_chirp_smoother.cu",
+                      "constexpr int kExpectThreads = 128;",
+                      "constexpr int kExpectThreads = 256;"),
 }
 _PHASE_B = ("smoother_compose", "smoother_carry", "smoother_backward")
 
@@ -98,10 +129,11 @@ def variant_sources(build, name: str) -> dict:
     sources = {f: (build.CSRC / f).read_text()
                for f in ("ghfs_chirp_smoother.cu", "chirp_lcd.cuh")}
     if name != "shipped":
-        file, text, replacement = VARIANTS[name]
-        if text not in sources[file]:
-            raise ValueError(f"variant {name}: {text!r} is not in {file}")
-        sources[file] = sources[file].replace(text, replacement)
+        file, *subs = VARIANTS[name]
+        for text, replacement in zip(subs[::2], subs[1::2]):
+            if text not in sources[file]:
+                raise ValueError(f"variant {name}: {text!r} is not in {file}")
+            sources[file] = sources[file].replace(text, replacement)
     return sources
 
 
@@ -197,6 +229,72 @@ def time_phase_b(event_ms, kernels, mfs, Lfs, rows, sweep):
     return out
 
 
+def phase_e_inputs(kernels, mfs, Lfs, rows):
+    """Phase E's inputs in both modes from phase B's run on ``rows``: mss
+    (T, 4, B), lss (T, 16, B), and V's mean and variance (T, B)."""
+    T, _, B_ = mfs.shape
+    mss, lss = torch.empty_like(mfs), mfs.new_empty((T, 16, B_))
+    kernels.backward(mfs, Lfs, rows, mss, lss)
+    return (mss, lss, mss[:, 2].contiguous(),
+            (lss[:, 8:11] * lss[:, 8:11]).sum(1))
+
+
+def time_phase_e(event_ms, kernels, inputs, order):
+    """Phase E's times through the timed package: ``smoother_expect``
+    (``SmootherKernels.expect``) and ``smoother_expect_var``
+    (``expectation_launcher``), ms, and each one's largest deviation from
+    the plain ``smoothed_expectation_batched`` over (1 + its max)."""
+    from chirpgp_tpu_torch.infer.batched import (
+        gaussian_expectation_batched, smoothed_expectation_batched)
+    from chirpgp_tpu_torch.ops.chirp_smoother import expectation_launcher
+    mss, lss, vm, vv = inputs
+    T, _, B_ = mss.shape
+    if_e = torch.empty_like(vm)
+    out = {"smoother_expect": event_ms(lambda: kernels.expect(mss, lss, if_e))}
+    launch, if_v = expectation_launcher(vm, vv, order)
+    out["smoother_expect_var"] = event_ms(launch)
+    plain = smoothed_expectation_batched(mss, lss.view(T, 4, 4, B_), 2, order)
+    plain_v = gaussian_expectation_batched(vm, vv.clamp_min(0.0).sqrt(),
+                                           order=order)
+    for key, got, want in (("dev_expect", if_e, plain),
+                           ("dev_expect_var", if_v, plain_v)):
+        out[key] = float((got.double() - want.double()).abs().max()
+                         / (1.0 + want.double().abs().max()))
+    return out
+
+
+def time_expect_variants(event_ms, libs, shipped, inputs, order):
+    """Phase E's variants in both modes on ``inputs``, through ctypes with
+    the shipped library's signatures: {name: (ms, ms_var, same bits as
+    the shipped source in both modes)}."""
+    from chirpgp_tpu_torch.ops.chirp_smoother import _gh_rule
+    mss, lss, vm, vv = inputs
+    T, _, B_ = mss.shape
+    dt = "f32" if mss.dtype == torch.float32 else "f64"
+    ghx, ghw = _gh_rule(order)
+    out, base = {}, None
+    for name, lib in libs:
+        fns = []
+        for k in ("smoother_expect", "smoother_expect_var"):
+            fn, ref = getattr(lib, f"{k}_{dt}"), getattr(shipped, f"{k}_{dt}")
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+            fns.append(fn)
+        if_e, if_v = torch.empty_like(vm), torch.empty_like(vm)
+
+        def run(fn, a, b, o):
+            if fn(a.data_ptr(), b.data_ptr(), ghx, ghw, order, T, B_,
+                  o.data_ptr(), None):
+                raise RuntimeError(f"{name}: phase E launch failed")
+
+        times = (event_ms(lambda: run(fns[0], mss, lss, if_e)),
+                 event_ms(lambda: run(fns[1], vm, vv, if_v)))
+        if base is None:
+            base = (if_e.clone(), if_v.clone())
+        out[name] = times + (torch.equal(if_e, base[0])
+                             and torch.equal(if_v, base[1]),)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path,
@@ -217,6 +315,7 @@ def main(argv=None) -> int:
           flush=True)
     names = {"all": list(VARIANTS), "none": []}.get(
         args.variants, [n for n in args.variants.split(",") if n])
+    e_names = [n for n in names if n.startswith("e_")]
     out = args.out or _build.BUILD_DIR / "variants"
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         shipped = pool.submit(load_smoother_kernel)
@@ -238,7 +337,22 @@ def main(argv=None) -> int:
                                               else " ms")
                               for k, v in ms.items() if k != "C"),
                   flush=True)
-        if (dtype != torch.float32 or B_ != 4096 or not libs
+        e_inputs = phase_e_inputs(kernels, mfs, Lfs, rows)
+        e_ms = time_phase_e(event_ms, kernels, e_inputs, 10)
+        print(f"{tag} T={T} phase E GH-10: " + ", ".join(
+            f"{k} {v!r}" + ("" if k.startswith("dev") else " ms")
+            for k, v in e_ms.items()), flush=True)
+        if e_names:
+            for name, (ms_e, ms_v, same) in time_expect_variants(
+                    event_ms, [("shipped", shipped.lib)]
+                    + [(n, ctypes.CDLL(str(libs[n]))) for n in e_names],
+                    shipped.lib, e_inputs, 10).items():
+                print(f"{tag} phase E {name}: smoother_expect {ms_e!r} ms, "
+                      f"smoother_expect_var {ms_v!r} ms; bits of the shipped "
+                      f"source: {same}", flush=True)
+        del e_inputs
+        libs_ab = {n: path for n, path in libs.items() if n not in e_names}
+        if (dtype != torch.float32 or B_ != 4096 or not libs_ab
                 or not hasattr(kernels, "back")):
             del kernels, mfs, Lfs, rows
             torch.cuda.empty_cache()
@@ -257,7 +371,7 @@ def main(argv=None) -> int:
         C = back.chunks(T, B_)
         agg, bounds = back.scratch(B_, C)
         base = None
-        for name, path in [("shipped", shipped.path), *libs.items()]:
+        for name, path in [("shipped", shipped.path), *libs_ab.items()]:
             lib = ctypes.CDLL(str(path))
             for k in ("smoother_rows_f32",) + tuple(f"{k}_f32"
                                                     for k in _PHASE_B):
@@ -299,7 +413,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     for func, count in sass_counts(_build, shipped.path).items():
         print(f"SASS {func}: {sum(count.values())} instructions; " + ", ".join(
-            f"{op} {n}" for op, n in count.most_common(14)), flush=True)
+            f"{op} {n}" for op, n in count.most_common(14))
+            + f"; MUFU {count['MUFU']}", flush=True)
     return 0
 
 
