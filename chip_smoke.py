@@ -73,11 +73,11 @@ Phases, one line each:
    that cap too;
 4. accuracy gate: seed 0 of ``results/data/toydata_const.npz`` at the
    reference's learnt optimum, CKFS (cubature) and GHFS (GH-3), float32;
-   then 6e (below), and the bare launches that 8b, 10a and 12b report,
+   then 6e (below), and the bare launches that 7a, 8b, 10a and 12b report,
    each timed here while this process has the card to itself.  Phases
    5-13 then run in the three lanes of ``LANES``, beside each other on
-   the card: this process runs 8, 12 and 13, one spawned process 5, 11
-   and 10, another 6 (6a-6d), 9 and 7, each lane its phases in order,
+   the card: this process runs 8, 12, 13 and 9, one spawned process 5, 11
+   and 10, another 6 (6a-6d) and 7, each lane its phases in order,
    giving its cached blocks back to the card as each phase ends;
    a spawned lane's phase prints through this process as it ends, and
    every phase's lines are followed by its lane and its span of the run;
@@ -101,17 +101,27 @@ Phases, one line each:
    float32 MUFU floor, phase B on F's rows with its chunk count) at B=4096 float32 and float64 and at
    the Table-I width, beside its bound, and F beside the filter kernel's
    bare launch on the same records;
-7. the Table-I sweep, sqrt GHFS GH-3 float32 on seeds 0-99 of each
-   magnitude of ``results/data`` (B=300): 7a one vmapped value-and-grad
-   of the objective at T=785, timed, with its peak memory, lanes 0 and
-   299 against ``make_nll_fn`` on the lane alone (value 1e-5 relative,
-   gradient 1e-4 of max |grad|), and the profiler's launches per step and
-   device busy share; 7b two ``lbfgs_minimize_stepped`` iterations at
-   B=300 (T cut to fit, the cut printed): no lane above its initial NLL,
-   at least 90% below; 7c the whole ``mle_sweep_on_measurements`` (rescue,
-   float64 polish, estimate, ``print_rmse_table``) at B=3 (seed
-   0), T=40, 6 iterations: every lane finite with ``success``, the
-   polish never raising a lane's float64 NLL;
+7. the Table-I sweep through the per-lane filter kernels (the per-lane
+   instances of the filter kernel and its adjoint, ``ops/
+   chirp_filter_grad.py``), sqrt GHFS GH-3 float32 on seeds 0-99 of each
+   magnitude of ``results/data`` (B=300) at the full T=3141: 7a at one
+   theta per lane (the default init spread by 0.1 normals), one vmapped
+   value-and-grad of the objective, timed, one launch of each kernel
+   (counted), its peak memory and device busy share; the kernels against
+   their plain versions on the same lanes at the same T, both timed
+   (float64 nll 1e-12 relative, adjoint 1e-9 of each lane's max
+   |adjoint|; float32 no further from the float64 kernels, value and
+   gradient, than twice the float32 plain versions are, plus 1e-6 and
+   1e-5); the float32 value-and-grad against the float64 one under the
+   same limit, and at T=785 the eager float32 route's (the Python loop
+   under autograd) and the kernels' deviations from the same oracle; each
+   kernel's CUDA-event time alone at B=300 float32 and float64 and at
+   B=4096, beside its bound, timed before the lanes start; 7d the ghfs column of Table I, the whole
+   ``mle_sweep_on_measurements`` at B=300, T=3141, 200 iterations, each
+   stage timed, the kernels' launches counted: per magnitude the median
+   IF-RMSE x10 within 2% (const, damped) or 5% (random) of the JAX
+   package's committed ``results/ghfs_*.npz``, at most 3 lanes without
+   success, the float64 polish never raising a lane's NLL;
 8. the model family: 8a the seed-0 gates of the harmonic CKFS/EKFS, La
    Scala GHFS/EKFS and KPT/harmonic KPT columns through ``estimate_if`` /
    ``kpt_if_estimate`` on the card at T=3141, float64 (and harmonic CKFS
@@ -234,7 +244,15 @@ scan, ``chirpgp_tpu/infer/batched.py:297``, reverse scan, ``:383``, and
 ``gaussian_expectation_batched``, ``:546``): its launches and deviation
 from its plain twin in 6d, its time alone and its bound in 6e at B=4096
 float32 in 6d's mode, ``ms_b100``, ``ms_f64``, and F's factor mode and
-G's full output beside (``ms_factors``, ``ms_full``), and G's geometry.  The smoother's ``bound_ms`` counts the
+G's full output beside (``ms_factors``, ``ms_full``), and G's geometry;
+then one entry for each kernel of the sweep objective
+(``ghfs_chirp_filter_lanes``, the filter's per-lane instances, and
+``ghfs_chirp_filter_adjoint``; ``replaces`` the JAX package's
+``sqrt_sgp_filter`` under ``jax.value_and_grad``,
+``chirpgp_tpu/infer/sqrt.py:170``): its launches in 7d's column (and
+per evaluation in 7a), its deviation from its plain version in float32
+and the plain version's time, both at B=300, T=3141, its time alone and
+bound there in float32, ``ms_f64`` and ``ms_b4096`` with their bounds.  The smoother's ``bound_ms`` counts the
 least work of the function (``ops/chirp_smoother.py::smoother_cost``:
 the smoother's step in the lesser of two square-root forms); each
 kernel's, its own work and bytes, its phase A's rows included
@@ -342,8 +360,12 @@ FUSED_REPLACES = {"fused_forward": "chirpgp_tpu/infer/batched.py:297",
 # scheduler, which leaves 168 registers a thread, and ptxas spills the
 # team's float64 rows (1928 B of spill stores at P=8 with GH-3's 4 groups,
 # 732 B at P=32 with 3, on an H100); float64 is off the benchmark's path.
+# And the float64 adjoint of the sweep objective with GH-3's 3 points per
+# member: 255 registers and 264 B of spill stores (H100); the sweep's
+# float64 is the polish's.
 SPILLS_ALLOWED = {("smoother_rows", "f64", 11), ("fused_forward", "f64", 8, 4),
-                  ("fused_forward", "f64", 32, 3)}
+                  ("fused_forward", "f64", 32, 3),
+                  ("ghfs_chirp_filter_adjoint", "f64", 3)}
 # Phase 3b: CUDA-event launches after one warm-up, and the H100 SXM's
 # published peaks (NVIDIA data sheet, dense, at 700 W): float32 and float64
 # outside the tensor cores, and HBM3.
@@ -363,28 +385,39 @@ MUFU_PER_CLOCK_SM = 16
 # of the float64 twin on the same inputs (its ex2 and lg2 on the
 # special-function unit); NaN where the twin has NaN, the same infinities.
 EXPECT_RTOL_F64, EXPECT_ATOL_F32 = 1e-12, 2e-6
-# Phase 7, the Table-I sweep: seeds 0-99 of each magnitude of
-# results/data (B=300) at SWEEP_7A_T, sqrt GHFS, GH-3, float32 (a quarter
-# of the full T=3141, to make room for phases 8-10).  7a holds
-# lanes 0 and 299 of the vmapped value-and-grad to make_nll_fn on the
-# lane alone (value 1e-5 relative, gradient 1e-4 of max |grad|); 7b runs
-# two stepped L-BFGS iterations at T cut so that SWEEP_7B_EVALS
-# value-and-grads take at most SWEEP_7B_BUDGET_S by 7a's time (and
-# always when 7a takes over SWEEP_VG_LIMIT_S); 7c the whole
-# mle_sweep_on_measurements on SWEEP_SMALL = (seeds per magnitude, T,
-# max_iters).  SWEEP_PROFILE_T: the steps of the profiled value-and-grad.
+# Phase 7, the Table-I sweep through the per-lane filter kernels
+# (ops/chirp_filter_grad.py): seeds 0-99 of each magnitude of results/data
+# (B=300), sqrt GHFS, GH-3, float32, at the full T=3141.  7a, at the
+# default init plus SWEEP_THETA_SPREAD standard normals (seed 0), one
+# theta per lane: one vmapped value-and-grad, one launch of each kernel;
+# the kernels against their plain versions on the same lanes (float64:
+# the nll within SWEEP_F64_NLL_RTOL, the adjoint within SWEEP_F64_GRAD_TOL
+# of each lane's max |adjoint|; float32: against the float64 kernels, the
+# on-card oracle, the value and the adjoint carried to theta no further
+# over the lanes than SWEEP_F32_FACTOR times the float32 plain versions
+# are, plus SWEEP_F32_VALUE_FLOOR relative and SWEEP_F32_GRAD_FLOOR of
+# each lane's max |grad|); the float32 value-and-grad against the float64
+# one under the same limit, and beside it the eager float32 route's
+# deviation from the float64 kernels at SWEEP_EAGER_T, which the float32
+# kernels' there may exceed by as much.  7d: the ghfs column of Table I,
+# mle_sweep_on_measurements at the config's max_iters, each stage timed:
+# per magnitude the median IF-RMSE x10 within SWEEP_MEDIAN_RTOL of the JAX
+# package's committed results/ghfs_<magnitude>.npz, at most
+# SWEEP_MAX_FAILED lanes without success.
 MAGNITUDES = ("const", "damped", "random")
 SWEEP_SEEDS, SWEEP_T = 100, 3141
+# 8c/8d/9b hold lanes 0 and 299 of a vmapped value-and-grad to the lane
+# alone: value SWEEP_VG_TOL relative, gradient SWEEP_GRAD_TOL of max |grad|.
 SWEEP_VG_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
-SWEEP_7A_T = 785
-# 7a ran T=1571 and then 1047, 7b's budget was 100 s, 30 s and 20 s, and 7c
-# ran 2 seeds per magnitude at T=60, until phases 8-10 needed the time;
-# the budget was 15 s until 2b held phase B's chunked kernels alone.
-SWEEP_VG_LIMIT_S, SWEEP_7B_BUDGET_S, SWEEP_7B_EVALS = 90.0, 10.0, 8
-# 7b's T is cut no lower than SWEEP_7B_MIN_T (100 before phase 13).
-SWEEP_7B_MIN_T = 50
-SWEEP_SMALL = (1, 40, 6)
-SWEEP_PROFILE_T = 30
+SWEEP_EAGER_T, SWEEP_THETA_SPREAD = 785, 0.1
+SWEEP_F64_NLL_RTOL, SWEEP_F64_GRAD_TOL = 1e-12, 1e-9
+SWEEP_F32_FACTOR, SWEEP_F32_VALUE_FLOOR, SWEEP_F32_GRAD_FLOOR = 2.0, 1e-6, 1e-5
+SWEEP_MEDIAN_RTOL = {"const": 0.02, "damped": 0.02, "random": 0.05}
+SWEEP_MAX_FAILED = 3
+SWEEP_SOURCES = {"ghfs_chirp_filter_lanes": KERNEL_SOURCE,
+                 "ghfs_chirp_filter_adjoint":
+                     "chirpgp_tpu_torch/ops/csrc/ghfs_chirp_filter_adjoint.cu"}
+SWEEP_REPLACES = "chirpgp_tpu/infer/sqrt.py:170"
 # Phase 8, the model family.  8a: seed 0 of each column at its reference
 # optimum, T=3141, float64 on the card: (data prefix, config or KPT
 # harmonics, IF-RMSE x10, final NLL) of the JAX package's float64 run,
@@ -684,9 +717,9 @@ ENTRY_SCALING_RTOL, SCALING_SWEEPS = 1e-5, 4
 # held 6d's cached blocks through 10e's harmonic FHC).
 # (All of phases 5-13 ran in turn, one after another, before the run
 # reached the 1200 s limit on a slower host.)
-LANES = (("family", "sharded", "entry_points"),
+LANES = (("family", "sharded", "entry_points", "table_one"),
          ("mle", "parallel_posterior", "analysis"),
-         ("fused", "table_one", "sweep"))
+         ("fused", "sweep"))
 LANE_JOIN_S = 900
 
 
@@ -777,7 +810,8 @@ def deviations(kern, plain):
 
 
 # Phase 1: the names of each kernel's template integers in ptxas's report.
-TEMPLATE_NAMES = {"ghfs_chirp_filter": ("P", "rows"),
+TEMPLATE_NAMES = {"ghfs_chirp_filter": ("P", "rows", "per_lane"),
+                  "ghfs_chirp_filter_adjoint": ("rows",),
                   "smoother_rows": ("rows",),
                   "fused_forward": ("P", "groups"),
                   "affine_backward": ("slim",)}
@@ -786,6 +820,7 @@ TEMPLATE_NAMES = {"ghfs_chirp_filter": ("P", "rows"),
 def phase_environment(device):
     import concurrent.futures
     from chirpgp_tpu_torch.ops.chirp_filter import load_kernel
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import load_adjoint_kernel
     from chirpgp_tpu_torch.ops.chirp_fused import load_fused_kernel
     from chirpgp_tpu_torch.ops.chirp_smoother import load_smoother_kernel
     from chirpgp_tpu_torch.ops._build import find_nvcc
@@ -794,10 +829,11 @@ def phase_environment(device):
                           text=True, timeout=60).stdout.strip().splitlines()
     # One nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        built = dict(zip(("filter", "smoother", "fused"), pool.map(
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        built = dict(zip(("filter", "smoother", "fused", "adjoint"), pool.map(
             lambda load: load(),
-            (load_kernel, load_smoother_kernel, load_fused_kernel))))
+            (load_kernel, load_smoother_kernel, load_fused_kernel,
+             load_adjoint_kernel))))
     t_build = time.perf_counter() - t0
     # ptxas -v: each kernel instance (kernel, dtype, and its template
     # integers: the team size and rows per member, G's slim flag) with its
@@ -825,7 +861,8 @@ def phase_environment(device):
           f"kernel builds, in parallel: {t_build:.2f} s (filter "
           f"{built['filter'].build_seconds:.2f} s, smoother "
           f"{built['smoother'].build_seconds:.2f} s, fused "
-          f"{built['fused'].build_seconds:.2f} s) | ptxas (fused_forward: "
+          f"{built['fused'].build_seconds:.2f} s, adjoint "
+          f"{built['adjoint'].build_seconds:.2f} s) | ptxas (fused_forward: "
           f"one count for its team and consumer warps): {' '.join(ptxas)}")
     print(smi)
     check(not spills, f"ptxas reports register spills: {spills}")
@@ -1996,22 +2033,6 @@ def phase_fused_timing(device, smi):
     return out
 
 
-def lane_alone(ys_lane, theta, device):
-    """Value, gradient and wall time of the sweep objective on one lane
-    alone (``make_nll_fn`` and ``torch.autograd``), float32 on ``device``
-    (on one thread on the host CPU).  Phase 7a runs it in child processes,
-    beside the vmapped call."""
-    from chirpgp_tpu_torch.apps import IFEstimationConfig, make_nll_fn
-    if device == "cpu":
-        torch.set_num_threads(1)
-    th = torch.tensor(theta, device=device).requires_grad_(True)
-    t0 = time.perf_counter()
-    value = make_nll_fn(IFEstimationConfig(method="ghfs", form="sqrt"),
-                        torch.tensor(ys_lane, device=device))(th)
-    grad, = torch.autograd.grad(value, th)
-    return float(value.detach()), grad.cpu().numpy(), time.perf_counter() - t0
-
-
 def sweep_data(device, seeds, T, prefix=""):
     """Seeds ``seeds`` of each magnitude of results/data (of
     ``toydata_h3_*`` with ``prefix="h3_"``), (3 len(seeds), T) float32 on
@@ -2024,114 +2045,272 @@ def sweep_data(device, seeds, T, prefix=""):
             torch.as_tensor(tf, dtype=torch.float32, device=device))
 
 
-def phase_sweep(device, smi):
-    """7a one vmapped value-and-grad of the sweep objective at the Table-I
-    width, 7b two stepped L-BFGS iterations at B=300, 7c the whole
-    mle_sweep_on_measurements at a smaller depth."""
+def sweep_lane_constants(theta):
+    """Phase 7's per-lane model constants (B, 43) at the thetas ``theta``
+    (B, 6) of the sweep's configuration, through ``chirp_lane_constants``
+    (differentiable)."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import chirp_lane_constants
+    cfg = IFEstimationConfig(method="ghfs", form="sqrt")
+    return torch.func.vmap(lambda p: chirp_lane_constants(
+        p, cfg.Xi, cfg.dt))(g(theta))
+
+
+def sweep_thetas(B, device):
+    """7a's thetas (B, 6), float64: the sweep's default init plus
+    SWEEP_THETA_SPREAD standard normals (NumPy seed 0), one per lane."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    theta = IFEstimationConfig(method="ghfs", form="sqrt").default_init_theta(
+        torch.float64) + SWEEP_THETA_SPREAD * torch.as_tensor(
+            np.random.default_rng(0).standard_normal((B, 6)))
+    return theta.to(device)
+
+
+def sweep_bare_launches(device, smi):
+    """7a's CUDA-event times of the per-lane forward kernel and the adjoint
+    kernel, each launched alone, timed before the lanes start while this
+    process has the card to itself: at the Table-I column (B=300, T=3141)
+    in float32 and float64 and at bench.py's B=4096 in float32, GH-3, at
+    the default init theta, beside each its bound.  Returns {kernel:
+    {case: dict(ms, bound_ms, bound_by)}}."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import (
+        adjoint_cost, adjoint_launcher, forward_cost, forward_launcher)
+    cfg = IFEstimationConfig(method="ghfs", form="sqrt")
+    rule = cfg.sigma_points()
+    S = rule.n_points
+    t_phase = time.perf_counter()
+    out = {name: {} for name in SWEEP_SOURCES}
+    parts = []
+    for case, dtype in (("B=300/f32", torch.float32),
+                        ("B=300/f64", torch.float64),
+                        ("B=4096/f32", torch.float32)):
+        if case.startswith("B=300"):
+            ys = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)[0].to(dtype)
+        else:
+            ys = measurements(B_FULL, T_FULL, 999, dtype, device)
+        B, T = ys.shape
+        consts = sweep_lane_constants(
+            cfg.default_init_theta(dtype).to(device).expand(B, -1))
+        launch, (mfs, lfs, nll) = forward_launcher(consts, rule, ys)
+        fwd = event_ms(launch)
+        gbar = torch.ones(B, dtype=dtype, device=device)
+        adj_launch, dconsts = adjoint_launcher(consts, rule, ys, mfs, lfs,
+                                               gbar)
+        adj = event_ms(adj_launch)
+        check(bool(torch.isfinite(nll).all() and torch.isfinite(dconsts).all()),
+              f"7a bare launches {case}: non-finite nll or adjoint")
+        for name, ms, cost in (
+                ("ghfs_chirp_filter_lanes", fwd, forward_cost),
+                ("ghfs_chirp_filter_adjoint", adj, adjoint_cost)):
+            flop, nbytes, b_ms, by = bound_ms(S, T, B, dtype, cost)
+            out[name][case] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
+            parts.append(f"{name} {case}: {ms!r} ms, bound {b_ms:.4f} ms "
+                         f"({by}; {flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
+                         f"MB), {100 * b_ms / ms:.2f}% of it")
+        del mfs, lfs, dconsts
+    torch.cuda.empty_cache()
+    print(f"phase 7a bare launches ({time.perf_counter() - t_phase:.3f} s; "
+          f"CUDA events, 1 warm-up + {TIMING_REPS} launches; {smi}; T="
+          f"{SWEEP_T}, GH-3, default init): " + "; ".join(parts),
+          flush=True)
+    return out
+
+
+def sweep_deviation(grads, oracle):
+    """The largest over lanes of max |grad - oracle| over the lane's max
+    |oracle|."""
+    g, o = grads.double().cpu(), oracle.double().cpu()
+    return float(((g - o).abs().amax(1) / o.abs().amax(1)).max())
+
+
+def value_deviation(values, oracle):
+    """The largest over lanes of |value - oracle| / |oracle|."""
+    v, o = values.double().cpu(), oracle.double().cpu()
+    return float(((v - o) / o).abs().max())
+
+
+def sweep_kernels_vs_plain(device, ys, theta, parts):
+    """7a's kernels, launched directly (not counted on the path), against
+    their plain versions on the same inputs at the main path's shapes:
+    ``ys`` (B, T), one theta per lane (``theta`` (B, 6), float64), the
+    constants built from it in each dtype as the path builds them, the
+    upstream gradient 1, GH-3; float64 and float32, each plain version
+    timed on the host clock.  Returns {dtype: readings}, the float32 ones
+    with the value's and the theta gradient's deviation from the float64
+    kernels, of the kernels and of the plain versions."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import (
+        adjoint_launcher, filter_nll_adjoint_reference, filter_nll_reference,
+        forward_launcher)
+    from chirpgp_tpu_torch.utils.timing import timed
+    rule = IFEstimationConfig(method="ghfs", form="sqrt").sigma_points()
+    B = ys.shape[0]
+    th = theta.clone().requires_grad_(True)
+    consts64 = sweep_lane_constants(th)
+
+    def to_theta(dconsts):
+        grad, = torch.autograd.grad(consts64, th, dconsts.double(),
+                                    retain_graph=True)
+        return grad
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        y = ys.to(dtype)
+        with torch.no_grad():
+            consts = sweep_lane_constants(theta.to(dtype))
+        gbar = torch.ones(B, dtype=dtype, device=device)
+        launch, (mfs, lfs, nll_k) = forward_launcher(consts, rule, y)
+        launch()
+        adj_launch, d_k = adjoint_launcher(consts, rule, y, mfs, lfs, gbar)
+        adj_launch()
+        (pm, pl, nll_p), fwd_s = timed(filter_nll_reference, consts, rule, y)
+        d_p, adj_s = timed(filter_nll_adjoint_reference, consts, rule, y, pm,
+                           pl, gbar)
+        check(bool(torch.isfinite(nll_k).all() and torch.isfinite(d_k).all()),
+              f"7a: non-finite kernel nll or adjoint ({dtype})")
+        out[dtype] = dict(
+            nll_abs=float((nll_k - nll_p).abs().max()),
+            adjoint_abs=float((d_k - d_p).abs().max()),
+            nll_rel=value_deviation(nll_k, nll_p),
+            adjoint_rel=sweep_deviation(d_k, d_p), plain_fwd_s=fwd_s,
+            plain_adj_s=adj_s, nll=(nll_k, nll_p), grad=(to_theta(d_k),
+                                                       to_theta(d_p)))
+        del mfs, lfs, pm, pl
+    r64, r32 = out[torch.float64], out[torch.float32]
+    check(r64["nll_rel"] <= SWEEP_F64_NLL_RTOL
+          and r64["adjoint_rel"] <= SWEEP_F64_GRAD_TOL,
+          f"7a: float64 kernels vs plain at B={B}, T={ys.shape[1]}: nll rel "
+          f"{r64['nll_rel']}, adjoint {r64['adjoint_rel']}")
+    n64, g64 = r64["nll"][0], r64["grad"][0]
+    r32.update(
+        value_kernel=value_deviation(r32["nll"][0], n64),
+        value_plain=value_deviation(r32["nll"][1], n64),
+        grad_kernel=sweep_deviation(r32["grad"][0], g64),
+        grad_plain=sweep_deviation(r32["grad"][1], g64))
+    check(r32["value_kernel"] <= SWEEP_F32_FACTOR * r32["value_plain"]
+          + SWEEP_F32_VALUE_FLOOR
+          and r32["grad_kernel"] <= SWEEP_F32_FACTOR * r32["grad_plain"]
+          + SWEEP_F32_GRAD_FLOOR,
+          f"7a: float32 kernels vs the float64 kernels at T={ys.shape[1]}: "
+          f"value rel {r32['value_kernel']}, grad {r32['grad_kernel']}; the "
+          f"float32 plain versions {r32['value_plain']}, {r32['grad_plain']}")
+    parts.append(
+        f"kernels vs plain at B={B}, T={ys.shape[1]}, one theta per lane: "
+        f"f64 nll rel {r64['nll_rel']:.3g}, adjoint {r64['adjoint_rel']:.3g} "
+        f"of each lane's max; f32 nll rel {r32['nll_rel']:.3g}, adjoint "
+        f"{r32['adjoint_rel']:.3g}; f32 against the f64 kernels: the kernels "
+        f"value rel {r32['value_kernel']:.3g}, grad {r32['grad_kernel']:.3g} "
+        f"of each lane's max |grad|, the plain versions "
+        f"{r32['value_plain']:.3g}, {r32['grad_plain']:.3g}; the plain "
+        f"versions (host clock): f32 forward {r32['plain_fwd_s']:.3f} s, "
+        f"adjoint {r32['plain_adj_s']:.3f} s, f64 {r64['plain_fwd_s']:.3f}, "
+        f"{r64['plain_adj_s']:.3f} s")
+    return out
+
+
+def phase_sweep_objective(device, ys, parts):
+    """7a: one vmapped value-and-grad of the sweep objective at the
+    Table-I width and full T through the two kernels, one theta per lane,
+    against the float64 kernels, the plain versions and the eager route.
+    Returns (launches per evaluation, sweep_kernels_vs_plain's
+    readings)."""
+    from chirpgp_tpu_torch.apps import IFEstimationConfig, make_nll_fn
+    from chirpgp_tpu_torch.apps.pipeline import _filter_fns, _on_data
+    from chirpgp_tpu_torch.fit import batched_value_and_grad
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import ChirpFilterNLL
     from chirpgp_tpu_torch.utils.timing import profile_device, timed
-    import concurrent.futures
-    import multiprocessing
+    cfg = IFEstimationConfig(method="ghfs", form="sqrt")
+    B = ys.shape[0]
+
+    def nll(theta, ys_i):
+        return make_nll_fn(cfg, ys_i)(theta)
+
+    flt, _ = _filter_fns(cfg)
+
+    def eager_nll(theta, ys_i):
+        return flt(cfg.build(g(_on_data(theta, ys_i))), ys_i)[2][-1]
+
+    theta64 = sweep_thetas(B, device)
+    theta = theta64.float()
+    # One value-and-grad of all lanes through the kernels, timed, with its
+    # launches and peak memory; then the same in float64, the oracle.
+    ChirpFilterNLL.reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    (values, grads), t_vg = timed(batched_value_and_grad(nll, (ys,)), theta)
+    peak = torch.cuda.max_memory_allocated(device)
+    per_eval = dict(ChirpFilterNLL.launches)
+    check(per_eval == {"forward": 1, "adjoint": 1},
+          f"7a: launches per evaluation {per_eval}, not one of each kernel")
+    check(bool(torch.isfinite(values).all() and torch.isfinite(grads).all()),
+          "7a: non-finite value or gradient")
+    (v64, g64), t_vg64 = timed(batched_value_and_grad(nll, (ys.double(),)),
+                               theta64)
+    dv, dg = value_deviation(values, v64), sweep_deviation(grads, g64)
+    # The eager float32 route (the Python loop under autograd, the route
+    # before the kernels) against the float64 kernels at SWEEP_EAGER_T,
+    # beside the float32 kernels at the same T.
+    yT = ys[:, :SWEEP_EAGER_T].contiguous()
+    (ve32, ge32), t_eager = timed(batched_value_and_grad(eager_nll, (yT,)),
+                                  theta)
+    vk32, gk32 = batched_value_and_grad(nll, (yT,))(theta)
+    vk64, gk64 = batched_value_and_grad(nll, (yT.double(),))(theta64)
+    dg_eager, dg_k785 = sweep_deviation(ge32, gk64), sweep_deviation(gk32,
+                                                                    gk64)
+    dv_eager, dv_k785 = value_deviation(ve32, vk64), value_deviation(vk32,
+                                                                     vk64)
+    check(dg_k785 <= SWEEP_F32_FACTOR * dg_eager + SWEEP_F32_GRAD_FLOOR,
+          f"7a: float32 kernels {dg_k785} vs the eager float32 route "
+          f"{dg_eager} from the float64 kernels at T={SWEEP_EAGER_T}")
+    readings = sweep_kernels_vs_plain(device, ys, theta64, parts)
+    r32 = readings[torch.float32]
+    check(dv <= SWEEP_F32_FACTOR * r32["value_plain"] + SWEEP_F32_VALUE_FLOOR
+          and dg <= SWEEP_F32_FACTOR * r32["grad_plain"]
+          + SWEEP_F32_GRAD_FLOOR,
+          f"7a: float32 value-and-grad vs the float64 one at T={SWEEP_T}: "
+          f"value rel {dv}, grad {dg}; the float32 plain versions "
+          f"{r32['value_plain']}, {r32['grad_plain']}")
+    prof = profile_device(lambda: batched_value_and_grad(nll, (ys,))(theta))
+    parts.insert(0,
+        f"7a value-and-grad B={B} T={SWEEP_T} f32 through the kernels, one "
+        f"theta per lane: {t_vg:.3f} s = {1e3 * t_vg / SWEEP_T:.4f} ms per "
+        f"step, launches per evaluation {per_eval}, peak memory "
+        f"{peak / 2 ** 30:.3f} GiB, device busy {100 * prof.busy:.2f}% of "
+        f"{prof.wall_s:.4f} s ({prof.launches} CUDA kernels per call under "
+        f"the profiler); f64 {t_vg64:.3f} s; f32 vs the f64 kernels: value "
+        f"rel {dv:.3g}, grad {dg:.3g} of each lane's max |grad|; at "
+        f"T={SWEEP_EAGER_T}: the eager f32 route value rel {dv_eager:.3g}, "
+        f"grad {dg_eager:.3g} ({t_eager:.3f} s), the f32 kernels "
+        f"{dv_k785:.3g}, {dg_k785:.3g}")
+    return per_eval, readings
+
+
+def phase_sweep(device, smi, bare):
+    """7a (``phase_sweep_objective``) and 7d the ghfs column of Table I.
+    Returns the kernels' entries of the ``kernels`` line."""
     from unittest import mock
     import chirpgp_tpu_torch.apps.sweeps as sweeps
     from chirpgp_tpu_torch.apps import (
         IFEstimationConfig, make_nll_fn, mle_sweep_on_measurements,
         print_rmse_table)
-    from chirpgp_tpu_torch.fit import (
-        batched_value_and_grad, lbfgs_minimize_stepped)
     from chirpgp_tpu_torch.ops.chirp_filter import ghfs_chirp_filter
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import ChirpFilterNLL
+    from chirpgp_tpu_torch.utils.timing import timed
     cfg = IFEstimationConfig(method="ghfs", form="sqrt")
-    ys, _ = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_7A_T)
+    ys, tf = sweep_data(device, slice(0, SWEEP_SEEDS), SWEEP_T)
     B = ys.shape[0]
-    calls = [0]
 
     def nll(theta, ys_i):
-        calls[0] += 1
         return make_nll_fn(cfg, ys_i)(theta)
 
-    theta0 = cfg.default_init_theta(torch.float32).to(device).expand(
-        B, -1).clone()
     parts = []
     t_phase = time.perf_counter()
     ghfs_chirp_filter.launches = 0
+    per_eval, readings = phase_sweep_objective(device, ys, parts)
 
-    # 7a: one value-and-grad of all lanes, timed, with its peak memory;
-    # lanes 0 and B-1 alone meanwhile, each in a child process on the
-    # same card (host-bound, each on its own CPU core), and lane 0 on the
-    # host CPU, the per-record alternative to the batch.
-    lanes = (0, B - 1)
-    jobs = [(i, str(device)) for i in lanes] + [(0, "cpu")]
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=len(jobs),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        alone = [pool.submit(lane_alone, ys[i].cpu().numpy(),
-                             theta0[i].cpu().numpy(), dev)
-                 for i, dev in jobs]
-        torch.cuda.reset_peak_memory_stats(device)
-        (values, grads), t_vg = timed(batched_value_and_grad(nll, (ys,)),
-                                      theta0)
-        peak = torch.cuda.max_memory_allocated(device)
-        alone = [f.result() for f in alone]
-    *alone, (v_host, _, t_host) = alone
-    check(bool(torch.isfinite(values).all() and torch.isfinite(grads).all()),
-          "7a: non-finite value or gradient")
-    devs = []
-    for lane, (v, gr, t_lane) in zip(lanes, alone):
-        dv = abs(v - float(values[lane])) / abs(v)
-        dg = float(np.abs(gr - grads[lane].cpu().numpy()).max()
-                   / np.abs(gr).max())
-        check(dv <= SWEEP_VG_TOL and dg <= SWEEP_GRAD_TOL,
-              f"7a lane {lane}: vmapped vs alone, value rel {dv}, grad {dg}")
-        devs.append(f"lane {lane}: value rel {dv:.3g}, grad {dg:.3g} "
-                    f"({t_lane:.3f} s alone, in a child process meanwhile)")
-    prof = profile_device(
-        lambda: batched_value_and_grad(nll, (ys[:, :SWEEP_PROFILE_T],))(
-            theta0))
-    prof = (f"profiler at T={SWEEP_PROFILE_T}: "
-            f"{prof.launches / SWEEP_PROFILE_T:.1f} kernel launches per "
-            f"step, device busy {100 * prof.busy:.2f}% of {prof.wall_s:.3f} "
-            f"s (profiled: {prof.profiled_wall_s:.3f} s)")
-    dv_host = abs(v_host - float(values[0])) / abs(v_host)
-    check(dv_host <= SWEEP_VG_TOL, f"7a lane 0 on the host CPU: value rel "
-                                   f"{dv_host}")
-    parts.append(
-        f"7a value-and-grad B={B} T={SWEEP_7A_T} (cut from {SWEEP_T} to make "
-        f"room for phases 8-10) f32: {t_vg:.3f} s = "
-        f"{1e3 * t_vg / SWEEP_7A_T:.3f} ms per step, {t_vg / B:.3f} s per "
-        f"record, peak memory {peak / 2 ** 30:.3f} GiB; {'; '.join(devs)}; "
-        f"lane 0 alone on the host CPU, one thread: {t_host:.3f} s, value "
-        f"rel {dv_host:.3g}; {prof}")
-
-    # 7b: two stepped L-BFGS iterations at B=300, T cut to fit the budget.
-    t_b = SWEEP_7A_T
-    if t_vg > SWEEP_VG_LIMIT_S or SWEEP_7B_EVALS * t_vg > SWEEP_7B_BUDGET_S:
-        t_b = min(SWEEP_7A_T, max(SWEEP_7B_MIN_T, int(
-            SWEEP_7A_T * SWEEP_7B_BUDGET_S / (SWEEP_7B_EVALS * t_vg))))
-    yb = ys[:, :t_b].contiguous()
-    with torch.no_grad():
-        f_init = torch.func.vmap(nll)(theta0, yb)
-    calls[0] = 0
-    opt, t_opt = timed(lbfgs_minimize_stepped, nll, theta0, (yb,),
-                       max_iters=2, ftol_rel=cfg.ftol_rel,
-                       patience=cfg.stall_patience, tail_iters=30)
-    evals = calls[0]
-    worse = int((opt.fun_val > f_init).sum())
-    below = float((opt.fun_val < f_init).float().mean())
-    check(worse == 0 and below >= 0.9,
-          f"7b: {worse} lanes above their initial NLL, {below:.3f} below")
-    cut = "" if t_b == SWEEP_7A_T else (
-        f" (T cut from {SWEEP_7A_T} to {t_b}: {SWEEP_7B_EVALS} value-and-grads"
-        f" at 7a's {t_vg:.1f} s would exceed {SWEEP_7B_BUDGET_S:.0f} s)")
-    parts.append(
-        f"7b lbfgs_minimize_stepped B={B} T={t_b}{cut}, 2 iterations: "
-        f"{t_opt:.3f} s = {t_opt / 2:.3f} s per iteration, {evals} "
-        f"objective evaluations ({evals / 2:.1f} per iteration, the first "
-        f"at the init); best NLL below the initial in {100 * below:.1f}% "
-        f"of lanes, above it in {worse}; median NLL "
-        f"{float(f_init.median()):.3f} -> {float(opt.fun_val.median()):.3f}")
-
-    # 7c: the whole sweep at a smaller depth, each stage timed.
-    n_seeds, t_c, iters = SWEEP_SMALL
-    ys_c, tf_c = sweep_data(device, slice(0, n_seeds), t_c)
+    # 7d: the ghfs column of Table I, each stage timed.
     stages = {}
 
     def staged(name, fn):
@@ -2143,46 +2322,70 @@ def phase_sweep(device, smi):
             return out
         return run
 
+    ChirpFilterNLL.reset_launches()
     with mock.patch.object(sweeps, "lbfgs_minimize_stepped",
                            staged("stepped", sweeps.lbfgs_minimize_stepped)), \
             mock.patch.object(sweeps, "_rescue_stuck_lanes",
                               staged("rescue", sweeps._rescue_stuck_lanes)), \
             mock.patch.object(sweeps, "_polish_lanes_f64",
                               staged("polish", sweeps._polish_lanes_f64)):
-        res, t_sweep = timed(mle_sweep_on_measurements,
-                             dataclasses.replace(cfg, max_iters=iters),
-                             tf_c, ys_c)
-    check(bool(np.all(np.isfinite(res["rmse"])) and np.all(res["success"])),
-          f"7c: lanes not finite with success: {res['success']}")
-    # The polish never worse: the float64 NLL on the host at its output
-    # against that at its input (within the float32 rounding of params).
+        res, t_sweep = timed(mle_sweep_on_measurements, cfg, tf, ys)
+    launches = dict(ChirpFilterNLL.launches)
+    check(min(launches.values()) > 0,
+          f"7d: a kernel of the path was never launched: {launches}")
+    # The polish never worse: the float64 NLL at its output against that
+    # at its input, through the float64 kernels.
     _, polish_args, polished = stages["polish"]
-    incoming = polish_args[2]
-    cpu_cfg = dataclasses.replace(cfg, max_iters=iters)
-    gaps = []
     with torch.no_grad():
-        for i in range(ys_c.shape[0]):
-            f = make_nll_fn(cpu_cfg, ys_c[i].cpu().double())
-            f_in = float(f(incoming.params[i].cpu().double()))
-            f_out = float(f(polished.params[i].cpu().double()))
-            gaps.append(f_out - f_in)
-            check(f_out <= f_in + 1e-6 * abs(f_in),
-                  f"7c: polish of lane {i} raised the f64 NLL {f_in} -> "
-                  f"{f_out}")
-    print_rmse_table({"ghfs (sqrt, f32)": {
-        m: {"rmse": res["rmse"][k * n_seeds:(k + 1) * n_seeds]}
+        y64 = ys.double()
+        f_in = torch.func.vmap(nll)(polish_args[2].params.double(), y64)
+        f_out = torch.func.vmap(nll)(polished.params.double(), y64)
+    ok = torch.isfinite(f_in)
+    worse = int((f_out[ok] > f_in[ok] + 1e-6 * f_in[ok].abs()).sum())
+    check(worse == 0, f"7d: the polish raised {worse} lanes' float64 NLL")
+    rows = []
+    for k, mag in enumerate(MAGNITUDES):
+        lanes = slice(k * SWEEP_SEEDS, (k + 1) * SWEEP_SEEDS)
+        ref = np.load(ROOT / f"results/ghfs_{mag}.npz")
+        med = 10.0 * float(np.nanmedian(res["rmse"][lanes]))
+        want = 10.0 * float(np.nanmedian(ref["rmse"]))
+        failed = int((~res["success"][lanes]).sum())
+        rel = abs(med - want) / want
+        rows.append(f"{mag} median IF-RMSE x10 {med:.4f} (JAX package "
+                    f"{want:.4f}, rel {rel:.4f}), {failed} lanes without "
+                    f"success (JAX package {int((~ref['success']).sum())})")
+        check(rel <= SWEEP_MEDIAN_RTOL[mag] and failed <= SWEEP_MAX_FAILED,
+              f"7d {mag}: median IF-RMSE x10 {med} vs {want} (rel {rel}), "
+              f"{failed} lanes without success")
+    print_rmse_table({"ghfs (sqrt, f32, card)": {
+        m: {"rmse": res["rmse"][k * SWEEP_SEEDS:(k + 1) * SWEEP_SEEDS]}
         for k, m in enumerate(MAGNITUDES)}})
     stage_s = ", ".join(f"{k} {v[0]:.3f} s" for k, v in stages.items())
     parts.append(
-        f"7c mle_sweep_on_measurements B={ys_c.shape[0]} T={t_c} "
-        f"max_iters={iters}: {t_sweep:.3f} s ({stage_s}, estimate the "
-        f"rest); all lanes finite with success; f64 NLL change by the "
-        f"polish {min(gaps):.4g} to {max(gaps):.4g}; rmse x10 "
-        f"{[round(10 * float(r), 4) for r in res['rmse']]}")
-    launches = ghfs_chirp_filter.launches
+        f"7d ghfs column, mle_sweep_on_measurements B={B} T={SWEEP_T} "
+        f"max_iters={cfg.max_iters}: {t_sweep:.3f} s ({stage_s}, estimate "
+        f"the rest); kernel launches {launches}; polish never worse; "
+        + "; ".join(rows))
     print(f"phase 7 sweep ({time.perf_counter() - t_phase:.3f} s; {smi}; "
-          f"filter kernel launches {launches}: not on the sweep path): "
-          + "; ".join(parts), flush=True)
+          f"one-theta filter kernel launches {ghfs_chirp_filter.launches}: "
+          f"not on the sweep path): " + "; ".join(parts), flush=True)
+    r32 = readings[torch.float32]
+    return {name: dict({
+        "name": name, "route": "cuda", "source": SWEEP_SOURCES[name],
+        "replaces": SWEEP_REPLACES, "launches": launches[key],
+        "max_abs_err": r32["nll_abs" if key == "forward" else "adjoint_abs"],
+        "ms": bare[name]["B=300/f32"]["ms"],
+        "plain_ms": 1e3 * r32["plain_fwd_s" if key == "forward"
+                              else "plain_adj_s"],
+        "bound_ms": bare[name]["B=300/f32"]["bound_ms"],
+        "bound_by": bare[name]["B=300/f32"]["bound_by"],
+        "library_ms": None, "launches_per_evaluation": per_eval[key],
+        "ms_f64": bare[name]["B=300/f64"]["ms"],
+        "bound_ms_f64": bare[name]["B=300/f64"]["bound_ms"],
+        "ms_b4096": bare[name]["B=4096/f32"]["ms"],
+        "bound_ms_b4096": bare[name]["B=4096/f32"]["bound_ms"]})
+        for name, key in (("ghfs_chirp_filter_lanes", "forward"),
+                          ("ghfs_chirp_filter_adjoint", "adjoint"))}
 
 
 def family_gate(name, dtype_name, device):
@@ -4331,7 +4534,7 @@ LANE_PHASES = {
     "mle": lambda c: phase_mle(c["device"]),
     "fused": lambda c: phase_fused(
         c["device"], c["if_ref"].to(c["device"]), c["t_ref"]),
-    "sweep": lambda c: phase_sweep(c["device"], c["smi"]),
+    "sweep": lambda c: phase_sweep(c["device"], c["smi"], c["sweep_ms"]),
     "family": lambda c: phase_family(c["device"], c["smi"],
                                      c["lascala_ms"]),
     "table_one": lambda c: phase_table_one(c["device"], c["smi"]),
@@ -4472,7 +4675,8 @@ def run() -> int:
     ctx = dict(device=str(device), smi=smi, if_ref=if_ref.cpu(), t_ref=t_ref,
                lascala_ms=lascala_bare_launches(device),
                crlb_ms=crlb_bare_launches(device),
-               shard_ms=shard_bare_launch(device))
+               shard_ms=shard_bare_launch(device),
+               sweep_ms=sweep_bare_launches(device, smi))
     torch.cuda.empty_cache()
     print(f"phases 5-13 in {len(LANES)} lanes from {time.time() - t_run:.1f}"
           f" s of the run: " + "; ".join(
@@ -4498,8 +4702,9 @@ def run() -> int:
     results.update(drain_lanes(lanes, wait=True))
     print(f"phases 5-13 ended at {time.time() - t_run:.1f} s of the run",
           flush=True)
-    fused, family, analysis, sharded, scaling = (results[name] for name in (
-        "fused", "family", "analysis", "sharded", "entry_points"))
+    fused, family, analysis, sharded, scaling, sweep = (
+        results[name] for name in ("fused", "family", "analysis", "sharded",
+                                   "entry_points", "sweep"))
     from chirpgp_tpu_torch.ops.chirp_smoother import BACKWARD_KERNELS
     full = timing["gh3/B=4096/f32"]
     smoother_sharded = sharded.pop("smoother_launches_sharded")
@@ -4567,7 +4772,8 @@ def run() -> int:
         else FUSED_SOURCE, "replaces": FUSED_REPLACES[kernel],
         "launches": launches_, "max_abs_err": err, "plain_ms": plain_ms,
         "library_ms": None}, **fused_entry(fused_ms, kernel))
-        for kernel, (launches_, err, plain_ms) in fused.items()]}))
+        for kernel, (launches_, err, plain_ms) in fused.items()]
+        + list(sweep.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,7 +28,9 @@ from chirpgp_tpu_torch.models.bijections import g, g_inv
 from chirpgp_tpu_torch.models.chirp import (
     build_chirp_model, build_harmonic_chirp_model, build_lascala_model)
 from chirpgp_tpu_torch.ops.chirp_filter import (
-    ghfs_chirp_filter, lascala_chirp_params)
+    MAX_POINTS, ghfs_chirp_filter, lascala_chirp_params)
+from chirpgp_tpu_torch.ops.chirp_filter_grad import (
+    chirp_filter_nll, chirp_lane_constants)
 from chirpgp_tpu_torch.ops.chirp_smoother import ghfs_chirp_smoother
 from chirpgp_tpu_torch.quad.expectations import gaussian_expectation_1d
 from chirpgp_tpu_torch.quad.sigma_points import (
@@ -198,12 +200,40 @@ def _on_data(x, ys: torch.Tensor) -> torch.Tensor:
     return x.to(dtype=dtype, device=ys.device)
 
 
+def _kernel_objective(cfg: IFEstimationConfig) -> bool:
+    """Whether ``make_nll_fn`` takes the per-lane filter kernels
+    (``ops/chirp_filter_grad.py``): the square-root GHFS of the chirp
+    model with a Gauss-Hermite or cubature rule of at most the kernels'
+    ``MAX_POINTS`` points -- the ``ghfs`` and ``ckfs`` columns of Table
+    I.  Every other configuration runs the eager filter."""
+    return (cfg.method == "ghfs" and cfg.form == "sqrt"
+            and cfg.model == "chirp"
+            and cfg.quadrature in ("gauss_hermite", "cubature")
+            and cfg.sigma_points().n_points <= MAX_POINTS)
+
+
 def make_nll_fn(cfg: IFEstimationConfig, ys, device="cuda") -> Callable:
     """The MLE objective: softplus-reparametrized params ``theta`` ->
     final filter NLL, differentiable with ``torch.autograd`` and
-    ``torch.func``.  Runs on ``ys``' device (theta is moved there)."""
+    ``torch.func``.  Runs on ``ys``' device (theta is moved there).
+
+    The square-root GHFS of the chirp model (:func:`_kernel_objective`)
+    builds the lane's model constants from ``theta`` and evaluates
+    ``ops.chirp_filter_grad.chirp_filter_nll``: on a CUDA tensor the
+    forward kernel and, for the gradient, the adjoint kernel, one launch
+    each for all the lanes of a ``torch.func.vmap``; on the CPU their
+    plain versions.  Every other configuration runs its eager filter."""
     flt, _ = _filter_fns(cfg)
     ys = _measurements(ys, device)
+    if _kernel_objective(cfg):
+        sgps = cfg.sigma_points()
+
+        def kernel_nll(theta):
+            theta = _on_data(theta, ys)
+            consts = chirp_lane_constants(g(theta), cfg.Xi, cfg.dt)
+            return chirp_filter_nll(consts, ys.to(consts.dtype), sgps)
+
+        return kernel_nll
 
     def nll(theta):
         theta = _on_data(theta, ys)

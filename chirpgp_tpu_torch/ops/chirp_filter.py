@@ -7,9 +7,11 @@ with its signature and output contract minus the TPU grid knobs
 (``chunk``, ``bblock``, ``interpret``).  :func:`ghfs_chirp_filter` runs
 the plain version for a tensor on the CPU and the kernel for a tensor on
 a CUDA device; there is no fallback from one to the other.  Neither has a
-gradient yet.  :func:`launch_geometry` chooses the kernel's team size,
-rows and blocks, and :func:`filter_cost` counts its work; both are plain
-Python.  The La Scala model is the chirp model at ``lam = b = 0``
+gradient: the objective differentiated through the filter, one parameter
+vector per lane, is ``ops/chirp_filter_grad.py``'s, on this kernel's
+per-lane instances and an adjoint kernel.  :func:`launch_geometry`
+chooses the kernel's team size, rows and blocks, and :func:`filter_cost`
+counts its work; both are plain Python.  The La Scala model is the chirp model at ``lam = b = 0``
 (``models.chirp.disc_model_lascala_lcd``), so the same kernel filters it
 with :func:`lascala_chirp_params`.  The optional ``m0`` replaces the
 packed model's prior mean ``[0, 0, m0_v, 0]``: the filter-error Monte
@@ -140,8 +142,10 @@ def _host_params(params) -> torch.Tensor:
     float64 host tensor."""
     if isinstance(params, torch.Tensor):
         if params.requires_grad:
-            raise ValueError("ghfs_chirp_filter has no gradient yet; pass "
-                             "params that do not require grad")
+            raise ValueError("ghfs_chirp_filter has no gradient (the "
+                             "differentiable objective is ops.chirp_filter_"
+                             "grad.chirp_filter_nll); pass params that do "
+                             "not require grad")
         p = params.detach().to("cpu", torch.float64)
     else:
         p = torch.from_numpy(np.array(params, np.float64))
@@ -207,6 +211,12 @@ def load_kernel():
         fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_double),
                        i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
         fn.restype = i32
+    # The per-lane instances (ops/chirp_filter_grad.py): the constants a
+    # (B, 43) tensor on the card.
+    for fn in (lib.ghfs_chirp_filter_lanes_f32,
+               lib.ghfs_chirp_filter_lanes_f64):
+        fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 4
+        fn.restype = i32
     for fn in (lib.ghfs_chirp_filter_max_points,
                lib.ghfs_chirp_filter_num_consts,
                lib.ghfs_chirp_filter_max_threads):
@@ -239,7 +249,7 @@ def ghfs_chirp_filter(params, Xi, dt, sgps: SigmaPoints, yss: torch.Tensor,
     ``ghfs_chirp_filter.launches`` counts the kernel launches.
     """
     if yss.requires_grad:
-        raise ValueError("ghfs_chirp_filter has no gradient yet; pass yss "
+        raise ValueError("ghfs_chirp_filter has no gradient; pass yss "
                          "that does not require grad")
     if yss.device.type == "cpu":
         return ghfs_chirp_filter_reference(params, Xi, dt, sgps, yss, m0)

@@ -5,8 +5,11 @@
 // (rotation with decay at the frozen frequency softplus(V), exact
 // Matern-3/2 step), the filter step's parts that a team of P threads per
 // lane computes (sigma-point rows, the team's Householder, the 1-D
-// measurement update), the packed row of the smoother's maps, and the
-// cp.async copies of the backward recursions.
+// measurement update), the packed row of the smoother's maps, the
+// cp.async copies of the backward recursions, and for the sweep
+// objective's adjoint (ghfs_chirp_filter_adjoint.cu) a lane's constants
+// from a row in global memory and the adjoints of the LCD mean, of the
+// 1-D update and of the Cholesky factor.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,8 +23,13 @@ constexpr int kGroup = 3;        // point slots of a group of one xi[0..2]
 constexpr int kMaxThreads = 256;   // threads per block
 constexpr int kWords = kD + kD * kD + 1;   // output words per lane-step
 constexpr int kNumConsts = 4 + 16 + 16 + 4 + 3;
+// Words of the constants in their layout (ChirpConsts, load_consts):
+// F32 from word 0, then Lq^T, L0, m0, the decay, sqrt(Xi), dt.
+constexpr int kLqTWord = 4, kL0Word = 20, kM0Word = 36, kDecayWord = 40,
+              kSqrtXiWord = 41, kDtWord = 42;
 constexpr int kH = 1;            // measured state component
 constexpr double kLog2Pi = 1.8378770664093454835606594728112;
+constexpr double kPi = 3.1415926535897932384626433832795;
 // The packed row of a smoothing step, per lane, B minor: m_p or u (kD),
 // X = R11^-1 R12 or G = X^T (kD * kD, row-major), then the upper triangle
 // of R22 or of D = R22^T R22 (row by row).
@@ -40,21 +48,33 @@ struct ChirpConsts {
   Real dt;
 };
 
-// The constants, computed in float64 on the host, cast to Real.
-template <typename Real>
-ChirpConsts<Real> load_consts(const double* consts) {
+// The constants of one lane from their row `consts` (the layout's
+// words), cast to Real: the host's float64 copy for the one-theta
+// kernels, a lane's row of the (B, kNumConsts) tensor on the card for the
+// per-lane ones.
+template <typename Real, typename Word>
+__host__ __device__ __forceinline__ ChirpConsts<Real> load_consts(
+    const Word* __restrict__ consts) {
   ChirpConsts<Real> c;
-  int p = 0;
+#pragma unroll
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) c.F[i][j] = static_cast<Real>(consts[p++]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) c.F[i][j] = static_cast<Real>(consts[2 * i + j]);
+#pragma unroll
   for (int r = 0; r < kD; ++r)
-    for (int i = 0; i < kD; ++i) c.LqT[r][i] = static_cast<Real>(consts[p++]);
+#pragma unroll
+    for (int i = 0; i < kD; ++i)
+      c.LqT[r][i] = static_cast<Real>(consts[kLqTWord + kD * r + i]);
+#pragma unroll
   for (int i = 0; i < kD; ++i)
-    for (int j = 0; j < kD; ++j) c.L0[i][j] = static_cast<Real>(consts[p++]);
-  for (int i = 0; i < kD; ++i) c.m0[i] = static_cast<Real>(consts[p++]);
-  c.decay = static_cast<Real>(consts[p++]);
-  c.sqrt_xi = static_cast<Real>(consts[p++]);
-  c.dt = static_cast<Real>(consts[p++]);
+#pragma unroll
+    for (int j = 0; j < kD; ++j)
+      c.L0[i][j] = static_cast<Real>(consts[kL0Word + kD * i + j]);
+#pragma unroll
+  for (int i = 0; i < kD; ++i) c.m0[i] = static_cast<Real>(consts[kM0Word + i]);
+  c.decay = static_cast<Real>(consts[kDecayWord]);
+  c.sqrt_xi = static_cast<Real>(consts[kSqrtXiWord]);
+  c.dt = static_cast<Real>(consts[kDtWord]);
   return c;
 }
 
@@ -87,20 +107,32 @@ __device__ __forceinline__ Real softplus(Real x) {
   return (x > Real(0) ? x : Real(0)) + dlog1p(dexp(-dabs(x)));
 }
 
-// The chirp-LCD mean mu of one sigma point chi.
+// The chirp-LCD mean mu of one sigma point chi, with what its adjoint
+// needs: the rotation's cos and sin (before the decay) and
+// softplus(chi_V).
 template <typename Real>
-__device__ __forceinline__ void lcd_mean(const ChirpConsts<Real>& c,
-                                         const Real (&chi)[kD],
-                                         Real (&mu)[kD]) {
+__device__ __forceinline__ void lcd_mean_parts(const ChirpConsts<Real>& c,
+                                               const Real (&chi)[kD],
+                                               Real (&mu)[kD], Real& cos_a,
+                                               Real& sin_a, Real& sp) {
   // The rotation angle dt 2 pi softplus(chi_V), as pi times 2 dt softplus.
-  Real sn, cs;
-  dsincospi(Real(2) * c.dt * softplus(chi[kV]), &sn, &cs);
-  cs *= c.decay;
-  sn *= c.decay;
+  sp = softplus(chi[kV]);
+  dsincospi(Real(2) * c.dt * sp, &sin_a, &cos_a);
+  const Real cs = cos_a * c.decay, sn = sin_a * c.decay;
   mu[0] = cs * chi[0] - sn * chi[1];
   mu[1] = sn * chi[0] + cs * chi[1];
   mu[2] = c.F[0][0] * chi[2] + c.F[0][1] * chi[3];
   mu[3] = c.F[1][0] * chi[2] + c.F[1][1] * chi[3];
+}
+
+// The chirp-LCD mean mu of one sigma point chi (inlined, the parts that
+// only the adjoint reads are dropped).
+template <typename Real>
+__device__ __forceinline__ void lcd_mean(const ChirpConsts<Real>& c,
+                                         const Real (&chi)[kD],
+                                         Real (&mu)[kD]) {
+  Real cos_a, sin_a, sp;
+  lcd_mean_parts(c, chi, mu, cos_a, sin_a, sp);
 }
 
 // Word of entry (r, c), c >= r, of the upper triangle in a packed row.
@@ -343,6 +375,150 @@ __device__ __forceinline__ void measurement_update(
     for (int j = 0; j <= i; ++j) L[i][j] = U[1 + j][1 + i];
   }
   nll += Real(0.5) * (Real(kLog2Pi) + dlog(sS * sS) + innov * innov / (sS * sS));
+}
+
+// Entry (i, j) of a symmetric matrix of which only the lower triangle is
+// computed (i, j constant after unrolling: the upper entries never live).
+template <typename Real>
+__device__ __forceinline__ Real& sym_at(Real (&P)[kD][kD], int i, int j) {
+  return i >= j ? P[i][j] : P[j][i];
+}
+
+template <typename Real>
+__device__ __forceinline__ Real sigmoid(Real x) {
+  const Real e = dexp(-dabs(x));
+  return (x >= Real(0) ? Real(1) : e) / (Real(1) + e);
+}
+
+// The adjoint of lcd_mean at one point: chi_bar from mu_bar, and the
+// constants' adjoints added to gF, g_decay and g_dt.  With u = 2 dt
+// softplus(chi_V) the angle is pi u, so u_bar = pi (sn_bar cs - cs_bar
+// sn), chi_V gets u_bar 2 dt sigmoid(chi_V) and dt gets u_bar 2
+// softplus(chi_V).
+template <typename Real>
+__device__ __forceinline__ void lcd_mean_adjoint(
+    const ChirpConsts<Real>& c, const Real (&chi)[kD], const Real cos_a,
+    const Real sin_a, const Real sp, const Real (&mu_bar)[kD],
+    Real (&chi_bar)[kD], Real (&gF)[2][2], Real& g_decay, Real& g_dt) {
+  const Real cs = cos_a * c.decay, sn = sin_a * c.decay;
+  const Real cs_bar = mu_bar[0] * chi[0] + mu_bar[1] * chi[1];
+  const Real sn_bar = mu_bar[1] * chi[0] - mu_bar[0] * chi[1];
+  const Real u_bar = Real(kPi) * (sn_bar * cs - cs_bar * sn);
+  g_decay += cs_bar * cos_a + sn_bar * sin_a;
+  g_dt += u_bar * Real(2) * sp;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) gF[i][j] += mu_bar[2 + i] * chi[2 + j];
+  chi_bar[0] = cs * mu_bar[0] + sn * mu_bar[1];
+  chi_bar[1] = cs * mu_bar[1] - sn * mu_bar[0];
+  chi_bar[2] = c.F[0][0] * mu_bar[2] + c.F[1][0] * mu_bar[3] +
+               u_bar * Real(2) * c.dt * sigmoid(chi[kV]);
+  chi_bar[3] = c.F[0][1] * mu_bar[2] + c.F[1][1] * mu_bar[3];
+}
+
+// The adjoint of the 1-D update on state kH in covariance terms: S =
+// P_p[kH][kH] + Xi, p = P_p e_kH, m_f = m_p + p innov / S, P_f = P_p - p
+// p^T / S, l = (log 2 pi S + innov^2 / S) / 2, innov = y - m_p[kH].  From
+// the adjoints (mbar, Pbar) of m_f and P_f (Pbar symmetric, lower
+// triangle) and gbar of l, the adjoints of m_p (mp_bar) and of P_p (G,
+// symmetric, lower triangle), and S_bar, the adjoint of S (so of Xi).
+template <typename Real>
+__device__ __forceinline__ void update_adjoint(
+    Real (&Pp)[kD][kD], const Real Xi, const Real innov, const Real gbar,
+    const Real (&mbar)[kD], Real (&Pbar)[kD][kD], Real (&G)[kD][kD],
+    Real (&mp_bar)[kD], Real& S_bar) {
+  const Real S = Pp[kH][kH] + Xi;
+  const Real rS = Real(1) / S;
+  Real p[kD], Pbp[kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) p[i] = sym_at(Pp, i, kH);
+  Real a = Real(0), pPbp = Real(0);
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    Real acc = Real(0);
+#pragma unroll
+    for (int j = 0; j < kD; ++j) acc += sym_at(Pbar, i, j) * p[j];
+    Pbp[i] = acc;
+    a += mbar[i] * p[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kD; ++i) pPbp += p[i] * Pbp[i];
+  const Real innov_bar = (a + gbar * innov) * rS;
+#pragma unroll
+  for (int i = 0; i < kD; ++i) mp_bar[i] = i == kH ? mbar[i] - innov_bar : mbar[i];
+  S_bar = (pPbp - a * innov) * rS * rS +
+          gbar * Real(0.5) * (Real(1) - innov * innov * rS) * rS;
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) G[i][j] = Pbar[i][j];
+  }
+  // G = Pbar + (p_bar e_kH^T + e_kH p_bar^T) / 2 + S_bar e_kH e_kH^T, with
+  // p_bar = (mbar innov - 2 Pbar p) / S.
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    const Real p_bar = (mbar[i] * innov - Real(2) * Pbp[i]) * rS;
+    sym_at(G, i, kH) += i == kH ? p_bar : Real(0.5) * p_bar;
+  }
+  G[kH][kH] += S_bar;
+}
+
+// The adjoint of the lower factor L of P = L L^T (Murray 2016): from
+// Lbar (lower triangle), Pbar = L^-T sym(Phi(L^T Lbar)) L^-1 (lower
+// triangle), Phi the lower triangle with the diagonal halved.  Column
+// signs of L leave it unchanged.  L^-1 by forward substitution.
+template <typename Real>
+__device__ __forceinline__ void cholesky_adjoint(const Real (&L)[kD][kD],
+                                                 const Real (&Lbar)[kD][kD],
+                                                 Real (&Pbar)[kD][kD]) {
+  Real inv[kD][kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    const Real r = Real(1) / L[i][i];
+    inv[i][i] = r;
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      Real acc = L[i][j] * inv[j][j];
+#pragma unroll
+      for (int q = j + 1; q < i; ++q) acc += L[i][q] * inv[q][j];
+      inv[i][j] = -acc * r;
+    }
+  }
+  // Y = sym(Phi(L^T Lbar)): Y_ij = (L^T Lbar)_ij / 2 for i >= j.
+  Real Y[kD][kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      Real acc = Real(0);
+#pragma unroll
+      for (int k = i; k < kD; ++k) acc += L[k][i] * Lbar[k][j];
+      Y[i][j] = Real(0.5) * acc;
+    }
+  }
+  // Z = Y L^-1, then Pbar = L^-T Z.
+  Real Z[kD][kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+#pragma unroll
+    for (int j = 0; j < kD; ++j) {
+      Real acc = Real(0);
+#pragma unroll
+      for (int k = j; k < kD; ++k) acc += sym_at(Y, i, k) * inv[k][j];
+      Z[i][j] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      Real acc = Real(0);
+#pragma unroll
+      for (int k = i; k < kD; ++k) acc += inv[k][i] * Z[k][j];
+      Pbar[i][j] = acc;
+    }
+  }
 }
 
 // One word of global memory into shared memory, asynchronously (cp.async,

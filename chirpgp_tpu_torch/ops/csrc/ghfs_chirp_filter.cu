@@ -82,6 +82,14 @@
 //   Model constants are kernel arguments, computed in float64 on the host
 //   and cast to Real.  Templated on float and double; the double instance
 //   is an on-card oracle.
+// - Per-lane instances (kPerLane; ops/chirp_filter_grad.py, the Table-I
+//   sweep objective): lane b's constants are row b of a (B, kNumConsts)
+//   tensor on the card (each team loads its own, its Lq^T into its slot of
+//   shared memory), and only the final NLL is written, (B,); the means and
+//   factors are written as above for the adjoint kernel
+//   (ghfs_chirp_filter_adjoint.cu).  Together with it they replace the JAX
+//   package's chirpgp_tpu/infer/sqrt.py::sqrt_sgp_filter under
+//   jax.value_and_grad.  The one-theta instances are unchanged.
 
 #include <cuda_runtime.h>
 
@@ -91,38 +99,18 @@
 
 namespace {
 
-// kRows: pre-array rows a member owns, with P kRows >= S + kD.
-template <typename Real, int P, int kRows>
-__global__ void __launch_bounds__(kMaxThreads)
-ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
-                         const Real* __restrict__ xi_g,  // (S, kD)
-                         const Real* __restrict__ w_g,   // (S,)
-                         const Real* __restrict__ sw_g,  // (S,)
-                         const ChirpConsts<Real> c, const int S,
-                         const int T, const int B,
-                         const int lanes_per_block,
-                         Real* __restrict__ mfs,         // (T, kD, B)
-                         Real* __restrict__ lfs,         // (T, kD*kD, B)
-                         Real* __restrict__ nll_out) {   // (T, B)
-  __shared__ Real xi_s[kD][kMaxPoints];
-  __shared__ Real w_s[kMaxPoints];
-  __shared__ Real sw_s[kMaxPoints];
-  __shared__ Real lqt_s[kD][kD];
-  for (int i = threadIdx.x; i < S * kD; i += blockDim.x)
-    xi_s[i % kD][i / kD] = xi_g[i];
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    w_s[i] = w_g[i];
-    sw_s[i] = sw_g[i];
-  }
-  if (threadIdx.x == 0) {   // constant indices: c stays in parameter space
-#pragma unroll
-    for (int i = 0; i < kD * kD; ++i) lqt_s[i / kD][i % kD] = c.LqT[i / kD][i % kD];
-  }
-  __syncthreads();
-
-  const int member = threadIdx.x % P;
-  const int b = blockIdx.x * lanes_per_block + static_cast<int>(threadIdx.x) / P;
-  if (b >= B) return;
+// One lane's filter, run by its team: the constants c (kernel
+// parameters, or the lane's own row), lqt its Lq^T in shared memory.
+// kPerLane: write the final nll only (nll_out (B,)), else every step's
+// cumulative nll (nll_out (T, B)).
+template <typename Real, int P, int kRows, bool kPerLane>
+__device__ __forceinline__ void filter_lane(
+    const ChirpConsts<Real>& c, const Real (&lqt)[kD][kD],
+    const Real (&xi_s)[kD][kMaxPoints], const Real (&w_s)[kMaxPoints],
+    const Real (&sw_s)[kMaxPoints], const Real* __restrict__ ys,
+    const int member, const int b, const int S, const int T, const int B,
+    Real* __restrict__ mfs, Real* __restrict__ lfs,
+    Real* __restrict__ nll_out) {
   const unsigned mask = team_mask<P>();
   const size_t Bs = static_cast<size_t>(B);
   const int n = S + kD;
@@ -153,7 +141,7 @@ ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
       const int q = r < S ? 0 : (r - S < kD ? r - S : kD - 1);
 #pragma unroll
       for (int k = 0; k < kD; ++k) {
-        const Real lq = r < n ? lqt_s[q][k] : Real(0);
+        const Real lq = r < n ? lqt[q][k] : Real(0);
         pre[i][k] = r < S ? sw_s[s] * (pre[i][k] - mp[k]) : lq;
       }
     }
@@ -175,43 +163,107 @@ ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
       } else if (w < kD + kD * kD) {
         const int i = (w - kD) / kD, j = (w - kD) % kD;
         lfs[(ts * kD * kD + (w - kD)) * Bs + b] = j <= i ? L[i][j] : Real(0);
-      } else {
+      } else if (!kPerLane) {
         nll_out[ts * Bs + b] = nll;
       }
     }
   }
+  if (kPerLane && member == 0) nll_out[b] = nll;
 }
 
-template <typename Real, int P, int kRows>
+// kRows: pre-array rows a member owns, with P kRows >= S + kD.
+// kPerLane: lane b's constants are row b of lane_consts (B, kNumConsts),
+// and c is not read; else every lane's are c.
+template <typename Real, int P, int kRows, bool kPerLane>
+__global__ void __launch_bounds__(kMaxThreads)
+ghfs_chirp_filter_kernel(const Real* __restrict__ ys,    // (T, B)
+                         const Real* __restrict__ xi_g,  // (S, kD)
+                         const Real* __restrict__ w_g,   // (S,)
+                         const Real* __restrict__ sw_g,  // (S,)
+                         const ChirpConsts<Real> c,
+                         const Real* __restrict__ lane_consts,
+                         const int S, const int T, const int B,
+                         const int lanes_per_block,
+                         Real* __restrict__ mfs,         // (T, kD, B)
+                         Real* __restrict__ lfs,         // (T, kD*kD, B)
+                         Real* __restrict__ nll_out) {   // (T, B) or (B,)
+  __shared__ Real xi_s[kD][kMaxPoints];
+  __shared__ Real w_s[kMaxPoints];
+  __shared__ Real sw_s[kMaxPoints];
+  __shared__ Real lqt_s[kPerLane ? kMaxThreads / 8 : 1][kD][kD];
+  for (int i = threadIdx.x; i < S * kD; i += blockDim.x)
+    xi_s[i % kD][i / kD] = xi_g[i];
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    w_s[i] = w_g[i];
+    sw_s[i] = sw_g[i];
+  }
+  const int member = threadIdx.x % P;
+  const int slot = static_cast<int>(threadIdx.x) / P;
+  const int b = blockIdx.x * lanes_per_block + slot;
+  if constexpr (kPerLane) {
+    for (int i = member; i < kD * kD; i += P)
+      lqt_s[slot][i / kD][i % kD] =
+          b < B ? lane_consts[static_cast<size_t>(b) * kNumConsts +
+                              kLqTWord + i]
+                : Real(0);
+  } else if (threadIdx.x == 0) {   // constant indices: c stays in parameter space
+#pragma unroll
+    for (int i = 0; i < kD * kD; ++i) lqt_s[0][i / kD][i % kD] = c.LqT[i / kD][i % kD];
+  }
+  __syncthreads();
+
+  if (b >= B) return;
+  if constexpr (kPerLane) {
+    const ChirpConsts<Real> lane = load_consts<Real>(
+        lane_consts + static_cast<size_t>(b) * kNumConsts);
+    filter_lane<Real, P, kRows, true>(lane, lqt_s[slot], xi_s, w_s, sw_s, ys,
+                                      member, b, S, T, B, mfs, lfs, nll_out);
+  } else {
+    filter_lane<Real, P, kRows, false>(c, lqt_s[0], xi_s, w_s, sw_s, ys,
+                                       member, b, S, T, B, mfs, lfs, nll_out);
+  }
+}
+
+template <typename Real, int P, int kRows, bool kPerLane>
 int launch_team(const Real* ys, const Real* xi, const Real* w, const Real* sw,
-                const ChirpConsts<Real>& c, int S, int T, int B,
-                int lanes_per_block, Real* mfs, Real* lfs, Real* nll,
-                cudaStream_t stream) {
+                const ChirpConsts<Real>& c, const Real* lane_consts, int S,
+                int T, int B, int lanes_per_block, Real* mfs, Real* lfs,
+                Real* nll, cudaStream_t stream) {
   if (lanes_per_block < 1 || P * lanes_per_block > kMaxThreads ||
       S + kD > P * kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0 || B == 0) return 0;
   const int blocks = (B + lanes_per_block - 1) / lanes_per_block;
-  ghfs_chirp_filter_kernel<Real, P, kRows>
+  ghfs_chirp_filter_kernel<Real, P, kRows, kPerLane>
       <<<blocks, P * lanes_per_block, 0, stream>>>(
-          ys, xi, w, sw, c, S, T, B, lanes_per_block, mfs, lfs, nll);
+          ys, xi, w, sw, c, lane_consts, S, T, B, lanes_per_block, mfs, lfs,
+          nll);
   return static_cast<int>(cudaGetLastError());
 }
 
+// consts: the host's float64 constants of every lane, or nullptr with
+// lane_consts (B, kNumConsts) on the card, one row per lane.
 template <typename Real>
 int launch(const Real* ys, const Real* xi, const Real* w, const Real* sw,
-           const double* consts, int S, int T, int B, int team, int rows,
-           int lanes_per_block, Real* mfs, Real* lfs, Real* nll,
-           void* stream) {
-  if (S < 1 || S > kMaxPoints || T < 0 || B < 0)
+           const double* consts, const Real* lane_consts, int S, int T, int B,
+           int team, int rows, int lanes_per_block, Real* mfs, Real* lfs,
+           Real* nll, void* stream) {
+  if (S < 1 || S > kMaxPoints || T < 0 || B < 0 ||
+      (consts == nullptr) == (lane_consts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ChirpConsts<Real> c = load_consts<Real>(consts);
+  const ChirpConsts<Real> c =
+      consts != nullptr ? load_consts<Real>(consts) : ChirpConsts<Real>{};
   const auto s = static_cast<cudaStream_t>(stream);
   // The instantiated (team, rows) pairs; ops/chirp_filter.py::ROWS lists
   // the same.
-#define GHFS_LAUNCH(P, ROWS)                                               \
-  launch_team<Real, P, ROWS>(ys, xi, w, sw, c, S, T, B, lanes_per_block,   \
-                             mfs, lfs, nll, s)
+#define GHFS_LAUNCH(P, ROWS)                                                 \
+  (lane_consts != nullptr                                                    \
+       ? launch_team<Real, P, ROWS, true>(ys, xi, w, sw, c, lane_consts, S,  \
+                                          T, B, lanes_per_block, mfs, lfs,   \
+                                          nll, s)                            \
+       : launch_team<Real, P, ROWS, false>(ys, xi, w, sw, c, lane_consts, S, \
+                                           T, B, lanes_per_block, mfs, lfs,  \
+                                           nll, s))
   switch (team * 100 + rows) {
     case 802: return GHFS_LAUNCH(8, 2);
     case 811: return GHFS_LAUNCH(8, 11);
@@ -236,7 +288,7 @@ int ghfs_chirp_filter_f32(const float* ys, const float* xi, const float* w,
                           const float* sw, const double* consts, int S, int T,
                           int B, int team, int rows, int lanes_per_block,
                           float* mfs, float* lfs, float* nll, void* stream) {
-  return launch<float>(ys, xi, w, sw, consts, S, T, B, team, rows,
+  return launch<float>(ys, xi, w, sw, consts, nullptr, S, T, B, team, rows,
                        lanes_per_block, mfs, lfs, nll, stream);
 }
 
@@ -244,8 +296,30 @@ int ghfs_chirp_filter_f64(const double* ys, const double* xi, const double* w,
                           const double* sw, const double* consts, int S, int T,
                           int B, int team, int rows, int lanes_per_block,
                           double* mfs, double* lfs, double* nll, void* stream) {
-  return launch<double>(ys, xi, w, sw, consts, S, T, B, team, rows,
+  return launch<double>(ys, xi, w, sw, consts, nullptr, S, T, B, team, rows,
                         lanes_per_block, mfs, lfs, nll, stream);
+}
+
+// One parameter vector per lane: lane_consts (B, kNumConsts) on the card,
+// nll (B,) the final NLL.
+int ghfs_chirp_filter_lanes_f32(const float* ys, const float* xi,
+                                const float* w, const float* sw,
+                                const float* lane_consts, int S, int T, int B,
+                                int team, int rows, int lanes_per_block,
+                                float* mfs, float* lfs, float* nll,
+                                void* stream) {
+  return launch<float>(ys, xi, w, sw, nullptr, lane_consts, S, T, B, team,
+                       rows, lanes_per_block, mfs, lfs, nll, stream);
+}
+
+int ghfs_chirp_filter_lanes_f64(const double* ys, const double* xi,
+                                const double* w, const double* sw,
+                                const double* lane_consts, int S, int T, int B,
+                                int team, int rows, int lanes_per_block,
+                                double* mfs, double* lfs, double* nll,
+                                void* stream) {
+  return launch<double>(ys, xi, w, sw, nullptr, lane_consts, S, T, B, team,
+                        rows, lanes_per_block, mfs, lfs, nll, stream);
 }
 
 }  // extern "C"

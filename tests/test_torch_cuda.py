@@ -1295,3 +1295,153 @@ def test_expect_var_kernel_takes_unaligned_tensors(cuda, dtype):
     assert torch.equal(torch.isnan(shifted), torch.isnan(aligned))
     ok = ~torch.isnan(aligned)
     assert torch.equal(shifted[ok], aligned[ok])
+
+
+def _lane_deviation(got, want):
+    """The largest over lanes of max |got - want| over the lane's max
+    |want| (rows are lanes)."""
+    g, w = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    return float((np.abs(g - w).max(axis=1) / np.abs(w).max(axis=1)).max())
+
+
+def _theta_grads(cfg, theta):
+    """``dconsts (B, 43) -> (B, 6)``: adjoints of the lanes' constants
+    carried to their thetas through ``chirp_lane_constants`` in float64."""
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import chirp_lane_constants
+    th = theta.double().requires_grad_(True)
+    consts = torch.func.vmap(lambda p: chirp_lane_constants(
+        p, cfg.Xi, cfg.dt))(g(th))
+
+    def to_theta(dconsts):
+        grad, = torch.autograd.grad(consts, th, dconsts.double(),
+                                    retain_graph=True)
+        return grad
+
+    return to_theta
+
+
+def _lane_inputs(device, dtype, quad, B, T):
+    """Per-lane constants (B, 43) at thetas spread around the default
+    init, and B of the Table-I records cut to T, on ``device``."""
+    from chirpgp_tpu_torch.models import g
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import chirp_lane_constants
+    cfg = IFEstimationConfig(method="ghfs", form="sqrt", quadrature=quad)
+    data = np.concatenate([np.load(ROOT / f"results/data/toydata_{m}.npz")
+                           ["ys"][:, :T] for m in ("const", "damped",
+                                                   "random")])[:B]
+    theta = cfg.default_init_theta(torch.float64) + 0.1 * torch.tensor(
+        np.random.default_rng(B).standard_normal((B, 6)))
+    consts = torch.func.vmap(lambda p: chirp_lane_constants(
+        p, cfg.Xi, cfg.dt))(g(theta))
+    return (cfg, theta.to(device, dtype), consts.to(device, dtype),
+            torch.as_tensor(data, dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 300])
+@pytest.mark.parametrize("quad", ["gauss_hermite", "cubature"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_filter_grad_kernels_match_plain(cuda, dtype, quad, B):
+    """The per-lane forward and the adjoint kernel, each launched once
+    (counted), against their plain versions on the same inputs on the
+    card, T=300: float64 nll 1e-12 relative, means and L L^T 1e-9, the
+    adjoint within 1e-9 of each lane's max |adjoint|; float32 against the
+    float64 kernel (the on-card oracle), the adjoint carried to theta, no
+    further over the lanes than twice the float32 plain versions are,
+    plus 1e-5 of each lane's max |grad|, the nll within 2e-5."""
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import (
+        ChirpFilterNLL, adjoint_launcher, filter_nll_adjoint_reference,
+        filter_nll_reference, forward_launcher)
+    tdt = getattr(torch, dtype)
+    T = 300
+    cfg, theta, consts, ys = _lane_inputs(cuda, tdt, quad, B, T)
+    sgps = cfg.sigma_points()
+    gbar = torch.linspace(0.5, 1.5, B, dtype=tdt, device=cuda)
+
+    def kernels(c, y, gb):
+        before = dict(ChirpFilterNLL.launches)
+        launch, (mfs, lfs, nll) = forward_launcher(c, sgps, y)
+        launch()
+        alaunch, dconsts = adjoint_launcher(c, sgps, y, mfs, lfs, gb)
+        alaunch()
+        torch.cuda.synchronize()
+        assert ChirpFilterNLL.launches == {
+            "forward": before["forward"] + 1, "adjoint": before["adjoint"] + 1}
+        return mfs, lfs, nll, dconsts
+
+    mfs, lfs, nll, dconsts = kernels(consts, ys, gbar)
+    pm, pl, pn = filter_nll_reference(consts, sgps, ys)
+    pd = filter_nll_adjoint_reference(consts, sgps, ys, pm, pl, gbar)
+    assert bool(torch.isfinite(dconsts).all())
+    if dtype == "float64":
+        npt.assert_allclose(_np(nll), _np(pn), rtol=1e-12, atol=0)
+        npt.assert_allclose(_np(mfs), _np(pm), rtol=0, atol=1e-9)
+        npt.assert_allclose(_gram(_np(lfs.view(T, 4, 4, B))),
+                            _gram(_np(pl.view(T, 4, 4, B))), rtol=0, atol=1e-9)
+        dev = _lane_deviation(dconsts, pd)
+        assert dev <= 1e-9, dev
+        return
+    _, _, n64, d64 = kernels(consts.double(), ys.double(), gbar.double())
+    npt.assert_allclose(_np(nll), _np(n64), rtol=2e-5, atol=0)
+    # Through the constants to theta, what the sweep's gradient is: dt and
+    # sqrt(Xi) have adjoints but are no functions of theta.
+    to_theta = _theta_grads(cfg, theta)
+    kern = _lane_deviation(to_theta(dconsts), to_theta(d64))
+    plain = _lane_deviation(to_theta(pd), to_theta(d64))
+    assert kern <= 2.0 * plain + 1e-5, (kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quad", ["gauss_hermite", "cubature"])
+def test_sweep_objective_takes_the_kernels(cuda, quad):
+    """``make_nll_fn``'s route under ``batched_value_and_grad`` on the card:
+    one forward and one adjoint launch per evaluation of all lanes, the
+    values and gradients of the host CPU's plain versions (float64, B=33,
+    T=200; 1e-12 relative, 1e-9 of max |grad|); a NaN lane (delta = 0)
+    leaves the others' bits and raises nothing."""
+    from chirpgp_tpu_torch.fit import batched_value_and_grad
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import ChirpFilterNLL
+    cfg, theta, _, ys = _lane_inputs(cuda, torch.float64, quad, 33, 200)
+    out = {}
+    for device in ("cpu", cuda):
+        vg = batched_value_and_grad(lambda th, y: make_nll_fn(cfg, y)(th),
+                                    (ys.to(device),))
+        before = dict(ChirpFilterNLL.launches)
+        values, grads = vg(theta.to(device))
+        launched = {k: ChirpFilterNLL.launches[k] - before[k]
+                    for k in before}
+        assert launched == ({"forward": 0, "adjoint": 0} if device == "cpu"
+                            else {"forward": 1, "adjoint": 1})
+        out[str(device)] = (_np(values), _np(grads))
+    (v_cpu, g_cpu), (v_card, g_card) = out["cpu"], out[str(cuda)]
+    npt.assert_allclose(v_card, v_cpu, rtol=1e-12, atol=0)
+    npt.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-9 * np.abs(g_cpu).max())
+    bad = theta.clone()
+    bad[1, 2] = -800.0
+    vb, gb = batched_value_and_grad(lambda th, y: make_nll_fn(cfg, y)(th),
+                                    (ys,))(bad)
+    assert bool(torch.isnan(vb[1])) and bool(torch.isnan(gb[1]).all())
+    for i in (0, 2):
+        assert float(vb[i]) == float(v_card[i])
+        npt.assert_array_equal(_np(gb[i]), g_card[i])
+
+
+@pytest.mark.cuda
+def test_per_lane_filter_at_one_theta_is_the_filter(cuda):
+    """Every lane at the same constants: the per-lane forward's means,
+    factors and final nll equal the one-theta kernel's bit for bit on the
+    float64 host constants cast to the lanes' dtype (float64)."""
+    from chirpgp_tpu_torch.ops.chirp_filter import _chirp_constants
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import forward_launcher
+    ys = torch.as_tensor(np.load(ROOT / "results/data/toydata_const.npz")
+                         ["ys"][:40, :300], dtype=torch.float64, device=cuda)
+    rule = gauss_hermite(4, 3)
+    consts = torch.as_tensor(_chirp_constants(PARAMS, 0.1, 1e-3),
+                             device=cuda).expand(40, -1).contiguous()
+    launch, (mfs, lfs, nll) = forward_launcher(consts, rule, ys)
+    launch()
+    m1, l1, n1 = ghfs_chirp_filter_kernel(PARAMS, 0.1, 1e-3, rule, ys)
+    torch.cuda.synchronize()
+    assert torch.equal(mfs, m1) and torch.equal(lfs.view(300, 4, 4, 40), l1)
+    assert torch.equal(nll, n1[-1])

@@ -302,11 +302,12 @@ def _imported_modules(path: Path):
 def test_port_never_imports_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "time_smoother.py",
-                                          ROOT / "time_fused.py"]
+                                          ROOT / "time_fused.py",
+                                          ROOT / "time_sweep_objective.py"]
     assert len(files) > 15
     assert {PORT / "models/kpt.py", PORT / "apps/kpt.py",
             PORT / "ops/chirp_filter.py", PORT / "ops/chirp_smoother.py",
-            PORT / "ops/chirp_fused.py",
+            PORT / "ops/chirp_fused.py", PORT / "ops/chirp_filter_grad.py",
             PORT / "quad/integrators.py",
             PORT / "fit/gauss_newton.py", PORT / "baselines/classical.py",
             PORT / "baselines/__init__.py", PORT / "utils/lti.py",
@@ -324,7 +325,8 @@ def test_port_never_imports_jax():
             PORT / "utils/jax_keys.py", PORT / "experiments/__init__.py",
             PORT / "experiments/_common.py",
             PORT / "demos/__init__.py", ROOT / "chip_smoke.py",
-            ROOT / "time_smoother.py", ROOT / "time_fused.py"} \
+            ROOT / "time_smoother.py", ROOT / "time_fused.py",
+            ROOT / "time_sweep_objective.py"} \
         | {PORT / f"experiments/{name}.py" for name in (
             "gen_toymodel_data", "run_rmse_table", "print_table", "run_kpt",
             "run_classical", "run_fhc", "run_fastnls", "run_crlb",
