@@ -20,8 +20,8 @@ Phases, one line each:
 
 1. environment: card, ``nvidia-smi`` name and power limit, torch/CUDA
    versions, the kernels' nvcc build times and ptxas reports of every
-   instance (no register spills allowed but in ``SPILLS_ALLOWED``: the
-   float64 smoother's phase A at P=8 with GH-3's rows);
+   instance (no register spills allowed but in ``SPILLS_ALLOWED``:
+   float64 instances of the smoother's phase A, F and the sweep adjoint);
 2. kernel vs plain PyTorch version on the card: GH-3 and cubature at
    B=512, T=32 on 0.1 N(0, 1) measurements in float32 (atol 5e-5 on
    mfs/nll, 1e-4 on L L^T and on Lfs) and float64 (atol 1e-9), at every
@@ -78,7 +78,9 @@ Phases, one line each:
    5-13 then run in the three lanes of ``LANES``, beside each other on
    the card: this process runs 8, 12, 13 and 9, one spawned process 5, 11
    and 10, another 6 (6a-6d) and 7, each lane its phases in order,
-   giving its cached blocks back to the card as each phase ends;
+   giving its cached blocks back to the card as each phase ends, the
+   parts that hold most of the card's memory (6d, 10c-10e, 13e's
+   ``run_fhc``) one at a time, and the card's memory sampled throughout;
    a spawned lane's phase prints through this process as it ends, and
    every phase's lines are followed by its lane and its span of the run;
 5. the MLE path on seed 0 at full T=3141: ``make_nll_fn`` (cov GHFS,
@@ -114,9 +116,15 @@ Phases, one line each:
    gradient, than twice the float32 plain versions are, plus 1e-6 and
    1e-5); the float32 value-and-grad against the float64 one under the
    same limit, and at T=785 the eager float32 route's (the Python loop
-   under autograd) and the kernels' deviations from the same oracle; each
-   kernel's CUDA-event time alone at B=300 float32 and float64 and at
-   B=4096, beside its bound, timed before the lanes start; 7d the ghfs column of Table I, the whole
+   under autograd) and the kernels' deviations from the same oracle; the
+   kernels against their plain versions under the same limits at B=4096,
+   T=3141 (the 300 records repeated, one theta per lane: the adjoint's
+   team of 8), but for the float64 value, which is printed there; each kernel's CUDA-event time alone at B=300 float32
+   and float64 and at B=4096, beside its bound and the adjoint's geometry
+   (its chain design while its blocks fit the SMs at once, a team of 32
+   up to 16 lanes per SM, of 8 beyond), and the adjoint's chain floor as ``PERF.md`` records it
+   (``SWEEP_CHAIN_FLOOR_MS``), timed before the lanes start; 7d the ghfs
+   column of Table I, the whole
    ``mle_sweep_on_measurements`` at B=300, T=3141, 200 iterations, each
    stage timed, the kernels' launches counted: per magnitude the median
    IF-RMSE x10 within 2% (const, damped) or 5% (random) of the JAX
@@ -252,7 +260,10 @@ then one entry for each kernel of the sweep objective
 ``chirpgp_tpu/infer/sqrt.py:170``): its launches in 7d's column (and
 per evaluation in 7a), its deviation from its plain version in float32
 and the plain version's time, both at B=300, T=3141, its time alone and
-bound there in float32, ``ms_f64`` and ``ms_b4096`` with their bounds.  The smoother's ``bound_ms`` counts the
+bound there in float32, ``ms_f64`` and ``ms_b4096`` with their bounds,
+the adjoint's ``geometry`` and ``geometry_b4096``, and the deviations
+from the plain versions at B=4096 (``max_abs_err_b4096``,
+``plain_ms_b4096``).  The smoother's ``bound_ms`` counts the
 least work of the function (``ops/chirp_smoother.py::smoother_cost``:
 the smoother's step in the lesser of two square-root forms); each
 kernel's, its own work and bytes, its phase A's rows included
@@ -360,12 +371,19 @@ FUSED_REPLACES = {"fused_forward": "chirpgp_tpu/infer/batched.py:297",
 # scheduler, which leaves 168 registers a thread, and ptxas spills the
 # team's float64 rows (1928 B of spill stores at P=8 with GH-3's 4 groups,
 # 732 B at P=32 with 3, on an H100); float64 is off the benchmark's path.
-# And the float64 adjoint of the sweep objective with GH-3's 3 points per
-# member: 255 registers and 264 B of spill stores (H100); the sweep's
-# float64 is the polish's.
+# And the float64 adjoint of the sweep objective: the team design's at
+# 255 registers (1128 B of spill stores at 11 points a member of 8, 80 B
+# at 2, 264 B at 3 of 32, on an H100) and the chain design's at 168 (its
+# blocks of up to 3 lanes of 1 + K warps: 32-144 B); the sweep's float64
+# is the polish's.
 SPILLS_ALLOWED = {("smoother_rows", "f64", 11), ("fused_forward", "f64", 8, 4),
                   ("fused_forward", "f64", 32, 3),
-                  ("ghfs_chirp_filter_adjoint", "f64", 3)}
+                  ("adjoint_team", "f64", 8, 11),
+                  ("adjoint_team", "f64", 8, 2),
+                  ("adjoint_team", "f64", 32, 3),
+                  ("adjoint_chain", "f64", 1, 2),
+                  ("adjoint_chain", "f64", 3, 2),
+                  ("adjoint_chain", "f64", 3, 3)}
 # Phase 3b: CUDA-event launches after one warm-up, and the H100 SXM's
 # published peaks (NVIDIA data sheet, dense, at 700 W): float32 and float64
 # outside the tensor cores, and HBM3.
@@ -413,6 +431,12 @@ SWEEP_EAGER_T, SWEEP_THETA_SPREAD = 785, 0.1
 SWEEP_F64_NLL_RTOL, SWEEP_F64_GRAD_TOL = 1e-12, 1e-9
 SWEEP_F32_FACTOR, SWEEP_F32_VALUE_FLOOR, SWEEP_F32_GRAD_FLOOR = 2.0, 1e-6, 1e-5
 SWEEP_MEDIAN_RTOL = {"const": 0.02, "damped": 0.02, "random": 0.05}
+# The adjoint's chain floor at B=300, T=3141, GH-3 float32: the carried
+# chain's cycles a step in the team design of 32 (the design before the
+# chain design) times T at the SM clock, by time_sweep_objective.py
+# --breakdown on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).  7a prints
+# it beside the shipped kernel's time.
+SWEEP_CHAIN_FLOOR_MS = 2.1172
 SWEEP_MAX_FAILED = 3
 SWEEP_SOURCES = {"ghfs_chirp_filter_lanes": KERNEL_SOURCE,
                  "ghfs_chirp_filter_adjoint":
@@ -721,10 +745,47 @@ LANES = (("family", "sharded", "entry_points", "table_one"),
          ("mle", "parallel_posterior", "analysis"),
          ("fused", "sweep"))
 LANE_JOIN_S = 900
+# The card's memory, all processes together, is sampled every
+# MEMORY_WATCH_S seconds while the lanes run and reported by phase span
+# and in bins of MEMORY_BIN_S seconds (``CardMemoryWatch``).  The parts
+# of the lanes that hold most of it take turns (``memory_turn``): 6d
+# (25 GiB reserved), 10c-10e (phase 10 reached 40 GiB reserved before
+# each of its parts gave its blocks back as it ended) and 13e's run_fhc
+# child, each giving its blocks back to the card before the next begins;
+# a turn not had within MEMORY_TURN_WAIT_S fails the run.  Without turns
+# the lanes met at 58 GiB of 79 in one run, and another run ran out of the
+# card's memory.
+MEMORY_WATCH_S, MEMORY_BIN_S, MEMORY_TURN_WAIT_S = 0.2, 10, 600
+# The lanes' lock of memory turns (set as the lanes start, in each of
+# their processes) and the seconds this process has waited for it.
+MEMORY_TURN = dict(lock=None, wait_s=0.0)
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def memory_turn(device):
+    """The block runs alone among the lanes' memory-heavy blocks: it waits
+    for the lanes' lock (MEMORY_TURN; none outside the lanes) and gives
+    this process's cached blocks back to the card before it lets the next
+    one in."""
+    lock = MEMORY_TURN["lock"]
+    if lock is None:
+        yield
+        return
+    t0 = time.monotonic()
+    check(lock.acquire(timeout=MEMORY_TURN_WAIT_S),
+          f"no memory turn within {MEMORY_TURN_WAIT_S} s")
+    MEMORY_TURN["wait_s"] += time.monotonic() - t0
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        lock.release()
 
 
 def check(ok: bool, what: str):
@@ -811,7 +872,8 @@ def deviations(kern, plain):
 
 # Phase 1: the names of each kernel's template integers in ptxas's report.
 TEMPLATE_NAMES = {"ghfs_chirp_filter": ("P", "rows", "per_lane"),
-                  "ghfs_chirp_filter_adjoint": ("rows",),
+                  "adjoint_team": ("P", "rows"),
+                  "adjoint_chain": ("rows", "producers"),
                   "smoother_rows": ("rows",),
                   "fused_forward": ("P", "groups"),
                   "affine_backward": ("slim",)}
@@ -862,8 +924,9 @@ def phase_environment(device):
           f"{built['filter'].build_seconds:.2f} s, smoother "
           f"{built['smoother'].build_seconds:.2f} s, fused "
           f"{built['fused'].build_seconds:.2f} s, adjoint "
-          f"{built['adjoint'].build_seconds:.2f} s) | ptxas (fused_forward: "
-          f"one count for its team and consumer warps): {' '.join(ptxas)}")
+          f"{built['adjoint'].build_seconds:.2f} s) | ptxas (fused_forward, "
+          f"adjoint_chain: one count for both roles of their warps): "
+          f"{' '.join(ptxas)}")
     print(smi)
     check(not spills, f"ptxas reports register spills: {spills}")
     return smi
@@ -1759,99 +1822,101 @@ def phase_fused(device, if_ref, t_ref):
                     f"full slices: {slim_equal}")
     del mfs, Lfs, mss, Lss, Pss, ms_f, Ls_f, Ps_f, ms_c, Ps_c, ms_k, Ps_k
 
-    # 6d: bench.py's headline, B=4096, T=3141, GH-3, f32, out_index=2, then
-    # the GH-10 expectation of g(V): F, G and E once each.
-    yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
-    ghfs_chirp_filter_smoother.launches = gaussian_expectation_g.launches = 0
-    ghfs_chirp_filter_smoother.kernel_launches = dict.fromkeys(KERNELS, 0)
-    (if_mean, nll), t_call = timed(fused_headline, yss)
-    launches = {**ghfs_chirp_filter_smoother.kernel_launches,
-                "smoother_expect_var": gaussian_expectation_g.launches}
-    want = dict(fused_forward=1, affine_backward=1, smoother_compose=0,
-                smoother_carry=0, smoother_backward=0, smoother_expect_var=1)
-    check(ghfs_chirp_filter_smoother.launches == 1 and launches == want,
-          f"6d: the call launched {launches}, not {want}")
-    for name, x in (("if_mean", if_mean), ("nll", nll)):
-        check(bool(torch.isfinite(x).all()), f"6d: non-finite {name}")
-    dev_if = scaled_dev(if_mean.T, if_ref)
-    check(dev_if <= FUSED_IF_BOUND,
-          f"6d: fused IF mean vs estimate_if_batched {dev_if} > "
-          f"{FUSED_IF_BOUND}")
-    # Each kernel alone against its plain twin on the same inputs.
-    bound = FUSED_KERNEL_BOUNDS["float32"]
-    like = dict(dtype=yss.dtype, device=device)
-    kernels = FusedKernels(params, XI, DT, rule, yss.dtype, device)
-    rows = torch.empty((T_FULL - 1, ROW_WORDS, B_FULL), **like)
-    mf = torch.empty((1, 4, B_FULL), **like)
-    lf = torch.empty((1, 16, B_FULL), **like)
-    nll_k = torch.empty((T_FULL, B_FULL), **like)
-    kernels.forward(yss.T.contiguous(), rows, mf, lf, nll_k, False)
-    twin, t_f = timed(fused_forward_reference, params, XI, DT, rule, yss)
-    # The on-card oracle: F in float64 on the same measurements, in factor
-    # mode, its maps derived (G = X^T, u = mf_{t-1} - G m_p, D = R22^T R22).
-    oracle = fused_oracle_maps(params, rule, yss.double())
-    # u = mf_{t-1} - G m_p cancels: its float32 rounding is on the scale of
-    # the filtered means, which the f32 twin shows against the oracle too.
-    u_scale = oracle["mf_scale"]
-    pairs = {"fused_forward": [(rows[:, 4:20], twin.rows[:, 4:20]),
-                               (rows[:, 20:], twin.rows[:, 20:]),
-                               (mf, twin.mfs), (nll_k, twin.nll),
-                               (*(torch.einsum("tikb,tjkb->tijb", x, x) for x
-                                  in (lf.view(1, 4, 4, B_FULL), twin.Lfs)),)]}
-    u_dev = {name: float((x[:, :4].double() - oracle["rows"][:, :4]).abs()
-                         .max()) for name, x in (("kernel", rows),
-                                                 ("twin", twin.rows))}
-    u_dev["kernel vs twin"] = float((rows[:, :4].double()
-                                     - twin.rows[:, :4]).abs().max())
-    oracle_dev = {name: max(scaled_dev(x[:, 4:], oracle["rows"][:, 4:]),
-                            scaled_dev(n, oracle["nll"]))
-                  for name, x, n in (("kernel", rows, nll_k),
-                                     ("twin", twin.rows, twin.nll))}
-    del twin, oracle
-    check(u_dev["kernel vs twin"] / u_scale <= bound,
-          f"6d fused_forward u vs its plain twin: |d| "
-          f"{u_dev['kernel vs twin']} over the means' scale {u_scale} > "
-          f"{bound}")
-    vm = torch.empty((T_FULL, B_FULL), **like)
-    vv = torch.empty((T_FULL, B_FULL), **like)
-    kernels.backward(rows, mf, lf, vm, vv, 2)
-    twin, t_g = timed(affine_backward_reference, rows, mf[0],
-                      lf[0].view(4, 4, B_FULL), 2)
-    pairs["affine_backward"] = list(zip((vm, vv), twin))
-    ie = gaussian_expectation_g(vm, vv, order)
-    twin, t_e = timed(smoother_expect_var_reference, vm.double(), vv.double(),
-                      order)
-    within = expect_within(ie, twin)
-    check(within <= 1.0, f"6d smoother_expect_var vs its float64 pair-form "
-                         f"twin: |d| at {within} of its allowance")
-    pairs["smoother_expect_var"] = [(ie, twin)]
-    out, kparts = {}, []
-    for kernel, t in zip(pairs, (t_f, t_g, t_e)):
-        err = max(float((a.double() - b.double()).abs().max())
-                  for a, b in pairs[kernel])
-        scaled = max(scaled_dev(a, b) for a, b in pairs[kernel])
-        check(scaled <= bound, f"6d {kernel} vs its plain twin: scaled |d| "
-                               f"{scaled} > {bound}")
-        if kernel == "fused_forward":
-            err = max(err, u_dev["kernel vs twin"])
-        out[kernel] = (launches[kernel], err, 1e3 * t)
-        kparts.append(f"{kernel} max|d| {err!r} (scaled {scaled:.3g}), twin "
-                      f"{t:.3f} s")
-    kparts.insert(1, f"F's u: max|d| kernel vs twin "
-                     f"{u_dev['kernel vs twin']!r}, each from the float64 "
-                     f"oracle: kernel {u_dev['kernel']!r}, twin "
-                     f"{u_dev['twin']!r} (the means' scale {u_scale!r}); F's "
-                     f"G, D and nll scaled from the oracle: kernel "
-                     f"{oracle_dev['kernel']:.3g}, twin "
-                     f"{oracle_dev['twin']:.3g}")
-    del pairs, twin, rows, kernels
-    # The CUDA kernels of one call (the host-to-device copies of the rule's
-    # tables apart: the profiler records a varying number of them), at the
-    # full T and at SLICE_SHORT_T, in a child process on the same card.
-    with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        profs = pool.submit(fused_headline_profiles, str(device),
-                            (T_FULL, SLICE_SHORT_T)).result()
+    # 6d holds 25 GiB of the card at its peak: in a memory turn.
+    with memory_turn(device):
+        # 6d: bench.py's headline, B=4096, T=3141, GH-3, f32, out_index=2, then
+        # the GH-10 expectation of g(V): F, G and E once each.
+        yss = measurements(B_FULL, T_FULL, 999, torch.float32, device)
+        ghfs_chirp_filter_smoother.launches = gaussian_expectation_g.launches = 0
+        ghfs_chirp_filter_smoother.kernel_launches = dict.fromkeys(KERNELS, 0)
+        (if_mean, nll), t_call = timed(fused_headline, yss)
+        launches = {**ghfs_chirp_filter_smoother.kernel_launches,
+                    "smoother_expect_var": gaussian_expectation_g.launches}
+        want = dict(fused_forward=1, affine_backward=1, smoother_compose=0,
+                    smoother_carry=0, smoother_backward=0, smoother_expect_var=1)
+        check(ghfs_chirp_filter_smoother.launches == 1 and launches == want,
+              f"6d: the call launched {launches}, not {want}")
+        for name, x in (("if_mean", if_mean), ("nll", nll)):
+            check(bool(torch.isfinite(x).all()), f"6d: non-finite {name}")
+        dev_if = scaled_dev(if_mean.T, if_ref)
+        check(dev_if <= FUSED_IF_BOUND,
+              f"6d: fused IF mean vs estimate_if_batched {dev_if} > "
+              f"{FUSED_IF_BOUND}")
+        # Each kernel alone against its plain twin on the same inputs.
+        bound = FUSED_KERNEL_BOUNDS["float32"]
+        like = dict(dtype=yss.dtype, device=device)
+        kernels = FusedKernels(params, XI, DT, rule, yss.dtype, device)
+        rows = torch.empty((T_FULL - 1, ROW_WORDS, B_FULL), **like)
+        mf = torch.empty((1, 4, B_FULL), **like)
+        lf = torch.empty((1, 16, B_FULL), **like)
+        nll_k = torch.empty((T_FULL, B_FULL), **like)
+        kernels.forward(yss.T.contiguous(), rows, mf, lf, nll_k, False)
+        twin, t_f = timed(fused_forward_reference, params, XI, DT, rule, yss)
+        # The on-card oracle: F in float64 on the same measurements, in factor
+        # mode, its maps derived (G = X^T, u = mf_{t-1} - G m_p, D = R22^T R22).
+        oracle = fused_oracle_maps(params, rule, yss.double())
+        # u = mf_{t-1} - G m_p cancels: its float32 rounding is on the scale of
+        # the filtered means, which the f32 twin shows against the oracle too.
+        u_scale = oracle["mf_scale"]
+        pairs = {"fused_forward": [(rows[:, 4:20], twin.rows[:, 4:20]),
+                                   (rows[:, 20:], twin.rows[:, 20:]),
+                                   (mf, twin.mfs), (nll_k, twin.nll),
+                                   (*(torch.einsum("tikb,tjkb->tijb", x, x) for x
+                                      in (lf.view(1, 4, 4, B_FULL), twin.Lfs)),)]}
+        u_dev = {name: float((x[:, :4].double() - oracle["rows"][:, :4]).abs()
+                             .max()) for name, x in (("kernel", rows),
+                                                     ("twin", twin.rows))}
+        u_dev["kernel vs twin"] = float((rows[:, :4].double()
+                                         - twin.rows[:, :4]).abs().max())
+        oracle_dev = {name: max(scaled_dev(x[:, 4:], oracle["rows"][:, 4:]),
+                                scaled_dev(n, oracle["nll"]))
+                      for name, x, n in (("kernel", rows, nll_k),
+                                         ("twin", twin.rows, twin.nll))}
+        del twin, oracle
+        check(u_dev["kernel vs twin"] / u_scale <= bound,
+              f"6d fused_forward u vs its plain twin: |d| "
+              f"{u_dev['kernel vs twin']} over the means' scale {u_scale} > "
+              f"{bound}")
+        vm = torch.empty((T_FULL, B_FULL), **like)
+        vv = torch.empty((T_FULL, B_FULL), **like)
+        kernels.backward(rows, mf, lf, vm, vv, 2)
+        twin, t_g = timed(affine_backward_reference, rows, mf[0],
+                          lf[0].view(4, 4, B_FULL), 2)
+        pairs["affine_backward"] = list(zip((vm, vv), twin))
+        ie = gaussian_expectation_g(vm, vv, order)
+        twin, t_e = timed(smoother_expect_var_reference, vm.double(), vv.double(),
+                          order)
+        within = expect_within(ie, twin)
+        check(within <= 1.0, f"6d smoother_expect_var vs its float64 pair-form "
+                             f"twin: |d| at {within} of its allowance")
+        pairs["smoother_expect_var"] = [(ie, twin)]
+        out, kparts = {}, []
+        for kernel, t in zip(pairs, (t_f, t_g, t_e)):
+            err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in pairs[kernel])
+            scaled = max(scaled_dev(a, b) for a, b in pairs[kernel])
+            check(scaled <= bound, f"6d {kernel} vs its plain twin: scaled |d| "
+                                   f"{scaled} > {bound}")
+            if kernel == "fused_forward":
+                err = max(err, u_dev["kernel vs twin"])
+            out[kernel] = (launches[kernel], err, 1e3 * t)
+            kparts.append(f"{kernel} max|d| {err!r} (scaled {scaled:.3g}), twin "
+                          f"{t:.3f} s")
+        kparts.insert(1, f"F's u: max|d| kernel vs twin "
+                         f"{u_dev['kernel vs twin']!r}, each from the float64 "
+                         f"oracle: kernel {u_dev['kernel']!r}, twin "
+                         f"{u_dev['twin']!r} (the means' scale {u_scale!r}); F's "
+                         f"G, D and nll scaled from the oracle: kernel "
+                         f"{oracle_dev['kernel']:.3g}, twin "
+                         f"{oracle_dev['twin']:.3g}")
+        del pairs, twin, rows, kernels
+        # The CUDA kernels of one call (the host-to-device copies of the rule's
+        # tables apart: the profiler records a varying number of them), at the
+        # full T and at SLICE_SHORT_T, in a child process on the same card.
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            profs = pool.submit(fused_headline_profiles, str(device),
+                                (T_FULL, SLICE_SHORT_T)).result()
     counts = {T: sum(not n.startswith(("Memcpy", "Memset"))
                      for n in prof.names) for T, prof in profs.items()}
     hand = {k: sum(f"{k}_kernel" in n for n in profs[T_FULL].names)
@@ -2072,14 +2137,18 @@ def sweep_bare_launches(device, smi):
     kernel, each launched alone, timed before the lanes start while this
     process has the card to itself: at the Table-I column (B=300, T=3141)
     in float32 and float64 and at bench.py's B=4096 in float32, GH-3, at
-    the default init theta, beside each its bound.  Returns {kernel:
-    {case: dict(ms, bound_ms, bound_by)}}."""
+    the default init theta, beside each its bound and the adjoint's
+    geometry, and at B=300 float32 the adjoint's chain floor as recorded
+    (``SWEEP_CHAIN_FLOOR_MS``).  Returns {kernel: {case: dict(ms,
+    bound_ms, bound_by[, geometry])}}."""
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.ops.chirp_filter_grad import (
-        adjoint_cost, adjoint_launcher, forward_cost, forward_launcher)
+        adjoint_cost, adjoint_geometry, adjoint_launcher, forward_cost,
+        forward_launcher)
     cfg = IFEstimationConfig(method="ghfs", form="sqrt")
     rule = cfg.sigma_points()
     S = rule.n_points
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     t_phase = time.perf_counter()
     out = {name: {} for name in SWEEP_SOURCES}
     parts = []
@@ -2106,9 +2175,22 @@ def sweep_bare_launches(device, smi):
                 ("ghfs_chirp_filter_adjoint", adj, adjoint_cost)):
             flop, nbytes, b_ms, by = bound_ms(S, T, B, dtype, cost)
             out[name][case] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
+            geo = ""
+            if name == "ghfs_chirp_filter_adjoint":
+                g = adjoint_geometry(B, S, sms, dtype)
+                out[name][case]["geometry"] = g._asdict()
+                geo = (f", {g.design} design: team {g.team}, rows {g.rows}"
+                       f", producers {g.producers}, ring {g.ring}, "
+                       f"{g.lanes_per_block} lanes x {g.blocks} blocks")
             parts.append(f"{name} {case}: {ms!r} ms, bound {b_ms:.4f} ms "
                          f"({by}; {flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
-                         f"MB), {100 * b_ms / ms:.2f}% of it")
+                         f"MB), {100 * b_ms / ms:.2f}% of it{geo}")
+        if case == "B=300/f32":
+            parts.append(
+                f"the adjoint's chain floor {case} as recorded "
+                f"(SWEEP_CHAIN_FLOOR_MS, time_sweep_objective.py "
+                f"--breakdown): {SWEEP_CHAIN_FLOOR_MS} ms, "
+                f"{100 * SWEEP_CHAIN_FLOOR_MS / adj:.1f}% of this launch")
         del mfs, lfs, dconsts
     torch.cuda.empty_cache()
     print(f"phase 7a bare launches ({time.perf_counter() - t_phase:.3f} s; "
@@ -2131,22 +2213,26 @@ def value_deviation(values, oracle):
     return float(((v - o) / o).abs().max())
 
 
-def sweep_kernels_vs_plain(device, ys, theta, parts):
+def sweep_kernels_vs_plain(device, ys, theta, parts, gate_f64_value=True):
     """7a's kernels, launched directly (not counted on the path), against
-    their plain versions on the same inputs at the main path's shapes:
-    ``ys`` (B, T), one theta per lane (``theta`` (B, 6), float64), the
-    constants built from it in each dtype as the path builds them, the
-    upstream gradient 1, GH-3; float64 and float32, each plain version
-    timed on the host clock.  Returns {dtype: readings}, the float32 ones
-    with the value's and the theta gradient's deviation from the float64
-    kernels, of the kernels and of the plain versions."""
+    their plain versions on the same inputs: ``ys`` (B, T), one theta per
+    lane (``theta`` (B, 6), float64), the constants built from it in each
+    dtype as the path builds them, the upstream gradient 1, GH-3; float64
+    and float32, each plain version timed on the host clock.  Without
+    ``gate_f64_value`` the float64 value's deviation is printed, not
+    held.  Returns {dtype: readings}, the float32 ones with the value's
+    and the theta gradient's deviation from the float64 kernels, of the
+    kernels and of the plain versions."""
     from chirpgp_tpu_torch.apps import IFEstimationConfig
     from chirpgp_tpu_torch.ops.chirp_filter_grad import (
-        adjoint_launcher, filter_nll_adjoint_reference, filter_nll_reference,
-        forward_launcher)
+        adjoint_geometry, adjoint_launcher, filter_nll_adjoint_reference,
+        filter_nll_reference, forward_launcher)
     from chirpgp_tpu_torch.utils.timing import timed
     rule = IFEstimationConfig(method="ghfs", form="sqrt").sigma_points()
     B = ys.shape[0]
+    geo = adjoint_geometry(
+        B, rule.n_points,
+        torch.cuda.get_device_properties(device).multi_processor_count)
     th = theta.clone().requires_grad_(True)
     consts64 = sweep_lane_constants(th)
 
@@ -2178,8 +2264,11 @@ def sweep_kernels_vs_plain(device, ys, theta, parts):
             plain_adj_s=adj_s, nll=(nll_k, nll_p), grad=(to_theta(d_k),
                                                        to_theta(d_p)))
         del mfs, lfs, pm, pl
+    # The plain versions' blocks back to the card before 7d: the lanes
+    # share its memory.
+    torch.cuda.empty_cache()
     r64, r32 = out[torch.float64], out[torch.float32]
-    check(r64["nll_rel"] <= SWEEP_F64_NLL_RTOL
+    check((r64["nll_rel"] <= SWEEP_F64_NLL_RTOL or not gate_f64_value)
           and r64["adjoint_rel"] <= SWEEP_F64_GRAD_TOL,
           f"7a: float64 kernels vs plain at B={B}, T={ys.shape[1]}: nll rel "
           f"{r64['nll_rel']}, adjoint {r64['adjoint_rel']}")
@@ -2193,12 +2282,16 @@ def sweep_kernels_vs_plain(device, ys, theta, parts):
           + SWEEP_F32_VALUE_FLOOR
           and r32["grad_kernel"] <= SWEEP_F32_FACTOR * r32["grad_plain"]
           + SWEEP_F32_GRAD_FLOOR,
-          f"7a: float32 kernels vs the float64 kernels at T={ys.shape[1]}: "
+          f"7a: float32 kernels vs the float64 kernels at B={B}, "
+          f"T={ys.shape[1]}: "
           f"value rel {r32['value_kernel']}, grad {r32['grad_kernel']}; the "
           f"float32 plain versions {r32['value_plain']}, {r32['grad_plain']}")
     parts.append(
-        f"kernels vs plain at B={B}, T={ys.shape[1]}, one theta per lane: "
-        f"f64 nll rel {r64['nll_rel']:.3g}, adjoint {r64['adjoint_rel']:.3g} "
+        f"kernels vs plain at B={B}, T={ys.shape[1]}, one theta per lane "
+        f"(the adjoint's {geo.design} design, team {geo.team}): "
+        f"f64 nll rel {r64['nll_rel']:.3g}"
+        f"{'' if gate_f64_value else ' (printed, not held)'}, adjoint "
+        f"{r64['adjoint_rel']:.3g} "
         f"of each lane's max; f32 nll rel {r32['nll_rel']:.3g}, adjoint "
         f"{r32['adjoint_rel']:.3g}; f32 against the f64 kernels: the kernels "
         f"value rel {r32['value_kernel']:.3g}, grad {r32['grad_kernel']:.3g} "
@@ -2214,8 +2307,8 @@ def phase_sweep_objective(device, ys, parts):
     """7a: one vmapped value-and-grad of the sweep objective at the
     Table-I width and full T through the two kernels, one theta per lane,
     against the float64 kernels, the plain versions and the eager route.
-    Returns (launches per evaluation, sweep_kernels_vs_plain's
-    readings)."""
+    Returns (launches per evaluation, (sweep_kernels_vs_plain's readings
+    at B, at B_FULL))."""
     from chirpgp_tpu_torch.apps import IFEstimationConfig, make_nll_fn
     from chirpgp_tpu_torch.apps.pipeline import _filter_fns, _on_data
     from chirpgp_tpu_torch.fit import batched_value_and_grad
@@ -2272,6 +2365,13 @@ def phase_sweep_objective(device, ys, parts):
           f"7a: float32 value-and-grad vs the float64 one at T={SWEEP_T}: "
           f"value rel {dv}, grad {dg}; the float32 plain versions "
           f"{r32['value_plain']}, {r32['grad_plain']}")
+    # The bare launches' width, B=4096 (the adjoint's team of 8): the
+    # records repeated, one theta per lane, the same limits but for the
+    # float64 value's, which the main path's width holds (its relative
+    # round-off over 4096 lanes reached 1.07e-12 on an H100).
+    wide = sweep_kernels_vs_plain(
+        device, ys.repeat(-(-B_FULL // B), 1)[:B_FULL],
+        sweep_thetas(B_FULL, device), parts, gate_f64_value=False)
     prof = profile_device(lambda: batched_value_and_grad(nll, (ys,))(theta))
     parts.insert(0,
         f"7a value-and-grad B={B} T={SWEEP_T} f32 through the kernels, one "
@@ -2284,7 +2384,7 @@ def phase_sweep_objective(device, ys, parts):
         f"T={SWEEP_EAGER_T}: the eager f32 route value rel {dv_eager:.3g}, "
         f"grad {dg_eager:.3g} ({t_eager:.3f} s), the f32 kernels "
         f"{dv_k785:.3g}, {dg_k785:.3g}")
-    return per_eval, readings
+    return per_eval, (readings, wide)
 
 
 def phase_sweep(device, smi, bare):
@@ -2369,7 +2469,7 @@ def phase_sweep(device, smi, bare):
     print(f"phase 7 sweep ({time.perf_counter() - t_phase:.3f} s; {smi}; "
           f"one-theta filter kernel launches {ghfs_chirp_filter.launches}: "
           f"not on the sweep path): " + "; ".join(parts), flush=True)
-    r32 = readings[torch.float32]
+    r32, wide32 = (r[torch.float32] for r in readings)
     return {name: dict({
         "name": name, "route": "cuda", "source": SWEEP_SOURCES[name],
         "replaces": SWEEP_REPLACES, "launches": launches[key],
@@ -2383,7 +2483,14 @@ def phase_sweep(device, smi, bare):
         "ms_f64": bare[name]["B=300/f64"]["ms"],
         "bound_ms_f64": bare[name]["B=300/f64"]["bound_ms"],
         "ms_b4096": bare[name]["B=4096/f32"]["ms"],
-        "bound_ms_b4096": bare[name]["B=4096/f32"]["bound_ms"]})
+        "bound_ms_b4096": bare[name]["B=4096/f32"]["bound_ms"],
+        "max_abs_err_b4096": wide32["nll_abs" if key == "forward"
+                                    else "adjoint_abs"],
+        "plain_ms_b4096": 1e3 * wide32["plain_fwd_s" if key == "forward"
+                                       else "plain_adj_s"],
+        **({"geometry": bare[name]["B=300/f32"]["geometry"],
+            "geometry_b4096": bare[name]["B=4096/f32"]["geometry"]}
+           if key == "adjoint" else {})})
         for name, key in (("ghfs_chirp_filter_lanes", "forward"),
                           ("ghfs_chirp_filter_adjoint", "adjoint"))}
 
@@ -3166,10 +3273,18 @@ def phase_analysis(device, smi, crlb_ms):
     t_phase = t_sub = time.perf_counter()
 
     def say(line):
-        """Print a sub-phase's line with its seconds, as it ends."""
+        """Print a sub-phase's line with its seconds and this process's
+        peak of reserved card memory, as it ends, and give its cached
+        blocks back to the card."""
         nonlocal t_sub
         now = time.perf_counter()
-        print(f"phase {line} ({now - t_sub:.3f} s)", flush=True)
+        print(f"phase {line} ({now - t_sub:.3f} s; peak reserved "
+              f"{torch.cuda.max_memory_reserved(device) / 2 ** 30:.2f} GiB)"
+              if device.type == "cuda" else
+              f"phase {line} ({now - t_sub:.3f} s)", flush=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
         t_sub = now
 
     with concurrent.futures.ProcessPoolExecutor(
@@ -3288,89 +3403,92 @@ def phase_analysis(device, smi, crlb_ms):
             f"{float(np.load(ref_path)['mean_err_x2'].mean())!r}, "
             f"{float(np.load(ref_path)['mean_err_v'].mean())!r})")
 
-        # 10c: the EKF through the vmap backend, N cut.
-        res_ekf, t_ekf = timed(filter_error_mc_chunked, *CRLB_ARGS,
-                               CRLB_EKF_N, method="ekf", dt=CRLB_DT,
-                               T=CRLB_T, chunk=CRLB_CHUNK, device=device)
-        held = crlb_vs_reference(res_ekf, ROOT / "results/crlb_ekf_lam0.1_"
-                                 "b0.1.npz", CRLB_EKF_N)
-        for comp, (rel, zmax) in held.items():
-            check(zmax <= CRLB_Z_MAX, f"10c {comp}: max |z| {zmax} > "
-                                      f"{CRLB_Z_MAX}")
-        say(
-            f"10c filter_error_mc_chunked ekf (vmap) N={CRLB_EKF_N} (cut from "
-            f"{CRLB_N}): {t_ekf:.3f} s; vs crlb_ekf_lam0.1_b0.1.npz: "
-            + ", ".join(f"{c} mean rel {r:.4g} max|z| {zm:.3f}"
-                        for c, (r, zm) in held.items()))
+        # 10c, 10d and 10e hold most of this phase's card memory: in
+        # one memory turn.
+        with memory_turn(device):
+            # 10c: the EKF through the vmap backend, N cut.
+            res_ekf, t_ekf = timed(filter_error_mc_chunked, *CRLB_ARGS,
+                                   CRLB_EKF_N, method="ekf", dt=CRLB_DT,
+                                   T=CRLB_T, chunk=CRLB_CHUNK, device=device)
+            held = crlb_vs_reference(res_ekf, ROOT / "results/crlb_ekf_lam0.1_"
+                                     "b0.1.npz", CRLB_EKF_N)
+            for comp, (rel, zmax) in held.items():
+                check(zmax <= CRLB_Z_MAX, f"10c {comp}: max |z| {zmax} > "
+                                          f"{CRLB_Z_MAX}")
+            say(
+                f"10c filter_error_mc_chunked ekf (vmap) N={CRLB_EKF_N} (cut from "
+                f"{CRLB_N}): {t_ekf:.3f} s; vs crlb_ekf_lam0.1_b0.1.npz: "
+                + ", ".join(f"{c} mean rel {r:.4g} max|z| {zm:.3f}"
+                            for c, (r, zm) in held.items()))
 
-        # 10d: the PCRLB, float64 and float32 on the same draws.
-        t0 = time.perf_counter()
-        gen = torch.Generator(device=device).manual_seed(666)
-        z = tuple(torch.randn(shape, generator=gen, dtype=torch.float64,
-                              device=device)
-                  for shape in ((PCRLB_N, 4), (PCRLB_N, CRLB_T, 4),
-                                (PCRLB_N, CRLB_T)))
-        pc, pc_s = {}, {}
-        for dtype in (torch.float64, torch.float32):
-            pc[dtype], pc_s[dtype] = timed(
-                pcrlb_chirp_mc, *CRLB_ARGS, num_mcs=PCRLB_N, dt=CRLB_DT,
-                T=CRLB_T, dtype=dtype, device=device,
-                draws=lambda _i, _n: z)
-        del z
-        committed = np.load(ROOT / "results/crlb_ghf_lam0.1_b0.1.npz")
-        d_parts = []
-        for comp in ("x2", "v"):
-            p64, p32 = pc[torch.float64][f"pcrlb_{comp}"], \
-                pc[torch.float32][f"pcrlb_{comp}"]
-            check(bool(np.all(p64 > 0)), f"10d: float64 pcrlb_{comp} not "
-                                         f"positive at every step")
-            rel = float(np.max(np.abs(p32 - p64) / p64))
-            check(rel <= PCRLB_F32_RTOL, f"10d: float32 pcrlb_{comp} vs "
-                                         f"float64 rel {rel}")
-            above = float(np.mean(res_ghf[f"mean_err_{comp}"] > p64))
-            d_parts.append(
-                f"{comp}: f64 min {p64.min():.6g}, step 0 {p64[0]:.6g}, "
-                f"f32 vs f64 max rel {rel:.4g}, 10b's mean error above the "
-                f"f64 bound at {above:.4f} of the steps, committed overlay "
-                f"negative at {int(np.sum(committed[f'pcrlb_{comp}'] < 0))} "
-                f"of {CRLB_T} steps")
-        say(f"10d pcrlb_chirp_mc N={PCRLB_N} T={CRLB_T}: f64 "
-                     f"{pc_s[torch.float64]:.3f} s, f32 "
-                     f"{pc_s[torch.float32]:.3f} s; " + "; ".join(d_parts))
+            # 10d: the PCRLB, float64 and float32 on the same draws.
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=device).manual_seed(666)
+            z = tuple(torch.randn(shape, generator=gen, dtype=torch.float64,
+                                  device=device)
+                      for shape in ((PCRLB_N, 4), (PCRLB_N, CRLB_T, 4),
+                                    (PCRLB_N, CRLB_T)))
+            pc, pc_s = {}, {}
+            for dtype in (torch.float64, torch.float32):
+                pc[dtype], pc_s[dtype] = timed(
+                    pcrlb_chirp_mc, *CRLB_ARGS, num_mcs=PCRLB_N, dt=CRLB_DT,
+                    T=CRLB_T, dtype=dtype, device=device,
+                    draws=lambda _i, _n: z)
+            del z
+            committed = np.load(ROOT / "results/crlb_ghf_lam0.1_b0.1.npz")
+            d_parts = []
+            for comp in ("x2", "v"):
+                p64, p32 = pc[torch.float64][f"pcrlb_{comp}"], \
+                    pc[torch.float32][f"pcrlb_{comp}"]
+                check(bool(np.all(p64 > 0)), f"10d: float64 pcrlb_{comp} not "
+                                             f"positive at every step")
+                rel = float(np.max(np.abs(p32 - p64) / p64))
+                check(rel <= PCRLB_F32_RTOL, f"10d: float32 pcrlb_{comp} vs "
+                                             f"float64 rel {rel}")
+                above = float(np.mean(res_ghf[f"mean_err_{comp}"] > p64))
+                d_parts.append(
+                    f"{comp}: f64 min {p64.min():.6g}, step 0 {p64[0]:.6g}, "
+                    f"f32 vs f64 max rel {rel:.4g}, 10b's mean error above the "
+                    f"f64 bound at {above:.4f} of the steps, committed overlay "
+                    f"negative at {int(np.sum(committed[f'pcrlb_{comp}'] < 0))} "
+                    f"of {CRLB_T} steps")
+            say(f"10d pcrlb_chirp_mc N={PCRLB_N} T={CRLB_T}: f64 "
+                         f"{pc_s[torch.float64]:.3f} s, f32 "
+                         f"{pc_s[torch.float32]:.3f} s; " + "; ".join(d_parts))
 
-        # 10e: the FHC columns on the card.
-        freq, _ = meow_freq(offset=8.0)
-        e_parts = []
-        for K, prefix, col in ((1, "", "fhc"), (3, "h3_", "harmonic_fhc")):
-            ys, _ = sweep_data(device, slice(0, FHC_SEEDS), SWEEP_T, prefix)
-            torch.cuda.reset_peak_memory_stats(device)
-            (times, f0), secs = timed(fhc_pitch_track_batch, ys, 1.0 / DT, K,
-                                      window_length=300, window_overlap=295)
-            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-            tf = freq(torch.as_tensor(times)).numpy()
-            rm = np.array([np.sqrt(np.mean((median_smooth(
-                f, force_odd(round(300 / 10))) - tf) ** 2)) for f in f0])
-            want = np.concatenate([np.load(ROOT / f"results/{col}_{m}.npz")[
-                "rmse"][:FHC_SEEDS] for m in MAGNITUDES])
-            rel = np.abs(rm / want - 1.0)
-            med = float(np.median(rm / want))
-            q = float(np.quantile(rel, FHC_QUANTILE))
-            check(bool(np.all(np.isfinite(rm))) and q <= FHC_SEED_RTOL
-                  and abs(med - 1.0) <= FHC_MEDIAN_RTOL,
-                  f"10e {col}: per-seed rel {FHC_QUANTILE} quantile {q} "
-                  f"(bound {FHC_SEED_RTOL}), median ratio {med} (bound "
-                  f"{FHC_MEDIAN_RTOL})")
-            worst = np.argsort(-rel)[:3]
-            e_parts.append(
-                f"{col} B={ys.shape[0]} T={SWEEP_T}: {secs:.3f} s, peak "
-                f"{peak:.2f} GiB, per-seed rel vs committed median "
-                f"{np.median(rel):.4g}, {FHC_QUANTILE} quantile {q:.4g}, "
-                f"max {rel.max():.4g}, worst seeds (record, rmse, committed) "
-                + ", ".join(f"({int(i)}, {rm[i]:.4f}, {want[i]:.4f})"
-                            for i in worst)
-                + f"; median ratio {med:.5f}, median rmse {np.median(rm):.5f}")
-            del ys
-        say("10e FHC columns on the card, f32: " + "; ".join(e_parts))
+            # 10e: the FHC columns on the card.
+            freq, _ = meow_freq(offset=8.0)
+            e_parts = []
+            for K, prefix, col in ((1, "", "fhc"), (3, "h3_", "harmonic_fhc")):
+                ys, _ = sweep_data(device, slice(0, FHC_SEEDS), SWEEP_T, prefix)
+                torch.cuda.reset_peak_memory_stats(device)
+                (times, f0), secs = timed(fhc_pitch_track_batch, ys, 1.0 / DT, K,
+                                          window_length=300, window_overlap=295)
+                peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                tf = freq(torch.as_tensor(times)).numpy()
+                rm = np.array([np.sqrt(np.mean((median_smooth(
+                    f, force_odd(round(300 / 10))) - tf) ** 2)) for f in f0])
+                want = np.concatenate([np.load(ROOT / f"results/{col}_{m}.npz")[
+                    "rmse"][:FHC_SEEDS] for m in MAGNITUDES])
+                rel = np.abs(rm / want - 1.0)
+                med = float(np.median(rm / want))
+                q = float(np.quantile(rel, FHC_QUANTILE))
+                check(bool(np.all(np.isfinite(rm))) and q <= FHC_SEED_RTOL
+                      and abs(med - 1.0) <= FHC_MEDIAN_RTOL,
+                      f"10e {col}: per-seed rel {FHC_QUANTILE} quantile {q} "
+                      f"(bound {FHC_SEED_RTOL}), median ratio {med} (bound "
+                      f"{FHC_MEDIAN_RTOL})")
+                worst = np.argsort(-rel)[:3]
+                e_parts.append(
+                    f"{col} B={ys.shape[0]} T={SWEEP_T}: {secs:.3f} s, peak "
+                    f"{peak:.2f} GiB, per-seed rel vs committed median "
+                    f"{np.median(rel):.4g}, {FHC_QUANTILE} quantile {q:.4g}, "
+                    f"max {rel.max():.4g}, worst seeds (record, rmse, committed) "
+                    + ", ".join(f"({int(i)}, {rm[i]:.4f}, {want[i]:.4f})"
+                                for i in worst)
+                    + f"; median ratio {med:.5f}, median rmse {np.median(rm):.5f}")
+                del ys
+            say("10e FHC columns on the card, f32: " + "; ".join(e_parts))
 
         # 10g: the real-data pipelines, from the child processes.
         ligo_line = ligo_fut.result()
@@ -4271,6 +4389,12 @@ def phase_entry_points(device, smi):
             ROOT / "results/reference"), ROOT, on_card=False)
         return out_a, secs_a, out_b, secs_b
 
+    def fhc():
+        # K=3 FHC takes much of the card's memory: in a memory turn.
+        with memory_turn(device):
+            return run_entry(exp + "run_fhc", (
+                "--seeds", ENTRY_FHC_SEEDS, "--out", work / "e"), ROOT)
+
     n_demo_t, n_demo_iters = ENTRY_DEMO
     # Longest first: the pool takes them in this order.
     jobs = {
@@ -4287,8 +4411,7 @@ def phase_entry_points(device, smi):
             ENTRY_SEEDS, "--out", work / "d"), ROOT),
         "13e kpt": lambda: run_entry(exp + "run_kpt", (
             *sweep, "--T", ENTRY_T, "--out", work / "e"), ROOT),
-        "13e fhc": lambda: run_entry(exp + "run_fhc", (
-            "--seeds", ENTRY_FHC_SEEDS, "--out", work / "e"), ROOT),
+        "13e fhc": fhc,
         "13e fastnls": lambda: run_entry(exp + "run_fastnls", (
             "--seeds", ENTRY_NLS_SEEDS, "--out", work / "e"), ROOT),
         "13f print_time": lambda: run_entry(exp + "print_time", (
@@ -4548,60 +4671,129 @@ LANE_PHASES = {
 }
 
 
-def lane_stamp(lane: int, name: str, t0: float, t_run: float) -> str:
+def lane_stamp(lane: int, name: str, t0: float, t_run: float, device,
+               wait0: float) -> tuple:
+    """The line that follows a lane's phase, with this process's peak of
+    reserved card memory in the phase (since the phase's last reset of the
+    peak; its CUDA context and its child processes not included) and the
+    seconds it waited for memory turns (since ``wait0``), and the phase's
+    span (name, start, end) in seconds of the run."""
     now = time.time()
+    peak = (f"; this process's peak reserved memory "
+            f"{torch.cuda.max_memory_reserved(device) / 2 ** 30:.2f} GiB"
+            if device.type == "cuda" else "")
+    waited = MEMORY_TURN["wait_s"] - wait0
     return (f"lane {lane}: {name} ran from {t0 - t_run:.1f} s to "
-            f"{now - t_run:.1f} s of the run ({now - t0:.1f} s)\n")
+            f"{now - t_run:.1f} s of the run ({now - t0:.1f} s{peak}; "
+            f"{waited:.1f} s waiting for memory turns)\n",
+            (name, t0 - t_run, now - t_run))
+
+
+class CardMemoryWatch:
+    """The card's used memory, all processes together (``cudaMemGetInfo``:
+    total less free), sampled every MEMORY_WATCH_S seconds on a thread of
+    this process while the lanes run, so that a run that comes near the
+    card's capacity says when, and beside which phases."""
+
+    def __init__(self, device, t_run: float):
+        import threading
+        self.device, self.t_run = device, t_run
+        self.samples, self.stop_event = [], threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="chip_smoke memory watch")
+        self.total = torch.cuda.mem_get_info(device)[1]
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop_event.wait(MEMORY_WATCH_S):
+            free, total = torch.cuda.mem_get_info(self.device)
+            self.samples.append((time.time() - self.t_run, total - free))
+
+    def report(self, spans) -> str:
+        """The peak, the phases whose spans held it, the most each phase's
+        span saw, and the most in each MEMORY_BIN_S of the run."""
+        self.stop_event.set()
+        self.thread.join()
+        if not self.samples:
+            return "card memory: no sample"
+        gib = 2 ** 30
+        t_peak, peak = max(self.samples, key=lambda s: s[1])
+        during = [n for n, a, b in spans if a <= t_peak <= b]
+        most = {n: max((u for t, u in self.samples if a <= t <= b),
+                       default=0) for n, a, b in spans}
+        bins = {}
+        for t, used in self.samples:
+            k = int(t // MEMORY_BIN_S)
+            bins[k] = max(bins.get(k, 0), used)
+        return (f"card memory while the lanes ran (all processes, sampled "
+                f"every {MEMORY_WATCH_S} s): peak {peak / gib:.2f} GiB of "
+                f"{self.total / gib:.2f} at {t_peak:.1f} s of the run, during "
+                f"{', '.join(during) or 'no phase'}; the most in each "
+                f"phase's span: " + ", ".join(
+                    f"{n} {u / gib:.1f}" for n, u in most.items())
+                + f" GiB; the most in each {MEMORY_BIN_S} s from "
+                f"{min(bins) * MEMORY_BIN_S} s: " + " ".join(
+                    f"{bins.get(k, 0) / gib:.0f}"
+                    for k in range(min(bins), max(bins) + 1)) + " GiB")
 
 
 def run_lane(lane: int, ctx: dict, t_run: float, queue):
     """Lane ``lane``'s phases in a spawned process, in order; each phase's
-    printed lines, its result or its traceback go to ``queue``."""
+    printed lines, its result or its traceback, and its span go to
+    ``queue``."""
     import io
     import traceback
     device = torch.device(ctx["device"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
     ctx = dict(ctx, device=device)
+    MEMORY_TURN["lock"] = ctx["memory_turn"]
     for name in LANES[lane]:
         t0, buf = time.time(), io.StringIO()
+        wait0 = MEMORY_TURN["wait_s"]
         try:
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
             with contextlib.redirect_stdout(buf):
                 result = LANE_PHASES[name](ctx)
+            stamp, span = lane_stamp(lane, name, t0, t_run, device, wait0)
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         except BaseException:
             queue.put((lane, name, buf.getvalue(), None,
-                       traceback.format_exc()))
+                       traceback.format_exc(), None))
             raise
-        queue.put((lane, name, buf.getvalue()
-                   + lane_stamp(lane, name, t0, t_run), result, None))
+        queue.put((lane, name, buf.getvalue() + stamp, result, None, span))
 
 
 def start_lanes(ctx: dict, t_run: float):
-    """Spawn lanes 1.. of LANES on ``ctx`` (tensors on the host)."""
+    """Spawn lanes 1.. of LANES on ``ctx`` (tensors on the host), with the
+    lanes' lock of memory turns, which this process takes too."""
     import multiprocessing
     spawn = multiprocessing.get_context("spawn")
     queue = spawn.Queue()
+    MEMORY_TURN["lock"] = spawn.Lock()
+    ctx = dict(ctx, memory_turn=MEMORY_TURN["lock"])
     procs = [spawn.Process(target=run_lane, args=(lane, ctx, t_run, queue),
                            name=f"chip_smoke lane {lane}")
              for lane in range(1, len(LANES))]
     for proc in procs:
         proc.start()
-    return queue, procs, {}
+    return queue, procs, {}, []
 
 
 def drain_lanes(lanes, wait: bool = False) -> dict:
     """Print what the spawned lanes' phases have reported, fail on a
     phase that failed; with ``wait``, until every phase has reported and
-    the lanes have exited.  Returns {phase: result} so far."""
+    the lanes have exited.  Returns {phase: result} so far; the phases'
+    spans go to the lanes' list of spans."""
     import queue as queue_module
-    queue, procs, results = lanes
+    queue, procs, results, spans = lanes
     want = sum(len(names) for names in LANES[1:])
     deadline = time.monotonic() + LANE_JOIN_S
     while len(results) < want:
         try:
-            lane, name, text, result, error = queue.get(
+            lane, name, text, result, error, span = queue.get(
                 timeout=5.0 if wait else 0.01)
         except queue_module.Empty:
             if not wait:
@@ -4617,6 +4809,7 @@ def drain_lanes(lanes, wait: bool = False) -> dict:
         sys.stdout.flush()
         check(error is None, f"lane {lane}, phase {name} failed:\n{error}")
         results[name] = result
+        spans.append(span)
     if wait:
         for proc in procs:
             proc.join(max(1.0, deadline - time.monotonic()))
@@ -4630,6 +4823,9 @@ def main() -> int:
     try:
         return run()
     finally:
+        # The lanes' lock goes first: its finalizer unlinks its semaphore,
+        # which the resource tracker would otherwise unlink as it stops.
+        MEMORY_TURN["lock"] = None
         killed = reap_descendants()
         if killed:
             print(f"chip_smoke: killed {len(killed)} processes left "
@@ -4683,23 +4879,31 @@ def run() -> int:
               f"lane {i} ({'this process' if i == 0 else 'spawned'}) "
               + ", ".join(names) for i, names in enumerate(LANES)),
           flush=True)
+    watch = CardMemoryWatch(device, t_run)
     lanes = start_lanes(ctx, t_run)
+    spans = lanes[3]
     ctx = dict(ctx, device=device)
     results = {}
     try:
         for name in LANES[0]:
-            t0 = time.time()
+            t0, wait0 = time.time(), MEMORY_TURN["wait_s"]
+            torch.cuda.reset_peak_memory_stats(device)
             results[name] = LANE_PHASES[name](ctx)
+            stamp, span = lane_stamp(0, name, t0, t_run, device, wait0)
+            spans.append(span)
             torch.cuda.empty_cache()
-            print(lane_stamp(0, name, t0, t_run), end="", flush=True)
+            print(stamp, end="", flush=True)
             drain_lanes(lanes)
+        results.update(drain_lanes(lanes, wait=True))
     except BaseException:
-        # What the other lanes have reported, before this failure ends
-        # the run.
+        # What the other lanes have reported, and the card's memory, before
+        # this failure ends the run (on standard error, which a failed
+        # run's reader sees first).
         with contextlib.suppress(BaseException):
             drain_lanes(lanes)
+        print(watch.report(spans), file=sys.stderr, flush=True)
         raise
-    results.update(drain_lanes(lanes, wait=True))
+    print(watch.report(spans), flush=True)
     print(f"phases 5-13 ended at {time.time() - t_run:.1f} s of the run",
           flush=True)
     fused, family, analysis, sharded, scaling, sweep = (

@@ -16,6 +16,10 @@ its gradient, as two hand-written CUDA kernels behind one
   .. 0, recomputes each step from the forward's outputs (as the JAX
   package's ``jax.checkpoint`` does) and returns dNLL/dconsts ``(B, 43)``;
   autograd carries it to theta through :func:`chirp_lane_constants`.
+  :func:`adjoint_geometry` picks its design: producer warps that
+  recompute the steps ahead of a chain warp that carries the adjoint
+  (while its blocks fit the SMs at once, up to 3 lanes per SM), or a
+  team of 32 threads per lane (up to 16 lanes per SM) or of 8 (beyond).
 
 Together they replace ``chirpgp_tpu/infer/sqrt.py::sqrt_sgp_filter`` under
 ``jax.value_and_grad`` (a compiled scan and XLA's reverse mode of it), not
@@ -33,7 +37,9 @@ leave unchanged.
 
 :class:`ChirpFilterNLL` runs the kernels for CUDA tensors and their plain
 versions :func:`filter_nll_reference` and
-:func:`filter_nll_adjoint_reference` for CPU tensors, lane by lane, so
+:func:`filter_nll_adjoint_reference` (split as the kernel is:
+:func:`adjoint_carry_free`, batched over steps, and :func:`adjoint_chain`)
+for CPU tensors, lane by lane, so
 that a lane's bits do not depend on its batch; there is no third way.  Its ``vmap`` staticmethod receives the physical ``(B, 43)`` and
 ``(B, T)`` tensors of a ``torch.func.vmap`` and evaluates every lane in
 one launch of each kernel.  ``ChirpFilterNLL.launches`` counts the kernel
@@ -44,7 +50,7 @@ their work.
 import ctypes
 import math
 import threading
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,18 +58,32 @@ from chirpgp_tpu_torch.infer.batched import _rule_tensors, _update_cf, tria_cf
 from chirpgp_tpu_torch.infer.sqrt import _require_nonneg_weights
 from chirpgp_tpu_torch.models.matern import m32_solution, stationary_cov_m32
 from chirpgp_tpu_torch.ops.chirp_filter import (
-    _D, FilterCost, filter_cost, launch_geometry, load_kernel)
+    _D, _WARP, MAX_POINTS, FilterCost, _default_team, filter_cost,
+    launch_geometry, load_kernel)
 from chirpgp_tpu_torch.quad.sigma_points import SigmaPoints
 from chirpgp_tpu_torch.utils.numerics import (
     cholesky_or_nan, ou_variance, psd_cholesky)
 
-__all__ = ["NUM_CONSTS", "ChirpFilterNLL", "adjoint_cost",
-           "adjoint_launcher", "chirp_filter_nll", "chirp_lane_constants",
-           "filter_nll_adjoint_reference", "filter_nll_reference",
-           "forward_cost", "forward_launcher", "load_adjoint_kernel"]
+__all__ = ["NUM_CONSTS", "AdjointGeometry", "CarryFree", "ChirpFilterNLL",
+           "adjoint_carry_free", "adjoint_chain", "adjoint_cost",
+           "adjoint_geometry", "adjoint_launcher", "chirp_filter_nll",
+           "chirp_lane_constants", "filter_nll_adjoint_reference",
+           "filter_nll_reference", "forward_cost", "forward_launcher",
+           "load_adjoint_kernel"]
 
 _ADJOINT = "ghfs_chirp_filter_adjoint"
-_ADJOINT_TEAM = 32           # the adjoint kernel's threads per lane
+# The adjoint kernel's instances (csrc/ghfs_chirp_filter_adjoint.cu): the
+# team design's teams and the sigma points per member each is built for
+# (cubature's and GH-3's: 2 and 11 for the team of 8, 1 and 3 for 32);
+# the chain design's (rows, producer warps) pairs, its team of 32, its
+# largest ring and most lanes a block.
+TEAM_ROWS = {8: (2, 11), 32: (1, 3)}
+CHAIN_PRODUCERS = ((1, 2), (3, 2), (3, 3))
+CHAIN_TEAM, CHAIN_MAX_RING, CHAIN_MAX_LANES = 32, 8, 3
+# An H100 SM's shared memory (228 KB, of which each resident block
+# reserves 1 KB): the chain design's ring is sized for the one block an
+# SM holds.
+_SMEM_PER_SM, _SMEM_RESERVED = 233472, 1024
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 NUM_CONSTS = 4 + 16 + 16 + 4 + 3
 # Offsets of the constants in a lane's row.
@@ -180,7 +200,7 @@ def filter_nll_reference(consts: torch.Tensor, sgps: SigmaPoints,
 
 
 def _lower_inverse(L: torch.Tensor) -> torch.Tensor:
-    """Inverse of the lower-triangular ``L (4, 4, B)`` by forward
+    """Inverse of the lower-triangular ``L (4, 4, ...)`` by forward
     substitution, the kernel's arithmetic."""
     d = L.shape[0]
     inv = [[None] * d for _ in range(d)]
@@ -197,19 +217,152 @@ def _lower_inverse(L: torch.Tensor) -> torch.Tensor:
                                      for j in range(d)]) for i in range(d)])
 
 
-def _cholesky_adjoint(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
+def _cholesky_adjoint(L: torch.Tensor, inv: torch.Tensor,
+                      Lbar: torch.Tensor) -> torch.Tensor:
     """P^bar = L^-T sym(Phi(L^T L^bar)) L^-1 for ``P = L L^T``, ``L (4, 4,
-    B)`` lower (any column signs), ``Lbar`` of which only the lower
-    triangle counts; Phi keeps the lower triangle and halves the
-    diagonal."""
+    B)`` lower (any column signs) with ``inv`` = L^-1, ``Lbar`` of which
+    only the lower triangle counts; Phi keeps the lower triangle and
+    halves the diagonal."""
     X = torch.einsum("kib,kjb->ijb", L, Lbar)
     d = L.shape[0]
     low = torch.tril(torch.ones(d, d, dtype=L.dtype, device=L.device), -1)
     phi = X * (low + 0.5 * torch.eye(d, dtype=L.dtype, device=L.device)
                )[:, :, None]
     sym = 0.5 * (phi + phi.transpose(0, 1))
-    inv = _lower_inverse(L)
     return torch.einsum("kib,klb,ljb->ijb", inv, sym, inv)
+
+
+class CarryFree(NamedTuple):
+    """The carry-free part of the adjoint's steps t0 .. t0 + n - 1, step
+    first, lanes last: what the kernel's producer warps hand to its chain
+    warp."""
+    t0: int
+    chi: torch.Tensor      # (n, S, 4, B) sigma points m_{t-1} + L_{t-1} xi
+    dev: torch.Tensor      # (n, S, 4, B) their LCD means minus m_p
+    cos: torch.Tensor      # (n, S, B) the rotation's cos, sin (before the
+    sin: torch.Tensor      # (n, S, B)  decay), softplus(chi_V) and
+    sp: torch.Tensor       # (n, S, B)  sigmoid(chi_V)
+    sig: torch.Tensor      # (n, S, B)
+    mp: torch.Tensor       # (n, 4, B) m_p
+    Pp: torch.Tensor       # (n, 4, 4, B) P_p, the Gram plus Lq Lq^T
+    innov: torch.Tensor    # (n, B) y_t - m_p[1]
+    L: torch.Tensor        # (n, 4, 4, B) L_{t-1}
+    inv: torch.Tensor      # (n, 4, 4, B) L_{t-1}^-1
+
+
+def adjoint_carry_free(consts: torch.Tensor, sgps: SigmaPoints,
+                       yss: torch.Tensor, mfs: torch.Tensor,
+                       lfs: torch.Tensor, t0: int = 0,
+                       t1: Optional[int] = None) -> CarryFree:
+    """The part of the adjoint's steps ``t0 .. t1-1`` that no carried
+    adjoint enters, batched over the steps and the lanes: each step's
+    forward recomputed from the previous step's filtered m and L (``mfs
+    (T, 4, B)``, ``lfs (T, 16, B)``; m0 and L0 at t = 0), as
+    ``jax.checkpoint`` recomputes it, and L^-1."""
+    B, T = yss.shape
+    t1 = T if t1 is None else t1
+    k = _unpack(consts)
+    xi, w, _ = _rule_tensors(sgps, yss)
+    Lfs = lfs.reshape(T, _D, _D, B)
+    if t0 > 0:
+        m, L = mfs[t0 - 1:t1 - 1], Lfs[t0 - 1:t1 - 1]
+    else:   # m0 and L0 before the first step
+        m = torch.cat([k.m0[None], mfs[:t1 - 1]])
+        L = torch.cat([k.L0[None], Lfs[:t1 - 1]])
+    n, S = t1 - t0, xi.shape[0]
+    chi = m[:, None] + torch.einsum("sj,tijb->tsib", xi, L)
+    mu, c, sn, sp = _lcd_parts(k, chi.reshape(n * S, _D, B))
+    mu = mu.reshape(n, S, _D, B)
+    mp = torch.einsum("s,tsib->tib", w, mu)
+    dev = mu - mp[:, None]
+    LqLqT = torch.einsum("kib,kjb->ijb", k.LqT, k.LqT)
+    Pp = torch.einsum("s,tsib,tsjb->tijb", w, dev, dev) + LqLqT
+    inv = _lower_inverse(L.permute(1, 2, 0, 3)).permute(2, 0, 1, 3)
+    return CarryFree(t0, chi, dev, c.reshape(n, S, B), sn.reshape(n, S, B),
+                     sp.reshape(n, S, B), torch.sigmoid(chi[:, :, 2]), mp,
+                     Pp, yss.T[t0:t1] - mp[:, _H], L, inv)
+
+
+def adjoint_chain(consts: torch.Tensor, sgps: SigmaPoints, parts,
+                  gbar: torch.Tensor) -> torch.Tensor:
+    """The adjoint's carried recursion: dNLL/dconsts ``(B, 43)`` times
+    ``gbar (B,)`` from the carry-free parts ``parts`` (:func:`
+    adjoint_carry_free`'s, latest steps first, covering t = T-1 .. 0), by
+    the closed-form reverse recursion of the module's docstring, the
+    kernel's chain: per step the update's adjoint, the points' adjoints
+    and the factor's adjoint to the previous step."""
+    k = _unpack(consts)
+    B = consts.shape[0]
+    xi, w, _ = _rule_tensors(sgps, gbar)
+    e1 = torch.zeros(_D, dtype=gbar.dtype, device=gbar.device)
+    e1[_H] = 1.0
+    e1 = e1[:, None]
+    mbar = gbar.new_zeros((_D, B))
+    Pbar = gbar.new_zeros((_D, _D, B))
+    gF = gbar.new_zeros((2, 2, B))
+    gLqT = gbar.new_zeros((_D, _D, B))
+    g_decay, g_sqrt_xi, g_dt = (gbar.new_zeros((B,)) for _ in range(3))
+    gm0, gL0 = gbar.new_zeros((_D, B)), gbar.new_zeros((_D, _D, B))
+    Xi = k.sqrt_xi * k.sqrt_xi
+    for part in parts:
+        for i in range(part.chi.shape[0] - 1, -1, -1):
+            chi, dev, c, s, sp = (part.chi[i], part.dev[i], part.cos[i],
+                                  part.sin[i], part.sp[i])
+            Pp, innov = part.Pp[i], part.innov[i]
+            p = Pp[:, _H]
+            S = Pp[_H, _H] + Xi
+            # The update's adjoint, from (mbar, Pbar) of m_f, P_f and gbar
+            # of the NLL increment.
+            a = (mbar * p).sum(0)
+            Pbp = torch.einsum("ijb,jb->ib", Pbar, p)
+            innov_bar = (a + gbar * innov) / S
+            mp_bar = mbar - e1 * innov_bar
+            p_bar = (mbar * innov - 2.0 * Pbp) / S
+            S_bar = ((p * Pbp).sum(0) - a * innov) / (S * S) \
+                + gbar * 0.5 * (1.0 - innov * innov / S) / S
+            G = Pbar + 0.5 * (p_bar[:, None] * e1.T[:, :, None]
+                              + e1[:, :, None] * p_bar[None]) \
+                + S_bar * (e1 * e1.T)[:, :, None]
+            g_sqrt_xi = g_sqrt_xi + 2.0 * k.sqrt_xi * S_bar
+            gLqT = gLqT + 2.0 * torch.einsum("kib,ijb->kjb", k.LqT, G)
+            # P_p and m_p to each point's LCD mean, and through it.
+            mu_bar = w[:, None, None] * (
+                2.0 * torch.einsum("ijb,sjb->sib", G, dev) + mp_bar[None])
+            cs, sn = c * k.decay, s * k.decay
+            cs_bar = mu_bar[:, 0] * chi[:, 0] + mu_bar[:, 1] * chi[:, 1]
+            sn_bar = mu_bar[:, 1] * chi[:, 0] - mu_bar[:, 0] * chi[:, 1]
+            # u = 2 dt softplus(V), the angle pi u.
+            u_bar = math.pi * (sn_bar * cs - cs_bar * sn)
+            g_decay = g_decay + (cs_bar * c + sn_bar * s).sum(0)
+            g_dt = g_dt + (u_bar * 2.0 * sp).sum(0)
+            F = k.F
+            gF = gF + torch.einsum("sib,sjb->ijb", mu_bar[:, 2:], chi[:, 2:])
+            chi_bar = torch.stack([
+                cs * mu_bar[:, 0] + sn * mu_bar[:, 1],
+                cs * mu_bar[:, 1] - sn * mu_bar[:, 0],
+                F[0, 0] * mu_bar[:, 2] + F[1, 0] * mu_bar[:, 3]
+                + u_bar * 2.0 * k.dt * part.sig[i],
+                F[0, 1] * mu_bar[:, 2] + F[1, 1] * mu_bar[:, 3]], dim=1)
+            # chi = m + L xi to the previous step's m and L.
+            m_bar_prev = chi_bar.sum(0)
+            L_bar_prev = torch.einsum("sib,sj->ijb", chi_bar, xi)
+            if part.t0 + i == 0:
+                gm0, gL0 = m_bar_prev, torch.tril(
+                    L_bar_prev.permute(2, 0, 1)).permute(1, 2, 0)
+            else:
+                mbar = m_bar_prev
+                Pbar = _cholesky_adjoint(part.L[i], part.inv[i], L_bar_prev)
+    out = torch.cat([gF.reshape(4, B), gLqT.reshape(16, B),
+                     gL0.reshape(16, B), gm0, g_decay[None], g_sqrt_xi[None],
+                     g_dt[None]])
+    return out.T.contiguous()
+
+
+# Steps of one carry-free part of the plain adjoint: its sigma-point
+# tensors hold at most ~2^22 elements each (~0.4 GB at its peak in
+# float64), so that 7a's plain version at B=300, T=3141 takes little of
+# the card that chip_smoke.py's lanes share.
+_CARRY_FREE_ELEMENTS = 1 << 22
 
 
 def filter_nll_adjoint_reference(consts: torch.Tensor, sgps: SigmaPoints,
@@ -218,79 +371,14 @@ def filter_nll_adjoint_reference(consts: torch.Tensor, sgps: SigmaPoints,
                                  ) -> torch.Tensor:
     """The adjoint kernel's plain version: dNLL/dconsts ``(B, 43)`` times
     ``gbar (B,)``, from the forward's ``mfs (T, 4, B)`` and ``lfs (T, 16,
-    B)``, by the closed-form reverse recursion of the module's docstring,
-    the kernel's algebra: each step's sigma points, LCD means, m_p and P_p
-    (as the Gram sum_s w_s (mu_s - m_p)(mu_s - m_p)^T + Lq Lq^T) are
-    recomputed from the previous step's filtered m and L."""
+    B)``, split as the kernel splits it: :func:`adjoint_carry_free`
+    batched over chunks of steps (latest first) and :func:`adjoint_chain`
+    over them."""
     B, T = yss.shape
-    k = _unpack(consts)
-    xi, w, _ = _rule_tensors(sgps, yss)
-    Lfs = lfs.reshape(T, _D, _D, B)
-    e1 = torch.zeros(_D, dtype=yss.dtype, device=yss.device)
-    e1[_H] = 1.0
-    e1 = e1[:, None]
-    mbar = yss.new_zeros((_D, B))
-    Pbar = yss.new_zeros((_D, _D, B))
-    gF = yss.new_zeros((2, 2, B))
-    gLqT = yss.new_zeros((_D, _D, B))
-    g_decay, g_sqrt_xi, g_dt = (yss.new_zeros((B,)) for _ in range(3))
-    gm0, gL0 = yss.new_zeros((_D, B)), yss.new_zeros((_D, _D, B))
-    LqLqT = torch.einsum("kib,kjb->ijb", k.LqT, k.LqT)
-    Xi = k.sqrt_xi * k.sqrt_xi
-    for t in range(T - 1, -1, -1):
-        m, L = (k.m0, k.L0) if t == 0 else (mfs[t - 1], Lfs[t - 1])
-        chi = m[None] + torch.einsum("sj,ijb->sib", xi, L)
-        mu, c, s, sp = _lcd_parts(k, chi)
-        mp = torch.einsum("s,sib->ib", w, mu)
-        dev = mu - mp[None]
-        Pp = torch.einsum("s,sib,sjb->ijb", w, dev, dev) + LqLqT
-        p = Pp[:, _H]
-        S = Pp[_H, _H] + Xi
-        innov = yss[:, t] - mp[_H]
-        # The update's adjoint, from (mbar, Pbar) of m_f, P_f and gbar of
-        # the NLL increment.
-        a = (mbar * p).sum(0)
-        Pbp = torch.einsum("ijb,jb->ib", Pbar, p)
-        innov_bar = (a + gbar * innov) / S
-        mp_bar = mbar - e1 * innov_bar
-        p_bar = (mbar * innov - 2.0 * Pbp) / S
-        S_bar = ((p * Pbp).sum(0) - a * innov) / (S * S) \
-            + gbar * 0.5 * (1.0 - innov * innov / S) / S
-        G = Pbar + 0.5 * (p_bar[:, None] * e1.T[:, :, None]
-                          + e1[:, :, None] * p_bar[None]) \
-            + S_bar * (e1 * e1.T)[:, :, None]
-        g_sqrt_xi = g_sqrt_xi + 2.0 * k.sqrt_xi * S_bar
-        gLqT = gLqT + 2.0 * torch.einsum("kib,ijb->kjb", k.LqT, G)
-        # P_p and m_p to each point's LCD mean, and through it.
-        mu_bar = w[:, None, None] * (
-            2.0 * torch.einsum("ijb,sjb->sib", G, dev) + mp_bar[None])
-        cs, sn = c * k.decay, s * k.decay
-        cs_bar = mu_bar[:, 0] * chi[:, 0] + mu_bar[:, 1] * chi[:, 1]
-        sn_bar = mu_bar[:, 1] * chi[:, 0] - mu_bar[:, 0] * chi[:, 1]
-        # u = 2 dt softplus(V), the angle pi u.
-        u_bar = math.pi * (sn_bar * cs - cs_bar * sn)
-        g_decay = g_decay + (cs_bar * c + sn_bar * s).sum(0)
-        g_dt = g_dt + (u_bar * 2.0 * sp).sum(0)
-        F = k.F
-        gF = gF + torch.einsum("sib,sjb->ijb", mu_bar[:, 2:], chi[:, 2:])
-        chi_bar = torch.stack([
-            cs * mu_bar[:, 0] + sn * mu_bar[:, 1],
-            cs * mu_bar[:, 1] - sn * mu_bar[:, 0],
-            F[0, 0] * mu_bar[:, 2] + F[1, 0] * mu_bar[:, 3]
-            + u_bar * 2.0 * k.dt * torch.sigmoid(chi[:, 2]),
-            F[0, 1] * mu_bar[:, 2] + F[1, 1] * mu_bar[:, 3]], dim=1)
-        # chi = m + L xi to the previous step's m and L.
-        m_bar_prev = chi_bar.sum(0)
-        L_bar_prev = torch.einsum("sib,sj->ijb", chi_bar, xi)
-        if t == 0:
-            gm0, gL0 = m_bar_prev, torch.tril(L_bar_prev.permute(2, 0, 1)
-                                               ).permute(1, 2, 0)
-        else:
-            mbar, Pbar = m_bar_prev, _cholesky_adjoint(L, L_bar_prev)
-    out = torch.cat([gF.reshape(4, B), gLqT.reshape(16, B),
-                     gL0.reshape(16, B), gm0, g_decay[None], g_sqrt_xi[None],
-                     g_dt[None]])
-    return out.T.contiguous()
+    n = max(1, _CARRY_FREE_ELEMENTS // (_D * sgps.n_points * max(B, 1)))
+    parts = (adjoint_carry_free(consts, sgps, yss, mfs, lfs, max(t1 - n, 0),
+                                t1) for t1 in range(T, 0, -n))
+    return adjoint_chain(consts, sgps, parts, gbar)
 
 
 def forward_cost(S: int, T: int, B: int, dtype=torch.float32) -> FilterCost:
@@ -330,17 +418,85 @@ def load_adjoint_kernel():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ghfs_chirp_filter_adjoint_f32,
                lib.ghfs_chirp_filter_adjoint_f64):
-        fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr, ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 8 + [ptr, ptr]
         fn.restype = i32
-    for fn in (lib.ghfs_chirp_filter_adjoint_num_consts,
-               lib.ghfs_chirp_filter_adjoint_team):
-        fn.argtypes = []
-        fn.restype = i32
-    if (lib.ghfs_chirp_filter_adjoint_num_consts() != NUM_CONSTS
-            or lib.ghfs_chirp_filter_adjoint_team() != _ADJOINT_TEAM):
+    lib.ghfs_chirp_filter_adjoint_num_consts.argtypes = []
+    lib.ghfs_chirp_filter_adjoint_num_consts.restype = i32
+    if lib.ghfs_chirp_filter_adjoint_num_consts() != NUM_CONSTS:
         raise RuntimeError("the adjoint kernel's layout does not match the "
                            "wrapper's")
     return built
+
+
+class AdjointGeometry(NamedTuple):
+    design: str            # "chain" (producers and a chain warp) or "team"
+    team: int              # threads per lane of a team, a producer, a chain
+    rows: int              # sigma points per member
+    producers: int         # producer warps per lane (0: the team design)
+    ring: int              # steps of the hand-off ring (0: the team design)
+    lanes_per_block: int
+    blocks: int
+
+
+def _chain_producers(rows: int, dtype) -> int:
+    """Producer warps a lane of the chain design gets: 3 for GH-3 in
+    float32, whose recompute takes longer than the chain's step; 2 in
+    float64 (3 blocks of 3 warps an SM leave 227 registers a thread) and
+    for cubature's 8 points."""
+    return 3 if rows == 3 and dtype == torch.float32 else 2
+
+
+def adjoint_geometry(B: int, S: int, num_sms: int = 132,
+                     dtype=torch.float32, design: Optional[str] = None,
+                     producers: Optional[int] = None,
+                     team: Optional[int] = None) -> AdjointGeometry:
+    """The adjoint kernel's launch geometry for ``B`` lanes and ``S``
+    sigma points of ``dtype`` on a card with ``num_sms`` SMs.
+
+    While the chain design's blocks fit the SMs at once (``B <=
+    CHAIN_MAX_LANES * num_sms``), the chain design: per lane a chain warp
+    and :func:`_chain_producers` producer warps, ``ceil(B / num_sms)``
+    lanes a block up to ``CHAIN_MAX_LANES`` (so that an SM's chain warps
+    sit on different schedulers), the ring as many steps (at most
+    ``CHAIN_MAX_RING``, at least one per producer) as the shared memory
+    of the one block an SM holds leaves (its registers leave room for no
+    second).  Beyond that the team design, one warp of lanes a block,
+    with the forward's team (``ops/chirp_filter.py::_default_team``): 32
+    threads a lane up to 16 lanes per SM (11 blocks an SM, 1452 lanes at
+    once on 132 SMs), 8 beyond (B = 4096 in one wave, 8 warps of 255
+    registers an SM).  ``design`` (``"chain"`` or ``"team"``),
+    ``producers`` and ``team`` choose another (the card tests, the
+    timing script)."""
+    if not 1 <= S <= MAX_POINTS:
+        raise ValueError(f"the adjoint kernel takes 1..{MAX_POINTS} sigma "
+                         f"points, got S={S}")
+    design = design or ("team" if B > CHAIN_MAX_LANES * max(num_sms, 1)
+                        else "chain")
+    if design == "team":
+        team = team or _default_team(B, num_sms)
+        if team not in TEAM_ROWS:
+            raise ValueError(f"the team design is built for teams "
+                             f"{sorted(TEAM_ROWS)}, got {team}")
+        rows = min(r for r in TEAM_ROWS[team] if team * r >= S)
+        lanes = _WARP // team
+        return AdjointGeometry("team", team, rows, 0, 0, lanes,
+                               -(-B // lanes))
+    if design != "chain":
+        raise ValueError(f"design must be 'chain' or 'team', got {design!r}")
+    rows = 1 if S <= CHAIN_TEAM else 3
+    K = producers or _chain_producers(rows, dtype)
+    if (rows, K) not in CHAIN_PRODUCERS:
+        raise ValueError(f"the chain design is built for (rows, producers) "
+                         f"in {CHAIN_PRODUCERS}, got ({rows}, {K})")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    slot = itemsize * (32 + 12 * CHAIN_TEAM * rows)
+    static = (itemsize * (_D + 1) * MAX_POINTS
+              + 16 * CHAIN_MAX_LANES * CHAIN_MAX_RING)
+    lanes = min(CHAIN_MAX_LANES, -(-B // max(num_sms, 1)))
+    ring = (_SMEM_PER_SM - _SMEM_RESERVED - static) // (lanes * slot)
+    return AdjointGeometry("chain", CHAIN_TEAM, rows, K,
+                           max(K, min(CHAIN_MAX_RING, ring)), lanes,
+                           -(-B // lanes))
 
 
 def _check_lanes(consts: torch.Tensor, sgps: SigmaPoints,
@@ -414,12 +570,14 @@ def forward_launcher(consts: torch.Tensor, sgps: SigmaPoints,
 
 def adjoint_launcher(consts: torch.Tensor, sgps: SigmaPoints,
                      yss: torch.Tensor, mfs: torch.Tensor, lfs: torch.Tensor,
-                     gbar: torch.Tensor):
+                     gbar: torch.Tensor,
+                     geometry: Optional[AdjointGeometry] = None):
     """Check the inputs of the adjoint kernel (the forward's inputs and
     outputs and the upstream gradient ``gbar (B,)`` of the final NLL, all
     CUDA tensors), build it and its output, and return ``(launch, dconsts
     (B, 43))``: each ``launch()`` runs the kernel once on the current
-    stream and counts the launch."""
+    stream, in ``geometry`` (default :func:`adjoint_geometry`'s), and
+    counts the launch."""
     suffix = _check_lanes(consts, sgps, yss)
     B, T = yss.shape
     S = sgps.n_points
@@ -427,7 +585,8 @@ def adjoint_launcher(consts: torch.Tensor, sgps: SigmaPoints,
             or gbar.shape != (B,):
         raise ValueError("mfs, lfs and gbar must be the forward's (T, 4, B), "
                          "(T, 16, B) and (B,)")
-    geo = launch_geometry(B, S, _num_sms(yss.device), _ADJOINT_TEAM)
+    geo = geometry or adjoint_geometry(B, S, _num_sms(yss.device),
+                                       yss.dtype)
     entry = getattr(load_adjoint_kernel().lib,
                     f"ghfs_chirp_filter_adjoint_{suffix}")
     ys_t = yss.T.contiguous()
@@ -438,7 +597,8 @@ def adjoint_launcher(consts: torch.Tensor, sgps: SigmaPoints,
 
     def launch():
         with torch.cuda.device(yss.device):
-            rc = entry(*[x.data_ptr() for x in inputs], S, T, B, geo.rows,
+            rc = entry(*[x.data_ptr() for x in inputs], S, T, B, geo.team,
+                       geo.rows, geo.producers, geo.ring,
                        geo.lanes_per_block, dconsts.data_ptr(),
                        torch.cuda.current_stream(yss.device).cuda_stream)
         if rc != 0:

@@ -6,10 +6,11 @@
 // Matern-3/2 step), the filter step's parts that a team of P threads per
 // lane computes (sigma-point rows, the team's Householder, the 1-D
 // measurement update), the packed row of the smoother's maps, the
-// cp.async copies of the backward recursions, and for the sweep
-// objective's adjoint (ghfs_chirp_filter_adjoint.cu) a lane's constants
-// from a row in global memory and the adjoints of the LCD mean, of the
-// 1-D update and of the Cholesky factor.
+// cp.async copies of the backward recursions, the mbarriers of a hand-off
+// between warps, and for the sweep objective's adjoint
+// (ghfs_chirp_filter_adjoint.cu) a lane's constants from a row in global
+// memory and the adjoints of the LCD mean, of the 1-D update and of the
+// Cholesky factor.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -394,11 +395,12 @@ __device__ __forceinline__ Real sigmoid(Real x) {
 // constants' adjoints added to gF, g_decay and g_dt.  With u = 2 dt
 // softplus(chi_V) the angle is pi u, so u_bar = pi (sn_bar cs - cs_bar
 // sn), chi_V gets u_bar 2 dt sigmoid(chi_V) and dt gets u_bar 2
-// softplus(chi_V).
+// softplus(chi_V).  cos_a, sin_a, sp (lcd_mean_parts) and sig =
+// sigmoid(chi_V) are the point's, none of them from the carry.
 template <typename Real>
 __device__ __forceinline__ void lcd_mean_adjoint(
     const ChirpConsts<Real>& c, const Real (&chi)[kD], const Real cos_a,
-    const Real sin_a, const Real sp, const Real (&mu_bar)[kD],
+    const Real sin_a, const Real sp, const Real sig, const Real (&mu_bar)[kD],
     Real (&chi_bar)[kD], Real (&gF)[2][2], Real& g_decay, Real& g_dt) {
   const Real cs = cos_a * c.decay, sn = sin_a * c.decay;
   const Real cs_bar = mu_bar[0] * chi[0] + mu_bar[1] * chi[1];
@@ -413,8 +415,16 @@ __device__ __forceinline__ void lcd_mean_adjoint(
   chi_bar[0] = cs * mu_bar[0] + sn * mu_bar[1];
   chi_bar[1] = cs * mu_bar[1] - sn * mu_bar[0];
   chi_bar[2] = c.F[0][0] * mu_bar[2] + c.F[1][0] * mu_bar[3] +
-               u_bar * Real(2) * c.dt * sigmoid(chi[kV]);
+               u_bar * Real(2) * c.dt * sig;
   chi_bar[3] = c.F[0][1] * mu_bar[2] + c.F[1][1] * mu_bar[3];
+}
+
+// 1 / S, S = P_p[kH][kH] + Xi: the innovation's variance.
+template <typename Real>
+__device__ __forceinline__ Real update_rs(const Real (&Pp)[kD][kD],
+                                          const Real Xi) {
+  const Real S = Pp[kH][kH] + Xi;
+  return Real(1) / S;
 }
 
 // The adjoint of the 1-D update on state kH in covariance terms: S =
@@ -423,13 +433,12 @@ __device__ __forceinline__ void lcd_mean_adjoint(
 // the adjoints (mbar, Pbar) of m_f and P_f (Pbar symmetric, lower
 // triangle) and gbar of l, the adjoints of m_p (mp_bar) and of P_p (G,
 // symmetric, lower triangle), and S_bar, the adjoint of S (so of Xi).
+// rS = 1 / S (update_rs), which no carry enters.
 template <typename Real>
 __device__ __forceinline__ void update_adjoint(
-    Real (&Pp)[kD][kD], const Real Xi, const Real innov, const Real gbar,
+    Real (&Pp)[kD][kD], const Real rS, const Real innov, const Real gbar,
     const Real (&mbar)[kD], Real (&Pbar)[kD][kD], Real (&G)[kD][kD],
     Real (&mp_bar)[kD], Real& S_bar) {
-  const Real S = Pp[kH][kH] + Xi;
-  const Real rS = Real(1) / S;
   Real p[kD], Pbp[kD];
 #pragma unroll
   for (int i = 0; i < kD; ++i) p[i] = sym_at(Pp, i, kH);
@@ -464,15 +473,10 @@ __device__ __forceinline__ void update_adjoint(
   G[kH][kH] += S_bar;
 }
 
-// The adjoint of the lower factor L of P = L L^T (Murray 2016): from
-// Lbar (lower triangle), Pbar = L^-T sym(Phi(L^T Lbar)) L^-1 (lower
-// triangle), Phi the lower triangle with the diagonal halved.  Column
-// signs of L leave it unchanged.  L^-1 by forward substitution.
+// L^-1 of the lower L (lower triangle) by forward substitution.
 template <typename Real>
-__device__ __forceinline__ void cholesky_adjoint(const Real (&L)[kD][kD],
-                                                 const Real (&Lbar)[kD][kD],
-                                                 Real (&Pbar)[kD][kD]) {
-  Real inv[kD][kD];
+__device__ __forceinline__ void lower_inverse(const Real (&L)[kD][kD],
+                                              Real (&inv)[kD][kD]) {
 #pragma unroll
   for (int i = 0; i < kD; ++i) {
     const Real r = Real(1) / L[i][i];
@@ -485,6 +489,18 @@ __device__ __forceinline__ void cholesky_adjoint(const Real (&L)[kD][kD],
       inv[i][j] = -acc * r;
     }
   }
+}
+
+// The adjoint of the lower factor L of P = L L^T (Murray 2016): from
+// Lbar (lower triangle), Pbar = L^-T sym(Phi(L^T Lbar)) L^-1 (lower
+// triangle), Phi the lower triangle with the diagonal halved, with inv =
+// L^-1 (lower_inverse), which no carry enters.  Column signs of L leave
+// it unchanged.
+template <typename Real>
+__device__ __forceinline__ void cholesky_adjoint(const Real (&L)[kD][kD],
+                                                 const Real (&inv)[kD][kD],
+                                                 const Real (&Lbar)[kD][kD],
+                                                 Real (&Pbar)[kD][kD]) {
   // Y = sym(Phi(L^T Lbar)): Y_ij = (L^T Lbar)_ij / 2 for i >= j.
   Real Y[kD][kD];
 #pragma unroll
@@ -549,6 +565,45 @@ __device__ __forceinline__ void copy_wait() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 #endif
+}
+
+// The mbarriers of a hand-off between warps of a block (sm_90: kernel F's
+// ring, the sweep adjoint's): an arrival count set once, arrive (release
+// at CTA scope), and wait for the completion of the phase of the given
+// parity (acquire).
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_address(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(
+          smem_address(bar)) : "memory");
+}
+
+// One test of the completion of the phase of the given parity (acquire).
+__device__ __forceinline__ bool mbar_try_wait(unsigned long long* bar,
+                                              unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}\n"
+      : "=r"(done) : "r"(smem_address(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
 }  // namespace

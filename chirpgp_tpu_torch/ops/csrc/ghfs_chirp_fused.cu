@@ -278,38 +278,6 @@ __device__ __forceinline__ void joint_tria(Real (&M)[kJ][NC]) {
   }
 }
 
-// The hand-off's mbarriers (sm_90): an arrival count set once, arrive
-// (release at CTA scope), and wait for the completion of the phase of the
-// given parity (acquire).
-__device__ __forceinline__ unsigned smem_address(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_address(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(
-          smem_address(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done) : "r"(smem_address(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // A consumer's joint array in shared memory, word r kJCols + k of row r,
 // column k, lane minor; after its triangularization rows kJ - 4.. stage
 // the packed row.

@@ -1323,13 +1323,14 @@ def _theta_grads(cfg, theta):
 
 def _lane_inputs(device, dtype, quad, B, T):
     """Per-lane constants (B, 43) at thetas spread around the default
-    init, and B of the Table-I records cut to T, on ``device``."""
+    init, and B of the Table-I records cut to T (repeated past their 300),
+    on ``device``."""
     from chirpgp_tpu_torch.models import g
     from chirpgp_tpu_torch.ops.chirp_filter_grad import chirp_lane_constants
     cfg = IFEstimationConfig(method="ghfs", form="sqrt", quadrature=quad)
-    data = np.concatenate([np.load(ROOT / f"results/data/toydata_{m}.npz")
-                           ["ys"][:, :T] for m in ("const", "damped",
-                                                   "random")])[:B]
+    data = np.resize(np.concatenate(
+        [np.load(ROOT / f"results/data/toydata_{m}.npz")["ys"][:, :T]
+         for m in ("const", "damped", "random")]), (B, T))
     theta = cfg.default_init_theta(torch.float64) + 0.1 * torch.tensor(
         np.random.default_rng(B).standard_normal((B, 6)))
     consts = torch.func.vmap(lambda p: chirp_lane_constants(
@@ -1445,3 +1446,136 @@ def test_per_lane_filter_at_one_theta_is_the_filter(cuda):
     torch.cuda.synchronize()
     assert torch.equal(mfs, m1) and torch.equal(lfs.view(300, 4, 4, 40), l1)
     assert torch.equal(nll, n1[-1])
+
+
+def _adjoint_vs_plain(cuda, dtype, quad, B, T, geometry=None, nan_lane=None):
+    """The adjoint kernel in ``geometry`` (default: the wrapper's) and its
+    plain version on the same inputs (the per-lane forward kernel's means
+    and factors, gbar from 0.5 to 1.5), lane ``nan_lane`` at delta = 0
+    (L0 NaN).  Returns (cfg, theta, kernel dconsts, plain dconsts)."""
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import (
+        ChirpFilterNLL, adjoint_launcher, filter_nll_adjoint_reference,
+        forward_launcher)
+    tdt = getattr(torch, dtype)
+    cfg, theta, consts, ys = _lane_inputs(cuda, tdt, quad, B, T)
+    if nan_lane is not None:
+        consts[nan_lane, 20] = float("nan")
+    sgps = cfg.sigma_points()
+    launch, (mfs, lfs, _) = forward_launcher(consts, sgps, ys)
+    launch()
+    gbar = torch.linspace(0.5, 1.5, B, dtype=tdt, device=cuda)
+    before = ChirpFilterNLL.launches["adjoint"]
+    alaunch, dconsts = adjoint_launcher(consts, sgps, ys, mfs, lfs, gbar,
+                                        geometry)
+    alaunch()
+    torch.cuda.synchronize()
+    assert ChirpFilterNLL.launches["adjoint"] == before + 1
+    plain = filter_nll_adjoint_reference(consts, sgps, ys, mfs, lfs, gbar)
+    return cfg, theta, dconsts, plain
+
+
+def _assert_adjoint_within(cuda, dtype, quad, B, T, cfg, theta, dconsts,
+                           plain):
+    """7a's tolerances: float64 within 1e-9 of each lane's max |adjoint|
+    of the plain version; float32, carried to theta, no further from the
+    float64 kernel's (the wrapper's geometry, the on-card oracle) than
+    twice the float32 plain version is, plus 1e-5 of each lane's max
+    |grad|."""
+    assert bool(torch.isfinite(dconsts).all())
+    if dtype == "float64":
+        dev = _lane_deviation(dconsts, plain)
+        assert dev <= 1e-9, dev
+        return
+    _, _, d64, _ = _adjoint_vs_plain(cuda, "float64", quad, B, T)
+    to_theta = _theta_grads(cfg, theta)
+    kern = _lane_deviation(to_theta(dconsts), to_theta(d64))
+    ref = _lane_deviation(to_theta(plain), to_theta(d64))
+    assert kern <= 2.0 * ref + 1e-5, (kern, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 785])
+@pytest.mark.parametrize("B", [1, 33, 300, 1000, 4096])
+@pytest.mark.parametrize("quad", ["gauss_hermite", "cubature"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_adjoint_kernel_matches_plain(cuda, dtype, quad, B, T):
+    """The adjoint kernel in the geometry its wrapper picks (the chain
+    design up to B=396, the team of 32 at B=1000, the team of 8 at
+    B=4096) against its plain version on the same inputs, gbar != 1, at
+    7a's tolerances."""
+    cfg, theta, dconsts, plain = _adjoint_vs_plain(cuda, dtype, quad, B, T)
+    _assert_adjoint_within(cuda, dtype, quad, B, T, cfg, theta, dconsts,
+                           plain)
+
+
+def _every_geometry(B, S, dtype):
+    """Every geometry the wrapper can be asked for at B lanes of S points:
+    the chain design at each producer count it is built for, with the
+    smallest and the largest ring, one lane a block and the most (the
+    last block part empty), and the team design with each team."""
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import (
+        CHAIN_MAX_LANES, CHAIN_MAX_RING, CHAIN_PRODUCERS, adjoint_geometry)
+    geos = []
+    for rows, K in CHAIN_PRODUCERS:
+        if 32 * rows >= S and (rows == 1 or S > 32):
+            g = adjoint_geometry(B, S, 132, dtype, design="chain",
+                                 producers=K)
+            geos += [g._replace(ring=K), g._replace(ring=CHAIN_MAX_RING),
+                     g._replace(ring=CHAIN_MAX_RING,
+                                lanes_per_block=CHAIN_MAX_LANES,
+                                blocks=-(-B // CHAIN_MAX_LANES))]
+    return geos + [adjoint_geometry(B, S, 132, dtype, design="team",
+                                    team=team) for team in (8, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quad", ["gauss_hermite", "cubature"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_adjoint_every_geometry_matches_plain(cuda, dtype, quad):
+    """Each geometry the wrapper can pick (chain: each producer count, the
+    ring at its least and at CHAIN_MAX_RING, 1 and 3 lanes a block; the
+    teams of 8 and 32), B=33,
+    T=200, against the plain version at 7a's tolerances; an unbuilt
+    geometry raises."""
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import adjoint_launcher
+    B, T = 33, 200
+    S = IFEstimationConfig(quadrature=quad).sigma_points().n_points
+    geos = _every_geometry(B, S, getattr(torch, dtype))
+    assert {g.design for g in geos} == {"chain", "team"}
+    for geo in geos:
+        cfg, theta, dconsts, plain = _adjoint_vs_plain(cuda, dtype, quad, B,
+                                                       T, geo)
+        _assert_adjoint_within(cuda, dtype, quad, B, T, cfg, theta, dconsts,
+                               plain)
+    cfg, _, consts, ys = _lane_inputs(cuda, getattr(torch, dtype), quad, B, T)
+    zeros = torch.zeros((T, 4, B), dtype=ys.dtype, device=cuda)
+    bad = geos[0]._replace(ring=geos[0].producers - 1)
+    launch, _ = adjoint_launcher(consts, cfg.sigma_points(), ys, zeros,
+                                 torch.zeros((T, 16, B), dtype=ys.dtype,
+                                             device=cuda),
+                                 torch.ones(B, dtype=ys.dtype, device=cuda),
+                                 bad)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["chain", "team", "team32"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_adjoint_nan_lane_leaves_the_others_bit_equal(cuda, dtype, design):
+    """One lane with a NaN L0 (a singular P0): its adjoint is NaN, and the
+    other lanes keep the bits they have beside a finite lane, in each
+    design (``team`` the team of 8; B=33, T=200, GH-3)."""
+    from chirpgp_tpu_torch.ops.chirp_filter_grad import adjoint_geometry
+    B, T = 33, 200
+    geo = adjoint_geometry(B, 81, 132, getattr(torch, dtype),
+                           design="team" if design.startswith("team")
+                           else design,
+                           team={"team": 8, "team32": 32}.get(design))
+    _, _, clean, _ = _adjoint_vs_plain(cuda, dtype, "gauss_hermite", B, T,
+                                       geo)
+    _, _, dirty, _ = _adjoint_vs_plain(cuda, dtype, "gauss_hermite", B, T,
+                                       geo, nan_lane=5)
+    assert bool(torch.isnan(dirty[5]).any())
+    others = torch.arange(B, device=cuda) != 5
+    assert torch.equal(dirty[others], clean[others])

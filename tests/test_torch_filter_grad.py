@@ -12,7 +12,15 @@ gradient plus 1e-5 of max |grad|; the lane constants 1e-12 of
 ``_chirp_constants``; the plain adjoint 1e-9 of max |adjoint| of autograd
 through the plain forward; the vmapped route against each lane alone
 1e-12 relative; a NaN lane leaves the others' bits, and a lane's bits do
-not depend on its batch."""
+not depend on its batch.  The plain adjoint's two parts, as the kernel
+splits it: the carry-free part's m_p, P_p and innovation against JAX's
+``_sqrt_predict_sgp`` on the same m and L, float64 within 1e-12 of each
+one's max |value|, float32 within 5e-6 (JAX in float64 on the
+float32-rounded m and L: the float32 rounding of S-point sums); the
+carry-free part composed with the chain against autograd through the
+plain forward, float64 1e-9 of each lane's max |adjoint| (as above),
+float32 no further from the float64 autograd than twice the float32
+autograd plus 1e-6."""
 
 import concurrent.futures
 from pathlib import Path
@@ -153,6 +161,96 @@ def test_plain_adjoint_is_autograd_of_the_plain_forward():
             assert not bool(got[i, ~lower].any())
 
 
+_SPLIT_T = (1, 2, 50)
+_LOWER = torch.ones(cg.NUM_CONSTS, dtype=torch.bool)
+_LOWER[20:36] = torch.tril(torch.ones(4, 4, dtype=torch.bool)).reshape(-1)
+
+
+def _split_inputs(quad, T, dtype):
+    """B=3 (seed 0 of each magnitude, the default init shifted per lane):
+    ``(sgps, thetas (3, 6) float64, consts, ys)``, consts and ys in
+    ``dtype``, and the plain forward's means and factors."""
+    sgps = tp.IFEstimationConfig(quadrature=quad).sigma_points()
+    thetas = _thetas(quad, "init")
+    consts = torch.func.vmap(lambda p: cg.chirp_lane_constants(
+        p, 0.1, 1e-3))(g(torch.tensor(thetas))).to(dtype)
+    ys = torch.tensor(_seed0(T), dtype=dtype)
+    mfs, lfs, _ = cg.filter_nll_reference(consts, sgps, ys)
+    return sgps, thetas, consts, ys, mfs, lfs
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("quad", list(QUADS))
+@pytest.mark.parametrize("T", _SPLIT_T)
+def test_carry_free_part_matches_jax_predict(T, quad, dtype):
+    """Every step's m_p, P_p and innovation y_t - m_p[1] of
+    ``adjoint_carry_free`` (batched over the T steps and 3 lanes) against
+    ``chirpgp_tpu/infer/sqrt.py::_sqrt_predict_sgp`` (P_p = Up^T Up) of
+    the JAX model at the lane's theta, on the same m_{t-1} and L_{t-1}
+    (m0 and L0 at t = 0)."""
+    from chirpgp_tpu.infer.sqrt import _sqrt_predict_sgp
+    from chirpgp_tpu.models.transitions import as_transition
+    sgps, thetas, consts, ys, mfs, lfs = _split_inputs(quad, T,
+                                                       getattr(torch, dtype))
+    cf = cg.adjoint_carry_free(consts, sgps, ys, mfs, lfs)
+    assert cf.t0 == 0 and cf.Pp.shape == (T, 4, 4, 3)
+    cfg = jp.IFEstimationConfig(method="ghfs", form="sqrt", quadrature=quad)
+    tol = 1e-12 if dtype == "float64" else 5e-6
+    for b in range(3):
+        trans = as_transition(cfg.build(jp.g(jnp.asarray(thetas[b])))
+                              .m_and_cov)
+        c = consts[b].double().numpy()
+        m = np.concatenate([c[None, 36:40], _np64(mfs[:T - 1, :, b])])
+        L = np.concatenate([c[None, 20:36], _np64(lfs[:T - 1, :, b])]
+                           ).reshape(T, 4, 4)
+        mp, Up = jax.vmap(lambda mm, LL: _sqrt_predict_sgp(
+            cfg.sigma_points(), trans, cfg.dt, mm, LL)[:2])(
+                jnp.asarray(m), jnp.asarray(L))
+        mp = np.asarray(mp)
+        Pp = np.einsum("tki,tkj->tij", np.asarray(Up), np.asarray(Up))
+        innov = _np64(ys[b]) - mp[:, 1]
+        for got, want in ((cf.mp[..., b], mp), (cf.Pp[..., b], Pp),
+                          (cf.innov[:, b], innov)):
+            npt.assert_allclose(_np64(got), want, rtol=0,
+                                atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("quad", list(QUADS))
+@pytest.mark.parametrize("T", _SPLIT_T)
+def test_split_adjoint_is_autograd_of_the_plain_forward(T, quad, dtype):
+    """``adjoint_chain`` over ``adjoint_carry_free``'s part, with a gbar
+    per lane, against autograd through ``filter_nll_reference``: every
+    constant the kernels read (the lower triangle of L0; its upper words
+    0)."""
+    tdt = getattr(torch, dtype)
+    sgps, _, consts, ys, mfs, lfs = _split_inputs(quad, T, tdt)
+    gbar = torch.tensor([1.0, -0.5, 2.0], dtype=tdt)
+    got = cg.adjoint_chain(consts, sgps, [cg.adjoint_carry_free(
+        consts, sgps, ys, mfs, lfs)], gbar)
+    assert got.shape == consts.shape and got.dtype == tdt
+    assert not bool(got[:, ~_LOWER].any())
+
+    def auto(dt):
+        c = consts.to(dt).clone().requires_grad_(True)
+        _, _, nll = cg.filter_nll_reference(c, sgps, ys.to(dt))
+        return torch.autograd.grad(nll, c, gbar.to(dt))[0].double()
+
+    a64 = auto(torch.float64)
+    scale = a64.abs().amax(1)
+    dev = float(((got.double() - a64)[:, _LOWER].abs().amax(1) / scale).max())
+    if dtype == "float64":
+        assert dev <= 1e-9, dev
+        return
+    a32 = float(((auto(torch.float32) - a64)[:, _LOWER].abs().amax(1)
+                 / scale).max())
+    assert dev <= 2.0 * a32 + 1e-6, (dev, a32)
+
+
+def _np64(x):
+    return x.double().numpy()
+
+
 def _batch_vg(thetas, ys):
     cfg = tp.IFEstimationConfig(method="ghfs", form="sqrt")
     return batched_value_and_grad(lambda th, y: tp.make_nll_fn(cfg, y)(th),
@@ -267,20 +365,49 @@ def test_costs_count_the_step():
 
 
 def test_adjoint_source_matches_the_wrapper():
-    """The adjoint kernel is built for the rows per member that
-    ``launch_geometry`` picks for its team of 32 (GH-3's 3, cubature's
-    1), the kernels read the constants at the offsets of
+    """The adjoint kernel is built for the teams and rows and the (rows,
+    producers) pairs the wrapper's ``TEAM_ROWS`` and ``CHAIN_PRODUCERS``
+    list, with the chain design's team, largest ring and most lanes a
+    block; ``adjoint_geometry`` picks only those (the chain design while
+    its blocks fit 132 SMs at once, ceil(B / 132) lanes a block up to 3,
+    its ring at least one step per producer and at most
+    ``CHAIN_MAX_RING``; beyond, the team of 32 up to 16 lanes per SM and
+    the team of 8, in one wave at B = 4096), and the kernels read the
+    constants at the offsets of
     ``chirp_lane_constants``' layout, and the per-lane forward's C entries
     take the argument count the wrapper declares."""
     import re
     from chirpgp_tpu_torch.ops import _build
-    from chirpgp_tpu_torch.ops.chirp_filter import ROWS, launch_geometry
     src = (_build.CSRC / "ghfs_chirp_filter_adjoint.cu").read_text()
-    assert {int(r) for r in re.findall(r"case (\d+):", src)} == set(ROWS[32])
-    assert int(re.search(r"kTeam = (\d+);", src)[1]) == cg._ADJOINT_TEAM
+    cases = {int(c) for c in re.findall(r"case (\d+): return", src)}
+    assert cases == {100 * team + r for team, rows in cg.TEAM_ROWS.items()
+                     for r in rows} | {
+        10000 * k + 100 * cg.CHAIN_TEAM + r for r, k in cg.CHAIN_PRODUCERS}
+    assert int(re.search(r"kChainTeam = (\d+);", src)[1]) == cg.CHAIN_TEAM
+    assert int(re.search(r"kMaxRing = (\d+);", src)[1]) == cg.CHAIN_MAX_RING
+    assert int(re.search(r"kChainLanes = (\d+);", src)[1]) == \
+        cg.CHAIN_MAX_LANES
     for quad in QUADS:
         S = tp.IFEstimationConfig(quadrature=quad).sigma_points().n_points
-        assert launch_geometry(300, S, team=cg._ADJOINT_TEAM).rows in ROWS[32]
+        for dtype in (torch.float32, torch.float64):
+            for B, lanes in ((1, 1), (33, 1), (264, 2), (300, 3), (396, 3)):
+                geo = cg.adjoint_geometry(B, S, 132, dtype)
+                assert geo.design == "chain" and geo.lanes_per_block == lanes
+                assert geo.blocks == -(-B // lanes) <= 132   # one wave
+                assert (geo.rows, geo.producers) in cg.CHAIN_PRODUCERS
+                assert geo.producers <= geo.ring <= cg.CHAIN_MAX_RING
+            for B in (397, 1000, 2112):
+                geo = cg.adjoint_geometry(B, S, 132, dtype)
+                assert (geo.design, geo.team, geo.lanes_per_block,
+                        geo.blocks) == ("team", 32, 1, B)
+                assert geo.rows in cg.TEAM_ROWS[32] and 32 * geo.rows >= S
+            for B in (2113, 4096):
+                geo = cg.adjoint_geometry(B, S, 132, dtype)
+                assert (geo.design, geo.team, geo.lanes_per_block) == (
+                    "team", 8, 4)
+                assert geo.rows in cg.TEAM_ROWS[8] and 8 * geo.rows >= S
+            # One wave at B = 4096: 8 warps an SM.
+            assert cg.adjoint_geometry(4096, S, 132, dtype).blocks == 1024
     header = (_build.CSRC / "chirp_lcd.cuh").read_text()
     words = dict(re.findall(r"k(LqT|L0|M0|Decay|SqrtXi|Dt)Word = (\d+)",
                             header))
@@ -290,3 +417,26 @@ def test_adjoint_source_matches_the_wrapper():
     fwd = (_build.CSRC / "ghfs_chirp_filter.cu").read_text()
     entry = re.search(r"int ghfs_chirp_filter_lanes_f32\(([^)]*)\)", fwd)[1]
     assert len(entry.split(",")) == 15
+    adj = re.search(r"int ghfs_chirp_filter_adjoint_f32\(([^)]*)\)", src)[1]
+    assert len(adj.split(",")) == 17
+
+
+def test_timing_copies_of_the_adjoint_apply():
+    """``time_sweep_objective.py``'s copies of the adjoint source (the
+    team design with clock stamps, which ``--breakdown`` builds for the
+    chain floor, and each timing variant) find every text they
+    change in the shipped source, once, and the stamped copy writes the
+    stamps of member 0 of each lane."""
+    import re
+    import sys
+    from chirpgp_tpu_torch.ops import _build
+    sys.path.insert(0, str(ROOT))
+    import time_sweep_objective as tso
+    src = tso.stamped_sources(_build.CSRC)["ghfs_chirp_filter_adjoint.cu"]
+    assert set(re.findall(r"STAMP\((\d+)\)", src)) == {
+        str(k) for k in range(len(tso.PARTS))}
+    assert "g_adjoint_stamps[b * " in src
+    shipped = (_build.CSRC / "ghfs_chirp_filter_adjoint.cu").read_text()
+    for name, subs in tso.VARIANTS.items():
+        for text, _ in subs:
+            assert shipped.count(text) == 1, (name, text)
